@@ -1,0 +1,572 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Drives the port's serving path of ``hparams/final_model.yaml`` at full width
+on seeded random weights, from the sources in this checkout:
+
+1. prints the card's name and power limit (nvidia-smi);
+2. builds the CUDA kernels (``lets_face_it_tpu_torch/csrc``) with nvcc;
+3. holds each kernel against its plain PyTorch version on the card;
+4. saves the weights in the reference's names, loads them through
+   ``Generator.from_checkpoint``, generates a sequence and streams frames
+   (``StreamingGenerator``), and checks the outputs against the plain path on
+   the CPU with the same latents;
+5. checks that each kernel's launch counter rose during step 4;
+6. times the path and each kernel beside its plain version, a library
+   yardstick and its bound;
+7. traces a push at B=1 and B=64 and a generate at B=1 with
+   ``torch.profiler``: device time, device idle share and the largest device
+   operations of each call.
+
+The line before the last is the kernels' JSON record; the last line is
+``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
+It needs no network, imports nothing of JAX and nothing of the JAX package.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent
+SEED = 20240
+# H100 SXM peaks at its 700 W limit (NVIDIA data sheet): HBM3 bytes/s and
+# float32 FLOP/s without tensor cores.
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_FLOP_S = 67e12
+# Tolerances. One frame (16 steps): float32 with a different summation order
+# than cuBLAS, so allclose at atol 2e-4, rtol 1e-4 (the JAX kernel tests').
+ATOL, RTOL = 2e-4, 1e-4
+# Whole sequences: each generated frame feeds the next through the own-face
+# history, so rounding differences grow with the frame index. The first
+# SEQ_TIGHT frames are held at the one-frame tolerance, the whole sequence at
+# SEQ_LOOSE_ATOL (absolute, on standardized frames whose |x| reaches ~30).
+# On an H100 the largest reading over the three weight seeds below at B=128
+# was 4.727e-03, and the plain version's own float32-vs-float64 drift
+# 1.680e-03; the limit keeps about 4x headroom over that spread, while a
+# wrong index or state shows in whole frames.
+SEQ_TIGHT = 8
+SEQ_LOOSE_ATOL = 2e-2
+# Weight seeds the sequence kernel is held against its plain version on at
+# B=128 (the first also at B=1 and on the main path).
+SEQ_SEEDS = (SEED, SEED + 1, SEED + 2)
+# Calls per traced window of step 7.
+PROFILE_CALLS = 20
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def check_close(name, got, ref, atol=ATOL, rtol=RTOL):
+    import torch
+
+    got, ref = got.double().cpu(), ref.double().cpu()
+    if got.shape != ref.shape:
+        fail(f"{name}: shape {tuple(got.shape)} vs {tuple(ref.shape)}")
+    if not torch.isfinite(got).all():
+        fail(f"{name}: non-finite output")
+    err = (got - ref).abs()
+    bad = err > atol + rtol * ref.abs()
+    if bad.any():
+        fail(f"{name}: max |diff| {err.max().item():.3e} exceeds "
+             f"atol {atol} + rtol {rtol}*|ref|")
+    return err.max().item()
+
+
+def time_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Mean ms per call, by CUDA events around ``reps`` calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def drift(got, ref) -> dict:
+    """Largest |got - ref| of frame 0, of the first SEQ_TIGHT frames and of
+    all frames of [N, B, C] sequences."""
+    d = (got.double() - ref.double()).abs().amax(dim=(1, 2))
+    return {"frame0": d[0].item(), f"first{SEQ_TIGHT}": d[:SEQ_TIGHT].max().item(),
+            "all": d.max().item()}
+
+
+def trace_window(name: str, fn, calls: int) -> dict:
+    """Host wall time per call of ``calls`` synchronised calls of ``fn`` (no
+    profiler: its own cost per operation is large), then as many again under
+    ``torch.profiler``: device time per call (device kernels and copies), the
+    device's idle share (1 - device / wall), device operations per call and
+    the five largest."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_us(evt):
+        if evt.device_type != DeviceType.CUDA:
+            return 0.0   # the host operator reports its kernels' time again
+        return float(getattr(evt, "self_device_time_total",
+                             getattr(evt, "self_cuda_time_total", 0.0)))
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    on_device = [e for e in prof.key_averages() if device_us(e) > 0]
+    if not on_device:
+        fail(f"profile {name}: the trace shows no device time")
+    device_ms = sum(device_us(e) for e in on_device) / 1e3 / calls
+    top = sorted(on_device, key=device_us, reverse=True)[:5]
+    return {
+        "window": name, "calls": calls, "wall_ms_per_call": wall_ms,
+        "device_ms_per_call": device_ms, "idle_share": 1.0 - device_ms / wall_ms,
+        "device_ops_per_call": sum(e.count for e in on_device) / calls,
+        "top": [{"op": e.key[:60], "ms_per_call": device_us(e) / 1e3 / calls,
+                 "count_per_call": e.count / calls} for e in top],
+    }
+
+
+def graphed(fn):
+    """``fn`` captured once in a CUDA graph; returns the replay."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph.replay
+
+
+# ---------------------------------------------------------------------------
+# Work counts for the bounds (each input read once, each output written once)
+# ---------------------------------------------------------------------------
+
+def _row_step_flops(spec) -> int:
+    """FLOPs of one reversed flow step for one batch row (FMA = 2)."""
+    c, z1, h = spec.channels, spec.z1_dim, spec.hidden_channels
+    cout, cond = spec.coupling_out_dim, spec.cond.cond_dim
+    matmul = 2 * ((z1 + cond) * 3 * h + h * 3 * h + h * cout + c * c)
+    pointwise = cond + 12 * h + 6 * (cout // 2) + 2 * c
+    return matmul + pointwise
+
+
+def frame_bound_ms(spec, weights, b: int):
+    k, c, h = spec.n_steps, spec.channels, spec.hidden_channels
+    w_bytes = sum(t.numel() for t in weights) * 4
+    io = 4 * (b * c + k * b * spec.cond.cond_dim + k * b * h      # inputs
+              + b * c + k * b * h)                                 # outputs
+    flops = b * k * _row_step_flops(spec)
+    t_bytes, t_ops = (w_bytes + io) / PEAK_BYTES_S, flops / PEAK_F32_FLOP_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def seq_bound_ms(spec, weights, n: int, b: int):
+    k, c, h = spec.n_steps, spec.channels, spec.hidden_channels
+    p1, cond = spec.cond.p1_face.out_dim, spec.cond.cond_dim
+    w_bytes = (sum(t.numel() for t in weights) + k * p1 * cond) * 4
+    io = 4 * (n * b * c + n * k * b * cond + b * p1 + k * b * h   # inputs
+              + n * b * c)                                         # output
+    flops = n * b * k * (_row_step_flops(spec) + 2 * p1 * cond)
+    t_bytes, t_ops = (w_bytes + io) / PEAK_BYTES_S, flops / PEAK_F32_FLOP_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+# ---------------------------------------------------------------------------
+# Library yardsticks: the same function as ATen calls (torch.gru_cell,
+# torch.addmm), replayed from one CUDA graph. Timed here only.
+# ---------------------------------------------------------------------------
+
+def library_step(spec, w, gru, k, z, proj, h):
+    import torch
+    import torch.nn.functional as F
+
+    z1d, half = spec.z1_dim, spec.coupling_out_dim // 2
+    z1 = z[:, :z1d]
+    h_new = torch.gru_cell(torch.cat([z1, F.leaky_relu(proj, 0.01)], -1), h,
+                           gru["w_ih"][k], gru["w_hh"][k], gru["b_ih"][k],
+                           gru["b_hh"][k])
+    hout = torch.addmm(w.out_b[k], h_new, w.out_w_t[k])
+    scale = torch.sigmoid(hout[:, half:] + 2.0).clamp_min(spec.scale_eps)
+    z = torch.cat([z1, z[:, z1d:] / scale - hout[:, :half]], -1) @ w.w_inv[k]
+    return z * w.an_neg_logs_exp[k] - w.an_bias[k], h_new
+
+
+def library_frame_rev(spec, w, gru, z, cond_projs, states):
+    import torch
+
+    new = torch.empty_like(states)
+    for k in reversed(range(spec.n_steps)):
+        z, new[k] = library_step(spec, w, gru, k, z, cond_projs[k], states[k])
+    return z, new
+
+
+def library_seq_rev(spec, w, gru, w_p1_t, zs, fixed, hist, states0):
+    import torch
+
+    c = spec.channels
+    states = states0.clone()
+    xs = []
+    for t in range(zs.shape[0]):
+        z = zs[t]
+        for k in reversed(range(spec.n_steps)):
+            proj = torch.addmm(fixed[t, k], hist, w_p1_t[k])
+            z, states[k] = library_step(spec, w, gru, k, z, proj, states[k])
+        xs.append(z)
+        hist = torch.cat([hist[:, c:], z], -1)
+    return torch.stack(xs)
+
+
+def main() -> int:
+    if not (REPO / "lets_face_it_tpu_torch" / "csrc").is_dir():
+        fail("run from a checkout: lets_face_it_tpu_torch/ is not beside "
+             "this script")
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False; this script needs a GPU")
+    sys.path.insert(0, str(REPO))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    from lets_face_it_tpu_torch.hparams import load_hparams
+    from lets_face_it_tpu_torch.model import seqglow
+    from lets_face_it_tpu_torch.model.spec import FlowSpec
+    from lets_face_it_tpu_torch.ops import cuda_build
+    from lets_face_it_tpu_torch.ops import flow_kernels as fk
+    from lets_face_it_tpu_torch.sample.generate import Generator
+    from lets_face_it_tpu_torch.sample.streaming import StreamingGenerator
+    from lets_face_it_tpu_torch.sample.weights import (seeded_random_model,
+                                                       state_dict_reference)
+
+    dev = torch.device("cuda")
+    t_all = time.perf_counter()
+
+    # -- 1. the card ------------------------------------------------------
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    card = card.splitlines()[0]
+    print(f"card: {card}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}")
+
+    # -- 2. build ---------------------------------------------------------
+    t0 = time.perf_counter()
+    paths = cuda_build.build()
+    print(f"build: {time.perf_counter() - t0:.2f} s for {len(paths)} libraries")
+    for name, path in paths.items():
+        log = path.with_suffix(".log")
+        if log.exists():
+            for line in log.read_text().splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"  {name}: {line.strip()}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        hp = load_hparams(REPO / "hparams" / "final_model.yaml", dataset_root=tmp)
+        spec = FlowSpec.build(hp)
+        if seqglow.sampling_path(spec) != "sequence":
+            fail("final_model is outside the sequence kernel's envelope")
+
+        k_steps, c, h = spec.n_steps, spec.channels, spec.hidden_channels
+        cond, p1 = spec.cond.cond_dim, spec.cond.p1_face.out_dim
+        n_seq = hp.Validation["seq_len"] - spec.cond.longest_history
+
+        def sampling_weights(model):
+            """-> (SamplingWeights, own-face projection slice [K, P1, cond])."""
+            w_p1 = model.flow["cond_proj"]["w"][:, :, :p1].transpose(1, 2)
+            return (fk.prepare_sampling_weights(spec, model.flow),
+                    w_p1.contiguous().detach())
+
+        model_gpu = seeded_random_model(spec, SEED).to(dev)
+        w, w_p1_t = sampling_weights(model_gpu)
+        gru = {k: v.detach().contiguous() for k, v in model_gpu.flow["rnn"].items()}
+        g = torch.Generator(device=dev).manual_seed(SEED)
+
+        def frame_inputs(b):
+            return (torch.randn(b, c, generator=g, device=dev),
+                    torch.randn(k_steps, b, cond, generator=g, device=dev),
+                    0.5 * torch.randn(k_steps, b, h, generator=g, device=dev))
+
+        def seq_inputs(b, n, p1_dim=p1):
+            return (torch.randn(n, b, c, generator=g, device=dev),
+                    torch.randn(n, k_steps, b, cond, generator=g, device=dev),
+                    torch.randn(b, p1_dim, generator=g, device=dev),
+                    torch.zeros(k_steps, b, h, device=dev))
+
+        # -- 3. kernels against their plain versions ----------------------
+        print(f"tolerance: one frame allclose(atol={ATOL}, rtol={RTOL}) "
+              "(float32 FMA vs cuBLAS float32, other summation order); "
+              f"sequences: first {SEQ_TIGHT} frames at that tolerance, all "
+              f"frames |diff| <= {SEQ_LOOSE_ATOL} (rounding grows through the "
+              "autoregressive own-face history)")
+        with torch.no_grad():
+            frame_err = {}
+            for b in (1, 64, 512):
+                z, projs, st = frame_inputs(b)
+                x, st_new = fk.frame_rev_fused(spec, w, z, projs, st)
+                x_ref, st_ref = fk.frame_rev_fused_ref(spec, w, z, projs, st)
+                torch.cuda.synchronize()
+                e1 = check_close(f"frame_rev B={b} x", x, x_ref)
+                e2 = check_close(f"frame_rev B={b} states", st_new, st_ref)
+                frame_err[b] = max(e1, e2)
+                print(f"check frame_rev B={b}: max|dx| {e1:.3e} "
+                      f"max|dstates| {e2:.3e}  ok")
+            seq_err = {}
+            for seed in SEQ_SEEDS:
+                model_s = model_gpu if seed == SEED else \
+                    seeded_random_model(spec, seed).to(dev)
+                w_s, w_p1_s = (w, w_p1_t) if seed == SEED else sampling_weights(model_s)
+                for b in (1, 128) if seed == SEED else (128,):
+                    zs, fixed, hist0, st0 = seq_inputs(b, n_seq)
+                    xs = fk.sequence_rev_fused(spec, w_s, w_p1_s, zs, fixed, hist0, st0)
+                    xs_ref = fk.sequence_rev_fused_ref(spec, w_s, w_p1_s, zs, fixed,
+                                                       hist0, st0)
+                    torch.cuda.synchronize()
+                    what = f"seq_rev weights seed {seed} B={b}"
+                    e_tight = check_close(f"{what} first {SEQ_TIGHT} frames",
+                                          xs[:SEQ_TIGHT], xs_ref[:SEQ_TIGHT])
+                    e_all = check_close(f"{what} all frames", xs, xs_ref,
+                                        atol=SEQ_LOOSE_ATOL, rtol=0.0)
+                    seq_err[seed, b] = e_all
+                    print(f"check {what} N={n_seq}: max|dx| first {SEQ_TIGHT} "
+                          f"frames {e_tight:.3e}, all frames {e_all:.3e} "
+                          f"(max|x| {xs_ref.abs().max().item():.2f})  ok")
+                del model_s
+
+            # Not held, printed: why the weights leave the invconv's LU factors
+            # unperturbed. With 0.05*N(0,1) added to them too, float32 rounding
+            # alone (the plain version against itself in float64) changes
+            # whole frames of the sequence.
+            model_lu = seeded_random_model(spec, SEED).to(dev)
+            g_lu = torch.Generator(device=dev).manual_seed(SEED)
+            for name in ("l", "u"):
+                leaf = model_lu.flow["perm"][name]
+                leaf.add_(0.05 * torch.randn(leaf.shape, generator=g_lu, device=dev))
+            for label, model_r in (("LU as initialised", model_gpu),
+                                   ("LU perturbed", model_lu)):
+                w_r, w_p1_r = sampling_weights(model_r)
+                args = seq_inputs(128, n_seq)
+                xs = fk.sequence_rev_fused(spec, w_r, w_p1_r, *args)
+                ref32 = fk.sequence_rev_fused_ref(spec, w_r, w_p1_r, *args)
+                ref64 = fk.sequence_rev_fused_ref(
+                    spec, fk.SamplingWeights(*(t.double() for t in w_r)),
+                    w_p1_r.double(), *(t.double() for t in args))
+                print(f"drift, not held ({label}, B=128 N={n_seq}): kernel vs "
+                      f"plain {json.dumps(drift(xs, ref32))}; plain float32 vs "
+                      f"float64 {json.dumps(drift(ref32, ref64))}; max|x| "
+                      f"{ref64.abs().max().item():.2f}")
+            del model_lu
+
+            hp_nf = load_hparams(REPO / "hparams" / "no_face.yaml", dataset_root=tmp)
+            spec_nf = FlowSpec.build(hp_nf)
+            model_nf = seeded_random_model(spec_nf, SEED + 1).to(dev)
+            w_nf = fk.prepare_sampling_weights(spec_nf, model_nf.flow)
+            zs, fixed, hist0, st0 = seq_inputs(4, n_seq, p1_dim=0)
+            w_p1_nf = torch.zeros(k_steps, 0, cond, device=dev)
+            xs = fk.sequence_rev_fused(spec_nf, w_nf, w_p1_nf, zs, fixed, hist0, st0)
+            xs_ref = fk.sequence_rev_fused_ref(spec_nf, w_nf, w_p1_nf, zs, fixed,
+                                               hist0, st0)
+            torch.cuda.synchronize()
+            e_nf = check_close("seq_rev no_face (P1=0)", xs, xs_ref)
+            print(f"check seq_rev no_face P1=0 B=4 N={n_seq}: max|dx| {e_nf:.3e}  ok")
+            del model_nf, w_nf
+
+        # -- 4. the main path ---------------------------------------------
+        ckpt = Path(tmp) / "final_model_random.pt"
+        torch.save(state_dict_reference(model_gpu), ckpt)
+        gen = Generator.from_checkpoint(ckpt, hparams_file=REPO / "hparams" /
+                                        "final_model.yaml", dataset_root=tmp,
+                                        device="cuda")
+        rng = np.random.default_rng(SEED)
+        frames = rng.standard_normal((hp.Validation["seq_len"], 273)).astype(np.float32)
+        z_gen = torch.as_tensor(rng.standard_normal((n_seq, 1, c)).astype(np.float32))
+        sc = hp.Data["speech_dim"]
+
+        def stream_frames(b, n):
+            return [{"p2_face": rng.standard_normal((b, c)).astype(np.float32),
+                     "p1_speech": rng.standard_normal((b, sc)).astype(np.float32),
+                     "p2_speech": rng.standard_normal((b, sc)).astype(np.float32)}
+                    for _ in range(n)]
+
+        s1_frames = stream_frames(1, 58)
+        s1_z = torch.as_tensor(rng.standard_normal((58, 1, c)).astype(np.float32))
+        s64_frames = stream_frames(64, 10)
+
+        def run_stream(stream_model, device, z):
+            """50 pushes and one push_many of 8 at B=1 -> [58, C] on the CPU."""
+            s = StreamingGenerator(spec, stream_model, batch_size=1, seed=SEED,
+                                   device=device)
+            outs = [s.push(**f, z=z[i]) for i, f in enumerate(s1_frames[:50])]
+            many = {n: np.stack([f[n] for f in s1_frames[50:]], 1)
+                    for n in s1_frames[0]}
+            outs.append(s.push_many(**many, z=z[50:].transpose(0, 1)))
+            return torch.cat([o.reshape(-1, c) for o in outs]).cpu()
+
+        fk.frame_rev_fused.launches = 0
+        fk.sequence_rev_fused.launches = 0
+        t0 = time.perf_counter()
+        out = gen.generate(frames, seed=SEED, z=z_gen)
+        s1_out = run_stream(gen.model, "cuda", s1_z)
+        s64 = StreamingGenerator(spec, gen.model, batch_size=64, seed=SEED,
+                                 device="cuda")
+        s64_out = torch.stack([s64.push(**f) for f in s64_frames], 1)
+        torch.cuda.synchronize()
+        t_main = time.perf_counter() - t0
+        launches = {"frame_rev": fk.frame_rev_fused.launches,
+                    "seq_rev": fk.sequence_rev_fused.launches}
+        print(f"main path: {t_main:.3f} s (includes first-use costs); "
+              f"launches {launches}")
+
+        # -- 5. the path went through the kernels, and its outputs are right
+        for name, count in launches.items():
+            if count == 0:
+                fail(f"{name} kernel was never launched on the main path")
+        if out.shape != (1, n_seq, 106) or not np.isfinite(out).all():
+            fail(f"generate: bad output {out.shape}")
+        if s64_out.shape != (64, 10, c) or not torch.isfinite(s64_out).all():
+            fail(f"streaming B=64: bad output {tuple(s64_out.shape)}")
+        gen_ref = Generator.from_checkpoint(ckpt, hparams_file=REPO / "hparams" /
+                                            "final_model.yaml", dataset_root=tmp,
+                                            device="cpu")
+        out_ref = gen_ref.generate(frames, seed=SEED, z=z_gen)
+        e_t = check_close(f"generate vs CPU plain path, first {SEQ_TIGHT} frames",
+                          torch.as_tensor(out[:, :SEQ_TIGHT]),
+                          torch.as_tensor(out_ref[:, :SEQ_TIGHT]))
+        e_a = check_close("generate vs CPU plain path, all frames",
+                          torch.as_tensor(out), torch.as_tensor(out_ref),
+                          atol=SEQ_LOOSE_ATOL, rtol=0.0)
+        print(f"check generate [1, {n_seq}, 106] vs CPU plain path: max|d| first "
+              f"{SEQ_TIGHT} frames {e_t:.3e}, all {e_a:.3e}  ok")
+        s1_ref = run_stream(gen_ref.model, "cpu", s1_z)
+        e_s = check_close("streaming B=1 (50 push + push_many 8) vs CPU plain path",
+                          s1_out, s1_ref, atol=SEQ_LOOSE_ATOL, rtol=0.0)
+        e_s8 = check_close("streaming B=1 first 8 pushes vs CPU plain path",
+                           s1_out[:SEQ_TIGHT], s1_ref[:SEQ_TIGHT])
+        print(f"check streaming B=1 58 frames vs CPU plain path: max|d| first "
+              f"{SEQ_TIGHT} {e_s8:.3e}, all {e_s:.3e}  ok")
+
+        # -- 6. timings -----------------------------------------------------
+        print(f"timings on {card} (CUDA events / host clock around "
+              "synchronised work; weights warm in L2)")
+        t_gen = time_ms(lambda: gen.generate(frames, seed=SEED), reps=5)
+        print(f"offline generate B=1 N={n_seq}: {t_gen:.3f} ms/sequence = "
+              f"{n_seq / t_gen * 1e3:.1f} frames/s (Generator.generate, "
+              "host to host)")
+        data128 = {k: torch.as_tensor(rng.standard_normal((128, hp.Validation["seq_len"], d))
+                                      .astype(np.float32), device=dev)
+                   for k, d in (("p1_face", c), ("p2_face", c),
+                                ("p1_speech", sc), ("p2_speech", sc))}
+        t128 = time_ms(lambda: seqglow.sequence_sample(
+            spec, gen.model, data128, hp.Validation["seq_len"], generator=g), reps=3)
+        print(f"offline sequence_sample B=128 N={n_seq}: {t128:.3f} ms = "
+              f"{128 * n_seq / t128 * 1e3:.1f} frames/s")
+        for b, frs in ((1, s1_frames[:1]), (64, s64_frames[:1])):
+            s = StreamingGenerator(spec, gen.model, batch_size=b, seed=SEED,
+                                   device="cuda")
+            t_push = time_ms(lambda: s.push(**frs[0]), reps=20)
+            print(f"streaming push B={b}: {t_push:.3f} ms/push")
+
+        records = []
+        with torch.no_grad():
+            rows = []
+            for b in (1, 64, 512):
+                z, projs, st = frame_inputs(b)
+                call = lambda: fk.frame_rev_fused(spec, w, z, projs, st)  # noqa: E731
+                ms = time_ms(graphed(call), 20)
+                wrapper = time_ms(call, 20)
+                plain = time_ms(lambda: fk.frame_rev_fused_ref(spec, w, z, projs, st), 5)
+                lib = time_ms(graphed(lambda: library_frame_rev(spec, w, gru, z, projs,
+                                                                st)), 20)
+                bound, by = frame_bound_ms(spec, w, b)
+                rows.append({"batch": b, "ms": ms, "wrapper_ms": wrapper,
+                             "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+                             "library_ms": lib})
+                print(f"frame_rev B={b}: kernel {ms:.4f} ms (graph replay; "
+                      f"{wrapper:.4f} ms through the wrapper), plain {plain:.4f} ms, "
+                      f"library (graphed gru_cell/addmm) {lib:.4f} ms, bound "
+                      f"{bound:.4f} ms ({by})")
+            records.append(dict(
+                name="frame_rev", route="cuda",
+                source="lets_face_it_tpu_torch/csrc/frame_rev.cu",
+                replaces="lets_face_it_tpu/ops/pallas_flow.py:130",
+                launches=launches["frame_rev"],
+                max_abs_err=frame_err[1],
+                **{k: v for k, v in rows[0].items() if k != "batch"},
+                by_batch=rows))
+            rows = []
+            for b in (1, 128):
+                zs, fixed, hist0, st0 = seq_inputs(b, n_seq)
+                call = lambda: fk.sequence_rev_fused(  # noqa: E731
+                    spec, w, w_p1_t, zs, fixed, hist0, st0)
+                ms = time_ms(graphed(call), 3, warmup=1)
+                wrapper = time_ms(call, 3, warmup=1)
+                plain = time_ms(lambda: fk.sequence_rev_fused_ref(
+                    spec, w, w_p1_t, zs, fixed, hist0, st0), 1, warmup=1)
+                lib = time_ms(graphed(lambda: library_seq_rev(
+                    spec, w, gru, w_p1_t, zs, fixed, hist0, st0)), 3, warmup=1)
+                bound, by = seq_bound_ms(spec, w, n_seq, b)
+                rows.append({"batch": b, "frames": n_seq, "ms": ms,
+                             "wrapper_ms": wrapper, "plain_ms": plain,
+                             "bound_ms": bound, "bound_by": by, "library_ms": lib})
+                print(f"seq_rev B={b} N={n_seq}: kernel {ms:.4f} ms (graph replay; "
+                      f"{wrapper:.4f} ms through the wrapper), plain {plain:.4f} ms, "
+                      f"library (graphed) {lib:.4f} ms, bound {bound:.4f} ms ({by})")
+            records.append(dict(
+                name="seq_rev", route="cuda",
+                source="lets_face_it_tpu_torch/csrc/seq_rev.cu",
+                replaces="lets_face_it_tpu/ops/pallas_flow.py:346",
+                launches=launches["seq_rev"], max_abs_err=seq_err[SEED, 1],
+                **{k: v for k, v in rows[0].items() if k not in ("batch", "frames")},
+                by_batch=rows))
+
+        # -- 7. where the time goes ------------------------------------------
+        print(f"profile on {card}: host wall per call without the profiler, "
+              "device time from a torch.profiler trace of as many calls")
+        for b, frs in ((1, s1_frames[:1]), (64, s64_frames[:1])):
+            s = StreamingGenerator(spec, gen.model, batch_size=b, seed=SEED,
+                                   device="cuda")
+            print(json.dumps(trace_window(f"push_b{b}", lambda: s.push(**frs[0]),
+                                          PROFILE_CALLS)))
+        print(json.dumps(trace_window(
+            "generate_b1", lambda: gen.generate(frames, seed=SEED),
+            PROFILE_CALLS // 10)))
+
+    print(f"total: {time.perf_counter() - t_all:.1f} s")
+    print(f"card: {card}")
+    print(json.dumps({"kernels": records}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

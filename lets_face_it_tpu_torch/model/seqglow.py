@@ -1,0 +1,162 @@
+"""Sequence-level model: parameters and autoregressive sampling (the port of
+``lets_face_it_tpu/model/seqglow.py``, sampling side; the teacher-forced NLL
+and inversion wait for the training slice).
+
+Conditioning for all frames except the agent's own face is encoded in one
+batched pass before the frame loop; only the own-face contribution to each
+step's projection is autoregressive. Inside the sequence kernel's envelope
+(``ops/flow_kernels.py::sampling_seq_supported``, which holds for
+``final_model``) the whole loop is one launch of ``sequence_rev_fused``;
+flows with a recurrent own-face encoder take the per-frame kernel, and flows
+outside both envelopes take the plain ``flow.frame_rev`` path. The choice is
+made from the ``FlowSpec`` alone.
+"""
+
+from __future__ import annotations
+
+import functools
+import logging
+
+import torch
+from torch import nn
+
+from lets_face_it_tpu_torch.model import encoders, flow
+from lets_face_it_tpu_torch.model.spec import FlowSpec
+from lets_face_it_tpu_torch.ops import flow_kernels
+
+logger = logging.getLogger(__name__)
+
+# Leaves that are fixed buffers, not trained parameters: the invconv's
+# permutation matrix and diagonal signs, and the shuffle/reverse index maps.
+FROZEN_LEAVES = ("p", "sign_s", "perm", "inv")
+
+
+def _module_tree(tree, name: str = ""):
+    """Nested dict of tensors -> ModuleDict of ParameterDicts."""
+    if all(isinstance(v, torch.Tensor) for v in tree.values()):
+        return nn.ParameterDict({
+            k: nn.Parameter(v, requires_grad=k not in FROZEN_LEAVES
+                            and v.is_floating_point())
+            for k, v in tree.items()})
+    if any(isinstance(v, torch.Tensor) for v in tree.values()):
+        raise ValueError(f"parameter tree {name!r} mixes tensors and subtrees")
+    return nn.ModuleDict({k: _module_tree(v, f"{name}.{k}")
+                          for k, v in tree.items()})
+
+
+class SeqGlow(nn.Module):
+    """The conditioning encoders and the K stacked flow steps.
+
+    ``encoder[m]`` holds modality m's encoder parameters
+    (``model/encoders.py``); every leaf of ``flow`` is stacked ``[K, ...]``
+    (``model/flow.py``). Parameter names inside follow the JAX package's
+    parameter tree; ``sample/weights.py`` maps them to and from the
+    reference's glow_pytorch names."""
+
+    def __init__(self, spec: FlowSpec, encoder: dict, flow_params: dict):
+        super().__init__()
+        self.spec = spec
+        self.encoder = _module_tree(encoder, "encoder")
+        self.flow = _module_tree(flow_params, "flow")
+
+    @classmethod
+    def init(cls, spec: FlowSpec, generator: torch.Generator) -> "SeqGlow":
+        """Fresh parameters on the CPU from a CPU ``torch.Generator``; move
+        them with ``.to(device)``."""
+        return cls(spec, encoders.init_feature_encoder(generator, spec.cond),
+                   flow.init_flow(generator, spec))
+
+
+def _frame_numbers(spec: FlowSpec, batch, n_frames: int):
+    """[B, N, 1] frame-number conditioning, stepping by 2 per frame and offset
+    by 2*start (models.py:540-542,557-558)."""
+    base = batch["frame_nb"] + 2.0 * spec.cond.longest_history        # [B, 1]
+    steps = 2.0 * torch.arange(n_frames, dtype=base.dtype, device=base.device)
+    return base[:, None, :] + steps[None, :, None]
+
+
+@functools.lru_cache(maxsize=None)
+def sampling_path(spec: FlowSpec) -> str:
+    """'sequence' (one launch per sequence), 'frame' (one launch per frame) or
+    'plain' (``flow.frame_rev``); decided from the spec and logged once."""
+    if flow_kernels.sampling_seq_supported(spec):
+        path = "sequence"
+    elif flow_kernels.fused_supported(spec):
+        path = "frame"
+    else:
+        path = "plain"
+    logger.info("sampling path for this flow: %s", path)
+    return path
+
+
+@torch.no_grad()
+def sequence_sample(spec: FlowSpec, params, data, seq_len: int, *,
+                    eps_std: float = 1.0, generator: torch.Generator | None = None,
+                    z_seq=None):
+    """Autoregressive generation (models.py:567-596).
+
+    ``params`` is a ``SeqGlow`` (or anything with ``encoder`` and ``flow``
+    trees). ``data`` seeds the own-face history (``p1_face[:, :start]``) and
+    provides interlocutor/speech conditioning for ``seq_len`` frames, as
+    tensors on one device. ``z_seq`` [N, B, C], when given, is decoded
+    instead of a draw of ``randn * eps_std`` from ``generator``. Returns the
+    generated frames [B, N, C], N = seq_len - longest_history.
+    """
+    x_seed = data["p1_face"]
+    dev = x_seed.device
+    b, c = x_seed.shape[0], spec.channels
+    start = spec.cond.longest_history
+    n = seq_len - start
+    times = torch.arange(start, seq_len, device=dev)
+
+    frame_nbs = None
+    if spec.cond.use_frame_nb:
+        if "frame_nb" in data:
+            frame_nbs = _frame_numbers(spec, data, n)
+        else:
+            steps = 2.0 * torch.arange(n, dtype=x_seed.dtype, device=dev)
+            frame_nbs = (torch.ones(b, 1, 1, dtype=x_seed.dtype, device=dev)
+                         + steps[None, :, None])
+
+    fixed = encoders.encode_fixed_conditioning(
+        spec.cond, params.encoder, data, times, frame_nbs=frame_nbs)
+    p1_dim = spec.cond.p1_face.out_dim
+    fixed_projs, w_p1 = flow.project_cond_split(params.flow, p1_dim, fixed)
+
+    h1 = spec.cond.p1_face.history
+    face_hist = x_seed[:, start - h1:start]                        # [B, h1, C]
+    states = flow.init_flow_states(spec, b, dev)
+
+    if z_seq is None:
+        zs = torch.randn((n, b, c), generator=generator, device=dev) * eps_std
+    else:
+        zs = z_seq.to(dev, torch.float32).contiguous()
+
+    path = sampling_path(spec)
+    if path == "sequence":
+        weights = flow_kernels.prepare_sampling_weights(spec, params.flow)
+        hist0 = (face_hist.reshape(b, p1_dim).contiguous() if p1_dim
+                 else x_seed.new_zeros(b, 0))
+        w_p1_t = w_p1.transpose(1, 2).contiguous()
+        xs = flow_kernels.sequence_rev_fused(spec, weights, w_p1_t, zs,
+                                             fixed_projs, hist0, states)
+        return xs.transpose(0, 1)
+
+    weights = (flow_kernels.prepare_sampling_weights(spec, params.flow)
+               if path == "frame" else None)
+    xs = []
+    for t in range(n):
+        proj_t = fixed_projs[t]
+        if p1_dim > 0:
+            p1_enc = encoders.encode_p1_face_single(spec.cond, params.encoder,
+                                                    face_hist)
+            proj_t = proj_t + torch.einsum("bd,kcd->kbc", p1_enc, w_p1)
+        if weights is not None:
+            x_t, states = flow_kernels.frame_rev_fused(
+                spec, weights, zs[t], proj_t.contiguous(), states)
+        else:
+            x_t, _, states = flow.frame_rev(spec, params.flow, zs[t], None,
+                                            states, cond_projs=proj_t)
+        face_hist = torch.cat([face_hist[:, 1:], x_t[:, None]], dim=1)
+        xs.append(x_t)
+    return torch.stack(xs, dim=1)
