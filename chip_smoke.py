@@ -3,22 +3,38 @@
 
     python3 chip_smoke.py
 
-Drives the port's serving path of ``hparams/final_model.yaml`` at full width
-on seeded random weights, from the sources in this checkout:
+Drives the port's serving path and its training path of
+``hparams/final_model.yaml`` at full width on seeded random weights, from
+the sources in this checkout:
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the CUDA kernels (``lets_face_it_tpu_torch/csrc``) with nvcc;
-3. holds each kernel against its plain PyTorch version on the card;
+2. builds the four CUDA kernels (``lets_face_it_tpu_torch/csrc``) with nvcc
+   and prints each one's registers and spills;
+3. holds each sampling kernel against its plain PyTorch version on the card;
 4. saves the weights in the reference's names, loads them through
    ``Generator.from_checkpoint``, generates a sequence and streams frames
    (``StreamingGenerator``), and checks the outputs against the plain path on
    the CPU with the same latents;
-5. checks that each kernel's launch counter rose during step 4;
-6. times the path and each kernel beside its plain version, a library
-   yardstick and its bound;
+5. checks that each sampling kernel's launch counter rose during step 4;
+6. times the serving path and each sampling kernel beside its plain version,
+   a library yardstick and its bound;
 7. traces a push at B=1 and B=64 and a generate at B=1 with
    ``torch.profiler``: device time, device idle share and the largest device
-   operations of each call.
+   operations of each call;
+8. holds the training kernels against their plain versions at B=256, N=56
+   (forward outputs, and the backward's outputs on seeded cotangents), and
+   the autograd Function's gradients against eager autograd through the
+   ``flow.frame_fwd`` loop, on two weight seeds;
+9. trains ``final_model`` at B=256 for 3 steps and one validation on the
+   synthetic corpus (``train.loop.train``), checks that ``seq_fwd``,
+   ``seq_bwd`` and ``seq_rev`` were launched, that loss and gradient norm
+   are finite, and that the checkpoint loads through
+   ``Generator.from_checkpoint`` and generates;
+10. holds 2 training steps at B=32 against the same steps on the CPU plain
+    path (same weights, batch and draws);
+11. times the training step and each training kernel beside its plain
+    version, a library yardstick and its bound, and traces a training step
+    with ``torch.profiler``.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
@@ -58,6 +74,29 @@ SEQ_LOOSE_ATOL = 2e-2
 SEQ_SEEDS = (SEED, SEED + 1, SEED + 2)
 # Calls per traced window of step 7.
 PROFILE_CALLS = 20
+# Training kernels against their plain versions (step 8), float32 in another
+# summation order: forward values atol 1e-5 / rtol 1e-5, backward outputs
+# atol 2e-5 / rtol 1e-4 (the JAX kernel tests', tests/test_pallas_train.py).
+TRAIN_VAL_ATOL, TRAIN_VAL_RTOL = 1e-5, 1e-5
+TRAIN_BWD_ATOL, TRAIN_BWD_RTOL = 2e-5, 1e-4
+# The Function's gradients against eager autograd: each parameter gradient
+# is a sum over N*B = 14,336 rows (and the state chain runs through 56
+# frames), taken in another order by the two paths, so an entry is held to
+# atol 2e-5 plus GRAD_LEAF_RTOL times the largest |entry| of its leaf.
+GRAD_ATOL, GRAD_LEAF_RTOL = 2e-5, 1e-4
+TRAIN_SEEDS = (SEED, SEED + 1)
+# Training main path (step 9): 10 synthetic train chunks of 160 frames give
+# 810 windows of 80, 3 steps of 256 per epoch; the 2 val chunks 122 windows.
+TRAIN_STEPS, TRAIN_CHUNKS = 3, 10
+# Step 10: the GPU's steps against the CPU plain path's at B=32. The first
+# step starts from the same weights (NLL rtol 1e-5, the JAX trajectory
+# test's); Adam moves every entry by about the learning rate (1e-5) per step
+# whatever its gradient's size, so an entry whose gradient is at rounding
+# level may move the other way on the other path: the second step's NLL is
+# held at rtol 1e-4 and the weights at two steps' moves in opposite
+# directions (4e-5). Measured on an H100: 1.542e-05.
+CPU_STEPS, CPU_BATCH = 2, 32
+CPU_NLL_RTOL1, CPU_NLL_RTOL, CPU_PARAM_ATOL = 1e-5, 1e-4, 4e-5
 
 
 def fail(msg: str) -> None:
@@ -243,6 +282,68 @@ def library_seq_rev(spec, w, gru, w_p1_t, zs, fixed, hist, states0):
     return torch.stack(xs)
 
 
+def _bwd_row_step_flops(spec) -> int:
+    """FLOPs of one backward step for one row: the recomputed forward step,
+    the four transposed products and the gate cotangents."""
+    c, z1, h, cout = (spec.channels, spec.z1_dim, spec.hidden_channels,
+                      spec.coupling_out_dim)
+    matmul = 2 * (cout * h + 3 * h * h + 3 * h * z1 + c * c)
+    pointwise = 30 * h + 10 * (cout // 2) + 2 * c
+    return _row_step_flops(spec) + matmul + pointwise
+
+
+def _bound(n_bytes, flops):
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, flops / PEAK_F32_FLOP_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def train_fwd_bound_ms(spec, tw, n: int, b: int):
+    k, c, h = spec.n_steps, spec.channels, spec.hidden_channels
+    half, cond = spec.coupling_out_dim // 2, spec.cond.cond_dim
+    w_bytes = sum(t.numel() for t in tw) * 4
+    io = 4 * (n * b * c + n * k * b * cond + k * b * h                  # inputs
+              + n * b * c + n * k * b * (half + c + h))                   # outputs
+    return _bound(w_bytes + io, n * b * k * _row_step_flops(spec))
+
+
+def train_bwd_bound_ms(spec, tw, n: int, b: int):
+    k, c, h = spec.n_steps, spec.channels, spec.hidden_channels
+    half, cond, cout = spec.coupling_out_dim // 2, spec.cond.cond_dim, spec.coupling_out_dim
+    w_bytes = (sum(t.numel() for t in tw)
+               + k * (c * c + 3 * h * h + 3 * h * spec.z1_dim + cout * h)) * 4
+    io = 4 * (n * b * c + n * k * b * (half + c + h + cond) + k * b * h  # inputs
+              + n * b * c + k * b * h + n * k * b * (3 * h + h + cout + c))  # outputs
+    return _bound(w_bytes + io, n * b * k * _bwd_row_step_flops(spec))
+
+
+def eager_flow_sequence(spec, flow_params, xs, cond_seq, states0):
+    """The teacher-forced traversal as the eager ``flow.frame_fwd`` loop:
+    (z_seq, logdet, new_states, scales), differentiable."""
+    import torch
+
+    from lets_face_it_tpu_torch.model import flow
+
+    states, zs, lds, scs = states0, [], [], []
+    for t in range(xs.shape[0]):
+        z, ld, states, sc = flow.frame_fwd(spec, flow_params, xs[t], None, states,
+                                           cond_projs=cond_seq[t],
+                                           collect_scales=True)
+        zs.append(z)
+        lds.append(ld)
+        scs.append(sc)
+    return torch.stack(zs), torch.stack(lds), states, torch.stack(scs)
+
+
+def sequence_objective(z, logdet, new_states):
+    """The NLL in bits plus terms on z and the final states, so that every
+    cotangent path of the traversal is exercised."""
+    import math
+
+    objective = logdet - 0.5 * (z ** 2 + math.log(2 * math.pi)).sum(-1)
+    return ((-objective / math.log(2.0)).mean() + 0.05 * (new_states ** 2).sum()
+            + 0.01 * (z ** 2).sum())
+
+
 def main() -> int:
     if not (REPO / "lets_face_it_tpu_torch" / "csrc").is_dir():
         fail("run from a checkout: lets_face_it_tpu_torch/ is not beside "
@@ -260,11 +361,17 @@ def main() -> int:
     from lets_face_it_tpu_torch.model import seqglow
     from lets_face_it_tpu_torch.model.spec import FlowSpec
     from lets_face_it_tpu_torch.ops import cuda_build
+    from lets_face_it_tpu_torch.model.encoders import (MODALITY_ORDER,
+                                                       frame_dropout_mask)
     from lets_face_it_tpu_torch.ops import flow_kernels as fk
+    from lets_face_it_tpu_torch.ops import train_kernels as tk
     from lets_face_it_tpu_torch.sample.generate import Generator
     from lets_face_it_tpu_torch.sample.streaming import StreamingGenerator
     from lets_face_it_tpu_torch.sample.weights import (seeded_random_model,
                                                        state_dict_reference)
+    from lets_face_it_tpu_torch.train import loop as train_loop
+    from lets_face_it_tpu_torch.train import state as train_state
+    from lets_face_it_tpu_torch.train.checkpoint import CheckpointManager
 
     dev = torch.device("cuda")
     t_all = time.perf_counter()
@@ -558,6 +665,239 @@ def main() -> int:
         print(json.dumps(trace_window(
             "generate_b1", lambda: gen.generate(frames, seed=SEED),
             PROFILE_CALLS // 10)))
+
+        # -- 8. training kernels against their plain versions; gradients --
+        if seqglow.training_path(spec) != "kernels":
+            fail("final_model is outside the training kernels' envelope")
+        b_tr = hp.batch_size
+        n_tr = hp.Train["seq_len"] - spec.cond.longest_history
+        print(f"training tolerances: seq_fwd vs plain atol {TRAIN_VAL_ATOL} rtol "
+              f"{TRAIN_VAL_RTOL}; seq_bwd vs plain atol {TRAIN_BWD_ATOL} rtol "
+              f"{TRAIN_BWD_RTOL}; Function gradients vs eager autograd |diff| <= "
+              f"{GRAD_ATOL} + {GRAD_LEAF_RTOL} * max|leaf| (sums over N*B rows "
+              "in another order)")
+
+        def train_inputs(b, n):
+            return (torch.randn(n, b, c, generator=g, device=dev),
+                    torch.randn(n, k_steps, b, cond, generator=g, device=dev),
+                    0.3 * torch.randn(k_steps, b, h, generator=g, device=dev))
+
+        def flow_gradients(run, model_t, dtype, inputs):
+            """Loss and gradients on every trained flow leaf (but the unused
+            cond_proj) and on the three inputs, of ``run`` in ``dtype``."""
+            tree = {gn: {ln: p.detach().to(dtype).requires_grad_(p.requires_grad)
+                         for ln, p in grp.items()}
+                    for gn, grp in model_t.flow.items()}
+            names = [(gn, ln) for gn, grp in tree.items() for ln, p in grp.items()
+                     if p.requires_grad and gn != "cond_proj"]
+            xs_, cs_, st_ = (x.detach().to(dtype).requires_grad_() for x in inputs)
+            z, ld, ns, _ = run(spec, tree, xs_, cs_, st_)
+            loss = sequence_objective(z, ld, ns)
+            grads = torch.autograd.grad(loss, [tree[gn][ln] for gn, ln in names]
+                                        + [xs_, cs_, st_])
+            keys = [f"{gn}.{ln}" for gn, ln in names] + ["xs", "cond_seq", "states0"]
+            return loss.item(), dict(zip(keys, grads))
+
+        fwd_err, bwd_err, grad_ratio = {}, {}, {}
+        for seed in TRAIN_SEEDS:
+            model_t = (model_gpu if seed == SEED
+                       else seeded_random_model(spec, seed).to(dev))
+            xs, cs, st0 = train_inputs(b_tr, n_tr)
+            with torch.no_grad():
+                tw = tk.prepare_train_weights(spec, model_t.flow)
+                got = tk.seq_fwd(spec, tw, xs, cs, st0)
+                ref = tk.seq_fwd_ref(spec, tw, xs, cs, st0)
+                torch.cuda.synchronize()
+                fwd_err[seed] = max(
+                    check_close(f"seq_fwd seed {seed} {nm}", a, r,
+                                TRAIN_VAL_ATOL, TRAIN_VAL_RTOL)
+                    for nm, a, r in zip(("z", "scales", "zs_res", "states_res"),
+                                        got, ref))
+                _, scales_r, zs_res, st_res = ref
+                hprev = torch.cat([st0[None], st_res[:-1]])
+                cot = (torch.randn(xs.shape, generator=g, device=dev),
+                       torch.randn(scales_r.shape, generator=g, device=dev),
+                       torch.randn(st0.shape, generator=g, device=dev))
+                got = tk.seq_bwd(spec, tw, cs, zs_res, hprev, *cot)
+                ref = tk.seq_bwd_ref(spec, tw, cs, zs_res, hprev, *cot)
+                torch.cuda.synchronize()
+                bwd_err[seed] = max(
+                    check_close(f"seq_bwd seed {seed} {nm}", a, r,
+                                TRAIN_BWD_ATOL, TRAIN_BWD_RTOL)
+                    for nm, a, r in zip(("dx", "dstates0", "dgi", "dghn", "dhout",
+                                         "dzb"), got, ref))
+            print(f"check seq_fwd / seq_bwd weights seed {seed} B={b_tr} N={n_tr}: "
+                  f"max|d| {fwd_err[seed]:.3e} / {bwd_err[seed]:.3e}  ok")
+            l_k, g_k = flow_gradients(tk.flow_sequence_fused, model_t,
+                                      torch.float32, (xs, cs, st0))
+            l_e, g_e = flow_gradients(eager_flow_sequence, model_t,
+                                      torch.float32, (xs, cs, st0))
+            l_64, g_64 = flow_gradients(eager_flow_sequence, model_t,
+                                        torch.float64, (xs, cs, st0))
+            grad_drift = {}
+            for name, ref in g_e.items():
+                scale = ref.abs().max().item()
+                err = (g_k[name].double() - ref.double()).abs().max().item()
+                limit = GRAD_ATOL + GRAD_LEAF_RTOL * scale
+                if not torch.isfinite(g_k[name]).all() or err > limit:
+                    fail(f"Function gradient {name} (weights seed {seed}): max|diff| "
+                         f"{err:.3e} > {limit:.3e} (max|ref| {scale:.3e})")
+                grad_ratio[seed, name] = err / limit
+                truth = g_64[name]
+                grad_drift[name] = [
+                    round((g_k[name].double() - truth).abs().max().item()
+                          / truth.abs().max().item(), 9),
+                    round((ref.double() - truth).abs().max().item()
+                          / truth.abs().max().item(), 9)]
+            print(f"check Function gradients vs eager autograd, weights seed {seed} "
+                  f"B={b_tr} N={n_tr}: loss {l_k:.6f} vs {l_e:.6f} (float64 "
+                  f"{l_64:.6f}); largest max|diff| / limit "
+                  f"{max(v for (s_, _), v in grad_ratio.items() if s_ == seed):.3f}  ok")
+            print("drift, not held (max|diff| / max|grad| against eager float64; "
+                  f"[kernels, eager float32]) seed {seed}: {json.dumps(grad_drift)}")
+            del model_t
+
+        # -- 9. the training main path --------------------------------------
+        corpus = train_loop.synthetic_corpus(hp, SEED, n_train_chunks=TRAIN_CHUNKS)
+        ckpt_dir = Path(tmp) / "train_ckpt"
+        step_log, val_log = [], []
+        tk.seq_fwd.launches = tk.seq_bwd.launches = 0
+        fk.sequence_rev_fused.launches = fk.frame_rev_fused.launches = 0
+        t0 = time.perf_counter()
+        state, best_val = train_loop.train(
+            hp, seed=SEED, ckpt_dir=ckpt_dir, max_steps=TRAIN_STEPS, device="cuda",
+            corpus=corpus,
+            step_hook=lambda s, m: step_log.append({k: float(v) for k, v in m.items()}),
+            val_hook=lambda s, m: val_log.append(m))
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        train_launches = {"seq_fwd": tk.seq_fwd.launches,
+                          "seq_bwd": tk.seq_bwd.launches,
+                          "seq_rev": fk.sequence_rev_fused.launches}
+        print(f"training main path: {TRAIN_STEPS} steps at B={b_tr} and one "
+              f"validation in {t_train:.3f} s (includes first-use costs); "
+              f"launches {train_launches}")
+        for name, count in train_launches.items():
+            if count == 0:
+                fail(f"{name} kernel was never launched on the training path")
+        if len(step_log) != TRAIN_STEPS or len(val_log) != 1:
+            fail(f"training took {len(step_log)} steps and {len(val_log)} validations")
+        for m in step_log + val_log:
+            if not all(np.isfinite(v) for v in m.values()):
+                fail(f"non-finite training metrics {m}")
+        print(f"check training metrics finite: steps {json.dumps(step_log)}; "
+              f"validation {json.dumps(val_log[0])}  ok")
+        gen_t = Generator.from_checkpoint(CheckpointManager(ckpt_dir).latest(),
+                                          dataset_root=tmp, device="cuda")
+        out_t = gen_t.generate(frames, seed=SEED)
+        if out_t.shape != (1, n_seq, 106) or not np.isfinite(out_t).all():
+            fail(f"generate from the training checkpoint: bad output {out_t.shape}")
+        print(f"check training checkpoint -> Generator.from_checkpoint -> generate "
+              f"{out_t.shape}  ok")
+
+        # -- 10. GPU steps against the CPU plain path ------------------------
+        train_ds, _ = train_loop.load_datasets(hp, corpus)
+        batch_np = train_ds.get_batch(np.arange(CPU_BATCH))
+        g_draws = torch.Generator().manual_seed(SEED)
+        draws = []
+        for _ in range(CPU_STEPS):
+            coin = float(torch.rand((), generator=g_draws))
+            perm = torch.randperm(CPU_BATCH, generator=g_draws)
+            masks = {m: frame_dropout_mask(es, (CPU_BATCH, n_tr, es.history), g_draws)
+                     for m in MODALITY_ORDER
+                     if (es := getattr(spec.cond, m)) is not None
+                     and es.dropout > 0 and es.out_dim > 0}
+            draws.append(train_state.StepDraws(coin, perm, masks))
+
+        def run_steps(device):
+            model_s = seeded_random_model(spec, SEED).to(device)
+            st = train_state.TrainState.create(model_s, hp, 3, SEED)
+            jb = train_loop.to_device(batch_np, device)
+            train_state.run_actnorm_init(spec, st, jb)
+            logs = [{k: float(v) for k, v in
+                     train_state.train_step(spec, hp, st, jb, draws=d).items()}
+                    for d in draws]
+            return logs, {n: p.detach().cpu() for n, p in model_s.named_parameters()}
+
+        t0 = time.perf_counter()
+        gpu_logs, gpu_params = run_steps(dev)
+        cpu_logs, cpu_params = run_steps(torch.device("cpu"))
+        print(f"GPU and CPU plain path, {CPU_STEPS} steps at B={CPU_BATCH}: "
+              f"{time.perf_counter() - t0:.1f} s; GPU {json.dumps(gpu_logs)}; "
+              f"CPU {json.dumps(cpu_logs)}")
+        for i, (a, b) in enumerate(zip(gpu_logs, cpu_logs)):
+            rtol = CPU_NLL_RTOL1 if i == 0 else CPU_NLL_RTOL
+            if abs(a["nll"] - b["nll"]) > rtol * abs(b["nll"]) or a["deranged"] != b["deranged"]:
+                fail(f"step {i + 1}: GPU nll {a['nll']} vs CPU {b['nll']} (rtol {rtol})")
+        e_p = max(check_close(f"weights after {CPU_STEPS} steps, {n}", gpu_params[n],
+                              cpu_params[n], CPU_PARAM_ATOL, 0.0) for n in cpu_params)
+        print(f"check GPU vs CPU plain path: nll rtol {CPU_NLL_RTOL1} (step 1) / "
+              f"{CPU_NLL_RTOL}, weights max|d| {e_p:.3e} <= {CPU_PARAM_ATOL}  ok")
+
+        # -- 11. training timings and profile ---------------------------------
+        jb = train_loop.to_device(train_ds.get_batch(np.arange(b_tr)), dev)
+        t_step = time_ms(lambda: train_state.train_step(spec, hp, state, jb), reps=3,
+                         warmup=1)
+        print(f"training step B={b_tr}: {t_step:.3f} ms/step = "
+              f"{b_tr / t_step * 1e3:.1f} windows/s (train_step, host to host, "
+              f"on {card})")
+        xs, cs, st0 = train_inputs(b_tr, n_tr)
+        flow_t = state.model.flow
+        with torch.no_grad():
+            tw = tk.prepare_train_weights(spec, flow_t)
+            fwd_call = lambda: tk.seq_fwd(spec, tw, xs, cs, st0)  # noqa: E731
+            _, scales_r, zs_res, st_res = fwd_call()
+            hprev = torch.cat([st0[None], st_res[:-1]])
+            cot = (torch.randn(xs.shape, generator=g, device=dev),
+                   torch.randn(scales_r.shape, generator=g, device=dev),
+                   torch.randn(st0.shape, generator=g, device=dev))
+            bwd_call = lambda: tk.seq_bwd(spec, tw, cs, zs_res, hprev, *cot)  # noqa: E731
+            fwd_ms, bwd_ms = time_ms(graphed(fwd_call), 3), time_ms(graphed(bwd_call), 3)
+            fwd_wrap, bwd_wrap = time_ms(fwd_call, 3), time_ms(bwd_call, 3)
+            fwd_plain = time_ms(lambda: tk.seq_fwd_ref(spec, tw, xs, cs, st0), 1, warmup=1)
+            bwd_plain = time_ms(lambda: tk.seq_bwd_ref(spec, tw, cs, zs_res, hprev,
+                                                       *cot), 1, warmup=1)
+            lib_fwd = time_ms(graphed(lambda: eager_flow_sequence(
+                spec, flow_t, xs, cs, st0)), 3)
+        # the library backward: the eager loop's autograd backward (inputs and
+        # flow weights), timed as graphed forward + backward less the graphed
+        # forward with autograd recording
+        lib_in = [x.clone().requires_grad_() for x in (xs, cs, st0)]
+        lib_w = [p for n, p in flow_t.named_parameters()
+                 if p.requires_grad and not n.startswith("cond_proj")]
+
+        def lib_forward():
+            z, _, ns, sc = eager_flow_sequence(spec, flow_t, *lib_in)
+            return z, sc, ns
+
+        lib_bwd = (time_ms(graphed(lambda: torch.autograd.grad(
+                       lib_forward(), lib_in + lib_w, cot)), 3)
+                   - time_ms(graphed(lib_forward), 3))
+        fwd_bound, fwd_by = train_fwd_bound_ms(spec, tw, n_tr, b_tr)
+        bwd_bound, bwd_by = train_bwd_bound_ms(spec, tw, n_tr, b_tr)
+        for name, ms, wrap, plain, lib, bound, by in (
+                ("seq_fwd", fwd_ms, fwd_wrap, fwd_plain, lib_fwd, fwd_bound, fwd_by),
+                ("seq_bwd", bwd_ms, bwd_wrap, bwd_plain, lib_bwd, bwd_bound, bwd_by)):
+            lib_what = "its autograd backward" if name == "seq_bwd" else "forward"
+            print(f"{name} B={b_tr} N={n_tr}: kernel {ms:.4f} ms (graph replay; "
+                  f"{wrap:.4f} ms through the wrapper), plain {plain:.4f} ms, "
+                  f"library (graphed frame_fwd loop, {lib_what}) {lib:.4f} ms, "
+                  f"bound {bound:.4f} ms ({by})")
+        records.append(dict(
+            name="seq_fwd", route="cuda", source="lets_face_it_tpu_torch/csrc/seq_fwd.cu",
+            replaces="lets_face_it_tpu/ops/pallas_train.py:182",
+            launches=train_launches["seq_fwd"], max_abs_err=fwd_err[SEED], ms=fwd_ms,
+            wrapper_ms=fwd_wrap, plain_ms=fwd_plain, bound_ms=fwd_bound,
+            bound_by=fwd_by, library_ms=lib_fwd, batch=b_tr, frames=n_tr))
+        records.append(dict(
+            name="seq_bwd", route="cuda", source="lets_face_it_tpu_torch/csrc/seq_bwd.cu",
+            replaces="lets_face_it_tpu/ops/pallas_train.py:330",
+            launches=train_launches["seq_bwd"], max_abs_err=bwd_err[SEED], ms=bwd_ms,
+            wrapper_ms=bwd_wrap, plain_ms=bwd_plain, bound_ms=bwd_bound,
+            bound_by=bwd_by, library_ms=lib_bwd, batch=b_tr, frames=n_tr))
+        print(json.dumps(trace_window(
+            f"train_step_b{b_tr}", lambda: train_state.train_step(spec, hp, state, jb),
+            3)))
 
     print(f"total: {time.perf_counter() - t_all:.1f} s")
     print(f"card: {card}")

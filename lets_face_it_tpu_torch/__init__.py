@@ -1,11 +1,14 @@
 """lets_face_it_tpu_torch — the PyTorch/CUDA port of ``lets_face_it_tpu``.
 
-The port runs on an NVIDIA Hopper GPU (``sm_90a``). This slice carries the
-serving path of the paper's ``final_model``: offline generation
-(``sample.generate.Generator``) and live streaming
-(``sample.streaming.StreamingGenerator``). The two Pallas sampling kernels of
-the JAX package are hand-written CUDA C++ here (``csrc/``), built with
-``nvcc`` at first use and bound through ``ctypes`` (``ops/flow_kernels.py``).
+The port runs on an NVIDIA Hopper GPU (``sm_90a``). It carries the serving
+path of the paper's ``final_model`` (offline generation,
+``sample.generate.Generator``, and live streaming,
+``sample.streaming.StreamingGenerator``) and its training path
+(``train.loop.train``, ``python -m lets_face_it_tpu_torch.train``). The four
+Pallas kernels of the JAX package are hand-written CUDA C++ here
+(``csrc/``), built with ``nvcc`` at first use and bound through ``ctypes``
+(``ops/flow_kernels.py`` for sampling, ``ops/train_kernels.py`` for the
+training pair, wired as a ``torch.autograd.Function``).
 
 Module paths mirror the JAX package's. The port imports neither JAX nor
 anything from ``lets_face_it_tpu``; it keeps its own copies of the pure-Python

@@ -50,6 +50,14 @@ def init_actnorm(num_features: int) -> dict:
     return {"bias": torch.zeros(num_features), "logs": torch.zeros(num_features)}
 
 
+def actnorm_data_init(x, scale: float = 1.0) -> dict:
+    """Data-dependent init from a batch [B, C]: output has ~zero mean, unit
+    variance (modules.py:32-43): bias = -mean(x), logs = log(scale/(std+1e-6))."""
+    bias = -x.mean(dim=0)
+    var = ((x + bias) ** 2).mean(dim=0)
+    return {"bias": bias, "logs": torch.log(scale / (torch.sqrt(var) + 1e-6))}
+
+
 def actnorm_fwd(params, x, logdet):
     """(x + bias) * exp(logs); dlogdet = sum(logs) * C."""
     z = (x + params["bias"]) * torch.exp(params["logs"])

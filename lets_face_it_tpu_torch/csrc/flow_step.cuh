@@ -1,5 +1,7 @@
 // One reversed flow step for a tile of BT batch rows, shared by the per-frame
-// kernel (frame_rev.cu) and the whole-sequence kernel (seq_rev.cu).
+// kernel (frame_rev.cu) and the whole-sequence kernel (seq_rev.cu); the
+// tile product, the scratch layout and the launch helpers are shared with
+// the training kernels too (seq_fwd.cu, seq_bwd.cu).
 //
 // Step k inverts   actnorm -> 1x1 (W = P L U) -> affine coupling(GRU)   for
 // BT rows held in shared memory:
@@ -39,9 +41,9 @@ struct FlowWeights {
   const float* b_hh;     // [K, 3H]
   const float* out_w_t;  // [K, H, COUT]  columns [shift | scale_raw]
   const float* out_b;    // [K, COUT]
-  const float* w_inv;    // [K, C, C]     (P L U)^-1
+  const float* w_mix;    // [K, C, C]     (P L U)^-1 sampling, P L U training
   const float* an_bias;  // [K, C]
-  const float* an_neg;   // [K, C]        exp(-logs)
+  const float* an_mul;   // [K, C]        exp(-logs) sampling, exp(logs) training
   int K, C, Z1, COND, H, COUT;
   float scale_eps;
 };
@@ -269,11 +271,11 @@ __device__ void reverse_step(const FlowWeights& w, int k, const StepScratch& s,
     float* z2 = s.z + r * C + Z1 + j;
     *z2 = *z2 / scale - shift;
   }
-  tile_matvec<BT>(w.w_inv + (size_t)k * C * C, C, C, s.z, C,
+  tile_matvec<BT>(w.w_mix + (size_t)k * C * C, C, C, s.z, C,
                   nullptr, nullptr, 0, false, s.ztmp, C, s);
   for (int idx = tid; idx < BT * C; idx += nt) {
     const int c = idx % C;
-    s.z[idx] = s.ztmp[idx] * w.an_neg[k * C + c] - w.an_bias[k * C + c];
+    s.z[idx] = s.ztmp[idx] * w.an_mul[k * C + c] - w.an_bias[k * C + c];
   }
   __syncthreads();
 }

@@ -1,13 +1,20 @@
 """Sliding-window conditioning encoders, batched over every frame at once (the
-port of ``lets_face_it_tpu/model/encoders.py``, sampling side).
+port of ``lets_face_it_tpu/model/encoders.py``).
 
 All windows for all frames are gathered into one ``[B, N, h, D]`` tensor and
 the encoder runs once: the RNN runs ``h`` steps whose batch is ``B*N``.
 
 Window semantics (models.py:598-615): the agent's own face history is
 ``[t-h, t)`` (strictly past), every other modality is ``(t-h, t]`` — the
-interlocutor's *current* frame is visible. Frame dropout is training-only and
-waits for the training slice.
+interlocutor's *current* frame is visible.
+
+Frame-level dropout (models.py:55-58): during training a mask is drawn over
+whole frames of each history window (``[B, N, h]``), zeroing entire frames
+and scaling the survivors by ``1/keep``. The masks come from a
+``torch.Generator`` or are handed in (``dropout_masks``), so that a test can
+replay another framework's draws. Unlike the JAX package, no encoder scan is
+rematerialised: the saved activations of ``final_model`` at B=256 are a few
+GB, far below the GPU's memory.
 """
 
 from __future__ import annotations
@@ -101,26 +108,76 @@ def other_windows(x, times, history: int):
     return _windows(x, times, offsets)
 
 
+def frame_dropout_mask(spec: EncSpec, shape, generator: torch.Generator):
+    """Keep-mask [B, N, h] over whole history frames, drawn as
+    ``uniform < keep`` from ``generator`` (on its own device)."""
+    return torch.rand(shape, generator=generator,
+                      device=generator.device) < 1.0 - spec.dropout
+
+
+def _frame_dropout(spec: EncSpec, windows, mask):
+    """Zero whole history frames of [B, N, h, D] windows, scale the rest."""
+    keep = 1.0 - spec.dropout
+    mask = mask.to(windows.device, windows.dtype)
+    return windows * (mask / keep)[..., None]
+
+
+def _encode_all(cond: CondSpec, params, windows: dict, frame_nbs, empty, *,
+                training: bool = False, generator: torch.Generator | None = None,
+                dropout_masks: dict | None = None):
+    """Encode each modality's [B, N, h, D] windows (with frame dropout when
+    training) and concatenate them with the frame numbers; ``empty`` is the
+    result when there is nothing to encode."""
+    parts = []
+    for name, w in windows.items():
+        spec = getattr(cond, name)
+        if training and spec.dropout > 0.0:
+            mask = (dropout_masks[name] if dropout_masks is not None
+                    else frame_dropout_mask(spec, w.shape[:3], generator))
+            w = _frame_dropout(spec, w, mask)
+        parts.append(encode_windows(spec, params[name], w))
+    if cond.use_frame_nb:
+        if frame_nbs is None:
+            raise ValueError("use_frame_nb needs frame_nbs")
+        parts.append(frame_nbs)
+    return torch.cat(parts, dim=-1) if parts else empty
+
+
+def _other_windows_all(cond: CondSpec, batch, times) -> dict:
+    """Windows of every conditioned modality but the agent's own face."""
+    return {name: other_windows(batch[name], times, getattr(cond, name).history)
+            for name in MODALITY_ORDER[1:] if getattr(cond, name) is not None}
+
+
+def encode_conditioning(cond: CondSpec, params, batch, prev_p1_faces, times, *,
+                        frame_nbs=None, training: bool = False,
+                        generator: torch.Generator | None = None,
+                        dropout_masks: dict | None = None):
+    """Full conditioning vector for every frame: -> [B, N, feature_dim].
+
+    ``prev_p1_faces`` supplies the agent's own face history (teacher-forced,
+    this is ``batch['p1_face']``); other modalities come from ``batch``.
+    With ``training``, modalities whose encoder has dropout get frame
+    dropout: masks [B, N, h] from ``dropout_masks[name]`` when given, else
+    drawn from ``generator`` in the order of ``MODALITY_ORDER``."""
+    windows = {}
+    if cond.p1_face.out_dim > 0:
+        windows["p1_face"] = own_face_windows(prev_p1_faces, times,
+                                              cond.p1_face.history)
+    windows.update(_other_windows_all(cond, batch, times))
+    empty = prev_p1_faces.new_zeros((prev_p1_faces.shape[0], times.shape[0], 0))
+    return _encode_all(cond, params, windows, frame_nbs, empty, training=training,
+                       generator=generator, dropout_masks=dropout_masks)
+
+
 def encode_fixed_conditioning(cond: CondSpec, params, batch, times, *,
                               frame_nbs=None):
     """The non-autoregressive slice of the conditioning vector (everything
     except the agent's own face encoding) for all frames, computed before the
     sampling loop. -> [B, N, feature_dim - p1_face.out_dim]."""
-    parts = []
-    for name in MODALITY_ORDER[1:]:
-        spec = getattr(cond, name)
-        if spec is not None:
-            parts.append(encode_windows(
-                spec, params[name], other_windows(batch[name], times,
-                                                  spec.history)))
-    if cond.use_frame_nb:
-        if frame_nbs is None:
-            raise ValueError("use_frame_nb needs frame_nbs")
-        parts.append(frame_nbs)
-    if not parts:
-        x = batch["p1_face"]
-        return x.new_zeros((x.shape[0], times.shape[0], 0))
-    return torch.cat(parts, dim=-1)
+    x = batch["p1_face"]
+    return _encode_all(cond, params, _other_windows_all(cond, batch, times),
+                       frame_nbs, x.new_zeros((x.shape[0], times.shape[0], 0)))
 
 
 def encode_p1_face_single(cond: CondSpec, params, face_hist):

@@ -8,8 +8,9 @@ coupling, models.py:148-214). Every step's conditioning projection is hoisted
 into one matmul per frame (``project_cond``).
 
 The plain functions here are the reference for the sampling kernels in
-``ops/flow_kernels.py``, and the path taken for flows outside those kernels'
-envelope (LSTM or additive couplings, shuffle/reverse permutations).
+``ops/flow_kernels.py`` and the training kernels in ``ops/train_kernels.py``,
+and the path taken for flows outside those kernels' envelopes (LSTM or
+additive couplings, shuffle/reverse permutations).
 """
 
 from __future__ import annotations
@@ -157,15 +158,29 @@ def project_cond_split(flow_params, p1_dim: int, fixed_cond_all):
     return fixed.contiguous(), w_p1
 
 
-def frame_fwd(spec: FlowSpec, flow_params, x, cond, states, *, cond_projs=None):
+def project_cond_frames(flow_params, cond_all):
+    """Projections for every frame at once: [B, N, F] -> [N, K, B, cond_dim]
+    (pre-activation, bias included), one [B*N, F] @ [F, K*c] matmul."""
+    w = flow_params["cond_proj"]["w"]            # [K, c, F]
+    b = flow_params["cond_proj"]["b"]
+    bsz, n, f = cond_all.shape
+    k, c, _ = w.shape
+    wt = w.permute(2, 0, 1).reshape(f, k * c)
+    proj = (cond_all.reshape(bsz * n, f) @ wt).reshape(bsz, n, k, c)
+    return proj.permute(1, 2, 0, 3) + b[None, :, None, :]
+
+
+def frame_fwd(spec: FlowSpec, flow_params, x, cond, states, *, cond_projs=None,
+              collect_scales=False):
     """Encode one frame through all K steps. x: [B, C], cond: [B, F] (ignored
     when ``cond_projs`` [K, B, cond_dim] are given).
-    Returns (z, logdet [B], new_states)."""
+    Returns (z, logdet [B], new_states[, scales [K, B, Cout/2] of an affine
+    coupling])."""
     if cond_projs is None:
         cond_projs = project_cond(flow_params, cond)
     z = x
     logdet = x.new_zeros(x.shape[:-1])
-    new_states = []
+    new_states, scales = [], []
     for k in range(spec.n_steps):
         p = tree_index(flow_params, k)
         z, logdet = ops.actnorm_fwd(p["actnorm"], z, logdet)
@@ -173,9 +188,13 @@ def frame_fwd(spec: FlowSpec, flow_params, x, cond, states, *, cond_projs=None):
         z1, z2 = ops.split_half(z)
         h, new_state = _coupling_net(spec, p, z1, cond_projs[k],
                                      _state_at(states, k))
+        if collect_scales and spec.coupling == "affine":
+            scales.append(ops.affine_scale(ops.split_cross(h)[1], spec.scale_eps))
         z2, logdet = _apply_coupling_fwd(spec, h, z2, logdet)
         z = ops.cat_half(z1, z2)
         new_states.append(new_state)
+    if collect_scales:
+        return z, logdet, _stack_states(new_states), torch.stack(scales)
     return z, logdet, _stack_states(new_states)
 
 
@@ -197,3 +216,28 @@ def frame_rev(spec: FlowSpec, flow_params, z, cond, states, *, cond_projs=None):
         z, logdet = _perm_rev(spec, p["perm"], z, logdet)
         z, logdet = ops.actnorm_rev(p["actnorm"], z, logdet)
     return z, logdet, _stack_states(new_states)
+
+
+@torch.no_grad()
+def actnorm_sequential_init(spec: FlowSpec, flow_params, x0, cond0) -> dict:
+    """Data-dependent actnorm init from the first conditioned frame x0 [B, C]
+    (cond0 [B, F]): step k's actnorm sees x0 after steps 0..k-1 with their
+    new actnorms (modules.py:32-43; the reference initialises lazily in its
+    first forward). Returns {"bias": [K, C], "logs": [K, C]}."""
+    cond_projs = project_cond(flow_params, cond0)
+    states = init_flow_states(spec, x0.shape[0], x0.device)
+    zero = x0.new_zeros(x0.shape[:-1])
+    z = x0
+    bias, logs = [], []
+    for k in range(spec.n_steps):
+        p = tree_index(flow_params, k)
+        an = ops.actnorm_data_init(z, spec.actnorm_scale)
+        bias.append(an["bias"])
+        logs.append(an["logs"])
+        z, _ = ops.actnorm_fwd(an, z, zero)
+        z, _ = _perm_fwd(spec, p["perm"], z, zero)
+        z1, z2 = ops.split_half(z)
+        h, _ = _coupling_net(spec, p, z1, cond_projs[k], _state_at(states, k))
+        z2, _ = _apply_coupling_fwd(spec, h, z2, zero)
+        z = ops.cat_half(z1, z2)
+    return {"bias": torch.stack(bias), "logs": torch.stack(logs)}

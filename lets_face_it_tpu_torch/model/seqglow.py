@@ -1,8 +1,18 @@
-"""Sequence-level model: parameters and autoregressive sampling (the port of
-``lets_face_it_tpu/model/seqglow.py``, sampling side; the teacher-forced NLL
-and inversion wait for the training slice).
+"""Sequence-level model: parameters, the teacher-forced NLL and autoregressive
+sampling (the port of ``lets_face_it_tpu/model/seqglow.py``; the inversion
+``sequence_invert`` waits for the evaluation slice).
 
-Conditioning for all frames except the agent's own face is encoded in one
+Training (``sequence_nll``): all conditioning is known up front (teacher
+forcing), so it is encoded and projected for every frame in one pass; inside
+the training kernels' envelope (``ops/train_kernels.py::train_supported``,
+which holds for ``final_model``) the whole [N frames x K steps] traversal is
+one launch of ``seq_fwd`` under a ``torch.autograd.Function`` whose backward
+launches ``seq_bwd``; outside it, the plain ``flow.frame_fwd`` loop runs under
+autograd. Loss convention (models.py:563-565): bits per frame,
+``-(logdet + logp(z)) / ln 2``, mean over batch and frames, not divided by
+the channel count.
+
+Sampling: conditioning for all frames except the agent's own face is encoded in one
 batched pass before the frame loop; only the own-face contribution to each
 step's projection is autoregressive. Inside the sequence kernel's envelope
 (``ops/flow_kernels.py::sampling_seq_supported``, which holds for
@@ -20,9 +30,10 @@ import logging
 import torch
 from torch import nn
 
+from lets_face_it_tpu_torch.core import ops
 from lets_face_it_tpu_torch.model import encoders, flow
 from lets_face_it_tpu_torch.model.spec import FlowSpec
-from lets_face_it_tpu_torch.ops import flow_kernels
+from lets_face_it_tpu_torch.ops import flow_kernels, train_kernels
 
 logger = logging.getLogger(__name__)
 
@@ -73,6 +84,60 @@ def _frame_numbers(spec: FlowSpec, batch, n_frames: int):
     base = batch["frame_nb"] + 2.0 * spec.cond.longest_history        # [B, 1]
     steps = 2.0 * torch.arange(n_frames, dtype=base.dtype, device=base.device)
     return base[:, None, :] + steps[None, :, None]
+
+
+def nll_from_objective(objective):
+    """Bits: -(logdet + logp) / ln 2 (models.py:563-565)."""
+    return -objective / ops.LN2
+
+
+@functools.lru_cache(maxsize=None)
+def training_path(spec: FlowSpec) -> str:
+    """'kernels' (the seq_fwd/seq_bwd pair) or 'plain' (``flow.frame_fwd``
+    under autograd); decided from the spec and logged once."""
+    path = "kernels" if train_kernels.train_supported(spec) else "plain"
+    logger.info("training path for this flow: %s", path)
+    return path
+
+
+def sequence_nll(spec: FlowSpec, params, batch, *, training: bool = False,
+                 generator: torch.Generator | None = None,
+                 dropout_masks: dict | None = None):
+    """Teacher-forced NLL over [B, T, C] sequences (models.py:534-565).
+
+    ``params`` is a ``SeqGlow``; ``batch`` holds the modalities as tensors on
+    one device. ``training`` turns on frame dropout in the encoders, with
+    masks from ``dropout_masks`` or drawn from ``generator``
+    (``encoders.encode_conditioning``). Returns (z_seq [N, B, C], loss
+    scalar, per-frame per-sample losses [N, B]), N = T - longest_history;
+    differentiable."""
+    x = batch["p1_face"]
+    b, t, _ = x.shape
+    start = spec.cond.longest_history
+    n = t - start
+    times = torch.arange(start, t, device=x.device)
+    frame_nbs = _frame_numbers(spec, batch, n) if spec.cond.use_frame_nb else None
+    cond_all = encoders.encode_conditioning(
+        spec.cond, params.encoder, batch, x, times, frame_nbs=frame_nbs,
+        training=training, generator=generator, dropout_masks=dropout_masks)
+    xs = x[:, start:].transpose(0, 1).contiguous()                 # [N, B, C]
+    cond_projs = flow.project_cond_frames(params.flow, cond_all)   # [N, K, B, c]
+    states = flow.init_flow_states(spec, b, x.device)
+
+    if training_path(spec) == "kernels":
+        z_seq, logdet, _, _ = train_kernels.flow_sequence_fused(
+            spec, params.flow, xs, cond_projs.contiguous(), states)
+        losses = nll_from_objective(logdet + ops.gaussian_logp(z_seq))
+        return z_seq, losses.mean(), losses
+
+    zs, nlls = [], []
+    for i in range(n):
+        z, logdet, states = flow.frame_fwd(spec, params.flow, xs[i], None,
+                                           states, cond_projs=cond_projs[i])
+        zs.append(z)
+        nlls.append(nll_from_objective(logdet + ops.gaussian_logp(z)))
+    losses = torch.stack(nlls)
+    return torch.stack(zs), losses.mean(), losses
 
 
 @functools.lru_cache(maxsize=None)

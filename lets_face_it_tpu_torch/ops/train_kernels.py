@@ -1,0 +1,417 @@
+"""The two training kernels of the flow, each beside its plain PyTorch version,
+wired as one ``torch.autograd.Function``.
+
+* ``seq_fwd``: the teacher-forced forward of a whole sequence (N frames x K
+  steps, the K GRU states kept on chip across frames); it also writes the
+  two residual stacks the backward needs (each step's input z and each
+  step's new state). CUDA source ``csrc/seq_fwd.cu``; replaces
+  ``lets_face_it_tpu/ops/pallas_train.py`` ``_fwd_kernel``.
+* ``seq_bwd``: the mirror backward. It walks the frames in reverse,
+  recomputes each step from the residuals, threads the serial cotangent
+  chains (dz within a frame, the K state cotangents across frames) and
+  writes each (frame, step)'s local cotangents. CUDA source
+  ``csrc/seq_bwd.cu``; replaces ``_bwd_kernel``.
+
+``flow_sequence_fused`` runs them as ``_FlowSequence`` (the role of
+``_flow_seq_fused``'s custom VJP in the JAX package): its backward launches
+``seq_bwd`` and then forms every weight gradient and the conditioning
+gradient as large contractions over frames x rows (``torch.einsum``, as the
+JAX package leaves them to XLA). The gradients on ``TrainWeights`` reach the
+flow parameters through the differentiable ``prepare_train_weights``.
+
+A wrapper runs its plain version (``*_ref``) only when it is given CPU
+tensors; given CUDA tensors it launches its kernel or raises. Each wrapper
+counts its kernel launches in its ``launches`` attribute. Both kernels compute
+in float32 with fused multiply-adds; ``precision="highest"`` is the only value
+accepted.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple
+
+import torch
+
+from lets_face_it_tpu_torch.core import ops
+from lets_face_it_tpu_torch.model.spec import FlowSpec
+from lets_face_it_tpu_torch.ops import cuda_build
+from lets_face_it_tpu_torch.ops.flow_kernels import (MAX_SMEM_BYTES, _check,
+                                                     _check_precision,
+                                                     _raise_on, _round4,
+                                                     _spec_ints,
+                                                     fold_output_head)
+
+
+class TrainWeights(NamedTuple):
+    """Flow weights prepared for the training kernels (float32, contiguous).
+
+    Built by ``prepare_train_weights`` with differentiable ops, so the
+    gradients the autograd Function returns for these tensors chain back to
+    the flow parameters."""
+    w: torch.Tensor         # [K, C, C]      P @ L @ U
+    an_bias: torch.Tensor   # [K, C]
+    an_scale: torch.Tensor  # [K, C]         exp(actnorm logs)
+    w_ih_t: torch.Tensor    # [K, Z1+cond, 3H]  transposed GRU input weights
+    w_hh_t: torch.Tensor    # [K, H, 3H]
+    b_ih: torch.Tensor      # [K, 3H]
+    b_hh: torch.Tensor      # [K, 3H]
+    out_w_t: torch.Tensor   # [K, H, Cout]   columns [shift | scale_raw]
+    out_b: torch.Tensor     # [K, Cout]      permuted, logscale folded
+
+
+def prepare_train_weights(spec: FlowSpec, flow_params) -> TrainWeights:
+    """W = P L U materialized once per call, exp(logs), the transposed GRU
+    weights and the folded coupling head; differentiable."""
+    if not (spec.rnn_type == "gru" and spec.coupling == "affine"
+            and spec.permutation == "invconv"):
+        raise ValueError("the training kernels need a GRU, affine, invconv flow")
+    out_w, out_b = fold_output_head(flow_params["out"], spec.coupling_out_dim)
+    rnn_p = flow_params["rnn"]
+    return TrainWeights(
+        w=ops.invconv_weight(flow_params["perm"]).contiguous(),
+        an_bias=flow_params["actnorm"]["bias"].contiguous(),
+        an_scale=torch.exp(flow_params["actnorm"]["logs"]),
+        w_ih_t=rnn_p["w_ih"].transpose(1, 2).contiguous(),
+        w_hh_t=rnn_p["w_hh"].transpose(1, 2).contiguous(),
+        b_ih=rnn_p["b_ih"].contiguous(),
+        b_hh=rnn_p["b_hh"].contiguous(),
+        out_w_t=out_w.transpose(1, 2).contiguous(),
+        out_b=out_b.contiguous(),
+    )
+
+
+def logdet_const(spec: FlowSpec, flow_params):
+    """Data-independent logdet per frame: (sum(actnorm logs) + sum(log|s|))
+    * C summed over the K steps (modules.py:62,171 x-C convention)."""
+    return (flow_params["actnorm"]["logs"].sum()
+            + flow_params["perm"]["log_s"].sum()) * spec.channels
+
+
+# ---------------------------------------------------------------------------
+# Envelope
+# ---------------------------------------------------------------------------
+
+def train_smem_bytes(spec: FlowSpec) -> int:
+    """Least shared memory of a one-row seq_bwd.cu block (the larger of the
+    two kernels): the K state cotangents, the backward's buffers, the step
+    scratch and one slice of partial sums of the widest product."""
+    c, z1, h = spec.channels, spec.z1_dim, spec.hidden_channels
+    cond, cout = spec.cond.cond_dim, spec.coupling_out_dim
+    g = 3 * h
+    states = _round4(spec.n_steps * h)
+    extra = 3 * _round4(h) + 2 * _round4(c) + _round4(cout) + 2 * _round4(g)
+    step = 2 * _round4(c) + _round4(z1 + cond) + 2 * _round4(g) + _round4(cout)
+    return 4 * (states + extra + step + max(g, cond))
+
+
+def train_supported(spec: FlowSpec) -> bool:
+    """The training kernels' envelope: GRU + affine + invconv flows whose
+    product widths (C, Z1, H, 3H, cond, Cout) are multiples of 4 (16-byte
+    weight loads) and whose one-row backward tile fits one block's shared
+    memory. Decided from the spec alone; the batch is arbitrary."""
+    widths = (spec.channels, spec.z1_dim, spec.hidden_channels,
+              3 * spec.hidden_channels, spec.cond.cond_dim,
+              spec.coupling_out_dim)
+    return (spec.rnn_type == "gru" and spec.coupling == "affine"
+            and spec.permutation == "invconv"
+            and all(n % 4 == 0 for n in widths)
+            and train_smem_bytes(spec) <= MAX_SMEM_BYTES)
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+def _recompute_step(spec: FlowSpec, tw: TrainWeights, k: int, z, cond_k, h_prev):
+    """One forward step on prepared weights -> (zb, gi, gh, r, u, n, h_new,
+    hout, sig, scale)."""
+    hd, z1d, half = spec.hidden_channels, spec.z1_dim, spec.coupling_out_dim // 2
+    za = (z + tw.an_bias[k]) * tw.an_scale[k]
+    zb = za @ tw.w[k]
+    rnn_in = torch.cat([zb[:, :z1d], ops.leaky_relu(cond_k)], dim=-1)
+    gi = rnn_in @ tw.w_ih_t[k] + tw.b_ih[k]
+    gh = h_prev @ tw.w_hh_t[k] + tw.b_hh[k]
+    r = torch.sigmoid(gi[:, :hd] + gh[:, :hd])
+    u = torch.sigmoid(gi[:, hd:2 * hd] + gh[:, hd:2 * hd])
+    n = torch.tanh(gi[:, 2 * hd:] + r * gh[:, 2 * hd:])
+    h_new = (1.0 - u) * n + u * h_prev
+    hout = h_new @ tw.out_w_t[k] + tw.out_b[k]
+    sig = torch.sigmoid(hout[:, half:] + 2.0)
+    scale = torch.clamp(sig, min=spec.scale_eps)
+    return zb, gi, gh, r, u, n, h_new, hout, sig, scale
+
+
+def seq_fwd_ref(spec: FlowSpec, tw: TrainWeights, xs, cond_seq, states0):
+    """Plain version of ``seq_fwd``: loops over t and k."""
+    n_frames, b, c = xs.shape
+    k_steps, z1d, half = spec.n_steps, spec.z1_dim, spec.coupling_out_dim // 2
+    z_seq = torch.empty_like(xs)
+    scales = xs.new_empty((n_frames, k_steps, b, half))
+    zs_res = xs.new_empty((n_frames, k_steps, b, c))
+    states_res = xs.new_empty((n_frames,) + tuple(states0.shape))
+    states = states0.clone()
+    for t in range(n_frames):
+        z = xs[t]
+        for k in range(k_steps):
+            zs_res[t, k] = z
+            zb, *_, h_new, hout, _, scale = _recompute_step(
+                spec, tw, k, z, cond_seq[t, k], states[k])
+            states[k] = h_new
+            states_res[t, k] = h_new
+            scales[t, k] = scale
+            z = torch.cat([zb[:, :z1d], (zb[:, z1d:] + hout[:, :half]) * scale],
+                          dim=-1)
+        z_seq[t] = z
+    return z_seq, scales, zs_res, states_res
+
+
+def seq_bwd_ref(spec: FlowSpec, tw: TrainWeights, cond_seq, zs_res, hprev_all,
+                dz_seq, dscales, dnew_states):
+    """Plain version of ``seq_bwd``: loops over t and k in reverse."""
+    n_frames, b, c = dz_seq.shape
+    k_steps, hd = spec.n_steps, spec.hidden_channels
+    z1d, half = spec.z1_dim, spec.coupling_out_dim // 2
+    dx = torch.empty_like(dz_seq)
+    dgi_all = dz_seq.new_empty((n_frames, k_steps, b, 3 * hd))
+    dghn_all = dz_seq.new_empty((n_frames, k_steps, b, hd))
+    dhout_all = dz_seq.new_empty((n_frames, k_steps, b, spec.coupling_out_dim))
+    dzb_all = dz_seq.new_empty((n_frames, k_steps, b, c))
+    dstates = dnew_states.clone()
+    for t in reversed(range(n_frames)):
+        dz = dz_seq[t]
+        for k in reversed(range(k_steps)):
+            h_prev = hprev_all[t, k]
+            zb, gi, gh, r, u, n, _, hout, sig, scale = _recompute_step(
+                spec, tw, k, zs_res[t, k], cond_seq[t, k], h_prev)
+            dz2p = dz[:, z1d:]
+            dscale = dz2p * (zb[:, z1d:] + hout[:, :half]) + dscales[t, k]
+            dsraw = torch.where(sig > spec.scale_eps, dscale, 0.0) * sig * (1.0 - sig)
+            dhout = torch.cat([dz2p * scale, dsraw], dim=-1)
+            dh_new = dhout @ tw.out_w_t[k].T + dstates[k]
+            du = dh_new * (h_prev - n)
+            dgn = dh_new * (1.0 - u) * (1.0 - n * n)
+            dghn = dgn * r
+            dgr = dgn * gh[:, 2 * hd:] * r * (1.0 - r)
+            dgu = du * u * (1.0 - u)
+            dgi = torch.cat([dgr, dgu, dgn], dim=-1)
+            dgh = torch.cat([dgr, dgu, dghn], dim=-1)
+            dstates[k] = dh_new * u + dgh @ tw.w_hh_t[k].T
+            dz1 = dz[:, :z1d] + dgi @ tw.w_ih_t[k, :z1d].T
+            dzb = torch.cat([dz1, dz2p * scale], dim=-1)
+            dgi_all[t, k], dghn_all[t, k] = dgi, dghn
+            dhout_all[t, k], dzb_all[t, k] = dhout, dzb
+            dz = (dzb @ tw.w[k].T) * tw.an_scale[k]
+        dx[t] = dz
+    return dx, dstates, dgi_all, dghn_all, dhout_all, dzb_all
+
+
+# ---------------------------------------------------------------------------
+# Wrappers
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+@functools.cache
+def _fwd_fn():
+    fn = cuda_build.load("seq_fwd").seq_fwd_launch
+    fn.argtypes = [_P] * 16 + [_I] * 8 + [ctypes.c_float, _P]
+    fn.restype = _I
+    return fn
+
+
+@functools.cache
+def _bwd_fn():
+    fn = cuda_build.load("seq_bwd").seq_bwd_launch
+    fn.argtypes = [_P] * 25 + [_I] * 8 + [ctypes.c_float, _P]
+    fn.restype = _I
+    return fn
+
+
+def _check_weights(spec: FlowSpec, tw: TrainWeights, device):
+    k, c, h = spec.n_steps, spec.channels, spec.hidden_channels
+    cout, ind = spec.coupling_out_dim, spec.z1_dim + spec.cond.cond_dim
+    shapes = {"w": (k, c, c), "an_bias": (k, c), "an_scale": (k, c),
+              "w_ih_t": (k, ind, 3 * h), "w_hh_t": (k, h, 3 * h),
+              "b_ih": (k, 3 * h), "b_hh": (k, 3 * h), "out_w_t": (k, h, cout),
+              "out_b": (k, cout)}
+    for name, shape in shapes.items():
+        _check(name, getattr(tw, name), shape, device)
+
+
+def _dispatch(spec: FlowSpec, precision: str, device) -> bool:
+    """True when the kernel is to be launched, False for the plain version
+    (CPU tensors); raises outside the envelope or on another device."""
+    _check_precision(precision)
+    if not train_supported(spec):
+        raise ValueError("spec is outside the training kernels' envelope")
+    if device.type == "cpu":
+        return False
+    if device.type != "cuda":
+        raise ValueError(f"no training kernel for device {device}")
+    return True
+
+
+def seq_fwd(spec: FlowSpec, tw: TrainWeights, xs, cond_seq, states0, *,
+            precision: str = "highest"):
+    """Teacher-forced forward: xs [N, B, C], cond_seq [N, K, B, cond]
+    (pre-activation projections), states0 [K, B, H] -> (z_seq [N, B, C],
+    scales [N, K, B, Cout/2], zs_res [N, K, B, C], states_res [N, K, B, H])."""
+    if not _dispatch(spec, precision, xs.device):
+        return seq_fwd_ref(spec, tw, xs, cond_seq, states0)
+    n, b, c = xs.shape
+    k, _, _, cond, h, cout = _spec_ints(spec)
+    dev = xs.device
+    _check("xs", xs, (n, b, c), dev)
+    _check("cond_seq", cond_seq, (n, k, b, cond), dev)
+    _check("states0", states0, (k, b, h), dev)
+    _check_weights(spec, tw, dev)
+    z_seq = torch.empty_like(xs)
+    scales = xs.new_empty((n, k, b, cout // 2))
+    zs_res = xs.new_empty((n, k, b, c))
+    states_res = xs.new_empty((n, k, b, h))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _fwd_fn()(xs.data_ptr(), cond_seq.data_ptr(), states0.data_ptr(),
+                    z_seq.data_ptr(), scales.data_ptr(), zs_res.data_ptr(),
+                    states_res.data_ptr(), *(t.data_ptr() for t in tw),
+                    b, n, *_spec_ints(spec), float(spec.scale_eps), stream)
+    _raise_on(err, "seq_fwd")
+    seq_fwd.launches += 1
+    return z_seq, scales, zs_res, states_res
+
+
+seq_fwd.launches = 0
+
+
+def seq_bwd(spec: FlowSpec, tw: TrainWeights, cond_seq, zs_res, hprev_all,
+            dz_seq, dscales, dnew_states, *, precision: str = "highest"):
+    """Mirror backward: the residuals zs_res [N, K, B, C] and hprev_all
+    [N, K, B, H] (each step's previous state), the cotangents dz_seq
+    [N, B, C], dscales [N, K, B, Cout/2] and dnew_states [K, B, H] ->
+    (dx [N, B, C], dstates0 [K, B, H], dgi [N, K, B, 3H], dghn [N, K, B, H],
+    dhout [N, K, B, Cout], dzb [N, K, B, C])."""
+    if not _dispatch(spec, precision, dz_seq.device):
+        return seq_bwd_ref(spec, tw, cond_seq, zs_res, hprev_all, dz_seq,
+                           dscales, dnew_states)
+    n, b, c = dz_seq.shape
+    k, _, z1, cond, h, cout = _spec_ints(spec)
+    dev = dz_seq.device
+    for name, t, shape in (("dz_seq", dz_seq, (n, b, c)),
+                           ("dscales", dscales, (n, k, b, cout // 2)),
+                           ("zs_res", zs_res, (n, k, b, c)),
+                           ("hprev_all", hprev_all, (n, k, b, h)),
+                           ("dnew_states", dnew_states, (k, b, h)),
+                           ("cond_seq", cond_seq, (n, k, b, cond))):
+        _check(name, t, shape, dev)
+    _check_weights(spec, tw, dev)
+    # the backward products read the transposed weights row by row
+    transposed = (tw.w.transpose(1, 2), tw.w_hh_t.transpose(1, 2),
+                  tw.w_ih_t[:, :z1].transpose(1, 2), tw.out_w_t.transpose(1, 2))
+    transposed = [t.contiguous() for t in transposed]
+    dx = torch.empty_like(dz_seq)
+    dstates0 = torch.empty_like(dnew_states)
+    dgi = dz_seq.new_empty((n, k, b, 3 * h))
+    dghn = dz_seq.new_empty((n, k, b, h))
+    dhout = dz_seq.new_empty((n, k, b, cout))
+    dzb = dz_seq.new_empty((n, k, b, c))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _bwd_fn()(dz_seq.data_ptr(), dscales.data_ptr(), zs_res.data_ptr(),
+                    hprev_all.data_ptr(), dnew_states.data_ptr(),
+                    cond_seq.data_ptr(), dx.data_ptr(), dstates0.data_ptr(),
+                    dgi.data_ptr(), dghn.data_ptr(), dhout.data_ptr(),
+                    dzb.data_ptr(), *(t.data_ptr() for t in tw),
+                    *(t.data_ptr() for t in transposed),
+                    b, n, *_spec_ints(spec), float(spec.scale_eps), stream)
+    _raise_on(err, "seq_bwd")
+    seq_bwd.launches += 1
+    return dx, dstates0, dgi, dghn, dhout, dzb
+
+
+seq_bwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The autograd Function
+# ---------------------------------------------------------------------------
+
+def flow_sequence_vjp(spec: FlowSpec, tw: TrainWeights, cond_seq, states0,
+                      zs_res, states_res, dz_seq, dscales, dnew_states, *,
+                      precision: str = "highest"):
+    """Cotangents of (z_seq, scales, new_states) -> gradients on
+    (TrainWeights..., xs, cond_seq, states0): ``seq_bwd`` for the serial
+    chains, then the weight gradients as contractions over frames x rows
+    (pallas_train.py:554-602)."""
+    z1d, h = spec.z1_dim, spec.hidden_channels
+    hprev_all = torch.cat([states0[None], states_res[:-1]], dim=0)
+    dx, dstates0, dgi, dghn, dhout, dzb = seq_bwd(
+        spec, tw, cond_seq, zs_res, hprev_all, dz_seq, dscales, dnew_states,
+        precision=precision)
+
+    ein = torch.einsum
+    bias = tw.an_bias[None, :, None, :]
+    scale = tw.an_scale[None, :, None, :]
+    za = (zs_res + bias) * scale
+    z1 = ein("nkbc,kcd->nkbd", za, tw.w)[..., :z1d]
+    dgh = torch.cat([dgi[..., :2 * h], dghn], dim=-1)
+    dza = ein("nkbd,kcd->nkbc", dzb, tw.w)
+    d_w_ih = torch.cat([ein("nkbi,nkbg->kig", z1, dgi),
+                        ein("nkbi,nkbg->kig", ops.leaky_relu(cond_seq), dgi)],
+                       dim=1)
+    dtw = TrainWeights(
+        w=ein("nkbc,nkbd->kcd", za, dzb),
+        an_bias=(dza * scale).sum(dim=(0, 2)),
+        an_scale=(dza * (zs_res + bias)).sum(dim=(0, 2)),
+        w_ih_t=d_w_ih,
+        w_hh_t=ein("nkbh,nkbg->khg", hprev_all, dgh),
+        b_ih=dgi.sum(dim=(0, 2)),
+        b_hh=dgh.sum(dim=(0, 2)),
+        out_w_t=ein("nkbh,nkbo->kho", states_res, dhout),
+        out_b=dhout.sum(dim=(0, 2)),
+    )
+    dcond = ein("nkbg,kig->nkbi", dgi, tw.w_ih_t[:, z1d:])
+    dcond = dcond * torch.where(cond_seq > 0, 1.0, 0.01)
+    return (*dtw, dx, dcond, dstates0)
+
+
+class _FlowSequence(torch.autograd.Function):
+    """(TrainWeights..., xs, cond_seq, states0) -> (z_seq, scales,
+    new_states), forward by ``seq_fwd``, backward by ``flow_sequence_vjp``."""
+
+    @staticmethod
+    def forward(ctx, spec, precision, *inputs):
+        tw = TrainWeights(*inputs[:9])
+        xs, cond_seq, states0 = inputs[9:]
+        z_seq, scales, zs_res, states_res = seq_fwd(
+            spec, tw, xs, cond_seq, states0, precision=precision)
+        ctx.spec, ctx.precision = spec, precision
+        ctx.save_for_backward(*tw, cond_seq, states0, zs_res, states_res)
+        return z_seq, scales, states_res[-1].clone()
+
+    @staticmethod
+    def backward(ctx, dz_seq, dscales, dnew_states):
+        *tw, cond_seq, states0, zs_res, states_res = ctx.saved_tensors
+        grads = flow_sequence_vjp(
+            ctx.spec, TrainWeights(*tw), cond_seq, states0, zs_res, states_res,
+            dz_seq.contiguous(), dscales.contiguous(), dnew_states.contiguous(),
+            precision=ctx.precision)
+        return (None, None, *grads)
+
+
+def flow_sequence_fused(spec: FlowSpec, flow_params, xs, cond_seq, states0, *,
+                        precision: str = "highest"):
+    """The teacher-forced flow traversal of a whole sequence on the training
+    kernel pair, differentiable. xs [N, B, C]; cond_seq [N, K, B, cond]
+    pre-projected conditioning (``flow.project_cond_frames``); states0
+    [K, B, H], all contiguous. Returns (z_seq [N, B, C], logdet [N, B],
+    new_states [K, B, H], scales [N, K, B, Cout/2])."""
+    _check_precision(precision)
+    if not train_supported(spec):
+        raise ValueError("spec is outside the training kernels' envelope")
+    tw = prepare_train_weights(spec, flow_params)
+    z_seq, scales, new_states = _FlowSequence.apply(
+        spec, precision, *tw, xs, cond_seq, states0)
+    logdet = torch.log(scales).sum(dim=(1, 3)) + logdet_const(spec, flow_params)
+    return z_seq, logdet, new_states, scales

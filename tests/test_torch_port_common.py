@@ -37,6 +37,17 @@ def tiny_hp(p1_dim: int = 12):
     return hp
 
 
+def train_hp(p1_dim: int = 16):
+    """The tiny config at a width inside the training kernels' envelope
+    (every product width a multiple of 4): 10 expression dims, so C=16 and
+    Z1=8, with 16-D own-face and interlocutor faces."""
+    hp = tiny_hparams()
+    hp.Data["expression_dim"] = 10
+    hp.Conditioning["p1_face"]["dim"] = p1_dim
+    hp.Conditioning["p2_face"]["dim"] = 16
+    return hp
+
+
 def port_hp(hp):
     """The same config as the port's HParams."""
     out = PortHParams(**vars(hp))

@@ -23,7 +23,7 @@ from lets_face_it_tpu_torch.sample.weights import (load_state_dict,
                                                    state_dict_reference)
 
 from test_torch_port_common import (jax_params, port_hp, port_model, specs,
-                                    tiny_hp)
+                                    tiny_hp, train_hp)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -91,6 +91,26 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
         StreamingGenerator(pspec, model)
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(["--ckpt", str(path), "--out", str(tmp_path / "o.npy")])
+
+
+def test_training_entry_points_raise_without_cuda(no_cuda, tmp_path):
+    """The trainer CLI and ``train`` default to the GPU and raise without
+    one, before any work."""
+    import yaml
+
+    from lets_face_it_tpu_torch.train import __main__ as train_cli
+    from lets_face_it_tpu_torch.train.loop import synthetic_corpus, train
+
+    hp = port_hp(train_hp())
+    cfg = tmp_path / "tiny.yaml"
+    cfg.write_text(yaml.safe_dump({k: v for k, v in vars(hp).items()
+                                   if k != "config_name"}))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_cli.main([str(cfg), "--synthetic-data", "--max_steps", "1",
+                        "--ckpt_dir", str(tmp_path / "ck")])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train(hp, corpus=synthetic_corpus(hp, 0), max_steps=1)
+    assert not (tmp_path / "ck").exists()
 
 
 def test_cli_runs_on_cpu_when_asked(tmp_path, monkeypatch):
