@@ -8,7 +8,7 @@ Drives the port's serving path and its training path of
 the sources in this checkout:
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the four CUDA kernels (``lets_face_it_tpu_torch/csrc``) with nvcc
+2. builds the five CUDA kernels (``lets_face_it_tpu_torch/csrc``) with nvcc
    and prints each one's registers and spills;
 3. holds each sampling kernel against its plain PyTorch version on the card;
 4. saves the weights in the reference's names, loads them through
@@ -22,19 +22,21 @@ the sources in this checkout:
    ``torch.profiler``: device time, device idle share and the largest device
    operations of each call;
 8. holds the training kernels against their plain versions at B=256, N=56
-   (forward outputs, and the backward's outputs on seeded cotangents), and
-   the autograd Function's gradients against eager autograd through the
-   ``flow.frame_fwd`` loop, on two weight seeds;
+   (the conditioning gates ``cond_gates``, the forward's outputs, and the
+   backward's outputs on seeded cotangents), and the autograd Function's
+   gradients against eager autograd through the ``flow.frame_fwd`` loop, on
+   two weight seeds;
 9. trains ``final_model`` at B=256 for 3 steps and one validation on the
-   synthetic corpus (``train.loop.train``), checks that ``seq_fwd``,
-   ``seq_bwd`` and ``seq_rev`` were launched, that loss and gradient norm
+   synthetic corpus (``train.loop.train``), checks that ``cond_gates``,
+   ``seq_fwd``, ``seq_bwd`` and ``seq_rev`` were launched, that loss and gradient norm
    are finite, and that the checkpoint loads through
    ``Generator.from_checkpoint`` and generates;
 10. holds 2 training steps at B=32 against the same steps on the CPU plain
     path (same weights, batch and draws);
 11. times the training step and each training kernel beside its plain
-    version, a library yardstick and its bound, and traces a training step
-    with ``torch.profiler``.
+    version, a library yardstick and its bound (``seq_fwd`` as the whole
+    route and as its two launches, ``cond_gates`` beside one cuBLAS call for
+    the same product), and traces a training step with ``torch.profiler``.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
@@ -314,6 +316,14 @@ def train_bwd_bound_ms(spec, tw, n: int, b: int):
     io = 4 * (n * b * c + n * k * b * (half + c + h + cond) + k * b * h  # inputs
               + n * b * c + k * b * h + n * k * b * (3 * h + h + cout + c))  # outputs
     return _bound(w_bytes + io, n * b * k * _bwd_row_step_flops(spec))
+
+
+def cond_gates_bound_ms(spec, n: int, b: int):
+    """The conditioning gates of every frame and step: [N*B, cond] @
+    [cond, 3H] per step, cond read, weights and bias read, gc written."""
+    k, cond, g = spec.n_steps, spec.cond.cond_dim, 3 * spec.hidden_channels
+    n_bytes = 4 * (n * k * b * cond + k * (cond + 1) * g + n * k * b * g)
+    return _bound(n_bytes, 2 * n * b * k * cond * g)
 
 
 def eager_flow_sequence(spec, flow_params, xs, cond_seq, states0):
@@ -698,36 +708,40 @@ def main() -> int:
             keys = [f"{gn}.{ln}" for gn, ln in names] + ["xs", "cond_seq", "states0"]
             return loss.item(), dict(zip(keys, grads))
 
-        fwd_err, bwd_err, grad_ratio = {}, {}, {}
+        gates_err, fwd_err, bwd_err, grad_ratio = {}, {}, {}, {}
         for seed in TRAIN_SEEDS:
             model_t = (model_gpu if seed == SEED
                        else seeded_random_model(spec, seed).to(dev))
             xs, cs, st0 = train_inputs(b_tr, n_tr)
             with torch.no_grad():
                 tw = tk.prepare_train_weights(spec, model_t.flow)
+                gates_err[seed] = check_close(
+                    f"cond_gates seed {seed}", tk.cond_gates(spec, tw, cs),
+                    tk.cond_gates_ref(spec, tw, cs), TRAIN_VAL_ATOL, TRAIN_VAL_RTOL)
                 got = tk.seq_fwd(spec, tw, xs, cs, st0)
                 ref = tk.seq_fwd_ref(spec, tw, xs, cs, st0)
                 torch.cuda.synchronize()
                 fwd_err[seed] = max(
                     check_close(f"seq_fwd seed {seed} {nm}", a, r,
                                 TRAIN_VAL_ATOL, TRAIN_VAL_RTOL)
-                    for nm, a, r in zip(("z", "scales", "zs_res", "states_res"),
-                                        got, ref))
-                _, scales_r, zs_res, st_res = ref
+                    for nm, a, r in zip(("z", "scales", "zs_res", "states_res",
+                                         "gc"), got, ref))
+                _, scales_r, zs_res, st_res, gc = ref
                 hprev = torch.cat([st0[None], st_res[:-1]])
                 cot = (torch.randn(xs.shape, generator=g, device=dev),
                        torch.randn(scales_r.shape, generator=g, device=dev),
                        torch.randn(st0.shape, generator=g, device=dev))
-                got = tk.seq_bwd(spec, tw, cs, zs_res, hprev, *cot)
-                ref = tk.seq_bwd_ref(spec, tw, cs, zs_res, hprev, *cot)
+                got = tk.seq_bwd(spec, tw, gc, zs_res, hprev, *cot)
+                ref = tk.seq_bwd_ref(spec, tw, gc, zs_res, hprev, *cot)
                 torch.cuda.synchronize()
                 bwd_err[seed] = max(
                     check_close(f"seq_bwd seed {seed} {nm}", a, r,
                                 TRAIN_BWD_ATOL, TRAIN_BWD_RTOL)
                     for nm, a, r in zip(("dx", "dstates0", "dgi", "dghn", "dhout",
                                          "dzb"), got, ref))
-            print(f"check seq_fwd / seq_bwd weights seed {seed} B={b_tr} N={n_tr}: "
-                  f"max|d| {fwd_err[seed]:.3e} / {bwd_err[seed]:.3e}  ok")
+            print(f"check cond_gates / seq_fwd / seq_bwd weights seed {seed} B={b_tr} "
+                  f"N={n_tr}: max|d| {gates_err[seed]:.3e} / {fwd_err[seed]:.3e} / "
+                  f"{bwd_err[seed]:.3e}  ok")
             l_k, g_k = flow_gradients(tk.flow_sequence_fused, model_t,
                                       torch.float32, (xs, cs, st0))
             l_e, g_e = flow_gradients(eager_flow_sequence, model_t,
@@ -761,7 +775,7 @@ def main() -> int:
         corpus = train_loop.synthetic_corpus(hp, SEED, n_train_chunks=TRAIN_CHUNKS)
         ckpt_dir = Path(tmp) / "train_ckpt"
         step_log, val_log = [], []
-        tk.seq_fwd.launches = tk.seq_bwd.launches = 0
+        tk.cond_gates.launches = tk.seq_fwd.launches = tk.seq_bwd.launches = 0
         fk.sequence_rev_fused.launches = fk.frame_rev_fused.launches = 0
         t0 = time.perf_counter()
         state, best_val = train_loop.train(
@@ -771,7 +785,8 @@ def main() -> int:
             val_hook=lambda s, m: val_log.append(m))
         torch.cuda.synchronize()
         t_train = time.perf_counter() - t0
-        train_launches = {"seq_fwd": tk.seq_fwd.launches,
+        train_launches = {"cond_gates": tk.cond_gates.launches,
+                          "seq_fwd": tk.seq_fwd.launches,
                           "seq_bwd": tk.seq_bwd.launches,
                           "seq_rev": fk.sequence_rev_fused.launches}
         print(f"training main path: {TRAIN_STEPS} steps at B={b_tr} and one "
@@ -846,17 +861,30 @@ def main() -> int:
         with torch.no_grad():
             tw = tk.prepare_train_weights(spec, flow_t)
             fwd_call = lambda: tk.seq_fwd(spec, tw, xs, cs, st0)  # noqa: E731
-            _, scales_r, zs_res, st_res = fwd_call()
+            _, scales_r, zs_res, st_res, gc = fwd_call()
             hprev = torch.cat([st0[None], st_res[:-1]])
             cot = (torch.randn(xs.shape, generator=g, device=dev),
                    torch.randn(scales_r.shape, generator=g, device=dev),
                    torch.randn(st0.shape, generator=g, device=dev))
-            bwd_call = lambda: tk.seq_bwd(spec, tw, cs, zs_res, hprev, *cot)  # noqa: E731
+            bwd_call = lambda: tk.seq_bwd(spec, tw, gc, zs_res, hprev, *cot)  # noqa: E731
+            gates_call = lambda: tk.cond_gates(spec, tw, cs)  # noqa: E731
             fwd_ms, bwd_ms = time_ms(graphed(fwd_call), 3), time_ms(graphed(bwd_call), 3)
+            gemm_ms = time_ms(graphed(gates_call), 3)
+            serial_ms = time_ms(graphed(
+                lambda: tk.seq_fwd_serial(spec, tw, xs, gc, st0)), 3)
             fwd_wrap, bwd_wrap = time_ms(fwd_call, 3), time_ms(bwd_call, 3)
+            gates_wrap = time_ms(gates_call, 3)
             fwd_plain = time_ms(lambda: tk.seq_fwd_ref(spec, tw, xs, cs, st0), 1, warmup=1)
-            bwd_plain = time_ms(lambda: tk.seq_bwd_ref(spec, tw, cs, zs_res, hprev,
+            bwd_plain = time_ms(lambda: tk.seq_bwd_ref(spec, tw, gc, zs_res, hprev,
                                                        *cot), 1, warmup=1)
+            gates_plain = time_ms(lambda: tk.cond_gates_ref(spec, tw, cs), 3)
+            # the library GEMM: one cuBLAS call, on operands laid out for it
+            lib_a = torch.nn.functional.leaky_relu(cs, 0.01).permute(1, 0, 2, 3).reshape(
+                k_steps, -1, cond).contiguous()
+            lib_w = tw.w_ih_t[:, spec.z1_dim:].contiguous()
+            lib_b = tw.b_ih[:, None, :].contiguous()
+            lib_gates = time_ms(graphed(lambda: torch.baddbmm(lib_b, lib_a, lib_w)), 3)
+            del lib_a
             lib_fwd = time_ms(graphed(lambda: eager_flow_sequence(
                 spec, flow_t, xs, cs, st0)), 3)
         # the library backward: the eager loop's autograd backward (inputs and
@@ -875,6 +903,15 @@ def main() -> int:
                    - time_ms(graphed(lib_forward), 3))
         fwd_bound, fwd_by = train_fwd_bound_ms(spec, tw, n_tr, b_tr)
         bwd_bound, bwd_by = train_bwd_bound_ms(spec, tw, n_tr, b_tr)
+        gates_bound, gates_by = cond_gates_bound_ms(spec, n_tr, b_tr)
+        print(f"seq_fwd B={b_tr} N={n_tr}: whole route {fwd_ms:.4f} ms = cond_gates "
+              f"{gemm_ms:.4f} ms + serial kernel {serial_ms:.4f} ms (graph replay); "
+              f"pair fwd + bwd {fwd_ms + bwd_ms:.4f} ms against bounds "
+              f"{fwd_bound + bwd_bound:.4f} ms")
+        print(f"cond_gates B={b_tr} N={n_tr}: kernel {gemm_ms:.4f} ms (graph replay; "
+              f"{gates_wrap:.4f} ms through the wrapper), plain {gates_plain:.4f} ms, "
+              f"library (graphed cuBLAS baddbmm) {lib_gates:.4f} ms, bound "
+              f"{gates_bound:.4f} ms ({gates_by})")
         for name, ms, wrap, plain, lib, bound, by in (
                 ("seq_fwd", fwd_ms, fwd_wrap, fwd_plain, lib_fwd, fwd_bound, fwd_by),
                 ("seq_bwd", bwd_ms, bwd_wrap, bwd_plain, lib_bwd, bwd_bound, bwd_by)):
@@ -887,6 +924,7 @@ def main() -> int:
             name="seq_fwd", route="cuda", source="lets_face_it_tpu_torch/csrc/seq_fwd.cu",
             replaces="lets_face_it_tpu/ops/pallas_train.py:182",
             launches=train_launches["seq_fwd"], max_abs_err=fwd_err[SEED], ms=fwd_ms,
+            gemm_ms=gemm_ms, serial_ms=serial_ms,
             wrapper_ms=fwd_wrap, plain_ms=fwd_plain, bound_ms=fwd_bound,
             bound_by=fwd_by, library_ms=lib_fwd, batch=b_tr, frames=n_tr))
         records.append(dict(
@@ -895,6 +933,14 @@ def main() -> int:
             launches=train_launches["seq_bwd"], max_abs_err=bwd_err[SEED], ms=bwd_ms,
             wrapper_ms=bwd_wrap, plain_ms=bwd_plain, bound_ms=bwd_bound,
             bound_by=bwd_by, library_ms=lib_bwd, batch=b_tr, frames=n_tr))
+        records.append(dict(
+            name="cond_gates", route="cuda",
+            source="lets_face_it_tpu_torch/csrc/cond_gates.cu",
+            replaces="lets_face_it_tpu/ops/pallas_train.py:241",
+            launches=train_launches["cond_gates"], max_abs_err=gates_err[SEED],
+            ms=gemm_ms, wrapper_ms=gates_wrap, plain_ms=gates_plain,
+            bound_ms=gates_bound, bound_by=gates_by, library_ms=lib_gates,
+            batch=b_tr, frames=n_tr))
         print(json.dumps(trace_window(
             f"train_step_b{b_tr}", lambda: train_state.train_step(spec, hp, state, jb),
             3)))

@@ -4,8 +4,9 @@
 // pallas_call in _seq_bwd_call), the mirror half of the training kernel
 // pair. One launch walks the N frames in reverse and, within each frame, the
 // K steps in reverse. For frame t and step k it first recomputes the step
-// from the forward's residuals (the step input zs[t, k] and the previous GRU
-// state hprev[t, k]) exactly as seq_fwd.cu computes it, then takes the step
+// from the forward's residuals (the step input zs[t, k], the previous GRU
+// state hprev[t, k] and the conditioning gates gc[t, k] that cond_gates.cu
+// computed for the forward) as seq_fwd.cu computes it, then takes the step
 // backward:
 //   d_scale = dz2 * (z2 + shift) + dscales[t, k]      (z2 before coupling)
 //   dhout   = [dz2 * scale | d_scale * sig * (1 - sig) where sig > eps]
@@ -21,22 +22,23 @@
 // frames and rows; per frame it writes dx, and at the end dstates0.
 //
 // What bounds it on an H100: the recompute (533.6 kFLOP per row and step for
-// final_model) plus the four transposed products of the backward
-// (dhout @ out_w, dgh @ w_hh, dgi @ w_ih[:, :Z1], dzb @ W^T: 140.4 kFLOP),
-// about 674 kFLOP per row-step, 155 GFLOP or 2.31 ms at B = 256, N = 56 at
-// the 67 TFLOP/s of float32 FMA; it moves about 1.27 GB (0.38 ms). Bound by
-// operations.
+// final_model, as the TPU kernel counts it) plus the four transposed
+// products (140.4 kFLOP), about 674 kFLOP per row-step, 155 GFLOP or 2.31 ms
+// at B = 256, N = 56 at the 67 TFLOP/s of float32 FMA. Reading gc in place of
+// the conditioning product leaves 281 kFLOP per row and step here; the chain
+// is bound by moving each step's eight weights (562 KB) into the SMs.
 //
-// Design: as seq_fwd.cu, one block of 1024 threads per tile of BT rows loops
-// over the frames and steps; the tile's K state cotangents stay in shared
-// memory across frames (the TPU kernel kept them in VMEM scratch across its
-// sequential grid). The transposed weights of the backward products are
-// laid out by the wrapper (ops/train_kernels.py::seq_bwd) so that every
-// product is the same split tile product (flow_step.cuh::tile_matvec) with
-// 16-byte weight loads. This file allocates nothing and launches on the
+// Design: as seq_fwd.cu, one block of 13 warps per tile of BT rows loops
+// over the frames and steps, the tile's K state cotangents in shared memory
+// across frames; the last warp streams the eight weights of every step
+// through the ring of flow_stream.cuh, shared across the cluster by
+// multicast, and the other 12 warps compute, fetching each step's residuals
+// one step ahead. The transposed weights are laid out by the wrapper
+// (ops/train_kernels.py::seq_bwd), so that every product is the same
+// streamed tile product. This file allocates nothing and launches on the
 // caller's stream.
 
-#include "flow_step.cuh"
+#include "flow_stream.cuh"
 
 struct BwdWeights {
   const float* w_t;       // [K, C, C]     W^T
@@ -45,187 +47,286 @@ struct BwdWeights {
   const float* out_w;     // [K, COUT, H]  out_w_t^T
 };
 
-// Shared floats of the backward's own buffers (besides the K state
-// cotangents and the step scratch).
-__host__ __device__ inline int bwd_extra_floats(int bt, const FlowWeights& w) {
-  return 3 * round4(bt * w.H) + 2 * round4(bt * w.C) + round4(bt * w.COUT)
-         + 2 * round4(bt * 3 * w.H);
+// Floats of one step's prefetched inputs: an_bias[k], an_scale[k], b_hh[k],
+// out_b[k], and the tile's rows of gc[t, k], zs[t, k], hprev[t, k],
+// dscales[t, k] and (last step of a frame, the first walked) dz_seq[t].
+__host__ __device__ inline int bwd_step_floats(int bt, const FlowWeights& w) {
+  return 2 * w.C + 3 * w.H + w.COUT
+         + bt * (3 * w.H + w.C + w.H + w.COUT / 2 + w.C);
+}
+
+__host__ __device__ inline int bwd_other_floats(int bt, const FlowWeights& w) {
+  const int G = 3 * w.H;
+  return round4(w.K * bt * w.H) + 2 * round4(bt * w.H) + 4 * round4(bt * w.C)
+         + 2 * round4(bt * w.COUT) + 4 * round4(bt * G)
+         + 2 * bwd_step_floats(bt, w);
 }
 
 template <int BT>
-__global__ void __launch_bounds__(FLOW_THREADS)
-seq_bwd_kernel(FlowWeights w, BwdWeights wb, int B, int N, int partial_floats,
+__global__ void __launch_bounds__(STREAM_THREADS, 1)
+seq_bwd_kernel(FlowWeights w, BwdWeights wb, int B, int N, int nslots,
+               int slot_floats, StreamTable tab, int cs,
                const float* __restrict__ dz_seq,      // [N, B, C]
                const float* __restrict__ dscales,     // [N, K, B, COUT / 2]
                const float* __restrict__ zs,          // [N, K, B, C]
                const float* __restrict__ hprev_g,     // [N, K, B, H]
                const float* __restrict__ dnew_states, // [K, B, H]
-               const float* __restrict__ cond,        // [N, K, B, COND]
+               const float* __restrict__ gc,          // [N, K, B, 3H]
                float* __restrict__ dx,                // [N, B, C]
                float* __restrict__ dstates0,          // [K, B, H]
                float* __restrict__ dgi_g,             // [N, K, B, 3H]
                float* __restrict__ dghn_g,            // [N, K, B, H]
                float* __restrict__ dhout_g,           // [N, K, B, COUT]
                float* __restrict__ dzb_g) {           // [N, K, B, C]
-  extern __shared__ __align__(16) float smem[];
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int K = w.K, C = w.C, Z1 = w.Z1, COND = w.COND, H = w.H;
+  extern __shared__ __align__(128) float smem[];
+  const int tid = threadIdx.x;
+  const int K = w.K, C = w.C, Z1 = w.Z1, H = w.H;
   const int COUT = w.COUT, half = COUT / 2;
-  const int IN = Z1 + COND, G = 3 * H;
+  const int G = 3 * H, IN = Z1 + w.COND;
   const int row0 = blockIdx.x * BT;
-  const int rows = min(BT, B - row0);
+  const int rows = max(0, min(BT, B - row0));   // 0 in padding blocks
+  const int SF = bwd_step_floats(BT, w);
+  // offsets in a step's prefetch buffer
+  const int o_am = C, o_bh = 2 * C, o_ob = 2 * C + G, o_gc = o_ob + COUT,
+            o_zs = o_gc + BT * G, o_hp = o_zs + BT * C, o_ds = o_hp + BT * H,
+            o_dz = o_ds + BT * half;
 
-  float* dstates = smem;                         // [K, BT, H]
-  float* hprev = dstates + round4(K * BT * H);   // [BT, H]
-  float* hnew = hprev + round4(BT * H);          // [BT, H]
-  float* dh = hnew + round4(BT * H);             // [BT, H]
-  float* dz = dh + round4(BT * H);               // [BT, C]
-  float* dzb = dz + round4(BT * C);              // [BT, C]
-  float* dhout = dzb + round4(BT * C);           // [BT, COUT]
-  float* dgi = dhout + round4(BT * COUT);        // [BT, 3H]
-  float* dgh = dgi + round4(BT * G);             // [BT, 3H]
-  StepScratch s = carve_step_scratch(dgh + round4(BT * G), BT, w,
-                                     partial_floats);
+  Ring ring;
+  float* dstates = carve_ring(smem, nslots, slot_floats, &ring);   // [K, BT, H]
+  float* hnew = dstates + round4(K * BT * H);              // [BT, H]
+  float* dh = hnew + round4(BT * H);                       // [BT, H]
+  float* z = dh + round4(BT * H);                          // [BT, C]
+  float* ztmp = z + round4(BT * C);                        // [BT, C]
+  float* dz = ztmp + round4(BT * C);                       // [BT, C]
+  float* dzb = dz + round4(BT * C);                        // [BT, C]
+  float* hout = dzb + round4(BT * C);                      // [BT, COUT]
+  float* dhout = hout + round4(BT * COUT);                 // [BT, COUT]
+  float* gi = dhout + round4(BT * COUT);                   // [BT, 3H]
+  float* gh = gi + round4(BT * G);                         // [BT, 3H]
+  float* dgi = gh + round4(BT * G);                        // [BT, 3H]
+  float* dgh = dgi + round4(BT * G);                       // [BT, 3H]
+  float* pre = dgh + round4(BT * G);                       // [2, SF]
+  float* partial = pre + 2 * SF;
 
-  for (int idx = tid; idx < K * BT * H; idx += nt) {
+  if (tid == 0) init_ring(ring, cs);
+  for (int idx = tid; idx < K * BT * H; idx += STREAM_THREADS) {
     const int k = idx / (BT * H), rem = idx - k * BT * H;
     dstates[idx] = rem / H < rows
                        ? dnew_states[((size_t)k * B + row0) * H + rem] : 0.0f;
   }
+  __syncthreads();
+  cluster_sync();   // every block's barriers are initialised
 
-  for (int t = N - 1; t >= 0; --t) {
-    __syncthreads();   // every read of the previous frame's dz is done
-    for (int idx = tid; idx < BT * C; idx += nt)
-      dz[idx] = idx / C < rows ? dz_seq[((size_t)t * B + row0) * C + idx] : 0.0f;
-
-    for (int k = K - 1; k >= 0; --k) {
+  if (tid >= STREAM_CONSUMERS) {
+    // ---- producer: the products' weights, in the consumers' order
+    if (tid == STREAM_CONSUMERS) {
+      const uint32_t rank = cluster_rank();
+      for (int t = N - 1; t >= 0; --t)
+        for (int k = K - 1; k >= 0; --k) {
+          produce(ring, w.w_hh_t + (size_t)k * H * G, H, G, tab.rpc[0], rank, cs);
+          produce(ring, w.w_mix + (size_t)k * C * C, C, C, tab.rpc[1], rank, cs);
+          produce(ring, w.w_ih_t + (size_t)k * IN * G, Z1, G, tab.rpc[2], rank, cs);
+          produce(ring, w.out_w_t + (size_t)k * H * COUT, H, COUT, tab.rpc[3],
+                  rank, cs);
+          produce(ring, wb.out_w + (size_t)k * COUT * H, COUT, H, tab.rpc[4],
+                  rank, cs);
+          produce(ring, wb.w_hh + (size_t)k * G * H, G, H, tab.rpc[5], rank, cs);
+          produce(ring, wb.w_ih_z1 + (size_t)k * G * Z1, G, Z1, tab.rpc[6], rank,
+                  cs);
+          produce(ring, wb.w_t + (size_t)k * C * C, C, C, tab.rpc[7], rank, cs);
+        }
+    }
+    __syncwarp();
+  } else {
+    // ---- consumers
+    // step (t, k)'s inputs into buf, by cp.async
+    auto prefetch = [&](float* buf, int t, int k) {
       const size_t tk = (size_t)t * K + k;
-      float* dst = dstates + (size_t)k * BT * H;
-      __syncthreads();   // dz of the previous step is complete
+      const size_t rt = tk * B + row0;
+      const float* spare = w.an_bias;
+      prefetch_units(buf, w.an_bias + k * C, C / 4, C / 4, spare);
+      prefetch_units(buf + o_am, w.an_mul + k * C, C / 4, C / 4, spare);
+      prefetch_units(buf + o_bh, w.b_hh + k * G, G / 4, G / 4, spare);
+      prefetch_units(buf + o_ob, w.out_b + k * COUT, COUT / 4, COUT / 4, spare);
+      prefetch_units(buf + o_gc, gc + rt * G, BT * G / 4, rows * G / 4, spare);
+      prefetch_units(buf + o_zs, zs + rt * C, BT * C / 4, rows * C / 4, spare);
+      prefetch_units(buf + o_hp, hprev_g + rt * H, BT * H / 4, rows * H / 4,
+                     spare);
+      prefetch_units(buf + o_ds, dscales + rt * half, BT * half / 4,
+                     rows * half / 4, spare);
+      if (k == K - 1)
+        prefetch_units(buf + o_dz, dz_seq + ((size_t)t * B + row0) * C,
+                       BT * C / 4, rows * C / 4, spare);
+      cp_async_commit();
+    };
+    int cur = 0;
+    prefetch(pre, N - 1, K - 1);
+    for (int t = N - 1; t >= 0; --t) {
+      for (int k = K - 1; k >= 0; --k) {
+        const size_t tk = (size_t)t * K + k;
+        float* dst = dstates + (size_t)k * BT * H;
+        const float* P = pre + cur * SF;
+        const float* hprev = P + o_hp;
+        cp_async_wait_all();
+        consumer_sync();   // this step's inputs; dz of the previous step
+        if (k > 0)
+          prefetch(pre + (cur ^ 1) * SF, t, k - 1);
+        else if (t > 0)
+          prefetch(pre + (cur ^ 1) * SF, t - 1, K - 1);
 
-      // ---- recompute the forward step from the residuals
-      for (int idx = tid; idx < BT * C; idx += nt) {
-        const int c = idx % C;
-        const float zin = idx / C < rows ? zs[(tk * B + row0) * C + idx] : 0.0f;
-        s.ztmp[idx] = (zin + w.an_bias[k * C + c]) * w.an_mul[k * C + c];
-      }
-      for (int idx = tid; idx < BT * H; idx += nt)
-        hprev[idx] = idx / H < rows ? hprev_g[(tk * B + row0) * H + idx] : 0.0f;
-      tile_matvec<BT>(w.w_mix + (size_t)k * C * C, C, C, s.ztmp, C,
-                      nullptr, nullptr, 0, false, s.z, C, s);
-      for (int idx = tid; idx < BT * IN; idx += nt) {
-        const int r = idx / IN, j = idx - r * IN;
-        float v;
-        if (j < Z1)
-          v = s.z[r * C + j];
-        else
-          v = r < rows ? leaky_relu_(cond[(tk * B + row0 + r) * COND + j - Z1])
-                       : 0.0f;
-        s.rnn_in[idx] = v;
-      }
-      tile_matvec<BT>(w.w_ih_t + (size_t)k * IN * G, IN, G, s.rnn_in, IN,
-                      w.b_ih + k * G, nullptr, 0, false, s.gi, G, s);
-      tile_matvec<BT>(w.w_hh_t + (size_t)k * H * G, H, G, hprev, H,
-                      w.b_hh + k * G, nullptr, 0, false, s.gh, G, s);
-      for (int idx = tid; idx < BT * H; idx += nt) {
-        const int r = idx / H, j = idx - r * H;
-        const float* gi = s.gi + r * G;
-        const float* gh = s.gh + r * G;
-        const float rg = sigmoidf_(gi[j] + gh[j]);
-        const float ug = sigmoidf_(gi[H + j] + gh[H + j]);
-        const float ng = tanhf(gi[2 * H + j] + rg * gh[2 * H + j]);
-        hnew[idx] = (1.0f - ug) * ng + ug * hprev[idx];
-      }
-      tile_matvec<BT>(w.out_w_t + (size_t)k * H * COUT, H, COUT, hnew, H,
-                      w.out_b + k * COUT, nullptr, 0, false, s.hout, COUT, s);
-
-      // ---- backward through the coupling
-      for (int idx = tid; idx < BT * half; idx += nt) {
-        const int r = idx / half, j = idx - r * half;
-        const float shift = s.hout[r * COUT + j];
-        const float sig = sigmoidf_(s.hout[r * COUT + half + j] + 2.0f);
-        const float scale = fmaxf(sig, w.scale_eps);
-        const float z2 = s.z[r * C + Z1 + j];
-        const float dz2p = dz[r * C + Z1 + j];
-        const float ds = r < rows ? dscales[(tk * B + row0) * half + idx] : 0.0f;
-        const float dscale = dz2p * (z2 + shift) + ds;
-        const float dsraw = (sig > w.scale_eps ? dscale : 0.0f) * sig * (1.0f - sig);
-        dhout[r * COUT + j] = dz2p * scale;
-        dhout[r * COUT + half + j] = dsraw;
-        dzb[r * C + Z1 + j] = dz2p * scale;
-        if (r < rows) {
-          float* out = dhout_g + (tk * B + row0 + r) * COUT;
-          out[j] = dz2p * scale;
-          out[half + j] = dsraw;
+        // ---- recompute the forward step from the residuals
+        for (int idx = tid; idx < BT * C; idx += STREAM_CONSUMERS) {
+          const int c = idx % C;
+          if (k == K - 1) dz[idx] = P[o_dz + idx];
+          ztmp[idx] = (P[o_zs + idx] + P[c]) * P[o_am + c];
         }
-      }
-      // dh = dhout @ out_w[k] + dstate[k]
-      tile_matvec<BT>(wb.out_w + (size_t)k * COUT * H, COUT, H, dhout, COUT,
-                      nullptr, dst, BT, false, dh, H, s);
-
-      // ---- backward through the GRU cell
-      for (int idx = tid; idx < BT * H; idx += nt) {
-        const int r = idx / H, j = idx - r * H;
-        const float* gi = s.gi + r * G;
-        const float* gh = s.gh + r * G;
-        const float rg = sigmoidf_(gi[j] + gh[j]);
-        const float ug = sigmoidf_(gi[H + j] + gh[H + j]);
-        const float ng = tanhf(gi[2 * H + j] + rg * gh[2 * H + j]);
-        const float dhn = dh[idx];
-        const float du = dhn * (hprev[idx] - ng);
-        const float dn = dhn * (1.0f - ug);
-        const float dgn = dn * (1.0f - ng * ng);
-        const float dr = dgn * gh[2 * H + j];
-        const float dghn = dgn * rg;
-        const float dgr = dr * rg * (1.0f - rg);
-        const float dgu = du * ug * (1.0f - ug);
-        dgi[r * G + j] = dgr;
-        dgi[r * G + H + j] = dgu;
-        dgi[r * G + 2 * H + j] = dgn;
-        dgh[r * G + j] = dgr;
-        dgh[r * G + H + j] = dgu;
-        dgh[r * G + 2 * H + j] = dghn;
-        dst[idx] = dhn * ug;
-        if (r < rows) {
-          float* out = dgi_g + (tk * B + row0 + r) * G;
-          out[j] = dgr;
-          out[H + j] = dgu;
-          out[2 * H + j] = dgn;
-          dghn_g[(tk * B + row0) * H + idx] = dghn;
+        stream_matvec<BT>(ring, H, G, tab.rpc[0], tab.slices[0],
+                          tab.inv_groups[0], hprev, H,
+                          P + o_bh, nullptr, 0, 0, gh, G, partial);
+        stream_matvec<BT>(ring, C, C, tab.rpc[1], tab.slices[1],
+                          tab.inv_groups[1], ztmp, C,
+                          nullptr, nullptr, 0, 0, z, C, partial);
+        stream_matvec<BT>(ring, Z1, G, tab.rpc[2], tab.slices[2],
+                          tab.inv_groups[2], z, C, nullptr,
+                          P + o_gc, G, BT, gi, G, partial);
+        for (int idx = tid; idx < BT * H; idx += STREAM_CONSUMERS) {
+          const int r = idx / H, j = idx - r * H;
+          const float* gir = gi + r * G;
+          const float* ghr = gh + r * G;
+          const float rg = sigmoidf_(gir[j] + ghr[j]);
+          const float ug = sigmoidf_(gir[H + j] + ghr[H + j]);
+          const float ng = tanhf(gir[2 * H + j] + rg * ghr[2 * H + j]);
+          hnew[idx] = (1.0f - ug) * ng + ug * hprev[idx];
         }
+        consumer_sync();
+        stream_matvec<BT>(ring, H, COUT, tab.rpc[3], tab.slices[3],
+                          tab.inv_groups[3], hnew, H,
+                          P + o_ob, nullptr, 0, 0, hout, COUT, partial);
+
+        // ---- backward through the coupling
+        for (int idx = tid; idx < BT * half; idx += STREAM_CONSUMERS) {
+          const int r = idx / half, j = idx - r * half;
+          const float shift = hout[r * COUT + j];
+          const float sig = sigmoidf_(hout[r * COUT + half + j] + 2.0f);
+          const float scale = fmaxf(sig, w.scale_eps);
+          const float z2 = z[r * C + Z1 + j];
+          const float dz2p = dz[r * C + Z1 + j];
+          const float dscale = dz2p * (z2 + shift) + P[o_ds + idx];
+          const float dsraw =
+              (sig > w.scale_eps ? dscale : 0.0f) * sig * (1.0f - sig);
+          dhout[r * COUT + j] = dz2p * scale;
+          dhout[r * COUT + half + j] = dsraw;
+          dzb[r * C + Z1 + j] = dz2p * scale;
+          if (r < rows) {
+            float* out = dhout_g + (tk * B + row0 + r) * COUT;
+            out[j] = dz2p * scale;
+            out[half + j] = dsraw;
+          }
+        }
+        consumer_sync();
+        // dh = dhout @ out_w[k] + dstate[k]
+        stream_matvec<BT>(ring, COUT, H, tab.rpc[4], tab.slices[4],
+                          tab.inv_groups[4], dhout, COUT,
+                          nullptr, dst, H, BT, dh, H, partial);
+
+        // ---- backward through the GRU cell
+        for (int idx = tid; idx < BT * H; idx += STREAM_CONSUMERS) {
+          const int r = idx / H, j = idx - r * H;
+          const float* gir = gi + r * G;
+          const float* ghr = gh + r * G;
+          const float rg = sigmoidf_(gir[j] + ghr[j]);
+          const float ug = sigmoidf_(gir[H + j] + ghr[H + j]);
+          const float ng = tanhf(gir[2 * H + j] + rg * ghr[2 * H + j]);
+          const float dhn = dh[idx];
+          const float du = dhn * (hprev[idx] - ng);
+          const float dn = dhn * (1.0f - ug);
+          const float dgn = dn * (1.0f - ng * ng);
+          const float dr = dgn * ghr[2 * H + j];
+          const float dghn = dgn * rg;
+          const float dgr = dr * rg * (1.0f - rg);
+          const float dgu = du * ug * (1.0f - ug);
+          dgi[r * G + j] = dgr;
+          dgi[r * G + H + j] = dgu;
+          dgi[r * G + 2 * H + j] = dgn;
+          dgh[r * G + j] = dgr;
+          dgh[r * G + H + j] = dgu;
+          dgh[r * G + 2 * H + j] = dghn;
+          dst[idx] = dhn * ug;
+          if (r < rows) {
+            float* out = dgi_g + (tk * B + row0 + r) * G;
+            out[j] = dgr;
+            out[H + j] = dgu;
+            out[2 * H + j] = dgn;
+            dghn_g[(tk * B + row0) * H + idx] = dghn;
+          }
+        }
+        consumer_sync();
+        // dstate[k] = dh * u + dgh @ w_hh[k]   (out aliases addend elementwise)
+        stream_matvec<BT>(ring, G, H, tab.rpc[5], tab.slices[5],
+                          tab.inv_groups[5], dgh, G, nullptr,
+                          dst, H, BT, dst, H, partial);
+        // dzb[:, :Z1] = dz[:, :Z1] + dgi @ w_ih[k][:, :Z1]
+        stream_matvec<BT>(ring, G, Z1, tab.rpc[6], tab.slices[6],
+                          tab.inv_groups[6], dgi, G, nullptr,
+                          dz, C, BT, dzb, C, partial);
+        for (int idx = tid; idx < rows * C; idx += STREAM_CONSUMERS)
+          dzb_g[(tk * B + row0) * C + idx] = dzb[idx];
+        // dz = (dzb @ W[k]^T) * an_scale[k]
+        stream_matvec<BT>(ring, C, C, tab.rpc[7], tab.slices[7],
+                          tab.inv_groups[7], dzb, C, nullptr,
+                          nullptr, 0, 0, ztmp, C, partial);
+        for (int idx = tid; idx < BT * C; idx += STREAM_CONSUMERS)
+          dz[idx] = ztmp[idx] * P[o_am + idx % C];
+        cur ^= 1;
       }
-      // dstate[k] = dh * u + dgh @ w_hh[k]   (out aliases addend elementwise)
-      tile_matvec<BT>(wb.w_hh + (size_t)k * G * H, G, H, dgh, G,
-                      nullptr, dst, BT, false, dst, H, s);
-      // dzb[:, :Z1] = dz[:, :Z1] + dgi @ w_ih[k][:, :Z1]
-      tile_matvec<BT>(wb.w_ih_z1 + (size_t)k * G * Z1, G, Z1, dgi, G,
-                      nullptr, nullptr, 0, false, dzb, C, s);
-      for (int idx = tid; idx < BT * C; idx += nt) {
-        if (idx % C < Z1) dzb[idx] += dz[idx];
-        if (idx / C < rows) dzb_g[(tk * B + row0) * C + idx] = dzb[idx];
-      }
-      // dz = (dzb @ W[k]^T) * an_scale[k]
-      tile_matvec<BT>(wb.w_t + (size_t)k * C * C, C, C, dzb, C,
-                      nullptr, nullptr, 0, false, s.ztmp, C, s);
-      for (int idx = tid; idx < BT * C; idx += nt)
-        dz[idx] = s.ztmp[idx] * w.an_mul[k * C + idx % C];
+
+      consumer_sync();   // dz of the frame's first step is complete
+      for (int idx = tid; idx < rows * C; idx += STREAM_CONSUMERS)
+        dx[((size_t)t * B + row0) * C + idx] = dz[idx];
     }
 
-    __syncthreads();   // dz of the frame's first step is complete
-    for (int idx = tid; idx < rows * C; idx += nt)
-      dx[((size_t)t * B + row0) * C + idx] = dz[idx];
+    consumer_sync();
+    for (int idx = tid; idx < K * BT * H; idx += STREAM_CONSUMERS) {
+      const int k = idx / (BT * H), rem = idx - k * BT * H;
+      if (rem / H < rows) dstates0[((size_t)k * B + row0) * H + rem] = dstates[idx];
+    }
   }
-
-  __syncthreads();
-  for (int idx = tid; idx < K * BT * H; idx += nt) {
-    const int k = idx / (BT * H), rem = idx - k * BT * H;
-    if (rem / H < rows) dstates0[((size_t)k * B + row0) * H + rem] = dstates[idx];
-  }
+  cluster_sync();   // no block leaves while a peer may still signal it
 }
 
+// The backward's products, in stream order, for plan_stream.
+static int bwd_products(const FlowWeights& w, StreamProduct* p) {
+  const int G = 3 * w.H;
+  p[0] = {w.H, G};
+  p[1] = {w.C, w.C};
+  p[2] = {w.Z1, G};
+  p[3] = {w.H, w.COUT};
+  p[4] = {w.COUT, w.H};
+  p[5] = {G, w.H};
+  p[6] = {G, w.Z1};
+  p[7] = {w.C, w.C};
+  return 8;
+}
+
+static bool bwd_plan(const FlowWeights& w, int B, int bt, int cs, int slots,
+                     const FlowDevice& d, StreamPlan* plan) {
+  StreamProduct prods[8];
+  const int n = bwd_products(w, prods);
+  return plan_stream(B, bt, cs, slots, d, prods, n,
+                     [&](int b) { return bwd_other_floats(b, w); }, plan);
+}
+
+static bool bwd_valid(const FlowWeights& w, int B, int N) {
+  return widths_vec4(w) && w.Z1 % 4 == 0 && w.H % 4 == 0 && B >= 1 && N >= 1
+         && w.COUT == 2 * (w.C - w.Z1) && (w.COUT / 2) % 4 == 0;
+}
+
+// bt, cs, slots: rows per block, blocks per cluster and ring slots, 0 for
+// the plan's defaults (a default cluster is halved until one wave holds the
+// grid).
 extern "C" int seq_bwd_launch(
     const float* dz_seq, const float* dscales, const float* zs,
-    const float* hprev, const float* dnew_states, const float* cond,
+    const float* hprev, const float* dnew_states, const float* gc,
     float* dx, float* dstates0, float* dgi, float* dghn, float* dhout,
     float* dzb,
     const float* w_mix, const float* an_bias, const float* an_scale,
@@ -234,34 +335,60 @@ extern "C" int seq_bwd_launch(
     const float* w_t, const float* w_hh, const float* w_ih_z1,
     const float* out_w,
     int B, int N, int K, int C, int Z1, int COND, int H, int COUT,
-    float scale_eps, void* stream) {
+    float scale_eps, int bt, int cs, int slots, void* stream) {
   FlowWeights w{w_ih_t, w_hh_t, b_ih, b_hh, out_w_t, out_b, w_mix, an_bias,
                 an_scale, K, C, Z1, COND, H, COUT, scale_eps};
   BwdWeights wb{w_t, w_hh, w_ih_z1, out_w};
-  if (!widths_vec4(w) || Z1 % 4 != 0 || H % 4 != 0 || B < 1 || N < 1
-      || COUT != 2 * (C - Z1))
-    return (int)cudaErrorInvalidValue;
+  if (!bwd_valid(w, B, N)) return (int)cudaErrorInvalidValue;
   FlowDevice d;
   cudaError_t err = flow_device(&d);
   if (err != cudaSuccess) return (int)err;
-  auto other_floats = [&](int bt) {
-    return round4(K * bt * H) + bwd_extra_floats(bt, w) + step_fixed_floats(bt, w);
-  };
-  const int widest = widest_product(w);
-  const int bt = pick_bt(B, widest, d, other_floats);
-  if (bt == 0) return (int)cudaErrorInvalidValue;
-  const int other = other_floats(bt);
-  const int partial = partial_floats_for(bt, widest, other, d.max_smem);
-  const int smem = (other + partial) * (int)sizeof(float);
-  const int blocks = (B + bt - 1) / bt;
+  StreamPlan plan;
+  if (!bwd_plan(w, B, bt, cs, slots, d, &plan)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  FLOW_DISPATCH_BT(bt, {
-    static bool smem_allowed[FLOW_MAX_DEVICES] = {};
-    err = allow_max_smem(seq_bwd_kernel<BT>, d, smem_allowed);
-    if (err != cudaSuccess) return (int)err;
-    seq_bwd_kernel<BT><<<blocks, FLOW_THREADS, smem, st>>>(
-        w, wb, B, N, partial, dz_seq, dscales, zs, hprev, dnew_states, cond,
-        dx, dstates0, dgi, dghn, dhout, dzb);
+  auto replan = [&](int c, StreamPlan* p) {
+    return bwd_plan(w, B, plan.bt, c, slots, d, p);
+  };
+  FLOW_DISPATCH_BT(plan.bt, {
+    static bool allowed[FLOW_MAX_DEVICES] = {};
+    if (cs == 0) {
+      err = fit_one_wave(seq_bwd_kernel<BT>, d, allowed, &plan, replan);
+      if (err != cudaSuccess) return (int)err;
+    }
+    err = launch_stream(seq_bwd_kernel<BT>, plan, d, allowed, st, w, wb,
+                        B, N, plan.nslots, plan.slot_floats, plan.table, plan.cs,
+                        dz_seq, dscales, zs, hprev, dnew_states, gc, dx,
+                        dstates0, dgi, dghn, dhout, dzb);
   });
-  return (int)cudaGetLastError();
+  return (int)err;
+}
+
+// As seq_fwd_plan, for this kernel.
+extern "C" int seq_bwd_plan(int B, int K, int C, int Z1, int COND, int H,
+                            int COUT, int bt, int cs, int slots, int* out) {
+  FlowWeights w{};
+  w.K = K; w.C = C; w.Z1 = Z1; w.COND = COND; w.H = H; w.COUT = COUT;
+  if (!bwd_valid(w, B, 1)) return (int)cudaErrorInvalidValue;
+  FlowDevice d;
+  cudaError_t err = flow_device(&d);
+  if (err != cudaSuccess) return (int)err;
+  StreamPlan plan;
+  if (!bwd_plan(w, B, bt, cs, slots, d, &plan)) return (int)cudaErrorInvalidValue;
+  auto replan = [&](int c, StreamPlan* p) {
+    return bwd_plan(w, B, plan.bt, c, slots, d, p);
+  };
+  int clusters = -1;
+  FLOW_DISPATCH_BT(plan.bt, {
+    static bool allowed[FLOW_MAX_DEVICES] = {};
+    if (cs == 0) {
+      err = fit_one_wave(seq_bwd_kernel<BT>, d, allowed, &plan, replan);
+      if (err != cudaSuccess) return (int)err;
+    }
+    clusters = stream_max_clusters(seq_bwd_kernel<BT>, plan, d, allowed);
+  });
+  out[0] = plan.bt; out[1] = plan.cs; out[2] = plan.blocks;
+  out[3] = plan.nslots; out[4] = plan.slot_floats * 4;
+  out[5] = plan.partial_floats * 4; out[6] = plan.smem_bytes;
+  out[7] = clusters;
+  return 0;
 }

@@ -1,29 +1,38 @@
-"""The two training kernels of the flow, each beside its plain PyTorch version,
+"""The training kernels of the flow, each beside its plain PyTorch version,
 wired as one ``torch.autograd.Function``.
 
+* ``cond_gates``: the conditioning half of every step's GRU input product,
+  ``gc[t, k] = leaky_relu(cond[t, k]) @ w_ih_t[k][Z1:] + b_ih[k]`` for all
+  frames and steps at once (it does not depend on the serial chain). CUDA
+  source ``csrc/cond_gates.cu``, a register-tiled SIMT GEMM; replaces that
+  product inside ``lets_face_it_tpu/ops/pallas_train.py`` ``_fwd_kernel``.
 * ``seq_fwd``: the teacher-forced forward of a whole sequence (N frames x K
-  steps, the K GRU states kept on chip across frames); it also writes the
-  two residual stacks the backward needs (each step's input z and each
-  step's new state). CUDA source ``csrc/seq_fwd.cu``; replaces
-  ``lets_face_it_tpu/ops/pallas_train.py`` ``_fwd_kernel``.
+  steps, the K GRU states kept on chip across frames). It runs
+  ``cond_gates`` and then the serial chain, which adds ``gc`` to the Z1 rows
+  of the product; it also returns the residuals the backward needs (each
+  step's input z, each step's new state, and ``gc``). CUDA source
+  ``csrc/seq_fwd.cu``; replaces ``_fwd_kernel``.
 * ``seq_bwd``: the mirror backward. It walks the frames in reverse,
   recomputes each step from the residuals, threads the serial cotangent
   chains (dz within a frame, the K state cotangents across frames) and
   writes each (frame, step)'s local cotangents. CUDA source
   ``csrc/seq_bwd.cu``; replaces ``_bwd_kernel``.
 
-``flow_sequence_fused`` runs them as ``_FlowSequence`` (the role of
-``_flow_seq_fused``'s custom VJP in the JAX package): its backward launches
-``seq_bwd`` and then forms every weight gradient and the conditioning
-gradient as large contractions over frames x rows (``torch.einsum``, as the
-JAX package leaves them to XLA). The gradients on ``TrainWeights`` reach the
-flow parameters through the differentiable ``prepare_train_weights``.
+The two serial kernels stream each step's weights through a ring of
+shared-memory slots shared across a thread-block cluster
+(``csrc/flow_stream.cuh``). ``flow_sequence_fused`` runs them as
+``_FlowSequence`` (the role of ``_flow_seq_fused``'s custom VJP in the JAX
+package): its backward launches ``seq_bwd`` and then forms every weight
+gradient and the conditioning gradient as large contractions over frames x
+rows (``torch.einsum``, as the JAX package leaves them to XLA). The
+gradients on ``TrainWeights`` reach the flow parameters through the
+differentiable ``prepare_train_weights``.
 
 A wrapper runs its plain version (``*_ref``) only when it is given CPU
 tensors; given CUDA tensors it launches its kernel or raises. Each wrapper
-counts its kernel launches in its ``launches`` attribute. Both kernels compute
-in float32 with fused multiply-adds; ``precision="highest"`` is the only value
-accepted.
+counts its kernel launches in its ``launches`` attribute. The kernels
+compute in float32 with fused multiply-adds; ``precision="highest"`` is the
+only value accepted.
 """
 
 from __future__ import annotations
@@ -93,17 +102,24 @@ def logdet_const(spec: FlowSpec, flow_params):
 # Envelope
 # ---------------------------------------------------------------------------
 
+# flow_stream.cuh: the barrier area and the slots of the weight ring (floats)
+_STREAM_BAR_FLOATS, _STREAM_SLOTS = 96, 3
+
+
 def train_smem_bytes(spec: FlowSpec) -> int:
     """Least shared memory of a one-row seq_bwd.cu block (the larger of the
-    two kernels): the K state cotangents, the backward's buffers, the step
-    scratch and one slice of partial sums of the widest product."""
-    c, z1, h = spec.channels, spec.z1_dim, spec.hidden_channels
-    cond, cout = spec.cond.cond_dim, spec.coupling_out_dim
+    two serial kernels): the ring's barriers and three slots of four rows of
+    the widest product, the K state cotangents, the backward's buffers, two
+    steps of prefetched inputs and one slice of partial sums
+    (csrc/seq_bwd.cu::bwd_other_floats, csrc/flow_stream.cuh::plan_stream)."""
+    c, h, cout = spec.channels, spec.hidden_channels, spec.coupling_out_dim
     g = 3 * h
-    states = _round4(spec.n_steps * h)
-    extra = 3 * _round4(h) + 2 * _round4(c) + _round4(cout) + 2 * _round4(g)
-    step = 2 * _round4(c) + _round4(z1 + cond) + 2 * _round4(g) + _round4(cout)
-    return 4 * (states + extra + step + max(g, cond))
+    widest = max(g, c, cout, h, spec.z1_dim)
+    step = 2 * c + g + cout + (g + c + h + cout // 2 + c)
+    other = (_round4(spec.n_steps * h) + 2 * _round4(h) + 4 * _round4(c)
+             + 2 * _round4(cout) + 4 * _round4(g) + 2 * step)
+    ring = _STREAM_BAR_FLOATS + _STREAM_SLOTS * 4 * widest
+    return 4 * (ring + other + _round4(widest))
 
 
 def train_supported(spec: FlowSpec) -> bool:
@@ -124,14 +140,21 @@ def train_supported(spec: FlowSpec) -> bool:
 # Plain versions
 # ---------------------------------------------------------------------------
 
-def _recompute_step(spec: FlowSpec, tw: TrainWeights, k: int, z, cond_k, h_prev):
-    """One forward step on prepared weights -> (zb, gi, gh, r, u, n, h_new,
-    hout, sig, scale)."""
+def cond_gates_ref(spec: FlowSpec, tw: TrainWeights, cond_seq):
+    """Plain version of ``cond_gates``: cond_seq [N, K, B, cond] ->
+    leaky_relu(cond_seq) @ w_ih_t[:, Z1:] + b_ih, [N, K, B, 3H]."""
+    w_c = tw.w_ih_t[:, spec.z1_dim:]
+    gc = torch.einsum("nkbi,kig->nkbg", ops.leaky_relu(cond_seq), w_c)
+    return (gc + tw.b_ih[None, :, None, :]).contiguous()
+
+
+def _recompute_step(spec: FlowSpec, tw: TrainWeights, k: int, z, gc_k, h_prev):
+    """One forward step on prepared weights, the conditioning gates gc_k
+    given -> (zb, gi, gh, r, u, n, h_new, hout, sig, scale)."""
     hd, z1d, half = spec.hidden_channels, spec.z1_dim, spec.coupling_out_dim // 2
     za = (z + tw.an_bias[k]) * tw.an_scale[k]
     zb = za @ tw.w[k]
-    rnn_in = torch.cat([zb[:, :z1d], ops.leaky_relu(cond_k)], dim=-1)
-    gi = rnn_in @ tw.w_ih_t[k] + tw.b_ih[k]
+    gi = zb[:, :z1d] @ tw.w_ih_t[k, :z1d] + gc_k
     gh = h_prev @ tw.w_hh_t[k] + tw.b_hh[k]
     r = torch.sigmoid(gi[:, :hd] + gh[:, :hd])
     u = torch.sigmoid(gi[:, hd:2 * hd] + gh[:, hd:2 * hd])
@@ -144,9 +167,11 @@ def _recompute_step(spec: FlowSpec, tw: TrainWeights, k: int, z, cond_k, h_prev)
 
 
 def seq_fwd_ref(spec: FlowSpec, tw: TrainWeights, xs, cond_seq, states0):
-    """Plain version of ``seq_fwd``: loops over t and k."""
+    """Plain version of ``seq_fwd``: ``cond_gates_ref``, then loops over t
+    and k."""
     n_frames, b, c = xs.shape
     k_steps, z1d, half = spec.n_steps, spec.z1_dim, spec.coupling_out_dim // 2
+    gc = cond_gates_ref(spec, tw, cond_seq)
     z_seq = torch.empty_like(xs)
     scales = xs.new_empty((n_frames, k_steps, b, half))
     zs_res = xs.new_empty((n_frames, k_steps, b, c))
@@ -157,17 +182,17 @@ def seq_fwd_ref(spec: FlowSpec, tw: TrainWeights, xs, cond_seq, states0):
         for k in range(k_steps):
             zs_res[t, k] = z
             zb, *_, h_new, hout, _, scale = _recompute_step(
-                spec, tw, k, z, cond_seq[t, k], states[k])
+                spec, tw, k, z, gc[t, k], states[k])
             states[k] = h_new
             states_res[t, k] = h_new
             scales[t, k] = scale
             z = torch.cat([zb[:, :z1d], (zb[:, z1d:] + hout[:, :half]) * scale],
                           dim=-1)
         z_seq[t] = z
-    return z_seq, scales, zs_res, states_res
+    return z_seq, scales, zs_res, states_res, gc
 
 
-def seq_bwd_ref(spec: FlowSpec, tw: TrainWeights, cond_seq, zs_res, hprev_all,
+def seq_bwd_ref(spec: FlowSpec, tw: TrainWeights, gc, zs_res, hprev_all,
                 dz_seq, dscales, dnew_states):
     """Plain version of ``seq_bwd``: loops over t and k in reverse."""
     n_frames, b, c = dz_seq.shape
@@ -184,7 +209,7 @@ def seq_bwd_ref(spec: FlowSpec, tw: TrainWeights, cond_seq, zs_res, hprev_all,
         for k in reversed(range(k_steps)):
             h_prev = hprev_all[t, k]
             zb, gi, gh, r, u, n, _, hout, sig, scale = _recompute_step(
-                spec, tw, k, zs_res[t, k], cond_seq[t, k], h_prev)
+                spec, tw, k, zs_res[t, k], gc[t, k], h_prev)
             dz2p = dz[:, z1d:]
             dscale = dz2p * (zb[:, z1d:] + hout[:, :half]) + dscales[t, k]
             dsraw = torch.where(sig > spec.scale_eps, dscale, 0.0) * sig * (1.0 - sig)
@@ -216,9 +241,17 @@ _I = ctypes.c_int
 
 
 @functools.cache
+def _gates_fn():
+    fn = cuda_build.load("cond_gates").cond_gates_launch
+    fn.argtypes = [_P] * 4 + [_I] * 6 + [_P]
+    fn.restype = _I
+    return fn
+
+
+@functools.cache
 def _fwd_fn():
     fn = cuda_build.load("seq_fwd").seq_fwd_launch
-    fn.argtypes = [_P] * 16 + [_I] * 8 + [ctypes.c_float, _P]
+    fn.argtypes = [_P] * 16 + [_I] * 8 + [ctypes.c_float] + [_I] * 3 + [_P]
     fn.restype = _I
     return fn
 
@@ -226,9 +259,27 @@ def _fwd_fn():
 @functools.cache
 def _bwd_fn():
     fn = cuda_build.load("seq_bwd").seq_bwd_launch
-    fn.argtypes = [_P] * 25 + [_I] * 8 + [ctypes.c_float, _P]
+    fn.argtypes = [_P] * 25 + [_I] * 8 + [ctypes.c_float] + [_I] * 3 + [_P]
     fn.restype = _I
     return fn
+
+
+PLAN_KEYS = ("rows_per_block", "cluster", "blocks", "slots", "slot_bytes",
+             "partial_bytes", "smem_bytes", "max_active_clusters")
+
+
+def serial_plan(which: str, spec: FlowSpec, b: int, tile=(0, 0, 0)) -> dict:
+    """The launch plan of ``seq_fwd``'s or ``seq_bwd``'s serial kernel
+    (``which``) for B=b rows on the current CUDA device, with the cluster
+    occupancy the device allows (``cudaOccupancyMaxActiveClusters``);
+    ``tile`` as in ``seq_fwd``."""
+    fn = getattr(cuda_build.load(which), f"{which}_plan")
+    fn.argtypes = [_I] * 10 + [_P]
+    fn.restype = _I
+    out = (ctypes.c_int * len(PLAN_KEYS))()
+    _raise_on(fn(b, *_spec_ints(spec), *tile, ctypes.addressof(out)),
+              f"{which} plan")
+    return dict(zip(PLAN_KEYS, out))
 
 
 def _check_weights(spec: FlowSpec, tw: TrainWeights, device):
@@ -255,18 +306,55 @@ def _dispatch(spec: FlowSpec, precision: str, device) -> bool:
     return True
 
 
+def cond_gates(spec: FlowSpec, tw: TrainWeights, cond_seq, *,
+               precision: str = "highest"):
+    """Conditioning gates of every frame and step: cond_seq [N, K, B, cond]
+    (pre-activation projections) -> gc [N, K, B, 3H]."""
+    if not _dispatch(spec, precision, cond_seq.device):
+        return cond_gates_ref(spec, tw, cond_seq)
+    n, k, b, cond = cond_seq.shape
+    dev = cond_seq.device
+    _check("cond_seq", cond_seq, (n, spec.n_steps, b, spec.cond.cond_dim), dev)
+    _check_weights(spec, tw, dev)
+    gc = cond_seq.new_empty((n, k, b, 3 * spec.hidden_channels))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _gates_fn()(cond_seq.data_ptr(), tw.w_ih_t.data_ptr(),
+                      tw.b_ih.data_ptr(), gc.data_ptr(), b, n, k, spec.z1_dim,
+                      cond, spec.hidden_channels, stream)
+    _raise_on(err, "cond_gates")
+    cond_gates.launches += 1
+    return gc
+
+
+cond_gates.launches = 0
+
+
 def seq_fwd(spec: FlowSpec, tw: TrainWeights, xs, cond_seq, states0, *,
-            precision: str = "highest"):
+            precision: str = "highest", tile=(0, 0, 0)):
     """Teacher-forced forward: xs [N, B, C], cond_seq [N, K, B, cond]
     (pre-activation projections), states0 [K, B, H] -> (z_seq [N, B, C],
-    scales [N, K, B, Cout/2], zs_res [N, K, B, C], states_res [N, K, B, H])."""
+    scales [N, K, B, Cout/2], zs_res [N, K, B, C], states_res [N, K, B, H],
+    gc [N, K, B, 3H]): ``cond_gates``, then ``seq_fwd_serial``."""
     if not _dispatch(spec, precision, xs.device):
         return seq_fwd_ref(spec, tw, xs, cond_seq, states0)
+    gc = cond_gates(spec, tw, cond_seq, precision=precision)
+    return (*seq_fwd_serial(spec, tw, xs, gc, states0, precision=precision,
+                            tile=tile), gc)
+
+
+def seq_fwd_serial(spec: FlowSpec, tw: TrainWeights, xs, gc, states0, *,
+                   precision: str = "highest", tile=(0, 0, 0)):
+    """The serial chain of ``seq_fwd`` on CUDA tensors, the conditioning
+    gates gc [N, K, B, 3H] given -> (z_seq, scales, zs_res, states_res).
+    ``tile`` = (rows per block, blocks per cluster, ring slots), 0 for the
+    launcher's plan."""
+    if not _dispatch(spec, precision, xs.device):
+        raise ValueError("seq_fwd_serial runs on CUDA tensors only")
     n, b, c = xs.shape
-    k, _, _, cond, h, cout = _spec_ints(spec)
+    k, _, _, _, h, cout = _spec_ints(spec)
     dev = xs.device
     _check("xs", xs, (n, b, c), dev)
-    _check("cond_seq", cond_seq, (n, k, b, cond), dev)
+    _check("gc", gc, (n, k, b, 3 * h), dev)
     _check("states0", states0, (k, b, h), dev)
     _check_weights(spec, tw, dev)
     z_seq = torch.empty_like(xs)
@@ -274,10 +362,11 @@ def seq_fwd(spec: FlowSpec, tw: TrainWeights, xs, cond_seq, states0, *,
     zs_res = xs.new_empty((n, k, b, c))
     states_res = xs.new_empty((n, k, b, h))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _fwd_fn()(xs.data_ptr(), cond_seq.data_ptr(), states0.data_ptr(),
+    err = _fwd_fn()(xs.data_ptr(), gc.data_ptr(), states0.data_ptr(),
                     z_seq.data_ptr(), scales.data_ptr(), zs_res.data_ptr(),
                     states_res.data_ptr(), *(t.data_ptr() for t in tw),
-                    b, n, *_spec_ints(spec), float(spec.scale_eps), stream)
+                    b, n, *_spec_ints(spec), float(spec.scale_eps), *tile,
+                    stream)
     _raise_on(err, "seq_fwd")
     seq_fwd.launches += 1
     return z_seq, scales, zs_res, states_res
@@ -286,25 +375,27 @@ def seq_fwd(spec: FlowSpec, tw: TrainWeights, xs, cond_seq, states0, *,
 seq_fwd.launches = 0
 
 
-def seq_bwd(spec: FlowSpec, tw: TrainWeights, cond_seq, zs_res, hprev_all,
-            dz_seq, dscales, dnew_states, *, precision: str = "highest"):
-    """Mirror backward: the residuals zs_res [N, K, B, C] and hprev_all
-    [N, K, B, H] (each step's previous state), the cotangents dz_seq
-    [N, B, C], dscales [N, K, B, Cout/2] and dnew_states [K, B, H] ->
-    (dx [N, B, C], dstates0 [K, B, H], dgi [N, K, B, 3H], dghn [N, K, B, H],
-    dhout [N, K, B, Cout], dzb [N, K, B, C])."""
+def seq_bwd(spec: FlowSpec, tw: TrainWeights, gc, zs_res, hprev_all,
+            dz_seq, dscales, dnew_states, *, precision: str = "highest",
+            tile=(0, 0, 0)):
+    """Mirror backward: the residuals gc [N, K, B, 3H] (``seq_fwd``'s
+    conditioning gates), zs_res [N, K, B, C] and hprev_all [N, K, B, H]
+    (each step's previous state), the cotangents dz_seq [N, B, C], dscales
+    [N, K, B, Cout/2] and dnew_states [K, B, H] -> (dx [N, B, C], dstates0
+    [K, B, H], dgi [N, K, B, 3H], dghn [N, K, B, H], dhout [N, K, B, Cout],
+    dzb [N, K, B, C]). ``tile`` as in ``seq_fwd``."""
     if not _dispatch(spec, precision, dz_seq.device):
-        return seq_bwd_ref(spec, tw, cond_seq, zs_res, hprev_all, dz_seq,
+        return seq_bwd_ref(spec, tw, gc, zs_res, hprev_all, dz_seq,
                            dscales, dnew_states)
     n, b, c = dz_seq.shape
-    k, _, z1, cond, h, cout = _spec_ints(spec)
+    k, _, z1, _, h, cout = _spec_ints(spec)
     dev = dz_seq.device
     for name, t, shape in (("dz_seq", dz_seq, (n, b, c)),
                            ("dscales", dscales, (n, k, b, cout // 2)),
                            ("zs_res", zs_res, (n, k, b, c)),
                            ("hprev_all", hprev_all, (n, k, b, h)),
                            ("dnew_states", dnew_states, (k, b, h)),
-                           ("cond_seq", cond_seq, (n, k, b, cond))):
+                           ("gc", gc, (n, k, b, 3 * h))):
         _check(name, t, shape, dev)
     _check_weights(spec, tw, dev)
     # the backward products read the transposed weights row by row
@@ -320,11 +411,12 @@ def seq_bwd(spec: FlowSpec, tw: TrainWeights, cond_seq, zs_res, hprev_all,
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _bwd_fn()(dz_seq.data_ptr(), dscales.data_ptr(), zs_res.data_ptr(),
                     hprev_all.data_ptr(), dnew_states.data_ptr(),
-                    cond_seq.data_ptr(), dx.data_ptr(), dstates0.data_ptr(),
+                    gc.data_ptr(), dx.data_ptr(), dstates0.data_ptr(),
                     dgi.data_ptr(), dghn.data_ptr(), dhout.data_ptr(),
                     dzb.data_ptr(), *(t.data_ptr() for t in tw),
                     *(t.data_ptr() for t in transposed),
-                    b, n, *_spec_ints(spec), float(spec.scale_eps), stream)
+                    b, n, *_spec_ints(spec), float(spec.scale_eps), *tile,
+                    stream)
     _raise_on(err, "seq_bwd")
     seq_bwd.launches += 1
     return dx, dstates0, dgi, dghn, dhout, dzb
@@ -337,7 +429,7 @@ seq_bwd.launches = 0
 # The autograd Function
 # ---------------------------------------------------------------------------
 
-def flow_sequence_vjp(spec: FlowSpec, tw: TrainWeights, cond_seq, states0,
+def flow_sequence_vjp(spec: FlowSpec, tw: TrainWeights, cond_seq, gc, states0,
                       zs_res, states_res, dz_seq, dscales, dnew_states, *,
                       precision: str = "highest"):
     """Cotangents of (z_seq, scales, new_states) -> gradients on
@@ -347,7 +439,7 @@ def flow_sequence_vjp(spec: FlowSpec, tw: TrainWeights, cond_seq, states0,
     z1d, h = spec.z1_dim, spec.hidden_channels
     hprev_all = torch.cat([states0[None], states_res[:-1]], dim=0)
     dx, dstates0, dgi, dghn, dhout, dzb = seq_bwd(
-        spec, tw, cond_seq, zs_res, hprev_all, dz_seq, dscales, dnew_states,
+        spec, tw, gc, zs_res, hprev_all, dz_seq, dscales, dnew_states,
         precision=precision)
 
     ein = torch.einsum
@@ -384,17 +476,17 @@ class _FlowSequence(torch.autograd.Function):
     def forward(ctx, spec, precision, *inputs):
         tw = TrainWeights(*inputs[:9])
         xs, cond_seq, states0 = inputs[9:]
-        z_seq, scales, zs_res, states_res = seq_fwd(
+        z_seq, scales, zs_res, states_res, gc = seq_fwd(
             spec, tw, xs, cond_seq, states0, precision=precision)
         ctx.spec, ctx.precision = spec, precision
-        ctx.save_for_backward(*tw, cond_seq, states0, zs_res, states_res)
+        ctx.save_for_backward(*tw, cond_seq, gc, states0, zs_res, states_res)
         return z_seq, scales, states_res[-1].clone()
 
     @staticmethod
     def backward(ctx, dz_seq, dscales, dnew_states):
-        *tw, cond_seq, states0, zs_res, states_res = ctx.saved_tensors
+        *tw, cond_seq, gc, states0, zs_res, states_res = ctx.saved_tensors
         grads = flow_sequence_vjp(
-            ctx.spec, TrainWeights(*tw), cond_seq, states0, zs_res, states_res,
+            ctx.spec, TrainWeights(*tw), cond_seq, gc, states0, zs_res, states_res,
             dz_seq.contiguous(), dscales.contiguous(), dnew_states.contiguous(),
             precision=ctx.precision)
         return (None, None, *grads)

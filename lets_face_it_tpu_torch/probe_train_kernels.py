@@ -1,0 +1,180 @@
+"""Probe of the training kernels' launch plan on one NVIDIA GPU.
+
+    python -m lets_face_it_tpu_torch.probe_train_kernels
+
+For ``hparams/final_model.yaml`` on seeded random weights at B=256, N=56
+(the training path's shape), from the sources in this checkout:
+
+1. builds the kernels and prints the registers and spills ``nvcc -Xptxas -v``
+   reports for ``cond_gates``, ``seq_fwd`` and ``seq_bwd``;
+2. holds ``cond_gates``, ``seq_fwd`` and ``seq_bwd`` against their plain
+   versions at B=256 and at B=5 (a partial cluster) with the launcher's own
+   plan (forward atol/rtol 1e-5, backward atol 2e-5 / rtol 1e-4);
+3. for every cluster size in (1, 2, 4, 8) and rows per block in (2, 4, 8),
+   and for ring slots in (2, 3, 4, 6) at 2 rows per block and clusters of 1
+   and 2, prints the plan (blocks, slots, slot and shared-memory bytes, and
+   the clusters the device holds at once, by
+   ``cudaOccupancyMaxActiveClusters``), holds both serial kernels against
+   the plain versions again and times them by CUDA-graph replay; then times
+   ``cond_gates`` beside one cuBLAS call for the same product.
+
+One JSON line per reading, the card's name and power limit first. Imports
+nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+from lets_face_it_tpu_torch.hparams import load_hparams
+from lets_face_it_tpu_torch.model.spec import FlowSpec
+from lets_face_it_tpu_torch.ops import cuda_build
+from lets_face_it_tpu_torch.ops import train_kernels as tk
+from lets_face_it_tpu_torch.sample.weights import seeded_random_model
+
+REPO = Path(__file__).resolve().parent.parent
+SEED = 20240
+CLUSTERS = (1, 2, 4, 8)
+ROWS_PER_BLOCK = (2, 4, 8)
+SLOTS = (2, 3, 4, 6)   # ring slots tried at 2 rows per block
+FWD_TOL, BWD_TOL = (1e-5, 1e-5), (2e-5, 1e-4)
+
+
+def _time_ms(fn, reps=5):
+    """Mean ms per replay of ``fn`` captured in a CUDA graph (CUDA events)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _max_err(name, got, ref, tol):
+    atol, rtol = tol
+    worst = 0.0
+    for i, (a, r) in enumerate(zip(got, ref)):
+        err = (a.double() - r.double()).abs()
+        if not torch.isfinite(a).all() or (err > atol + rtol * r.double().abs()).any():
+            raise SystemExit(f"{name} output {i}: max|diff| {err.max().item():.3e} "
+                             f"exceeds atol {atol} + rtol {rtol}*|ref|")
+        worst = max(worst, err.max().item())
+    return worst
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("this probe needs a CUDA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.splitlines()[0]
+    print(json.dumps({"card": card.strip(), "torch": torch.__version__}))
+
+    paths = cuda_build.build(("cond_gates", "seq_fwd", "seq_bwd"))
+    for name, path in paths.items():
+        log = path.with_suffix(".log")
+        for line in log.read_text().splitlines() if log.exists() else ():
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
+                print(json.dumps({"ptxas": name, "line": line.strip()}))
+
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        hp = load_hparams(REPO / "hparams" / "final_model.yaml", dataset_root=tmp)
+    spec = FlowSpec.build(hp)
+    n = hp.Train["seq_len"] - spec.cond.longest_history
+    k, c, h = spec.n_steps, spec.channels, spec.hidden_channels
+    model = seeded_random_model(spec, SEED).to(dev)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+
+    def inputs(b, frames):
+        xs = torch.randn(frames, b, c, generator=g, device=dev)
+        cs = torch.randn(frames, k, b, spec.cond.cond_dim, generator=g, device=dev)
+        st0 = 0.3 * torch.randn(k, b, h, generator=g, device=dev)
+        return xs, cs, st0
+
+    with torch.no_grad():
+        tw = tk.prepare_train_weights(spec, model.flow)
+        cases = {}
+        for b, frames in ((5, 5), (hp.batch_size, n)):
+            xs, cs, st0 = inputs(b, frames)
+            ref = tk.seq_fwd_ref(spec, tw, xs, cs, st0)
+            hprev = torch.cat([st0[None], ref[3][:-1]])
+            cot = (torch.randn(xs.shape, generator=g, device=dev),
+                   torch.randn(ref[1].shape, generator=g, device=dev),
+                   torch.randn(st0.shape, generator=g, device=dev))
+            gc = ref[4]
+            bwd_ref = tk.seq_bwd_ref(spec, tw, gc, ref[2], hprev, *cot)
+            e_gc = _max_err("cond_gates", [tk.cond_gates(spec, tw, cs)], [gc], FWD_TOL)
+            e_f = _max_err(f"seq_fwd B={b}", tk.seq_fwd(spec, tw, xs, cs, st0), ref,
+                           FWD_TOL)
+            e_b = _max_err(f"seq_bwd B={b}",
+                           tk.seq_bwd(spec, tw, gc, ref[2], hprev, *cot), bwd_ref,
+                           BWD_TOL)
+            torch.cuda.synchronize()
+            print(json.dumps({"check": "default plan", "batch": b, "frames": frames,
+                              "fwd_plan": tk.serial_plan("seq_fwd", spec, b),
+                              "bwd_plan": tk.serial_plan("seq_bwd", spec, b),
+                              "max_abs_err": {"cond_gates": e_gc, "seq_fwd": e_f,
+                                              "seq_bwd": e_b}}))
+            cases[b] = (xs, cs, st0, ref, hprev, cot, bwd_ref)
+
+        b = hp.batch_size
+        xs, cs, st0, ref, hprev, cot, bwd_ref = cases[b]
+        gc = ref[4]
+        grid = [(bt, cs_n, 0) for cs_n in CLUSTERS for bt in ROWS_PER_BLOCK]
+        grid += [(2, cs_n, slots) for cs_n in CLUSTERS[:2] for slots in SLOTS]
+        for tile in grid:
+            row = {"batch": b, "frames": n, "tile": tile}
+            for which in ("seq_fwd", "seq_bwd"):
+                try:
+                    row[f"{which}_plan"] = tk.serial_plan(which, spec, b, tile)
+                except RuntimeError as e:   # no plan: the block does not fit
+                    row[f"{which}_plan"] = str(e)
+            if not all(isinstance(row[f"{w}_plan"], dict)
+                       for w in ("seq_fwd", "seq_bwd")):
+                print(json.dumps(row))
+                continue
+
+            def fwd():
+                return tk.seq_fwd_serial(spec, tw, xs, gc, st0, tile=tile)
+
+            def bwd():
+                return tk.seq_bwd(spec, tw, gc, ref[2], hprev, *cot, tile=tile)
+
+            row["fwd_err"] = _max_err(f"seq_fwd {tile}", fwd(), ref[:4], FWD_TOL)
+            row["bwd_err"] = _max_err(f"seq_bwd {tile}", bwd(), bwd_ref, BWD_TOL)
+            row["serial_fwd_ms"] = _time_ms(fwd)
+            row["bwd_ms"] = _time_ms(bwd)
+            print(json.dumps(row))
+
+        a = torch.nn.functional.leaky_relu(cs, 0.01).permute(1, 0, 2, 3).reshape(
+            k, -1, spec.cond.cond_dim).contiguous()
+        w_c = tw.w_ih_t[:, spec.z1_dim:].contiguous()
+        bias = tw.b_ih[:, None, :].contiguous()
+        print(json.dumps({
+            "cond_gates_ms": _time_ms(lambda: tk.cond_gates(spec, tw, cs)),
+            "cublas_baddbmm_ms": _time_ms(lambda: torch.baddbmm(bias, a, w_c)),
+            "batch": b, "frames": n}))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -3,9 +3,10 @@ against the JAX package's Pallas training kernels, run in interpret mode on
 the CPU, and against its XLA scan.
 
 On CPU tensors the wrappers run their plain PyTorch versions under the
-autograd Function; the CUDA kernels themselves are held against those plain
-versions on the card by ``test_cuda_training_kernels_match_plain`` (marked
-``requires_cuda``) and by chip_smoke.py.
+autograd Function; the CUDA kernels themselves (``cond_gates``, ``seq_fwd``,
+``seq_bwd``) are held against those plain versions on the card by
+``test_cuda_training_kernels_match_plain`` (marked ``requires_cuda``) and by
+chip_smoke.py.
 
 Tolerances: values atol 1e-5 / rtol 1e-5 (logdet atol 1e-4), gradients atol
 2e-5 / rtol 1e-4: the JAX kernel tests' own (tests/test_pallas_train.py),
@@ -14,6 +15,7 @@ default tolerances.
 """
 
 import functools
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -27,10 +29,12 @@ from lets_face_it_tpu.ops import pallas_train
 from lets_face_it_tpu_torch.model import flow as pflow
 from lets_face_it_tpu_torch.model.spec import FlowSpec as PortFlowSpec
 from lets_face_it_tpu_torch.ops import train_kernels as tk
+from lets_face_it_tpu_torch.ops.flow_kernels import MAX_SMEM_BYTES
 
 from test_torch_port_common import (assert_close, jax_params, port_hp,
                                     port_model, specs, tiny_hp, train_hp)
 
+REPO = Path(__file__).resolve().parent.parent
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
@@ -112,6 +116,7 @@ def test_flow_sequence_fused_matches_jax(which):
     (jz, jld, jst, jsc), (gflow, gxs, gcond, gst0) = _jax_reference(which)
     model, (z, logdet, new_states, scales), inputs = _port_run(spec, pspec, params)
     assert tk.seq_fwd.launches == 0 and tk.seq_bwd.launches == 0
+    assert tk.cond_gates.launches == 0
     assert_close(z, jz, **VAL_TOL)
     assert_close(logdet, jld, atol=1e-4, rtol=1e-5)
     assert_close(new_states, jst, **VAL_TOL)
@@ -207,6 +212,66 @@ def test_envelope_and_guards():
         tk.seq_fwd(tiny_spec, tw, xs, cond, states0)
 
 
+def test_cond_gates_and_serial_plain_match_pallas_fwd_call():
+    """``cond_gates_ref`` followed by the plain serial chain (the port's
+    ``seq_fwd_ref``) against the JAX forward kernel ``_seq_fwd_call`` in
+    interpret mode, on the same prepared weights and inputs."""
+    spec, pspec = specs(train_hp())
+    params = jax_params(spec)
+    xs, cond, states0 = _inputs(spec)
+    jtw = pallas_train.prepare_train_weights(spec, params.flow)
+    want = pallas_train._seq_fwd_call(spec, 2, True, jax.lax.Precision.HIGHEST,
+                                      jtw, *map(jnp.asarray, (xs, cond, states0)))
+    tw = tk.prepare_train_weights(pspec, port_model(params, pspec).flow)
+    with torch.no_grad():
+        got = tk.seq_fwd_ref(pspec, tw, *map(torch.as_tensor, (xs, cond, states0)))
+    assert len(got) == 5
+    for a, w in zip(got[:4], want):
+        assert_close(a, np.asarray(w), **VAL_TOL)
+
+
+def _jax_cond_gates(spec, params, cond):
+    jtw = pallas_train.prepare_train_weights(spec, params.flow)
+    z1d, cdim = spec.z1_dim, spec.cond.cond_dim
+    gc = jnp.einsum("nkbi,kig->nkbg", jax.nn.leaky_relu(jnp.asarray(cond), 0.01),
+                    jtw.w_ih_t[:, z1d:z1d + cdim],
+                    precision=jax.lax.Precision.HIGHEST)
+    return np.asarray(gc + jtw.b_ih[None, :, None, :])
+
+
+def test_function_saves_cond_gates_residual():
+    """The Function's saved ``gc`` residual equals leaky_relu(cond) @
+    w_ih_t[:, Z1:] + b_ih computed in JAX, and ``cond_gates`` on CPU tensors
+    is its plain version (no launch counted)."""
+    spec, pspec = specs(train_hp())
+    params = jax_params(spec)
+    model = port_model(params, pspec)
+    xs, cond, states0 = (torch.tensor(a, requires_grad=True) for a in _inputs(spec))
+    z, _, _, _ = tk.flow_sequence_fused(pspec, model.flow, xs, cond, states0)
+    saved = z.grad_fn.saved_tensors
+    gc = saved[len(tk.TrainWeights._fields) + 1]
+    want = _jax_cond_gates(spec, params, cond.detach().numpy())
+    assert gc.shape == want.shape
+    assert_close(gc, want, **VAL_TOL)
+    launches = tk.cond_gates.launches
+    tw = tk.prepare_train_weights(pspec, model.flow)
+    with torch.no_grad():
+        assert_close(tk.cond_gates(pspec, tw, cond.detach()), want, **VAL_TOL)
+    assert tk.cond_gates.launches == launches
+
+
+def test_final_model_inside_training_envelope():
+    """final_model's one-row backward block (ring of three slots, K state
+    cotangents, buffers, one slice of partial sums) fits one block's shared
+    memory with room for the streamed layout."""
+    from lets_face_it_tpu_torch.hparams import load_hparams
+
+    hp = load_hparams(REPO / "hparams" / "final_model.yaml", dataset_root="unused")
+    pspec = PortFlowSpec.build(hp)
+    assert tk.train_supported(pspec)
+    assert tk.train_smem_bytes(pspec) < MAX_SMEM_BYTES // 2
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -215,25 +280,30 @@ def cuda_device():
 
 
 @pytest.mark.requires_cuda
-def test_cuda_training_kernels_match_plain(cuda_device):
-    """Both CUDA training kernels against their plain versions on the card."""
+@pytest.mark.parametrize("b", [5, 33])
+def test_cuda_training_kernels_match_plain(cuda_device, b):
+    """The three CUDA training kernels against their plain versions on the
+    card; B=5 and B=33 leave the last cluster of the serial kernels partly
+    padding."""
     spec, pspec = specs(train_hp())
     model = port_model(jax_params(spec), pspec).to(cuda_device)
     xs, cond, states0 = (torch.as_tensor(a, device=cuda_device)
-                         for a in _inputs(spec, n=5, b=5))
+                         for a in _inputs(spec, n=5, b=b))
     with torch.no_grad():
         tw = tk.prepare_train_weights(pspec, model.flow)
+        assert_close(tk.cond_gates(pspec, tw, cond).cpu(),
+                     tk.cond_gates_ref(pspec, tw, cond).cpu().numpy(), **VAL_TOL)
         got = tk.seq_fwd(pspec, tw, xs, cond, states0)
         want = tk.seq_fwd_ref(pspec, tw, xs, cond, states0)
         for a, w in zip(got, want):
             assert_close(a.cpu(), w.cpu().numpy(), **VAL_TOL)
-        _, _, zs_res, states_res = want
+        _, _, zs_res, states_res, gc = want
         hprev = torch.cat([states0[None], states_res[:-1]])
         g = torch.Generator(device=cuda_device).manual_seed(0)
         cot = (torch.randn(xs.shape, generator=g, device=cuda_device),
                torch.randn(want[1].shape, generator=g, device=cuda_device),
                torch.randn(states0.shape, generator=g, device=cuda_device))
-        got = tk.seq_bwd(pspec, tw, cond, zs_res, hprev, *cot)
-        want = tk.seq_bwd_ref(pspec, tw, cond, zs_res, hprev, *cot)
+        got = tk.seq_bwd(pspec, tw, gc, zs_res, hprev, *cot)
+        want = tk.seq_bwd_ref(pspec, tw, gc, zs_res, hprev, *cot)
         for a, w in zip(got, want):
             assert_close(a.cpu(), w.cpu().numpy(), **GRAD_TOL)
