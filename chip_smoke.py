@@ -8,14 +8,20 @@ Drives the port's serving path and its training path of
 the sources in this checkout:
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the five CUDA kernels (``lets_face_it_tpu_torch/csrc``) with nvcc
+2. builds the CUDA kernels (``lets_face_it_tpu_torch/csrc``) with nvcc
    and prints each one's registers and spills;
-3. holds each sampling kernel against its plain PyTorch version on the card;
+3. holds each sampling kernel against its plain PyTorch version on the card:
+   ``frame_rev`` and ``seq_rev`` as their wrappers run them, and the two
+   kernels each frame of them runs, ``sample_gates`` and ``sample_chain``,
+   alone, at the main paths' batches and at odd ones (partial tiles and
+   clusters), with and without the own-face history;
 4. saves the weights in the reference's names, loads them through
    ``Generator.from_checkpoint``, generates a sequence and streams frames
    (``StreamingGenerator``), and checks the outputs against the plain path on
    the CPU with the same latents;
-5. checks that each sampling kernel's launch counter rose during step 4;
+5. checks that each sampling kernel's launch counter rose during step 4
+   (``sample_gates`` and ``sample_chain`` count the launches that
+   ``frame_rev`` and ``seq_rev`` make of them);
 6. times the serving path and each sampling kernel beside its plain version,
    a library yardstick and its bound;
 7. traces a push at B=1 and B=64 and a generate at B=1 with
@@ -218,9 +224,15 @@ def _row_step_flops(spec) -> int:
     return matmul + pointwise
 
 
+def _weight_floats(weights) -> int:
+    """Floats of the flow's sampling weights, each once: ``chain`` is a
+    re-laid copy of some of the others (``flow_kernels.chain_weights``)."""
+    return sum(t.numel() for n, t in weights._asdict().items() if n != "chain")
+
+
 def frame_bound_ms(spec, weights, b: int):
     k, c, h = spec.n_steps, spec.channels, spec.hidden_channels
-    w_bytes = sum(t.numel() for t in weights) * 4
+    w_bytes = _weight_floats(weights) * 4
     io = 4 * (b * c + k * b * spec.cond.cond_dim + k * b * h      # inputs
               + b * c + k * b * h)                                 # outputs
     flops = b * k * _row_step_flops(spec)
@@ -231,12 +243,33 @@ def frame_bound_ms(spec, weights, b: int):
 def seq_bound_ms(spec, weights, n: int, b: int):
     k, c, h = spec.n_steps, spec.channels, spec.hidden_channels
     p1, cond = spec.cond.p1_face.out_dim, spec.cond.cond_dim
-    w_bytes = (sum(t.numel() for t in weights) + k * p1 * cond) * 4
+    w_bytes = (_weight_floats(weights) + k * p1 * cond) * 4
     io = 4 * (n * b * c + n * k * b * cond + b * p1 + k * b * h   # inputs
               + n * b * c)                                         # output
     flops = n * b * k * (_row_step_flops(spec) + 2 * p1 * cond)
     t_bytes, t_ops = (w_bytes + io) / PEAK_BYTES_S, flops / PEAK_F32_FLOP_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def gates_bound_ms(spec, b: int, p1: int):
+    """One frame's gates: proj (P1 > 0), gc and gh for all K steps."""
+    k, h, cond = spec.n_steps, spec.hidden_channels, spec.cond.cond_dim
+    g = 3 * h
+    w_floats = k * (p1 * cond + (cond + 1) * g + (h + 1) * g)
+    io = k * b * cond + b * p1 + k * b * h + (k * b * cond if p1 else 0) + 2 * k * b * g
+    flops = 2 * b * k * (p1 * cond + cond * g + h * g)
+    return _bound(4 * (w_floats + io), flops)
+
+
+def chain_bound_ms(spec, weights, b: int, p1: int):
+    """One frame's serial chain: its resident weights read once, the gates
+    and states in, x, the states and the history out."""
+    k, c, z1, h = spec.n_steps, spec.channels, spec.z1_dim, spec.hidden_channels
+    cout, g = spec.coupling_out_dim, 3 * spec.hidden_channels
+    io = b * c + 2 * k * b * g + k * b * h + b * p1 + b * c + k * b * h + b * p1
+    matmul = 2 * (z1 * g + h * cout + c * c)
+    pointwise = 12 * h + 6 * (cout // 2) + 2 * c
+    return _bound(4 * (weights.chain.numel() + io), b * k * (matmul + pointwise))
 
 
 # ---------------------------------------------------------------------------
@@ -284,6 +317,19 @@ def library_seq_rev(spec, w, gru, w_p1_t, zs, fixed, hist, states0):
     return torch.stack(xs)
 
 
+def library_gates(spec, w, w_p1_t, fixed, hist, states):
+    """The gates as three batched cuBLAS products."""
+    import torch
+    import torch.nn.functional as F
+
+    proj = fixed
+    if hist.shape[-1]:
+        proj = torch.baddbmm(fixed, hist.expand(spec.n_steps, -1, -1), w_p1_t)
+    gc = torch.baddbmm(w.b_ih[:, None], F.leaky_relu(proj, 0.01),
+                       w.w_ih_t[:, spec.z1_dim:])
+    return proj, gc, torch.baddbmm(w.b_hh[:, None], states, w.w_hh_t)
+
+
 def _bwd_row_step_flops(spec) -> int:
     """FLOPs of one backward step for one row: the recomputed forward step,
     the four transposed products and the gate cotangents."""
@@ -306,6 +352,21 @@ def train_fwd_bound_ms(spec, tw, n: int, b: int):
     io = 4 * (n * b * c + n * k * b * cond + k * b * h                  # inputs
               + n * b * c + n * k * b * (half + c + h))                   # outputs
     return _bound(w_bytes + io, n * b * k * _row_step_flops(spec))
+
+
+def train_serial_bound_ms(spec, n: int, b: int):
+    """The serial chain of the forward alone (seq_fwd.cu after cond_gates):
+    its weights (w_hh, W, w_ih[:Z1], out_w and the vectors), xs, gc and the
+    states in; z, the scales and the two residual stacks out; the products
+    but the conditioning one."""
+    k, c, z1, h = spec.n_steps, spec.channels, spec.z1_dim, spec.hidden_channels
+    cout, g = spec.coupling_out_dim, 3 * spec.hidden_channels
+    half = cout // 2
+    w_floats = k * (h * g + c * c + z1 * g + h * cout + g + cout + 2 * c)
+    io = (n * b * c + n * k * b * g + k * b * h                        # inputs
+          + n * b * c + n * k * b * (half + c + h))                      # outputs
+    flops = 2 * (h * g + c * c + z1 * g + h * cout) + 12 * h + 6 * half + 2 * c
+    return _bound(4 * (w_floats + io), n * b * k * flops)
 
 
 def train_bwd_bound_ms(spec, tw, n: int, b: int):
@@ -502,6 +563,52 @@ def main() -> int:
                       f"{ref64.abs().max().item():.2f}")
             del model_lu
 
+            # the two kernels of a frame alone, and both wrappers at odd
+            # batches (partial row tiles and clusters)
+            frame_gates_err, frame_chain_err = {}, {}
+            for b in (1, 5, 33, 64, 128, 512):
+                z, projs, st = frame_inputs(b)
+                hist = torch.randn(b, p1, generator=g, device=dev)
+                for label, hist_b, w_p1_b in (("own face", hist, w_p1_t),
+                                              ("cond_projs", hist[:, :0],
+                                               w_p1_t[:, :0])):
+                    got = fk.sample_gates(spec, w, w_p1_b, projs, hist_b, st)
+                    ref = fk.sample_gates_ref(spec, w, w_p1_b, projs, hist_b, st)
+                    torch.cuda.synchronize()
+                    e_g = max(check_close(f"sample_gates {label} B={b} {nm}", a_, r_)
+                              for nm, a_, r_ in zip(("proj", "gc", "gh"), got, ref))
+                    _, gc, gh = ref
+                    hist_c = hist_b if hist_b.shape[-1] else None
+                    got = fk.sample_chain(spec, w, z, gc, gh, st, hist_c)
+                    ref = fk.sample_chain_ref(spec, w, z, gc, gh, st, hist_c)
+                    torch.cuda.synchronize()
+                    e_c = max(check_close(f"sample_chain {label} B={b} {nm}", a_, r_)
+                              for nm, a_, r_ in zip(("x", "states", "hist"), got, ref)
+                              if r_ is not None)
+                    frame_gates_err[b] = max(frame_gates_err.get(b, 0.0), e_g)
+                    frame_chain_err[b] = max(frame_chain_err.get(b, 0.0), e_c)
+                print(f"check sample_gates / sample_chain B={b} (own face and given "
+                      f"cond_projs): max|d| {frame_gates_err[b]:.3e} / "
+                      f"{frame_chain_err[b]:.3e}  ok")
+            for b in (5, 33):
+                z, projs, st = frame_inputs(b)
+                x, st_new = fk.frame_rev_fused(spec, w, z, projs, st)
+                x_ref, st_ref = fk.frame_rev_fused_ref(spec, w, z, projs, st)
+                torch.cuda.synchronize()
+                e1 = max(check_close(f"frame_rev B={b} x", x, x_ref),
+                         check_close(f"frame_rev B={b} states", st_new, st_ref))
+                zs, fixed, hist0, st0 = seq_inputs(b, n_seq)
+                xs = fk.sequence_rev_fused(spec, w, w_p1_t, zs, fixed, hist0, st0)
+                xs_ref = fk.sequence_rev_fused_ref(spec, w, w_p1_t, zs, fixed, hist0, st0)
+                torch.cuda.synchronize()
+                e_tight = check_close(f"seq_rev B={b} first {SEQ_TIGHT} frames",
+                                      xs[:SEQ_TIGHT], xs_ref[:SEQ_TIGHT])
+                e_all = check_close(f"seq_rev B={b} all frames", xs, xs_ref,
+                                    atol=SEQ_LOOSE_ATOL, rtol=0.0)
+                print(f"check odd batch B={b}: frame_rev max|d| {e1:.3e}; seq_rev "
+                      f"N={n_seq} first {SEQ_TIGHT} frames {e_tight:.3e}, all "
+                      f"{e_all:.3e}  ok")
+
             hp_nf = load_hparams(REPO / "hparams" / "no_face.yaml", dataset_root=tmp)
             spec_nf = FlowSpec.build(hp_nf)
             model_nf = seeded_random_model(spec_nf, SEED + 1).to(dev)
@@ -549,6 +656,7 @@ def main() -> int:
 
         fk.frame_rev_fused.launches = 0
         fk.sequence_rev_fused.launches = 0
+        fk.sample_gates.launches = fk.sample_chain.launches = 0
         t0 = time.perf_counter()
         out = gen.generate(frames, seed=SEED, z=z_gen)
         s1_out = run_stream(gen.model, "cuda", s1_z)
@@ -558,7 +666,9 @@ def main() -> int:
         torch.cuda.synchronize()
         t_main = time.perf_counter() - t0
         launches = {"frame_rev": fk.frame_rev_fused.launches,
-                    "seq_rev": fk.sequence_rev_fused.launches}
+                    "seq_rev": fk.sequence_rev_fused.launches,
+                    "sample_gates": fk.sample_gates.launches,
+                    "sample_chain": fk.sample_chain.launches}
         print(f"main path: {t_main:.3f} s (includes first-use costs); "
               f"launches {launches}")
 
@@ -663,6 +773,55 @@ def main() -> int:
                 launches=launches["seq_rev"], max_abs_err=seq_err[SEED, 1],
                 **{k: v for k, v in rows[0].items() if k not in ("batch", "frames")},
                 by_batch=rows))
+
+            # the two kernels of a frame alone, at the shapes the main paths
+            # give them: generate B=1 and sequence_sample B=128 (own face,
+            # proj with gh then gc), a push at B=64 (cond_projs given, gc with
+            # gh in one launch)
+            gate_rows, chain_rows = [], []
+            for b, own in ((1, True), (64, False), (128, True)):
+                z, projs, st = frame_inputs(b)
+                p1_b = p1 if own else 0
+                hist = torch.randn(b, p1_b, generator=g, device=dev)
+                w_p1_b = w_p1_t[:, :p1_b]
+                gates_call = lambda: fk.sample_gates(  # noqa: E731
+                    spec, w, w_p1_b, projs, hist, st)
+                _, gc, gh = gates_call()
+                hist_c = hist if own else None
+                chain_call = lambda: fk.sample_chain(  # noqa: E731
+                    spec, w, z, gc, gh, st, hist_c)
+                for rows_, name, call, plain_fn, lib_fn, (bound, by) in (
+                        (gate_rows, "sample_gates", gates_call,
+                         lambda: fk.sample_gates_ref(spec, w, w_p1_b, projs, hist, st),
+                         lambda: library_gates(spec, w, w_p1_b, projs, hist, st),
+                         gates_bound_ms(spec, b, p1_b)),
+                        (chain_rows, "sample_chain", chain_call,
+                         lambda: fk.sample_chain_ref(spec, w, z, gc, gh, st, hist_c),
+                         lambda: fk.sample_chain_ref(spec, w, z, gc, gh, st, hist_c),
+                         chain_bound_ms(spec, w, b, p1_b))):
+                    row = {"batch": b, "own_face": own,
+                           "ms": time_ms(graphed(call), 20),
+                           "wrapper_ms": time_ms(call, 20),
+                           "plain_ms": time_ms(plain_fn, 5),
+                           "library_ms": time_ms(graphed(lib_fn), 20),
+                           "bound_ms": bound, "bound_by": by}
+                    rows_.append(row)
+                    print(f"{name} B={b} ({'own face' if own else 'cond_projs given'}): "
+                          f"kernel {row['ms']:.4f} ms (graph replay; "
+                          f"{row['wrapper_ms']:.4f} ms through the wrapper), plain "
+                          f"{row['plain_ms']:.4f} ms, library (graphed ATen) "
+                          f"{row['library_ms']:.4f} ms, bound {bound:.4f} ms ({by})")
+            for name, source, replaces, rows_, err in (
+                    ("sample_gates", "lets_face_it_tpu_torch/csrc/sample_gates.cuh",
+                     "lets_face_it_tpu/ops/pallas_flow.py:172", gate_rows, frame_gates_err),
+                    ("sample_chain", "lets_face_it_tpu_torch/csrc/sample_chain.cuh",
+                     "lets_face_it_tpu/ops/pallas_flow.py:152", chain_rows, frame_chain_err)):
+                records.append(dict(
+                    name=name, route="cuda", source=source, replaces=replaces,
+                    launches=launches[name], max_abs_err=err[1],
+                    **{k: v for k, v in rows_[0].items()
+                       if k not in ("batch", "own_face")},
+                    by_batch=rows_))
 
         # -- 7. where the time goes ------------------------------------------
         print(f"profile on {card}: host wall per call without the profiler, "
@@ -904,8 +1063,10 @@ def main() -> int:
         fwd_bound, fwd_by = train_fwd_bound_ms(spec, tw, n_tr, b_tr)
         bwd_bound, bwd_by = train_bwd_bound_ms(spec, tw, n_tr, b_tr)
         gates_bound, gates_by = cond_gates_bound_ms(spec, n_tr, b_tr)
+        serial_bound, serial_by = train_serial_bound_ms(spec, n_tr, b_tr)
         print(f"seq_fwd B={b_tr} N={n_tr}: whole route {fwd_ms:.4f} ms = cond_gates "
-              f"{gemm_ms:.4f} ms + serial kernel {serial_ms:.4f} ms (graph replay); "
+              f"{gemm_ms:.4f} ms + serial kernel {serial_ms:.4f} ms (graph replay; "
+              f"the serial kernel's bound {serial_bound:.4f} ms, {serial_by}); "
               f"pair fwd + bwd {fwd_ms + bwd_ms:.4f} ms against bounds "
               f"{fwd_bound + bwd_bound:.4f} ms")
         print(f"cond_gates B={b_tr} N={n_tr}: kernel {gemm_ms:.4f} ms (graph replay; "
@@ -924,7 +1085,7 @@ def main() -> int:
             name="seq_fwd", route="cuda", source="lets_face_it_tpu_torch/csrc/seq_fwd.cu",
             replaces="lets_face_it_tpu/ops/pallas_train.py:182",
             launches=train_launches["seq_fwd"], max_abs_err=fwd_err[SEED], ms=fwd_ms,
-            gemm_ms=gemm_ms, serial_ms=serial_ms,
+            gemm_ms=gemm_ms, serial_ms=serial_ms, serial_bound_ms=serial_bound,
             wrapper_ms=fwd_wrap, plain_ms=fwd_plain, bound_ms=fwd_bound,
             bound_by=fwd_by, library_ms=lib_fwd, batch=b_tr, frames=n_tr))
         records.append(dict(

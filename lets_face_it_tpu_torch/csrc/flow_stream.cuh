@@ -7,8 +7,8 @@
 // Why: the serial chain walks N * K steps, and every step reads the step's
 // weights (281 KB for final_model once the conditioning product is done
 // ahead by cond_gates.cu) for a few batch rows. Read through L2 by every
-// block, as flow_step.cuh::tile_matvec does, that is one read of the weight
-// set per block and step, issued only when the chain reaches it. The order
+// block, as the first version of these kernels did, that is one read of
+// the weight set per block and step, issued only when the chain reaches it. The order
 // in which the weights are needed does not depend on the data, so here the
 // producer runs up to a ring's worth of chunks ahead of the consumers, and each
 // chunk is read from L2 once per cluster: block `rank` of a cluster of CS
@@ -433,7 +433,8 @@ struct StreamProduct {
 };
 
 // Plans a launch for B rows: bt, cs and nslots as asked (0: the defaults:
-// rows per block as pick_bt chooses them, STREAM_DEFAULT_CLUSTER,
+// the fewest rows per block, up to FLOW_MAX_BT, that need at most one block
+// per SM, STREAM_DEFAULT_CLUSTER,
 // STREAM_DEFAULT_SLOTS), other_floats(bt) the block's shared floats besides
 // the ring and the partial sums. The partial sums get what the widest split
 // needs, at most a quarter of what is left; the slots share the rest, up to

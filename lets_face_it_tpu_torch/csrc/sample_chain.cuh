@@ -1,0 +1,677 @@
+// The serial chain of the sampling flow for Hopper (sm_90a): one frame
+// through the K reversed flow steps, the gates that do not depend on the
+// chain (gc, gh: sample_gates.cuh) given. For chain position i = 0 .. K-1,
+// step k = K-1-i, on BT rows:
+//   gi     = gc[k] + z[:, :Z1] @ w_ih_t[k][:Z1]
+//   h      = GRU(gi, gh[k], h_prev[k])             (gate order r, z, n)
+//   hout   = h @ out_w_t[k] + out_b[k]             ([shift | scale_raw] halves)
+//   z2     = z2 / max(sigmoid(scale_raw + 2), eps) - shift
+//   z      = (z @ W^-1[k]) * exp(-logs[k]) - bias[k]
+// and writes x = z, the K new states and, for the sequence kernel, the
+// next own-face history (the oldest frame dropped, x appended).
+//
+// Replaces: the serial part of lets_face_it_tpu/ops/pallas_flow.py::_kernel
+// and ::_seq_rev_kernel (their step bodies, the K reversed steps of a frame).
+//
+// What bounds it on an H100: the chain's weights are 84.9 KB a step for
+// final_model (w_ih_t[k][:Z1], out_w_t[k], out_b[k], W^-1[k], the actnorm),
+// 1.36 MB for K = 16, and 21 kFLOP a row and step, serial over the K steps.
+// Read from L2 by one SM each step, as the first version of this kernel did,
+// the weights cost about 1.5 us a step. Held in shared memory, a step is
+// bound by latency: three dependent products and their pointwise work, a
+// block barrier after each (PERF.md: about 2.2 us a step on one SM at one
+// row, measured by the trace below).
+//
+// Design: a thread-block cluster of CS blocks holds all K steps' chain
+// weights resident in its blocks' shared memory, the steps split in chain
+// order (rank r holds steps [r*K/CS, (r+1)*K/CS)), loaded once per launch
+// by one bulk copy (cp.async.bulk) per step that completes on that step's
+// mbarrier, so that a block starts its first step as soon as that step has
+// arrived. The host lays each step's weights out in the order the lanes
+// read them (ChainArgs::weights), so that every shared-memory read of a warp
+// is 32 consecutive words. A tile of BT rows enters rank 0, runs its steps
+// there and hops to rank 1: the z rows go into the next block's shared
+// memory by st.async, which completes the byte count of that block's
+// mbarrier for the tile; one barrier per tile, armed once, so no slot is
+// reused within a launch (a hop costs about 0.15 us). A cluster takes M
+// tiles in turn, so its ranks work as a pipeline (rank r on tile j while
+// rank r+1 is on tile j-1), and more rows go to more clusters, each reading
+// the weights once. Inside a block the 512 threads split each product (4,
+// 16 and 8 lanes an output, the rows interleaved) and sum by warp shuffles;
+// every row's gates and previous states are fetched by cp.async ahead of
+// the wait for z. The launch overlaps the gates kernel before it
+// (programmatic dependent launch): barrier set-up and weight copies run
+// while the gates finish, and the kernel waits for them (griddepcontrol)
+// only before it reads their results; the cluster barrier that guards the
+// first st.async is split into an early arrive and a late wait. Every wait
+// traps after 10 s (stream_watchdog) rather than hang the card.
+//
+// Included by the launchers (frame_rev.cu, seq_rev.cu, sample_chain.cu).
+// Only a library that defines SAMPLE_CHAIN_PROBE before the include
+// (sample_chain.cu, which the probe and the checks call) compiles the
+// probe's extras: the kernel's traced instantiation (ChainArgs::trace) and
+// clusters above the portable 8. The launchers of the main paths compile
+// neither.
+
+#pragma once
+
+#include <cstdint>
+
+#include <cuda_runtime.h>
+
+#include "flow_stream.cuh"
+
+// Internal linkage: each launcher library (frame_rev, seq_rev, sample_*)
+// keeps its own kernels and its own once-per-device flags; the static
+// locals of inline functions would otherwise be one object shared by
+// every library loaded into the process.
+namespace {
+
+constexpr int CHAIN_THREADS = 512;
+constexpr int CHAIN_MAX_HELD = 16;       // steps one block may hold
+constexpr int CHAIN_MAX_TILES = 32;      // row tiles per cluster (M)
+constexpr int CHAIN_MAX_CLUSTER = 16;    // above 8 non-portable: the probe's
+constexpr int CHAIN_BAR_FLOATS = 2 * (CHAIN_MAX_HELD + CHAIN_MAX_TILES);
+constexpr int CHAIN_PARTS_GRU = 4;      // slices of z1 @ w_ih_t[k][:Z1]
+constexpr int CHAIN_SLICES_OUT = 16;     // slices of h @ out_w_t[k]
+constexpr int CHAIN_SLICES_MIX = 8;      // slices of z @ W^-1[k]
+// Used when the caller asks for none (0), the largest portable size:
+// measured best on an H100 by lets_face_it_tpu_torch/probe_sampling_kernels.py
+// (PERF.md).
+constexpr int CHAIN_DEFAULT_CLUSTER = 8;
+
+struct ChainArgs {
+  // [K, chain_step_floats] each step's weights in the order of the kernel's
+  // lanes (ops/flow_kernels.py::chain_weights lays them out):
+  //   w_ih_t[k][:Z1]  as [ceil(Z1/4)][3H][4]   row 4m+p at [m][c][p]
+  //   out_w_t[k]      as [ceil(H/16)][COUT][16] row 16m+p at [m][c][p]
+  //   out_b[k]        [COUT]
+  //   W^-1[k]         as [ceil(C/8)][C][8]      row 8m+p at [m][c][p]
+  //   an_bias[k], exp(-logs[k])  [C] each
+  // (rows past the end zero, each piece padded to 16 bytes), so that the
+  // lanes of a warp read consecutive words.
+  const float* weights;
+  int K, C, Z1, H, COUT;
+  float scale_eps;
+  // the frame
+  int B, P1;
+  const float* z_in;     // [B, C]
+  const float* gc;       // [K, B, 3H]
+  const float* gh;       // [K, B, 3H]
+  const float* states_in;   // [K, B, H]
+  float* states_out;        // [K, B, H] (may be states_in)
+  float* x_out;             // [B, C]
+  const float* hist_in;     // [B, P1] (P1 > 0)
+  float* hist_out;          // [B, P1]
+  // the plan
+  int cs, m, step_floats;
+  // null, or (the traced instantiation only, SAMPLE_CHAIN_PROBE)
+  // [blocks, CHAIN_TRACE_SLOTS] device times (ns) of the first tile: block
+  // start, the gates' results visible, z in hand, the end of each held
+  // step, the hand-off sent; in the last two slots the ends of the GRU and
+  // the coupling phases of the first held step, and in the two before them
+  // the SM's cycle counter at z in hand and at the end of that step (their
+  // ratio to the times is the SM clock)
+  unsigned long long* trace;
+};
+
+constexpr int CHAIN_TRACE_SLOTS = 32;
+
+__host__ __device__ inline int round_up(int n, int m) { return (n + m - 1) / m * m; }
+
+// Floats of one step's resident weights (ChainArgs::weights).
+__host__ __device__ inline int chain_step_floats(int C, int Z1, int H, int COUT) {
+  return round_up(Z1, CHAIN_PARTS_GRU) * 3 * H + round_up(H, CHAIN_SLICES_OUT) * COUT
+         + round4(COUT) + round_up(C, CHAIN_SLICES_MIX) * C + 2 * round4(C);
+}
+
+// Shared floats of a block holding `held` steps, BT-row tiles, M of them:
+// the barriers, the weights, the incoming tiles, two z buffers, the new
+// state, and a tile's gates and previous states for the held steps.
+__host__ __device__ inline int chain_smem_floats(int held, int step_floats,
+                                                 int bt, int m, int C, int H) {
+  return CHAIN_BAR_FLOATS + held * step_floats + m * round4(bt * C)
+         + 2 * round4(bt * C) + round4(bt * H) + held * bt * 7 * H;
+}
+
+__device__ __forceinline__ void bulk_copy_g2s(uint32_t dst, const void* src,
+                                              uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(remote)
+               : "r"(addr), "r"(rank));
+  return remote;
+}
+
+// 16 bytes into the shared memory of another block of the cluster,
+// completing 16 bytes on its barrier `bar` (both cluster addresses).
+__device__ __forceinline__ void st_async_v4(uint32_t addr, float4 v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32"
+      " [%0], {%1, %2, %3, %4}, [%5];" ::"r"(addr),
+      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
+      : "memory");
+}
+
+// Wait for phase `parity` of a barrier completed by another block's
+// st.async (release at cluster scope), acquiring at cluster scope.
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity) {
+  uint32_t done, spins = 0;
+  uint64_t t0 = 0;
+  for (;;) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if ((++spins & 1023) == 0) t0 = stream_watchdog(t0);
+  }
+}
+
+// The two halves of cluster_sync(): every thread of every block arrives,
+// and later waits for all the others' arrivals.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
+}
+
+// TRACE: the probe's instantiation, which records ChainArgs::trace; the
+// main paths launch TRACE = false, which compiles no timestamp.
+template <int BT, bool TRACE>
+__global__ void __launch_bounds__(CHAIN_THREADS, 1)
+sample_chain_kernel(ChainArgs a) {
+  extern __shared__ __align__(128) float csm[];
+  const int tid = threadIdx.x;
+  const int K = a.K, C = a.C, Z1 = a.Z1, H = a.H, COUT = a.COUT;
+  const int G = 3 * H, half = COUT / 2;
+  const int ZQ = (Z1 + CHAIN_PARTS_GRU - 1) / CHAIN_PARTS_GRU;
+  const int HQ = (H + CHAIN_SLICES_OUT - 1) / CHAIN_SLICES_OUT;
+  const int CQ = (C + CHAIN_SLICES_MIX - 1) / CHAIN_SLICES_MIX;
+  const int cs = a.cs, M = a.m, SF = a.step_floats;
+  const uint32_t rank = cluster_rank();
+  const int i0 = (int)rank * K / cs, i1 = ((int)rank + 1) * K / cs;
+  const int held = i1 - i0;
+  const int crow0 = (int)(blockIdx.x / cs) * M * BT;
+  unsigned long long* trace = TRACE && a.trace && tid == 0
+                                  ? a.trace + (size_t)blockIdx.x * CHAIN_TRACE_SLOTS
+                                  : nullptr;
+  if (TRACE && trace) trace[0] = global_ns();
+
+  const uint32_t bars = smem_u32(csm);
+  const uint32_t wbar = bars;                             // [held]
+  const uint32_t zbar = bars + 8 * CHAIN_MAX_HELD;        // [M]
+  float* wts = csm + CHAIN_BAR_FLOATS;                    // [held, SF]
+  float* zin = wts + (size_t)held * SF;                   // [M, BT*C]
+  const int zstride = round4(BT * C);
+  float* zw0 = zin + (size_t)M * zstride;                 // [BT, C]
+  float* zw1 = zw0 + zstride;                             // [BT, C]
+  float* hb = zw1 + zstride;                              // [BT, H]
+  float* pre = hb + round4(BT * H);                       // [held, BT, 2G + H]
+  const int PR = 2 * G + H;                               // gc | gh | h_prev
+  // offsets in a step's weights
+  const int o_wo = ZQ * CHAIN_PARTS_GRU * G, o_ob = o_wo + HQ * CHAIN_SLICES_OUT * COUT,
+            o_wi = o_ob + round4(COUT), o_ab = o_wi + CQ * CHAIN_SLICES_MIX * C,
+            o_am = o_ab + round4(C);
+
+  if (tid == 0) {
+    for (int s = 0; s < held; ++s) mbar_init(wbar + 8 * s, 1);
+    for (int j = 0; j < M; ++j) mbar_init(zbar + 8 * j, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    // the incoming tiles: each barrier's one arrival, and the bytes expected
+    if (rank > 0)
+      for (int j = 0; j < M; ++j)
+        mbar_arrive_expect_tx(zbar + 8 * j, (uint32_t)(BT * C * 4));
+    // this block's steps, one bulk copy and one barrier each
+    for (int s = 0; s < held; ++s) {
+      const int k = K - 1 - (i0 + s);
+      const uint32_t bar = wbar + 8 * s;
+      mbar_arrive_expect_tx(bar, (uint32_t)SF * 4u);
+      bulk_copy_g2s(smem_u32(wts + (size_t)s * SF), a.weights + (size_t)k * SF,
+                    (uint32_t)SF * 4u, bar);
+    }
+  }
+  __syncthreads();
+  // Every block's barriers must be armed before a peer's first st.async into
+  // it: arrive now, wait just before this block's first hand-off (by then
+  // the peers have long arrived), so rank 0 starts without waiting.
+  cluster_arrive();
+  bool cluster_waited = false;
+  // Launched as a programmatic dependent of the gates kernel, the set-up
+  // above overlaps it; nothing it wrote is read before this point.
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  if (TRACE && trace) trace[1] = global_ns();
+
+  for (int j = 0; j < M; ++j) {
+    const int row0 = crow0 + j * BT;
+    if (row0 >= a.B) break;   // the same for every rank of the cluster
+    const int rows = min(BT, a.B - row0);
+    // the tile's gates and previous states of the held steps, ahead of the
+    // wait for z (zeros past the batch)
+    for (int s = 0; s < held; ++s) {
+      const int k = K - 1 - (i0 + s);
+      float* dst = pre + (size_t)s * BT * PR;
+      for (int u = tid; u < BT * PR / 4; u += CHAIN_THREADS) {
+        const int r = u / (PR / 4), q = 4 * (u - r * (PR / 4));
+        const size_t row = (size_t)k * a.B + row0 + min(r, rows - 1);
+        const float* src = q < G ? a.gc + row * G + q
+                         : q < 2 * G ? a.gh + row * G + q - G
+                         : a.states_in + row * H + q - 2 * G;
+        cp_async16(dst + r * PR + q, src, r < rows);
+      }
+    }
+    cp_async_commit();
+    float* cur;
+    float* nxt;
+    if (rank == 0) {
+      cur = zw1;
+      nxt = zw0;
+      for (int idx = tid; idx < BT * C; idx += CHAIN_THREADS)
+        cur[idx] = idx / C < rows ? a.z_in[(size_t)row0 * C + idx] : 0.0f;
+    } else {
+      cur = zin + (size_t)j * zstride;
+      nxt = zw0;
+      mbar_wait_cluster(zbar + 8 * j, 0);
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    if (TRACE && trace && j == 0) {
+      trace[2] = global_ns();
+      trace[CHAIN_TRACE_SLOTS - 4] = clock64();
+    }
+
+    for (int s = 0; s < held; ++s) {
+      const int k = K - 1 - (i0 + s);
+      const float* ws = wts + (size_t)s * SF;
+      if (j == 0) mbar_wait(wbar + 8 * s, 0);
+
+      // h = GRU(gc + z1 @ Wz, gh, h_prev): CHAIN_PARTS_GRU lanes a unit, each
+      // an interleaved quarter of the Z1 rows for all BT rows; after the
+      // butterfly every lane holds the sums, and lane p finishes rows p, p+4..
+      for (int base = 0; base < H * CHAIN_PARTS_GRU; base += CHAIN_THREADS) {
+        const int job = base + tid;
+        const int part = job % CHAIN_PARTS_GRU, u = job / CHAIN_PARTS_GRU;
+        const bool act = u < H;
+        float ar[BT], az[BT], an[BT];
+#pragma unroll
+        for (int r = 0; r < BT; ++r) ar[r] = az[r] = an[r] = 0.0f;
+        if (act) {
+          // rows 4m + part; past Z1 the weights are zero (and z finite)
+          const float* wz = ws + u * CHAIN_PARTS_GRU + part;
+#pragma unroll 1
+          for (int m = 0; m < ZQ; ++m) {
+            const float* wm = wz + m * CHAIN_PARTS_GRU * G;
+            const float w0 = wm[0], w1 = wm[CHAIN_PARTS_GRU * H],
+                        w2 = wm[2 * CHAIN_PARTS_GRU * H];
+            const int i = CHAIN_PARTS_GRU * m + part;
+#pragma unroll
+            for (int r = 0; r < BT; ++r) {
+              const float x = cur[r * C + i];
+              ar[r] = fmaf(x, w0, ar[r]);
+              az[r] = fmaf(x, w1, az[r]);
+              an[r] = fmaf(x, w2, an[r]);
+            }
+          }
+        }
+#pragma unroll
+        for (int off = 1; off < CHAIN_PARTS_GRU; off *= 2)
+#pragma unroll
+          for (int r = 0; r < BT; ++r) {
+            ar[r] += __shfl_xor_sync(0xffffffffu, ar[r], off);
+            az[r] += __shfl_xor_sync(0xffffffffu, az[r], off);
+            an[r] += __shfl_xor_sync(0xffffffffu, an[r], off);
+          }
+        if (act) {
+#pragma unroll
+          for (int r = 0; r < BT; ++r) {
+            if (r % CHAIN_PARTS_GRU != part) continue;
+            const float* p = pre + ((size_t)s * BT + r) * PR + u;
+            const float rg = sigmoidf_(p[0] + ar[r] + p[G]);
+            const float ug = sigmoidf_(p[H] + az[r] + p[G + H]);
+            const float ng = tanhf(p[2 * H] + an[r] + rg * p[G + 2 * H]);
+            const float h = (1.0f - ug) * ng + ug * p[2 * G];
+            hb[r * H + u] = h;
+            if (r < rows) a.states_out[((size_t)k * a.B + row0 + r) * H + u] = h;
+          }
+        }
+      }
+      __syncthreads();
+      if (TRACE && trace && j == 0 && s == 0) trace[CHAIN_TRACE_SLOTS - 2] = global_ns();
+
+      // hout = h @ out_w_t + out_b, then the coupling: CHAIN_SLICES_OUT lanes
+      // a pair (shift jj, scale jj), each a slice of H for all BT rows; lane
+      // r finishes row r
+      const float* wo = ws + o_wo;
+      const float* ob = ws + o_ob;
+      for (int base = 0; base < half * CHAIN_SLICES_OUT; base += CHAIN_THREADS) {
+        const int job = base + tid;
+        const int sl = job % CHAIN_SLICES_OUT, jj = job / CHAIN_SLICES_OUT;
+        const bool act = jj < half;
+        float sh[BT], sc[BT];
+#pragma unroll
+        for (int r = 0; r < BT; ++r) sh[r] = sc[r] = 0.0f;
+        if (act) {
+          // rows 16m + sl
+          const float* wj = wo + jj * CHAIN_SLICES_OUT + sl;
+#pragma unroll 1
+          for (int m = 0; m < HQ; ++m) {
+            const int i = CHAIN_SLICES_OUT * m + sl;
+            const float* wm = wj + m * CHAIN_SLICES_OUT * COUT;
+            const float w0 = wm[0], w1 = wm[CHAIN_SLICES_OUT * half];
+#pragma unroll
+            for (int r = 0; r < BT; ++r) {
+              const float hv = i < H ? hb[r * H + i] : 0.0f;
+              sh[r] = fmaf(hv, w0, sh[r]);
+              sc[r] = fmaf(hv, w1, sc[r]);
+            }
+          }
+        }
+#pragma unroll
+        for (int off = 1; off < CHAIN_SLICES_OUT; off *= 2)
+#pragma unroll
+          for (int r = 0; r < BT; ++r) {
+            sh[r] += __shfl_xor_sync(0xffffffffu, sh[r], off);
+            sc[r] += __shfl_xor_sync(0xffffffffu, sc[r], off);
+          }
+        if (act) {
+#pragma unroll
+          for (int r = 0; r < BT; ++r) {
+            if (r != sl) continue;
+            const float shift = sh[r] + ob[jj];
+            const float scale = fmaxf(sigmoidf_(sc[r] + ob[half + jj] + 2.0f),
+                                      a.scale_eps);
+            float* z2 = cur + r * C + Z1 + jj;
+            *z2 = *z2 / scale - shift;
+          }
+        }
+      }
+      __syncthreads();
+      if (TRACE && trace && j == 0 && s == 0) trace[CHAIN_TRACE_SLOTS - 1] = global_ns();
+
+      // z = (z @ W^-1) * exp(-logs) - bias: CHAIN_SLICES_MIX lanes a column,
+      // each a slice of C for all BT rows; lane r finishes row r
+      const float* wi = ws + o_wi;
+      const float* ab = ws + o_ab;
+      const float* am = ws + o_am;
+      for (int base = 0; base < C * CHAIN_SLICES_MIX; base += CHAIN_THREADS) {
+        const int job = base + tid;
+        const int sl = job % CHAIN_SLICES_MIX, c = job / CHAIN_SLICES_MIX;
+        const bool act = c < C;
+        float v[BT];
+#pragma unroll
+        for (int r = 0; r < BT; ++r) v[r] = 0.0f;
+        if (act) {
+          // rows 8m + sl
+          const float* wc = wi + c * CHAIN_SLICES_MIX + sl;
+#pragma unroll 1
+          for (int m = 0; m < CQ; ++m) {
+            const int i = CHAIN_SLICES_MIX * m + sl;
+            const float w = wc[m * CHAIN_SLICES_MIX * C];
+#pragma unroll
+            for (int r = 0; r < BT; ++r)
+              v[r] = fmaf(i < C ? cur[r * C + i] : 0.0f, w, v[r]);
+          }
+        }
+#pragma unroll
+        for (int off = 1; off < CHAIN_SLICES_MIX; off *= 2)
+#pragma unroll
+          for (int r = 0; r < BT; ++r) v[r] += __shfl_xor_sync(0xffffffffu, v[r], off);
+        if (act) {
+#pragma unroll
+          for (int r = 0; r < BT; ++r)
+            if (r == sl) nxt[r * C + c] = v[r] * am[c] - ab[c];
+        }
+      }
+      __syncthreads();
+      if (TRACE && trace && j == 0) {
+        trace[3 + s] = global_ns();
+        if (s == 0) trace[CHAIN_TRACE_SLOTS - 3] = clock64();
+      }
+      float* done = nxt;   // this tile's slot is its own: free to reuse
+      nxt = cur;
+      cur = done;
+    }
+
+    if ((int)rank + 1 < cs) {
+      if (!cluster_waited) {
+        cluster_wait();   // the next rank's barriers are armed
+        cluster_waited = true;
+      }
+      // hand the tile to the next rank
+      const uint32_t dst = map_rank(smem_u32(zin + (size_t)j * zstride), rank + 1);
+      const uint32_t bar = map_rank(zbar + 8 * j, rank + 1);
+      for (int q = tid; q < BT * C / 4; q += CHAIN_THREADS)
+        st_async_v4(dst + 16 * q, reinterpret_cast<const float4*>(cur)[q], bar);
+      if (TRACE && trace && j == 0) trace[3 + held] = global_ns();
+    } else {
+      for (int idx = tid; idx < rows * C; idx += CHAIN_THREADS)
+        a.x_out[(size_t)row0 * C + idx] = cur[idx];
+      const int P1 = a.P1;
+      for (int idx = tid; idx < rows * P1; idx += CHAIN_THREADS) {
+        const int r = idx / P1, q = idx - r * P1;
+        a.hist_out[(size_t)row0 * P1 + idx] =
+            q < P1 - C ? a.hist_in[(size_t)row0 * P1 + idx + C]
+                       : cur[r * C + q - (P1 - C)];
+      }
+    }
+    __syncthreads();   // cur and the work buffers are free for the next tile
+  }
+  if (!cluster_waited) cluster_wait();
+  cluster_sync();   // no block leaves while a peer may still write to it
+}
+
+// ---------------------------------------------------------------------------
+// Host side: the launch plan
+// ---------------------------------------------------------------------------
+
+struct ChainPlan {
+  int bt;           // rows per tile
+  int cs;           // blocks per cluster
+  int m;            // tiles per cluster
+  int clusters;
+  int step_floats;
+  int smem_bytes;
+};
+
+inline int chain_smem_bytes(int K, int C, int Z1, int H, int COUT, int bt,
+                            int cs, int m) {
+  const int held = (K + cs - 1) / cs;
+  return 4 * chain_smem_floats(held, chain_step_floats(C, Z1, H, COUT), bt, m,
+                               C, H);
+}
+
+// Plans a launch for B rows: bt, cs and m as asked, 0 for the defaults
+// (cs: CHAIN_DEFAULT_CLUSTER, or K if that is less). A default tile is
+// one row (a tile's steps take about as long for one row as for a few, and
+// a cluster pipelines its tiles), doubled while the rows would need more
+// than CHAIN_MAX_TILES tiles in each of the clusters the device holds at
+// once (`resident(plan)`); the default m is the least that lets every
+// cluster be resident at once. Returns false if the block does not fit or a
+// value is out of range.
+template <typename Resident>
+inline bool chain_plan(int B, int K, int C, int Z1, int H, int COUT,
+                       int bt_req, int cs_req, int m_req, const FlowDevice& d,
+                       Resident resident, ChainPlan* plan) {
+  int cs = cs_req ? cs_req : CHAIN_DEFAULT_CLUSTER;
+  if (cs > K) cs = K;
+  int bt = bt_req ? bt_req : 1;
+  if (cs < 1 || cs > CHAIN_MAX_CLUSTER || bt < 1 || bt > FLOW_MAX_BT
+      || (K + cs - 1) / cs > CHAIN_MAX_HELD || m_req < 0 || m_req > CHAIN_MAX_TILES)
+    return false;
+  plan->bt = bt;
+  plan->cs = cs;
+  plan->step_floats = chain_step_floats(C, Z1, H, COUT);
+  plan->m = m_req ? m_req : 1;
+  plan->clusters = ((B + bt - 1) / bt + plan->m - 1) / plan->m;
+  plan->smem_bytes = chain_smem_bytes(K, C, Z1, H, COUT, bt, cs, plan->m);
+  if (plan->smem_bytes > d.max_smem) return false;
+  if (m_req == 0) {
+    const int n = resident(*plan);
+    if (n <= 0) return false;
+    if (bt_req == 0)
+      while (bt < FLOW_MAX_BT && (B + bt - 1) / bt > n * CHAIN_MAX_TILES) bt *= 2;
+    const int tiles = (B + bt - 1) / bt;
+    int m = (tiles + n - 1) / n;
+    if (m > CHAIN_MAX_TILES) m = CHAIN_MAX_TILES;
+    plan->bt = bt;
+    plan->m = m;
+    plan->clusters = (tiles + m - 1) / m;
+    plan->smem_bytes = chain_smem_bytes(K, C, Z1, H, COUT, bt, cs, m);
+    if (plan->smem_bytes > d.max_smem) return false;
+  }
+  return true;
+}
+
+// The kernel's shared-memory cap (and, in the probe's library, its
+// permission for clusters above 8), once per device.
+template <typename Kernel>
+inline cudaError_t chain_allow(Kernel kernel, const FlowDevice& d, bool* done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < FLOW_MAX_DEVICES && done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             d.max_smem);
+#ifdef SAMPLE_CHAIN_PROBE
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+#endif
+  if (err == cudaSuccess && dev < FLOW_MAX_DEVICES) done[dev] = true;
+  return err;
+}
+
+// attr: room for two attributes; `after_gates`: launch as a programmatic
+// dependent of the kernel before it on the stream (the gates), so that its
+// set-up overlaps that kernel (the kernel waits for it before reading).
+inline cudaLaunchConfig_t chain_config(const ChainPlan& p, cudaStream_t stream,
+                                       cudaLaunchAttribute* attr,
+                                       bool after_gates = false) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.clusters * p.cs);
+  cfg.blockDim = dim3(CHAIN_THREADS);
+  cfg.dynamicSmemBytes = p.smem_bytes;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = after_gates ? 2 : 1;
+  return cfg;
+}
+
+// Clusters of the plan the device holds at once (cudaOccupancyMaxActiveClusters),
+// -1 on an error.
+template <int BT>
+inline int chain_resident(const ChainPlan& p, const FlowDevice& d) {
+  static bool allowed[FLOW_MAX_DEVICES] = {};
+  if (chain_allow(sample_chain_kernel<BT, false>, d, allowed) != cudaSuccess) return -1;
+  cudaLaunchAttribute attr[2];
+  cudaLaunchConfig_t cfg = chain_config(p, nullptr, attr);
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(&n, sample_chain_kernel<BT, false>, &cfg)
+      != cudaSuccess)
+    return -1;
+  return n;
+}
+
+// The same, remembered per device and plan shape (the query costs a few
+// microseconds of host time, and a push plans every frame).
+inline int chain_resident_bt(const ChainPlan& p, const FlowDevice& d) {
+  struct Entry { int dev, bt, cs, smem, n; };
+  static Entry cache[32] = {};
+  static int filled = 0;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return -1;
+  for (int i = 0; i < filled; ++i) {
+    const Entry& e = cache[i];
+    if (e.dev == dev && e.bt == p.bt && e.cs == p.cs && e.smem == p.smem_bytes)
+      return e.n;
+  }
+  int n = -1;
+  switch (p.bt) {
+    case 1: n = chain_resident<1>(p, d); break;
+    case 2: n = chain_resident<2>(p, d); break;
+    case 4: n = chain_resident<4>(p, d); break;
+    case 8: n = chain_resident<8>(p, d); break;
+    default: return -1;
+  }
+  if (n > 0 && filled < 32) cache[filled++] = {dev, p.bt, p.cs, p.smem_bytes, n};
+  return n;
+}
+
+inline bool chain_plan_for(int B, const ChainArgs& a, int bt, int cs, int m,
+                           const FlowDevice& d, ChainPlan* plan) {
+  return chain_plan(B, a.K, a.C, a.Z1, a.H, a.COUT, bt, cs, m, d,
+                    [&](const ChainPlan& p) { return chain_resident_bt(p, d); },
+                    plan);
+}
+
+inline bool chain_valid(const ChainArgs& a) {
+  return a.B >= 1 && a.K >= 1 && a.C % 4 == 0 && a.H % 4 == 0 && a.COUT % 4 == 0
+         && a.COUT == 2 * (a.C - a.Z1) && a.Z1 >= 1
+         && round_up(a.Z1, CHAIN_PARTS_GRU) <= a.C
+         && (a.P1 == 0 || (a.P1 >= a.C && a.P1 % 4 == 0));
+}
+
+template <int BT, bool TRACE>
+inline cudaError_t chain_launch_bt(const cudaLaunchConfig_t& cfg, const ChainArgs& a,
+                                   const FlowDevice& d) {
+  static bool allowed[FLOW_MAX_DEVICES] = {};
+  cudaError_t err = chain_allow(sample_chain_kernel<BT, TRACE>, d, allowed);
+  if (err != cudaSuccess) return err;
+  return cudaLaunchKernelEx(&cfg, sample_chain_kernel<BT, TRACE>, a);
+}
+
+template <bool TRACE>
+inline cudaError_t chain_launch(const cudaLaunchConfig_t& cfg, const ChainArgs& a,
+                                int bt, const FlowDevice& d) {
+  switch (bt) {
+    case 1: return chain_launch_bt<1, TRACE>(cfg, a, d);
+    case 2: return chain_launch_bt<2, TRACE>(cfg, a, d);
+    case 4: return chain_launch_bt<4, TRACE>(cfg, a, d);
+    case 8: return chain_launch_bt<8, TRACE>(cfg, a, d);
+    default: return (cudaError_t)FLOW_ERR_PLAN;
+  }
+}
+
+// One launch of the chain for one frame on `stream`, added to *launches;
+// `a` carries the frame's pointers, the plan its shape; `after_gates` as in
+// chain_config. A trace is taken only by the probe's library.
+inline cudaError_t chain_enqueue(ChainArgs a, const ChainPlan& p,
+                                 const FlowDevice& d, cudaStream_t stream,
+                                 int* launches, bool after_gates = false) {
+  a.cs = p.cs;
+  a.m = p.m;
+  a.step_floats = p.step_floats;
+  cudaLaunchAttribute attr[2];
+  const cudaLaunchConfig_t cfg = chain_config(p, stream, attr, after_gates);
+#ifdef SAMPLE_CHAIN_PROBE
+  cudaError_t err = a.trace ? chain_launch<true>(cfg, a, p.bt, d)
+                            : chain_launch<false>(cfg, a, p.bt, d);
+#else
+  if (a.trace) return (cudaError_t)FLOW_ERR_ARGS;
+  cudaError_t err = chain_launch<false>(cfg, a, p.bt, d);
+#endif
+  if (err != cudaSuccess) return err;
+  ++*launches;
+  return cudaGetLastError();
+}
+
+}  // namespace

@@ -2,17 +2,35 @@
 
 * ``frame_rev_fused``: one frame inverted through the K flow steps (reverse
   order) with the coupling-GRU states advanced; the streaming step. CUDA
-  source ``csrc/frame_rev.cu``; replaces ``lets_face_it_tpu/ops/pallas_flow.py``
+  launcher ``csrc/frame_rev.cu``; replaces ``lets_face_it_tpu/ops/pallas_flow.py``
   ``_kernel``.
 * ``sequence_rev_fused``: the whole autoregressive sampling loop (N frames x
-  K steps, own-face ring buffer and GRU states kept on chip); offline
-  generation. CUDA source ``csrc/seq_rev.cu``; replaces ``_seq_rev_kernel``.
+  K steps, own-face history and GRU states kept on the device); offline
+  generation. CUDA launcher ``csrc/seq_rev.cu``; replaces ``_seq_rev_kernel``.
+
+Both run each frame as two kinds of hand-written kernel:
+
+* ``sample_gates`` (``csrc/sample_gates.cuh``): the products of a frame that
+  do not depend on the serial chain, for all K steps at once: the own-face
+  projection ``proj[k] = fixed[k] + hist @ w_p1_t[k]``, the conditioning
+  rows of the GRU input product ``gc[k] = leaky_relu(proj[k]) @
+  w_ih_t[k][Z1:] + b_ih[k]`` and the hidden gates ``gh[k] = h[k] @
+  w_hh_t[k] + b_hh[k]``;
+* ``sample_chain`` (``csrc/sample_chain.cuh``): the K reversed steps given
+  those gates, on a thread-block cluster whose shared memory holds the
+  chain's weights.
+
+Each is also callable alone (``csrc/sample_gates.cu``, ``csrc/sample_chain.cu``)
+for tests, timing and the probe.
 
 A wrapper runs its plain version (``*_ref``) only when it is given CPU
-tensors; given CUDA tensors it launches its kernel or raises. Each wrapper
-counts its kernel launches in its ``launches`` attribute.
+tensors; given CUDA tensors it launches its kernels or raises. Each wrapper
+counts its calls into a launcher in its ``launches`` attribute; the
+launchers report the gates and chain kernels they launch (an ``int *`` out
+parameter, counted where each launch is enqueued), which the wrappers add to
+``sample_gates.launches`` and ``sample_chain.launches``.
 
-Both kernels compute in float32 with fused multiply-adds (the JAX package's
+The kernels compute in float32 with fused multiply-adds (the JAX package's
 ``highest`` matmul precision); ``precision="highest"`` is the only value
 accepted. The weights are prepared once by ``prepare_sampling_weights``: the
 coupling head is folded to contiguous ``[shift | scale_raw]`` halves and the
@@ -34,7 +52,7 @@ from lets_face_it_tpu_torch.ops import cuda_build
 
 # Opt-in shared memory per block of an H100 (bytes). The envelope below is
 # decided from the FlowSpec alone against it; the launchers read the device's
-# own limit and pick their batch tile from it.
+# own limit and plan from it.
 MAX_SMEM_BYTES = 232_448
 
 
@@ -49,6 +67,7 @@ class SamplingWeights(NamedTuple):
     w_inv: torch.Tensor     # [K, C, C]     (P L U)^-1
     an_bias: torch.Tensor   # [K, C]
     an_neg_logs_exp: torch.Tensor  # [K, C] = exp(-logs)
+    chain: torch.Tensor     # [K, chain_step_floats]  see chain_weights
 
 
 def fold_output_head(out_params, cout: int):
@@ -75,7 +94,7 @@ def prepare_sampling_weights(spec: FlowSpec, flow_params) -> SamplingWeights:
     def c(t):
         return t.detach().float().contiguous()
 
-    return SamplingWeights(
+    w = dict(
         w_ih_t=c(rnn_p["w_ih"].transpose(1, 2)),
         w_hh_t=c(rnn_p["w_hh"].transpose(1, 2)),
         b_ih=c(rnn_p["b_ih"]),
@@ -86,73 +105,127 @@ def prepare_sampling_weights(spec: FlowSpec, flow_params) -> SamplingWeights:
         an_bias=c(flow_params["actnorm"]["bias"]),
         an_neg_logs_exp=c(torch.exp(-flow_params["actnorm"]["logs"])),
     )
+    return SamplingWeights(**w, chain=chain_weights(spec, **w))
+
+
+# Slices of the chain's three products: each of a product's lanes takes the
+# rows p, p + S, p + 2S, .. (csrc/sample_chain.cuh, CHAIN_PARTS_GRU,
+# CHAIN_SLICES_OUT, CHAIN_SLICES_MIX).
+_CHAIN_SLICES = (4, 16, 8)
+
+
+def _interleave(w, s: int):
+    """[K, R, N] -> [K, ceil(R/s) * N * s] with row s*m + p at [m][n][p],
+    rows past R zero: the S lanes of one output column read S consecutive
+    words."""
+    k, r, n = w.shape
+    rp = -(-r // s) * s
+    padded = w.new_zeros((k, rp, n))
+    padded[:, :r] = w
+    return padded.reshape(k, rp // s, s, n).transpose(2, 3).reshape(k, -1)
+
+
+def chain_weights(spec: FlowSpec, *, w_ih_t, out_w_t, out_b, w_inv, an_bias,
+                  an_neg_logs_exp, **_):
+    """Each step's chain weights as the chain kernel holds them in shared
+    memory, one contiguous row a step: w_ih_t[k][:Z1], out_w_t[k] and W^-1[k]
+    interleaved by their slices (``_interleave``), then out_b[k], the
+    actnorm bias and exp(-logs), each piece padded to 16 bytes."""
+    def pad4(t):
+        return torch.nn.functional.pad(t, (0, (-t.shape[-1]) % 4))
+
+    s_gru, s_out, s_mix = _CHAIN_SLICES
+    pieces = (_interleave(w_ih_t[:, :spec.z1_dim], s_gru),
+              _interleave(out_w_t, s_out), pad4(out_b),
+              _interleave(w_inv, s_mix), pad4(an_bias), pad4(an_neg_logs_exp))
+    return torch.cat(pieces, dim=1).contiguous()
 
 
 # ---------------------------------------------------------------------------
-# Envelopes (one block's shared memory; widths for 16-byte loads)
+# Envelopes (one cluster's shared memory; widths for 16-byte loads)
 # ---------------------------------------------------------------------------
+
+# csrc/sample_chain.cuh: the barrier area (floats) and the largest portable
+# cluster the envelope counts on.
+_CHAIN_BAR_FLOATS, _CHAIN_CLUSTER = 96, 8
+# csrc/sample_gates.cuh: 8 warps' partial sums of a 32-column tile.
+_GATES_RED_FLOATS = 8 * 32
+
 
 def _round4(n: int) -> int:
     return (n + 3) // 4 * 4
 
 
-def _one_row_step_floats(spec: FlowSpec) -> int:
-    """Least step scratch of a one-row block, as flow_step.cuh lays it out:
-    the fixed buffers plus one slice of partial sums of the widest product."""
-    c, z1, h = spec.channels, spec.z1_dim, spec.hidden_channels
-    cond, cout = spec.cond.cond_dim, spec.coupling_out_dim
-    fixed = (2 * _round4(c) + _round4(z1 + cond) + 2 * _round4(3 * h)
-             + _round4(cout))
-    return fixed + max(3 * h, cond)
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
 
 
-def frame_smem_bytes(spec: FlowSpec) -> int:
-    """Least shared memory of a one-row frame_rev.cu block."""
-    return 4 * (_round4(spec.hidden_channels) + _one_row_step_floats(spec))
+def chain_step_bytes(spec: FlowSpec) -> int:
+    """Resident bytes of one step's chain weights as ``chain_weights`` lays
+    them out: w_ih_t[k][:Z1], out_w_t[k], out_b[k], W^-1[k] and the actnorm
+    (csrc/sample_chain.cuh::chain_step_floats). They depend on C, Z1, H and
+    Cout only, not on the conditioning width."""
+    c, z1, h, cout = (spec.channels, spec.z1_dim, spec.hidden_channels,
+                      spec.coupling_out_dim)
+    s_gru, s_out, s_mix = _CHAIN_SLICES
+    return 4 * (_round_up(z1, s_gru) * 3 * h + _round_up(h, s_out) * cout
+                + _round4(cout) + _round_up(c, s_mix) * c + 2 * _round4(c))
 
 
-def seq_smem_bytes(spec: FlowSpec) -> int:
-    """Least shared memory of a one-row seq_rev.cu block."""
-    p1 = spec.cond.p1_face.out_dim
-    return 4 * (_round4(spec.n_steps * spec.hidden_channels) + 2 * _round4(p1)
-                + _one_row_step_floats(spec))
+def chain_smem_bytes(spec: FlowSpec) -> int:
+    """Least shared memory of a one-row sample_chain block in a cluster of
+    min(K, 8): the barriers, the most steps a block holds, the row's
+    buffers and its gates and states of those steps
+    (csrc/sample_chain.cuh::chain_smem_floats)."""
+    c, h = spec.channels, spec.hidden_channels
+    cs = min(spec.n_steps, _CHAIN_CLUSTER)
+    held = -(-spec.n_steps // cs)
+    return (4 * (_CHAIN_BAR_FLOATS + 3 * _round4(c) + _round4(h) + held * 7 * h)
+            + held * chain_step_bytes(spec))
+
+
+def gates_smem_bytes(spec: FlowSpec) -> int:
+    """Least shared memory of a one-row sample_gates block: the widest input
+    row and the partial sums."""
+    widest = max(spec.cond.p1_face.out_dim, spec.cond.cond_dim,
+                 spec.hidden_channels)
+    return 4 * (widest + _GATES_RED_FLOATS)
 
 
 def fused_supported(spec: FlowSpec) -> bool:
-    """The per-frame kernel's envelope: GRU + affine + invconv flows whose
-    product widths are multiples of 4 (16-byte weight loads) and whose
-    one-row tile fits one block's shared memory."""
-    widths = (3 * spec.hidden_channels, spec.cond.cond_dim,
+    """The per-frame kernels' envelope: GRU + affine + invconv flows whose
+    product widths are multiples of 4 (16-byte loads) and whose chain
+    weights fit the shared memory of one cluster of min(K, 8) blocks."""
+    widths = (spec.hidden_channels, spec.cond.cond_dim,
               spec.coupling_out_dim, spec.channels)
     return (spec.rnn_type == "gru" and spec.coupling == "affine"
             and spec.permutation == "invconv"
             and all(n % 4 == 0 for n in widths)
-            and frame_smem_bytes(spec) <= MAX_SMEM_BYTES)
+            and _round_up(spec.z1_dim, _CHAIN_SLICES[0]) <= spec.channels
+            and chain_smem_bytes(spec) <= MAX_SMEM_BYTES
+            and gates_smem_bytes(spec) <= MAX_SMEM_BYTES)
 
 
 def sampling_seq_supported(spec: FlowSpec) -> bool:
-    """The whole-sequence kernel's envelope: the per-frame one, plus an
+    """The whole-sequence launcher's envelope: the per-frame one, plus an
     own-face conditioning that is absent or the 'none' encoder (a flat window
-    the kernel keeps as a ring buffer), and a one-row tile that fits."""
+    of whole frames that the chain shifts into the next history)."""
     p1 = spec.cond.p1_face
     p1_ok = p1.out_dim == 0 or (p1.enc == "none" and p1.out_dim >= spec.channels)
-    return (fused_supported(spec) and p1_ok
-            and seq_smem_bytes(spec) <= MAX_SMEM_BYTES)
+    return fused_supported(spec) and p1_ok
 
 
 # ---------------------------------------------------------------------------
 # Plain versions
 # ---------------------------------------------------------------------------
 
-def _reverse_step_ref(spec: FlowSpec, w: SamplingWeights, k: int, z, proj, h):
-    """One reversed step on folded weights: -> (z, new GRU state)."""
+def _step_tail_ref(spec: FlowSpec, w: SamplingWeights, k: int, z, gi, gh, h):
+    """A reversed step given its GRU pre-activations gi and gh: the GRU
+    update, the coupling, the 1x1 inverse and the actnorm -> (z, new state)."""
     z1d = spec.z1_dim
     half = spec.coupling_out_dim // 2
     hd = spec.hidden_channels
     z1, z2 = z[:, :z1d], z[:, z1d:]
-    rnn_in = torch.cat([z1, ops.leaky_relu(proj)], dim=-1)
-    gi = rnn_in @ w.w_ih_t[k] + w.b_ih[k]
-    gh = h @ w.w_hh_t[k] + w.b_hh[k]
     r = torch.sigmoid(gi[:, :hd] + gh[:, :hd])
     zz = torch.sigmoid(gi[:, hd:2 * hd] + gh[:, hd:2 * hd])
     n = torch.tanh(gi[:, 2 * hd:] + r * gh[:, 2 * hd:])
@@ -161,6 +234,14 @@ def _reverse_step_ref(spec: FlowSpec, w: SamplingWeights, k: int, z, proj, h):
     scale = torch.clamp(torch.sigmoid(hout[:, half:] + 2.0), min=spec.scale_eps)
     z = torch.cat([z1, z2 / scale - hout[:, :half]], dim=-1) @ w.w_inv[k]
     return z * w.an_neg_logs_exp[k] - w.an_bias[k], h_new
+
+
+def _reverse_step_ref(spec: FlowSpec, w: SamplingWeights, k: int, z, proj, h):
+    """One reversed step on folded weights: -> (z, new GRU state)."""
+    rnn_in = torch.cat([z[:, :spec.z1_dim], ops.leaky_relu(proj)], dim=-1)
+    gi = rnn_in @ w.w_ih_t[k] + w.b_ih[k]
+    gh = h @ w.w_hh_t[k] + w.b_hh[k]
+    return _step_tail_ref(spec, w, k, z, gi, gh, h)
 
 
 def frame_rev_fused_ref(spec: FlowSpec, weights: SamplingWeights, z,
@@ -195,6 +276,38 @@ def sequence_rev_fused_ref(spec: FlowSpec, weights: SamplingWeights, w_p1_t,
     return torch.stack(xs)
 
 
+def sample_gates_ref(spec: FlowSpec, weights: SamplingWeights, w_p1_t, fixed,
+                     hist, states):
+    """Plain version of ``sample_gates``: the products of one frame that do
+    not depend on the chain -> (proj [K, B, cond], gc [K, B, 3H],
+    gh [K, B, 3H]); proj is ``fixed`` itself when P1 = 0."""
+    proj = fixed
+    if hist.shape[-1]:
+        proj = fixed + torch.einsum("bp,kpc->kbc", hist, w_p1_t)
+    gc = (ops.leaky_relu(proj) @ weights.w_ih_t[:, spec.z1_dim:]
+          + weights.b_ih[:, None])
+    gh = states @ weights.w_hh_t + weights.b_hh[:, None]
+    return proj, gc, gh
+
+
+def sample_chain_ref(spec: FlowSpec, weights: SamplingWeights, z, gc, gh,
+                     states, hist=None):
+    """Plain version of ``sample_chain``: the K reversed steps of one frame
+    given its gates -> (x [B, C], new_states [K, B, H], the next own-face
+    history [B, P1], or None without one)."""
+    z1d = spec.z1_dim
+    x = z
+    new_states = states.clone()
+    for k in reversed(range(spec.n_steps)):
+        gi = gc[k] + x[:, :z1d] @ weights.w_ih_t[k, :z1d]
+        x, new_states[k] = _step_tail_ref(spec, weights, k, x, gi, gh[k],
+                                          states[k])
+    new_hist = None
+    if hist is not None and hist.shape[-1]:
+        new_hist = torch.cat([hist[:, spec.channels:], x], dim=-1)
+    return x, new_states, new_hist
+
+
 # ---------------------------------------------------------------------------
 # Wrappers
 # ---------------------------------------------------------------------------
@@ -206,7 +319,7 @@ _I = ctypes.c_int
 @functools.cache
 def _frame_fn():
     fn = cuda_build.load("frame_rev").frame_rev_launch
-    fn.argtypes = [_P] * 14 + [_I] * 7 + [ctypes.c_float, _P]
+    fn.argtypes = [_P] * 12 + [_I] * 7 + [ctypes.c_float, _P, _P]
     fn.restype = _I
     return fn
 
@@ -214,7 +327,23 @@ def _frame_fn():
 @functools.cache
 def _seq_fn():
     fn = cuda_build.load("seq_rev").seq_rev_launch
-    fn.argtypes = [_P] * 15 + [_I] * 9 + [ctypes.c_float, _P]
+    fn.argtypes = [_P] * 17 + [_I] * 9 + [ctypes.c_float, _P, _P]
+    fn.restype = _I
+    return fn
+
+
+@functools.cache
+def _gates_fn():
+    fn = cuda_build.load("sample_gates").sample_gates_launch
+    fn.argtypes = [_P] * 11 + [_I] * 8 + [_P, _P]
+    fn.restype = _I
+    return fn
+
+
+@functools.cache
+def _chain_fn():
+    fn = cuda_build.load("sample_chain").sample_chain_launch
+    fn.argtypes = [_P] * 9 + [_I] * 7 + [ctypes.c_float] + [_I] * 3 + [_P] * 3
     fn.restype = _I
     return fn
 
@@ -236,7 +365,7 @@ def _check_weights(spec: FlowSpec, w: SamplingWeights, device):
     shapes = {"w_ih_t": (k, ind, 3 * h), "w_hh_t": (k, h, 3 * h),
               "b_ih": (k, 3 * h), "b_hh": (k, 3 * h), "out_w_t": (k, h, cout),
               "out_b": (k, cout), "w_inv": (k, c, c), "an_bias": (k, c),
-              "an_neg_logs_exp": (k, c)}
+              "an_neg_logs_exp": (k, c), "chain": (k, chain_step_bytes(spec) // 4)}
     for name, shape in shapes.items():
         _check(name, getattr(w, name), shape, device)
 
@@ -252,17 +381,41 @@ def _spec_ints(spec: FlowSpec):
             spec.hidden_channels, spec.coupling_out_dim)
 
 
+# csrc/flow_step.cuh: the launchers' own refusals
+_REFUSALS = {10001: "widths or shapes the kernel does not take",
+             10002: "no launch plan fits the device"}
+
+
 def _raise_on(err: int, what: str):
     if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err} "
+        why = _REFUSALS.get(err, f"CUDA error {err}")
+        raise RuntimeError(f"{what} kernel launch failed: {why} "
                            f"({torch.cuda.get_device_name()})")
+
+
+def _launcher_weight_ptrs(w: SamplingWeights):
+    """The weights the launchers read: the gates' and the chain's."""
+    return tuple(t.data_ptr() for t in (w.w_ih_t, w.w_hh_t, w.b_ih, w.b_hh,
+                                       w.chain))
+
+
+def _count_launches(call):
+    """Run ``call(launches)`` with a fresh int[2] to which the launcher
+    adds the gates and the chain launches it enqueued; add them to the
+    counters -> the launcher's return code."""
+    launches = (ctypes.c_int * 2)()
+    err = call(ctypes.addressof(launches))
+    sample_gates.launches += launches[0]
+    sample_chain.launches += launches[1]
+    return err
 
 
 def frame_rev_fused(spec: FlowSpec, weights: SamplingWeights, z, cond_projs,
                     states, *, precision: str = "highest"):
     """Inverse of one frame through all K steps: z [B, C], cond_projs
     [K, B, cond] (pre-activation), states [K, B, H] -> (x [B, C],
-    new_states [K, B, H])."""
+    new_states [K, B, H]). On the card: one ``sample_gates`` launch (gc, gh)
+    and one ``sample_chain`` launch."""
     _check_precision(precision)
     if not fused_supported(spec):
         raise ValueError("spec is outside the per-frame kernel's envelope")
@@ -278,12 +431,14 @@ def frame_rev_fused(spec: FlowSpec, weights: SamplingWeights, z, cond_projs,
     _check_weights(spec, weights, z.device)
     x = torch.empty_like(z)
     new_states = torch.empty_like(states)
-    fn = _frame_fn()
+    gc = z.new_empty((k, b, 3 * h))
+    gh = torch.empty_like(gc)
     stream = torch.cuda.current_stream(z.device).cuda_stream
-    err = fn(z.data_ptr(), cond_projs.data_ptr(), states.data_ptr(),
-             x.data_ptr(), new_states.data_ptr(),
-             *(t.data_ptr() for t in weights), b, *_spec_ints(spec),
-             float(spec.scale_eps), stream)
+    err = _count_launches(lambda launches: _frame_fn()(
+        z.data_ptr(), cond_projs.data_ptr(), states.data_ptr(), x.data_ptr(),
+        new_states.data_ptr(), *_launcher_weight_ptrs(weights), gc.data_ptr(),
+        gh.data_ptr(), b, *_spec_ints(spec), float(spec.scale_eps), stream,
+        launches))
     _raise_on(err, "frame_rev")
     frame_rev_fused.launches += 1
     return x, new_states
@@ -299,7 +454,9 @@ def sequence_rev_fused(spec: FlowSpec, weights: SamplingWeights, w_p1_t, zs,
     [N, K, B, cond] (the non-autoregressive part of every projection, bias
     included), hist0 [B, P1] flattened own-face history (oldest frame first),
     w_p1_t [K, P1, cond] own-face projection slice, states0 [K, B, H]
-    -> xs [N, B, C]. P1 = 0 turns the own-face path off."""
+    -> xs [N, B, C]. P1 = 0 turns the own-face path off. On the card: per
+    frame the ``sample_gates`` launches and one ``sample_chain`` launch, all
+    from one call into ``csrc/seq_rev.cu``."""
     _check_precision(precision)
     if not sampling_seq_supported(spec):
         raise ValueError("spec is outside the sequence kernel's envelope")
@@ -319,15 +476,127 @@ def sequence_rev_fused(spec: FlowSpec, weights: SamplingWeights, w_p1_t, zs,
     _check("states0", states0, (k, b, h), dev)
     _check_weights(spec, weights, dev)
     xs = torch.empty_like(zs)
-    fn = _seq_fn()
+    # scratch of the frame loop: the gates, two histories, the running states
+    proj = zs.new_empty((k, b, cond) if p1 else (0,))
+    gc = zs.new_empty((k, b, 3 * h))
+    gh = torch.empty_like(gc)
+    hist_a, hist_b = torch.empty_like(hist0), torch.empty_like(hist0)
+    states = torch.empty_like(states0)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(zs.data_ptr(), fixed_projs.data_ptr(), hist0.data_ptr(),
-             w_p1_t.data_ptr(), states0.data_ptr(), xs.data_ptr(),
-             *(t.data_ptr() for t in weights), b, n, p1, *_spec_ints(spec),
-             float(spec.scale_eps), stream)
+    err = _count_launches(lambda launches: _seq_fn()(
+        zs.data_ptr(), fixed_projs.data_ptr(), hist0.data_ptr(),
+        w_p1_t.data_ptr(), states0.data_ptr(), xs.data_ptr(),
+        *_launcher_weight_ptrs(weights), proj.data_ptr(), gc.data_ptr(),
+        gh.data_ptr(), hist_a.data_ptr(), hist_b.data_ptr(), states.data_ptr(),
+        b, n, p1, *_spec_ints(spec), float(spec.scale_eps), stream, launches))
     _raise_on(err, "seq_rev")
     sequence_rev_fused.launches += 1
     return xs
 
 
 sequence_rev_fused.launches = 0
+
+
+def sample_gates(spec: FlowSpec, weights: SamplingWeights, w_p1_t, fixed,
+                 hist, states, *, precision: str = "highest", rows: int = 0,
+                 groups: int = 0):
+    """The products of one frame that do not depend on the chain: fixed
+    [K, B, cond] (the frame's non-autoregressive projections, or its whole
+    cond_projs when P1 = 0), hist [B, P1], w_p1_t [K, P1, cond], states
+    [K, B, H] -> (proj [K, B, cond], gc [K, B, 3H], gh [K, B, 3H]); proj is
+    ``fixed`` itself when P1 = 0. ``rows``: batch rows per block, ``groups``:
+    column groups of four per block (8 or 32), 0 for the launcher's choice."""
+    _check_precision(precision)
+    if not fused_supported(spec):
+        raise ValueError("spec is outside the per-frame kernel's envelope")
+    if fixed.device.type == "cpu":
+        return sample_gates_ref(spec, weights, w_p1_t, fixed, hist, states)
+    if fixed.device.type != "cuda":
+        raise ValueError(f"no sampling kernel for device {fixed.device}")
+    k, _, z1, cond, h, _ = _spec_ints(spec)
+    b, p1 = hist.shape
+    dev = fixed.device
+    _check("fixed", fixed, (k, b, cond), dev)
+    _check("hist", hist, (b, p1), dev)
+    _check("w_p1_t", w_p1_t, (k, p1, cond), dev)
+    _check("states", states, (k, b, h), dev)
+    _check_weights(spec, weights, dev)
+    proj = torch.empty_like(fixed) if p1 else fixed
+    gc = fixed.new_empty((k, b, 3 * h))
+    gh = torch.empty_like(gc)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _count_launches(lambda launches: _gates_fn()(
+        fixed.data_ptr(), hist.data_ptr(), w_p1_t.data_ptr(), states.data_ptr(),
+        weights.w_ih_t.data_ptr(), weights.w_hh_t.data_ptr(),
+        weights.b_ih.data_ptr(), weights.b_hh.data_ptr(), proj.data_ptr(),
+        gc.data_ptr(), gh.data_ptr(), b, p1, k, z1, cond, h, rows, groups,
+        stream, launches))
+    _raise_on(err, "sample_gates")
+    return proj, gc, gh
+
+
+sample_gates.launches = 0
+
+
+def sample_chain(spec: FlowSpec, weights: SamplingWeights, z, gc, gh, states,
+                 hist=None, *, precision: str = "highest", tile=(0, 0, 0),
+                 trace=None):
+    """The K reversed steps of one frame given its gates: z [B, C], gc and
+    gh [K, B, 3H], states [K, B, H], hist [B, P1] or None -> (x [B, C],
+    new_states [K, B, H], the next history [B, P1] or None). ``tile`` =
+    (rows per tile, blocks per cluster, tiles per cluster), 0 for the
+    launcher's plan. ``trace``: None, or an int64 CUDA tensor [blocks,
+    CHAIN_TRACE_SLOTS] that receives each block's device times (ns) of the
+    first tile: start, cluster synchronised, z in hand, the end of each
+    held step, the hand-off sent (``csrc/sample_chain.cuh``)."""
+    _check_precision(precision)
+    if not fused_supported(spec):
+        raise ValueError("spec is outside the per-frame kernel's envelope")
+    if z.device.type == "cpu":
+        return sample_chain_ref(spec, weights, z, gc, gh, states, hist)
+    if z.device.type != "cuda":
+        raise ValueError(f"no sampling kernel for device {z.device}")
+    b = z.shape[0]
+    k, c, _, _, h, _ = _spec_ints(spec)
+    dev = z.device
+    _check("z", z, (b, c), dev)
+    _check("gc", gc, (k, b, 3 * h), dev)
+    _check("gh", gh, (k, b, 3 * h), dev)
+    _check("states", states, (k, b, h), dev)
+    p1 = 0 if hist is None else hist.shape[-1]
+    if p1:
+        _check("hist", hist, (b, p1), dev)
+    _check_weights(spec, weights, dev)
+    x = torch.empty_like(z)
+    new_states = torch.empty_like(states)
+    new_hist = torch.empty_like(hist) if p1 else None
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _count_launches(lambda launches: _chain_fn()(
+        z.data_ptr(), gc.data_ptr(), gh.data_ptr(), states.data_ptr(),
+        new_states.data_ptr(), x.data_ptr(), hist.data_ptr() if p1 else None,
+        new_hist.data_ptr() if p1 else None, weights.chain.data_ptr(), b, p1,
+        k, c, spec.z1_dim, h, spec.coupling_out_dim, float(spec.scale_eps),
+        *tile, None if trace is None else trace.data_ptr(), stream, launches))
+    _raise_on(err, "sample_chain")
+    return x, new_states, new_hist
+
+
+sample_chain.launches = 0
+
+CHAIN_TRACE_SLOTS = 32   # csrc/sample_chain.cuh
+CHAIN_PLAN_KEYS = ("rows_per_tile", "cluster", "tiles_per_cluster", "clusters",
+                   "blocks", "smem_bytes", "max_active_clusters")
+
+
+def chain_plan(spec: FlowSpec, b: int, tile=(0, 0, 0)) -> dict:
+    """The launch plan of ``sample_chain`` for B=b rows on the current CUDA
+    device, with the clusters the device holds at once
+    (``cudaOccupancyMaxActiveClusters``); ``tile`` as in ``sample_chain``."""
+    fn = cuda_build.load("sample_chain").sample_chain_plan
+    fn.argtypes = [_I] * 9 + [_P]
+    fn.restype = _I
+    k, c, z1, _, h, cout = _spec_ints(spec)
+    out = (ctypes.c_int * len(CHAIN_PLAN_KEYS))()
+    _raise_on(fn(b, k, c, z1, h, cout, *tile, ctypes.addressof(out)),
+              "sample_chain plan")
+    return dict(zip(CHAIN_PLAN_KEYS, out))

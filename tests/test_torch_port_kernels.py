@@ -153,25 +153,48 @@ def cuda_device():
 
 @pytest.mark.requires_cuda
 def test_cuda_kernels_match_plain(cuda_device):
-    """Both CUDA kernels against their plain versions on the card."""
+    """The sampling kernels against their plain versions on the card: both
+    wrappers, and the two kernels of a frame alone (the gates with and
+    without the own-face history, then the chain), at odd batches (partial
+    row tiles and clusters)."""
     spec, pspec, _, model, _, _ = _setup()
     model = model.to(cuda_device)
     pw = fk.prepare_sampling_weights(pspec, model.flow)
     g = torch.Generator(device=cuda_device).manual_seed(0)
-    k, b, c = pspec.n_steps, 5, pspec.channels
+    k, c = pspec.n_steps, pspec.channels
     cond, h, p1 = pspec.cond.cond_dim, pspec.hidden_channels, pspec.cond.p1_face.out_dim
+    w_p1_t = model.flow["cond_proj"]["w"][:, :, :p1].transpose(1, 2).contiguous()
 
     def randn(*shape):
         return torch.randn(shape, generator=g, device=cuda_device)
 
-    z, projs, states = randn(b, c), randn(k, b, cond), 0.3 * randn(k, b, h)
-    with torch.no_grad():
-        got = fk.frame_rev_fused(pspec, pw, z, projs, states)
-        want = fk.frame_rev_fused_ref(pspec, pw, z, projs, states)
+    def close(got, want):
         for a, w in zip(got, want):
-            assert_close(a.cpu(), w.cpu().numpy())
-        zs, fixed, hist0 = randn(6, b, c), randn(6, k, b, cond), randn(b, p1)
-        w_p1_t = model.flow["cond_proj"]["w"][:, :, :p1].transpose(1, 2).contiguous()
-        got = fk.sequence_rev_fused(pspec, pw, w_p1_t, zs, fixed, hist0, states)
-        want = fk.sequence_rev_fused_ref(pspec, pw, w_p1_t, zs, fixed, hist0, states)
-        assert_close(got.cpu(), want.cpu().numpy())
+            if w is not None:
+                assert_close(a.cpu(), w.cpu().numpy())
+
+    def launched():
+        return fk.sample_gates.launches, fk.sample_chain.launches
+
+    for b in (5, 33):
+        z, projs, states = randn(b, c), randn(k, b, cond), 0.3 * randn(k, b, h)
+        hist = randn(b, p1)
+        with torch.no_grad():
+            before = launched()
+            close(fk.frame_rev_fused(pspec, pw, z, projs, states),
+                  fk.frame_rev_fused_ref(pspec, pw, z, projs, states))
+            # the launchers report what they enqueued: gates and chain a frame
+            assert launched() == (before[0] + 1, before[1] + 1)
+            zs, fixed = randn(6, b, c), randn(6, k, b, cond)
+            before = launched()
+            close([fk.sequence_rev_fused(pspec, pw, w_p1_t, zs, fixed, hist, states)],
+                  [fk.sequence_rev_fused_ref(pspec, pw, w_p1_t, zs, fixed, hist,
+                                             states)])
+            assert launched() == (before[0] + 6 * (2 if p1 else 1), before[1] + 6)
+            for hist_b, w_p1_b in ((hist, w_p1_t), (hist[:, :0], w_p1_t[:, :0])):
+                gates = fk.sample_gates_ref(pspec, pw, w_p1_b, projs, hist_b, states)
+                close(fk.sample_gates(pspec, pw, w_p1_b, projs, hist_b, states), gates)
+                _, gc, gh = gates
+                hist_c = hist_b if hist_b.shape[-1] else None
+                close(fk.sample_chain(pspec, pw, z, gc, gh, states, hist_c),
+                      fk.sample_chain_ref(pspec, pw, z, gc, gh, states, hist_c))
