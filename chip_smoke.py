@@ -42,7 +42,18 @@ the sources in this checkout:
 11. times the training step and each training kernel beside its plain
     version, a library yardstick and its bound (``seq_fwd`` as the whole
     route and as its two launches, ``cond_gates`` beside one cuBLAS call for
-    the same product), and traces a training step with ``torch.profiler``.
+    the same product), and traces a training step with ``torch.profiler``;
+12. inverts latents at B=128, T=100 with ``sequence_invert`` (one
+    ``frame_rev`` call a frame) against its plain route on the card and
+    against the frames ``sequence_nll`` encoded, on two weight seeds, with
+    the invertibility error held to its closed form, and times both routes;
+13. evaluates the training checkpoint of step 9 on the synthetic test split
+    through ``python -m lets_face_it_tpu_torch.run_test`` (``.npz`` keys,
+    finite values, the summary, launches and ms per batch);
+14. trains at B=256 with the device data cache off and on (3 steps and a
+    validation with ``check_invertion`` and ``scale_logging`` on, each way
+    twice, in turns): the batches of both data paths bit for bit, the
+    per-step NLL of both runs, and the loop's steps and windows per second.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
@@ -51,7 +62,10 @@ It needs no network, imports nothing of JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -96,6 +110,19 @@ TRAIN_SEEDS = (SEED, SEED + 1)
 # Training main path (step 9): 10 synthetic train chunks of 160 frames give
 # 810 windows of 80, 3 steps of 256 per epoch; the 2 val chunks 122 windows.
 TRAIN_STEPS, TRAIN_CHUNKS = 3, 10
+# Step 12: sequence_invert at B=128 on these weight seeds. Both routes and the
+# reconstruction are held at the one-frame tolerance (the conditioning is
+# teacher-forced, so rounding does not feed back through the output). The
+# backward logdet is the forward one negated, so the invertibility error
+# |(backward + loss) / loss| * 100 equals |2 mean(log p(z)) / ln 2 / loss|
+# * 100; it is held to that within INVERT_ERR_RTOL (relative).
+INVERT_SEEDS, INVERT_BATCH = (SEED, SEED + 1), 128
+INVERT_ERR_RTOL = 1e-4
+# Step 14: the trainer with the device data cache off and on, in turns, on a
+# corpus of 40 train chunks (3240 windows of 80, 12 steps of 256 an epoch):
+# LOOP_WARM steps, LOOP_WINDOW steps timed, LOOP_WINDOW steps traced.
+CACHE_RUNS = ("off", "on", "on", "off")
+LOOP_CHUNKS, LOOP_WARM, LOOP_WINDOW = 40, 3, 8
 # Step 10: the GPU's steps against the CPU plain path's at B=32. The first
 # step starts from the same weights (NLL rtol 1e-5, the JAX trajectory
 # test's); Adam moves every entry by about the learning rate (1e-5) per step
@@ -105,6 +132,32 @@ TRAIN_STEPS, TRAIN_CHUNKS = 3, 10
 # directions (4e-5). Measured on an H100: 1.542e-05.
 CPU_STEPS, CPU_BATCH = 2, 32
 CPU_NLL_RTOL1, CPU_NLL_RTOL, CPU_PARAM_ATOL = 1e-5, 1e-4, 4e-5
+
+
+def kernel_wrappers() -> dict:
+    """Each kernel's wrapper (whose ``launches`` counts its launches) by the
+    kernel's name in the JSON record."""
+    from lets_face_it_tpu_torch.ops import flow_kernels as fk
+    from lets_face_it_tpu_torch.ops import train_kernels as tk
+
+    return {"frame_rev": fk.frame_rev_fused, "seq_rev": fk.sequence_rev_fused,
+            "sample_gates": fk.sample_gates, "sample_chain": fk.sample_chain,
+            "cond_gates": tk.cond_gates, "seq_fwd": tk.seq_fwd, "seq_bwd": tk.seq_bwd}
+
+
+def reset_launches() -> None:
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+
+
+def require_launches(path: str, counts: dict, names) -> None:
+    for name in names:
+        if counts[name] == 0:
+            fail(f"{name} kernel was never launched on the {path} path")
 
 
 def fail(msg: str) -> None:
@@ -153,21 +206,40 @@ def drift(got, ref) -> dict:
             "all": d.max().item()}
 
 
+def _device_us(evt) -> float:
+    from torch.autograd import DeviceType
+
+    if evt.device_type != DeviceType.CUDA:
+        return 0.0   # the host operator reports its kernels' time again
+    return float(getattr(evt, "self_device_time_total",
+                         getattr(evt, "self_cuda_time_total", 0.0)))
+
+
+def profile_summary(name: str, prof, calls: int, wall_ms: float) -> dict:
+    """Device time per call of a ``torch.profiler`` window of ``calls``
+    calls (device kernels and copies), the device's idle share against
+    ``wall_ms`` per call (1 - device / wall), device operations per call and
+    the five largest."""
+    on_device = [e for e in prof.key_averages() if _device_us(e) > 0]
+    if not on_device:
+        fail(f"profile {name}: the trace shows no device time")
+    device_ms = sum(_device_us(e) for e in on_device) / 1e3 / calls
+    top = sorted(on_device, key=_device_us, reverse=True)[:5]
+    return {
+        "window": name, "calls": calls, "wall_ms_per_call": wall_ms,
+        "device_ms_per_call": device_ms, "idle_share": 1.0 - device_ms / wall_ms,
+        "device_ops_per_call": sum(e.count for e in on_device) / calls,
+        "top": [{"op": e.key[:60], "ms_per_call": _device_us(e) / 1e3 / calls,
+                 "count_per_call": e.count / calls} for e in top],
+    }
+
+
 def trace_window(name: str, fn, calls: int) -> dict:
     """Host wall time per call of ``calls`` synchronised calls of ``fn`` (no
     profiler: its own cost per operation is large), then as many again under
-    ``torch.profiler``: device time per call (device kernels and copies), the
-    device's idle share (1 - device / wall), device operations per call and
-    the five largest."""
+    ``torch.profiler``, summarised by ``profile_summary``."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    def device_us(evt):
-        if evt.device_type != DeviceType.CUDA:
-            return 0.0   # the host operator reports its kernels' time again
-        return float(getattr(evt, "self_device_time_total",
-                             getattr(evt, "self_cuda_time_total", 0.0)))
 
     for _ in range(2):
         fn()
@@ -181,18 +253,61 @@ def trace_window(name: str, fn, calls: int) -> dict:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    on_device = [e for e in prof.key_averages() if device_us(e) > 0]
-    if not on_device:
-        fail(f"profile {name}: the trace shows no device time")
-    device_ms = sum(device_us(e) for e in on_device) / 1e3 / calls
-    top = sorted(on_device, key=device_us, reverse=True)[:5]
-    return {
-        "window": name, "calls": calls, "wall_ms_per_call": wall_ms,
-        "device_ms_per_call": device_ms, "idle_share": 1.0 - device_ms / wall_ms,
-        "device_ops_per_call": sum(e.count for e in on_device) / calls,
-        "top": [{"op": e.key[:60], "ms_per_call": device_us(e) / 1e3 / calls,
-                 "count_per_call": e.count / calls} for e in top],
-    }
+    return profile_summary(name, prof, calls, wall_ms)
+
+
+class LoopTrace:
+    """A ``step_hook`` for ``train()`` that leaves the loop unsynchronised:
+    it keeps each step's metrics as tensors and synchronises only at the
+    window ends. After ``warm`` steps it times ``n`` steps by the host clock,
+    then traces the next ``n`` under ``torch.profiler``: the traced steps'
+    device time over their own wall time (profiler included) is the loop's
+    idle share."""
+
+    def __init__(self, warm: int, n: int):
+        self.warm, self.n = warm, n
+        self.metrics, self.marks, self.prof = [], {}, None
+
+    @property
+    def max_steps(self) -> int:
+        return self.warm + 2 * self.n
+
+    def __call__(self, step, m):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        self.metrics.append(m)
+        if step in (self.warm, self.warm + self.n, self.max_steps):
+            torch.cuda.synchronize()
+            self.marks[step] = time.perf_counter()
+        if step == self.warm + self.n:
+            self.prof = profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
+            self.prof.__enter__()
+        elif step == self.max_steps:
+            self.prof.__exit__(None, None, None)
+
+    def summary(self, name: str) -> dict:
+        w, n, t = self.warm, self.n, self.marks
+        timed_ms = (t[w + n] - t[w]) * 1e3 / n
+        traced_ms = (t[w + 2 * n] - t[w + n]) * 1e3 / n
+        out = profile_summary(name, self.prof, n, traced_ms)
+        out["untraced_wall_ms_per_step"] = timed_ms
+        out["idle_share_vs_untraced"] = 1.0 - out["device_ms_per_call"] / timed_ms
+        return out
+
+
+@contextlib.contextmanager
+def plain_paths(seqglow):
+    """``seqglow.sequence_nll`` and ``sequence_sample`` on their plain routes
+    (``flow.frame_fwd`` and ``flow.frame_rev`` frame by frame, no kernel)
+    while the block runs."""
+    saved = seqglow.training_path, seqglow.sampling_path
+    seqglow.training_path = seqglow.sampling_path = lambda spec: "plain"
+    try:
+        yield
+    finally:
+        seqglow.training_path, seqglow.sampling_path = saved
 
 
 def graphed(fn):
@@ -428,6 +543,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from lets_face_it_tpu_torch import run_test as run_test_cli
+    from lets_face_it_tpu_torch.core.ops import gaussian_logp
+    from lets_face_it_tpu_torch.data import device_cache
+    from lets_face_it_tpu_torch.data.prefetch import receive
     from lets_face_it_tpu_torch.hparams import load_hparams
     from lets_face_it_tpu_torch.model import seqglow
     from lets_face_it_tpu_torch.model.spec import FlowSpec
@@ -441,6 +560,7 @@ def main() -> int:
     from lets_face_it_tpu_torch.sample.weights import (seeded_random_model,
                                                        state_dict_reference)
     from lets_face_it_tpu_torch.train import loop as train_loop
+    from lets_face_it_tpu_torch.train import evaluate as evaluation
     from lets_face_it_tpu_torch.train import state as train_state
     from lets_face_it_tpu_torch.train.checkpoint import CheckpointManager
 
@@ -1105,6 +1225,301 @@ def main() -> int:
         print(json.dumps(trace_window(
             f"train_step_b{b_tr}", lambda: train_state.train_step(spec, hp, state, jb),
             3)))
+
+        # -- 12. sequence_invert ---------------------------------------------
+        t_inv = hp.Validation["seq_len"]
+        n_inv = t_inv - spec.cond.longest_history
+        start = spec.cond.longest_history
+        print(f"sequence_invert tolerance: kernel route vs plain route and the "
+              f"reconstruction vs the encoded frames allclose(atol={ATOL}, "
+              f"rtol={RTOL}); invertibility error vs its closed form rtol "
+              f"{INVERT_ERR_RTOL}")
+        invert_summary, invert_launches = [], None
+        for seed in INVERT_SEEDS:
+            model_i = (model_gpu if seed == SEED
+                       else seeded_random_model(spec, seed).to(dev))
+            g_i = torch.Generator(device=dev).manual_seed(seed)
+            data_i = {k: torch.randn((INVERT_BATCH, t_inv, d), generator=g_i, device=dev)
+                      for k, d in (("p1_face", c), ("p2_face", c),
+                                   ("p1_speech", hp.Data["speech_dim"]),
+                                   ("p2_speech", hp.Data["speech_dim"]))}
+            with torch.no_grad():
+                z_i, loss_i, _ = seqglow.sequence_nll(spec, model_i, data_i)
+            torch.cuda.synchronize()
+            reset_launches()
+            x_k, back_k = seqglow.sequence_invert(spec, model_i, z_i, data_i,
+                                                  route="kernel")
+            torch.cuda.synchronize()
+            counts = read_launches()
+            if seed == SEED:
+                invert_launches = counts
+            for name in ("frame_rev", "sample_gates", "sample_chain"):
+                if counts[name] != n_inv:
+                    fail(f"sequence_invert launched {name} {counts[name]} times, "
+                         f"expected one a frame ({n_inv})")
+            x_p, back_p = seqglow.sequence_invert(spec, model_i, z_i, data_i,
+                                                  route="plain")
+            torch.cuda.synchronize()
+            e_x = check_close(f"sequence_invert seed {seed}: kernel vs plain route",
+                              x_k, x_p)
+            e_l = check_close(f"sequence_invert seed {seed}: backward loss", back_k,
+                              back_p)
+            e_r = check_close(f"sequence_invert seed {seed}: reconstruction vs "
+                              "encoded frames", x_k, data_i["p1_face"][:, start:])
+            err = (torch.abs((back_k + loss_i) / loss_i) * 100.0).item()
+            logp = gaussian_logp(z_i.double()).mean().item()
+            closed = abs(-2.0 * logp / math.log(2.0) / loss_i.item()) * 100.0
+            err_rel = abs(err - closed) / closed
+            if not math.isfinite(err) or err_rel > INVERT_ERR_RTOL:
+                fail(f"invertibility error {err:.6f} % against its closed form "
+                     f"{closed:.6f} %: relative {err_rel:.3e} > {INVERT_ERR_RTOL}")
+            row = {"seed": seed, "batch": INVERT_BATCH, "frames": n_inv,
+                   "max_abs_err_routes": e_x, "backward_loss_err": e_l,
+                   "reconstruction_err": e_r, "forward_loss": loss_i.item(),
+                   "backward_loss": back_k.item(), "error_percentage": err,
+                   "closed_form_percentage": closed, "error_vs_closed_rel": err_rel}
+            if seed == SEED:
+                row["kernel_route_ms"] = time_ms(lambda: seqglow.sequence_invert(
+                    spec, model_i, z_i, data_i, route="kernel"), reps=3, warmup=1)
+                row["plain_route_ms"] = time_ms(lambda: seqglow.sequence_invert(
+                    spec, model_i, z_i, data_i, route="plain"), reps=1, warmup=0)
+            invert_summary.append(row)
+            print(f"check sequence_invert seed {seed} B={INVERT_BATCH} N={n_inv}: "
+                  f"routes max|d| {e_x:.3e}, backward loss |d| {e_l:.3e}, "
+                  f"reconstruction max|d| {e_r:.3e}, invertibility error "
+                  f"{err:.6f} % (closed form {closed:.6f} %, rel {err_rel:.3e}); "
+                  f"launches {counts['frame_rev']} frame_rev  ok")
+            del model_i, data_i, x_k, x_p
+        print(f"sequence_invert B={INVERT_BATCH} N={n_inv} on {card}: kernel route "
+              f"{invert_summary[0]['kernel_route_ms']:.3f} ms/call, plain route "
+              f"{invert_summary[0]['plain_route_ms']:.3f} ms/call")
+        data_i = {k: torch.randn((INVERT_BATCH, t_inv, d), generator=g, device=dev)
+                  for k, d in (("p1_face", c), ("p2_face", c),
+                               ("p1_speech", hp.Data["speech_dim"]),
+                               ("p2_speech", hp.Data["speech_dim"]))}
+        z_i = torch.randn((n_inv, INVERT_BATCH, c), generator=g, device=dev)
+        print(json.dumps(trace_window(
+            f"sequence_invert_b{INVERT_BATCH}", lambda: seqglow.sequence_invert(
+                spec, model_gpu, z_i, data_i, route="kernel"), 3)))
+        del data_i, z_i
+
+        # -- 13. run_test on the training checkpoint ---------------------------
+        ckpt_t = CheckpointManager(ckpt_dir).latest()
+        out_npz = Path(tmp) / "test_results.npz"
+        printed = io.StringIO()
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            results = run_test_cli.main([
+                "--ckpt", str(ckpt_t), "--out", str(out_npz), "--seq_len", str(t_inv),
+                "--seed", str(SEED), "--synthetic-data", "--device", "cuda"])
+        torch.cuda.synchronize()
+        t_rt = time.perf_counter() - t0
+        rt_launches = read_launches()
+        n_rt = len(results)
+        print(f"run_test: {n_rt} batches in {t_rt:.3f} s (includes loading and "
+              f"writing); launches {rt_launches}; printed:")
+        print("  " + printed.getvalue().strip().replace("\n", "\n  "))
+        if "test_loss:" not in printed.getvalue():
+            fail("run_test printed no summary")
+        mods = [m for m in ("p2_face", "p2_speech", "p1_speech")
+                if hp.Conditioning[m]["history"] > 0]
+        want_keys = {f"batch{i}/{k}" for i in range(n_rt) for k in
+                     ["test_loss", "test_losses", "predicted_prop_seq", "gt_seq"]
+                     + [f"{p}_{m}{q}" for m in mods for p, q in
+                        (("nll_mismatched", ""), ("losses_mismatched", ""),
+                         ("predicted_mismatch", "_seq"))]}
+        npz = np.load(out_npz)
+        if set(npz.files) != want_keys:
+            fail(f"run_test .npz keys {sorted(set(npz.files) ^ want_keys)} differ "
+                 "from the JAX package's naming")
+        for name in npz.files:
+            if not np.isfinite(npz[name]).all():
+                fail(f"run_test: non-finite {name}")
+        per_batch = {k: rt_launches[k] / n_rt for k in ("cond_gates", "seq_fwd", "seq_rev")}
+        want_per_batch = 1 + len(mods)
+        if any(v != want_per_batch for v in per_batch.values()):
+            fail(f"run_test launches per batch {per_batch}, expected {want_per_batch}")
+        require_launches("run_test", rt_launches,
+                         ("cond_gates", "seq_fwd", "seq_rev", "sample_gates",
+                          "sample_chain"))
+        gen_rt = Generator.from_checkpoint(ckpt_t, dataset_root=tmp, device="cuda")
+        gen_rt.hp.Test = {"seq_len": t_inv}
+        ds_rt = evaluation.load_test_split(gen_rt.hp, train_loop.synthetic_corpus(
+            gen_rt.hp, SEED))
+        batch_rt = train_loop.to_device(
+            next(ds_rt.epoch_batches(gen_rt.hp.batch_size, shuffle=False)), dev)
+        b_rt = int(batch_rt["p1_face"].shape[0])
+        # the batch's outputs against the plain routes on the same inputs and
+        # draws: losses at the training forward limit, generations as whole
+        # sequences (first SEQ_TIGHT frames at the one-frame limit)
+        draws_rt = evaluation.draw_eval(spec, gen_rt.hp, b_rt,
+                                        torch.Generator().manual_seed(SEED))
+        got_rt = evaluation.evaluate_batch(spec, gen_rt.model, gen_rt.hp, batch_rt,
+                                           draws=draws_rt)
+        with plain_paths(seqglow):
+            reset_launches()
+            ref_rt = evaluation.evaluate_batch(spec, gen_rt.model, gen_rt.hp,
+                                               batch_rt, draws=draws_rt)
+            torch.cuda.synchronize()
+            if any(read_launches().values()):
+                fail(f"evaluate_batch on the plain routes launched {read_launches()}")
+        if set(got_rt) != set(ref_rt):
+            fail(f"evaluate_batch keys {sorted(got_rt)} vs plain {sorted(ref_rt)}")
+        rt_errs = {}
+        for key in sorted(got_rt):
+            a, r = torch.as_tensor(got_rt[key]), torch.as_tensor(ref_rt[key])
+            what = f"evaluate_batch B={b_rt} N={n_inv} {key} vs plain routes"
+            if key == "gt_seq":
+                rt_errs[key] = check_close(what, a, r, atol=0.0, rtol=0.0)
+            elif a.dim() == 3:   # [B, N, C] generations
+                e_t = check_close(f"{what}, first {SEQ_TIGHT} frames",
+                                  a[:, :SEQ_TIGHT], r[:, :SEQ_TIGHT])
+                e_a = check_close(what, a, r, atol=SEQ_LOOSE_ATOL, rtol=0.0)
+                rt_errs[key] = {f"first{SEQ_TIGHT}": e_t, "all": e_a}
+            else:                # losses: scalars and [N, B]
+                rt_errs[key] = check_close(what, a, r, atol=TRAIN_VAL_ATOL,
+                                           rtol=TRAIN_VAL_RTOL)
+        print(f"check evaluate_batch B={b_rt} N={n_inv} against the plain routes "
+              f"(same inputs and draws; losses atol {TRAIN_VAL_ATOL} rtol "
+              f"{TRAIN_VAL_RTOL}, generations first {SEQ_TIGHT} frames atol {ATOL} "
+              f"rtol {RTOL}, all |diff| <= {SEQ_LOOSE_ATOL}): "
+              f"{json.dumps(rt_errs)}  ok")
+        del got_rt, ref_rt
+        g_rt = torch.Generator().manual_seed(SEED)
+        rt_ms = time_ms(lambda: evaluation.evaluate_batch(
+            spec, gen_rt.model, gen_rt.hp, batch_rt, generator=g_rt), reps=2, warmup=1)
+        print(json.dumps(trace_window(
+            f"evaluate_batch_b{b_rt}",
+            lambda: evaluation.evaluate_batch(spec, gen_rt.model, gen_rt.hp, batch_rt,
+                                              generator=g_rt), 1)))
+        rt_summary = {"batches": n_rt, "batch": b_rt, "frames": n_inv,
+                      "max_abs_err_vs_plain": rt_errs, "launches_per_batch": per_batch,
+                      "ms_per_batch": rt_ms, "wall_s": t_rt,
+                      "summary": evaluation.summarize(results)}
+        print(f"check run_test: {len(npz.files)} .npz keys as the JAX package names "
+              f"them, all finite; per batch {per_batch}; evaluate_batch B="
+              f"{rt_summary['batch']} {rt_ms:.3f} ms/batch on {card}  ok")
+
+        # -- 14. the trainer with the device data cache off and on -------------
+        hp_c = load_hparams(REPO / "hparams" / "final_model.yaml", dataset_root=tmp)
+        hp_c.Validation = dict(hp_c.Validation, check_invertion=True,
+                               scale_logging=True)
+        # one validation, at the end; the epochs cycle the larger corpus
+        hp_c.max_epochs, hp_c.check_val_every_n_epoch = 1000, 1000
+        corpus_c = train_loop.synthetic_corpus(hp_c, SEED, n_train_chunks=LOOP_CHUNKS)
+        train_ds_c, val_ds_c = train_loop.load_datasets(hp_c, corpus_c)
+        hp_c.device_data_cache = "on"
+        batcher = device_cache.make_device_batcher(train_ds_c, hp_c, dev)
+        sels = list(train_ds_c.epoch_index_batches(
+            b_tr, rng=np.random.default_rng([SEED, 0]), shuffle=True, drop_last=True))
+        on_path = train_loop.batch_transfer(train_ds_c, dev, batcher)
+        off_path = train_loop.batch_transfer(train_ds_c, dev)
+        for sel in sels:
+            got_on, got_off = receive(on_path(sel)), receive(off_path(sel))
+            host = train_ds_c.get_batch(sel)
+            for k, v in host.items():
+                if not (torch.equal(got_on[k].cpu(), torch.from_numpy(v))
+                        and torch.equal(got_off[k].cpu(), torch.from_numpy(v))):
+                    fail(f"device data cache: batch {k} differs from the host gather")
+        budget = device_cache.auto_budget_bytes(dev)
+        total_mem = torch.cuda.get_device_properties(dev).total_memory
+        print(f"check device data cache: {len(sels)} batches of B={b_tr} gathered on "
+              "the card and on the host (pinned, side stream) equal get_batch bit "
+              f"for bit  ok; train split {batcher.total_bytes / 1e6:.3f} MB; auto "
+              f"budget {budget / 1e9:.3f} GB of {total_mem / 1e9:.3f} GB")
+        del batcher, on_path, off_path
+        loop_runs = []
+        for mode in CACHE_RUNS:
+            hp_c.device_data_cache = mode
+            trace, vals = LoopTrace(LOOP_WARM, LOOP_WINDOW), []
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            held = torch.cuda.memory_allocated(dev)
+            reset_launches()
+            t0 = time.perf_counter()
+            state_c, _ = train_loop.train(
+                hp_c, seed=SEED, max_steps=trace.max_steps, device="cuda",
+                corpus=corpus_c, verbose=False, step_hook=trace,
+                val_hook=lambda s, m: vals.append(m))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_launches()
+            require_launches(f"train (device_data_cache={mode})", counts,
+                             ("cond_gates", "seq_fwd", "seq_bwd", "seq_rev",
+                              "frame_rev", "sample_gates", "sample_chain"))
+            if len(trace.metrics) != trace.max_steps or len(vals) != 1:
+                fail(f"cache {mode}: {len(trace.metrics)} steps, {len(vals)} "
+                     "validations")
+            val = vals[0]
+            if not (math.isfinite(val.get("reconstruction/error_percentage", math.nan))
+                    and all(math.isfinite(v) for v in val.values())):
+                fail(f"cache {mode}: validation {val}")
+            window = trace.summary(f"train_loop_cache_{mode}")
+            loop_ms = window["untraced_wall_ms_per_step"]
+            loop_runs.append({
+                "device_data_cache": mode, "wall_s": wall, "steps": trace.max_steps,
+                "loop_ms_per_step": loop_ms, "loop_steps_per_s": 1e3 / loop_ms,
+                "loop_windows_per_s": b_tr * 1e3 / loop_ms, "trace": window,
+                "nll": [float(m["nll"]) for m in trace.metrics],
+                "run_peak_bytes": torch.cuda.max_memory_allocated(dev) - held,
+                "held_before_bytes": held, "launches": counts, "validation": val})
+            print(f"train device_data_cache={mode}: {trace.max_steps} steps + "
+                  f"validation in {wall:.3f} s; loop steps {LOOP_WARM + 1}-"
+                  f"{LOOP_WARM + LOOP_WINDOW} {loop_ms:.3f} ms/step = "
+                  f"{1e3 / loop_ms:.3f} steps/s, {b_tr * 1e3 / loop_ms:.1f} windows/s; "
+                  f"traced steps {LOOP_WARM + LOOP_WINDOW + 1}-{trace.max_steps} "
+                  f"{window['wall_ms_per_call']:.3f} ms/step wall, "
+                  f"{window['device_ms_per_call']:.3f} ms/step on the card, idle "
+                  f"share {window['idle_share']:.3f}; the run's peak device memory "
+                  f"above the {held / 1e9:.3f} GB held before it "
+                  f"{loop_runs[-1]['run_peak_bytes'] / 1e9:.3f} GB; launches {counts}")
+        nll_off, nll_on = loop_runs[0]["nll"], loop_runs[1]["nll"]
+        for i, (a, b) in enumerate(zip(nll_on, nll_off)):
+            rtol = CPU_NLL_RTOL1 if i == 0 else CPU_NLL_RTOL
+            if abs(a - b) > rtol * abs(b):
+                fail(f"cache on vs off, step {i + 1}: nll {a} vs {b} (rtol {rtol})")
+
+        class HistogramRecorder(train_loop.MetricLogger):
+            def __init__(self):
+                super().__init__(enabled=False)
+                self.hists, self.logged = {}, []
+
+            def histogram(self, step, name, values):
+                self.hists[name] = np.asarray(values)
+
+            def scalars(self, step, values):
+                self.logged.append(values)
+
+        # the validation's scale logging, on the model the last run trained
+        recorder = HistogramRecorder()
+        val_rec = train_loop.run_validation(
+            spec, hp_c, state_c.model, val_ds_c, dev, state_c.step, SEED,
+            logger=recorder)
+        want_hists = train_loop.scale_histograms(state_c.model)
+        if (set(recorder.hists) != set(want_hists)
+                or not all(np.array_equal(recorder.hists[k], v)
+                           and np.isfinite(v).all() for k, v in want_hists.items())
+                or recorder.logged != [val_rec]):
+            fail(f"validation's scale logging: histograms {sorted(recorder.hists)}, "
+                 f"logged {len(recorder.logged)} metric sets")
+        print(f"check cache on vs off: nll of {len(nll_on)} steps equal bits: "
+              f"{nll_on == nll_off}; validation with check_invertion and "
+              "scale_logging: error "
+              f"{val_rec['reconstruction/error_percentage']:.6f} %, histograms "
+              f"{ {k: int(v.size) for k, v in recorder.hists.items()} } logged, "
+              "finite  ok")
+        print(json.dumps({"slice5": {"invert": invert_summary, "run_test": rt_summary,
+                                     "loop": loop_runs, "train_step_ms": t_step,
+                                     "auto_budget_bytes": budget,
+                                     "total_memory": total_mem}}))
+        paths = {"serving": launches, "training": train_launches,
+                 "invert": invert_launches, "run_test": rt_launches,
+                 "train_cache_off": loop_runs[0]["launches"],
+                 "train_cache_on": loop_runs[1]["launches"]}
+        for rec in records:
+            rec["launches_by_path"] = {p: cnt[rec["name"]] for p, cnt in paths.items()
+                                       if rec["name"] in cnt}
 
     print(f"total: {time.perf_counter() - t_all:.1f} s")
     print(f"card: {card}")

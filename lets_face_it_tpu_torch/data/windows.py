@@ -10,10 +10,11 @@ kinds: flame_expression [T,50], flame_jaw [T,3], flame_neck [T,3],
 mfcc [T,26], prosody [T,4] (face kinds stored standardized, audio raw).
 
 All chunks of a split are concatenated once into one host array per
-modality; a window is ``big[start : start + seq_len]``, and a batch is one
-numpy gather of its windows. The chunks come from an HDF5 file
-(``WindowDataset.from_file``, which imports ``h5py``) or from a corpus in
-memory (``WindowDataset.from_chunks``, e.g. ``data/synthetic.py``).
+modality; a window is ``big[start : start + seq_len]``, and a batch is the
+copy of its windows (``data/prefetch.py::NativeGather``). The chunks come
+from an HDF5 file (``WindowDataset.from_file``, which imports ``h5py``) or
+from a corpus in memory (``WindowDataset.from_chunks``, e.g.
+``data/synthetic.py``).
 """
 
 from __future__ import annotations
@@ -108,9 +109,11 @@ class WindowDataset:
         return len(self.window_starts)
 
     def get_batch(self, indices: np.ndarray) -> dict[str, np.ndarray]:
+        from lets_face_it_tpu_torch.data.prefetch import NativeGather
+
         starts = self.window_starts[indices]
-        idx = starts[:, None] + np.arange(self.seq_len)[None, :]
-        return {name: arr[idx] for name, arr in self.arrays.items()}
+        return {name: NativeGather.gather(arr, starts, self.seq_len)
+                for name, arr in self.arrays.items()}
 
     def epoch_index_batches(self, batch_size: int, *,
                             rng: np.random.Generator | None = None,

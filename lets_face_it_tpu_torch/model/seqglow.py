@@ -1,6 +1,6 @@
-"""Sequence-level model: parameters, the teacher-forced NLL and autoregressive
-sampling (the port of ``lets_face_it_tpu/model/seqglow.py``; the inversion
-``sequence_invert`` waits for the evaluation slice).
+"""Sequence-level model: parameters, the teacher-forced NLL, autoregressive
+sampling and the teacher-forced inversion (the port of
+``lets_face_it_tpu/model/seqglow.py``).
 
 Training (``sequence_nll``): all conditioning is known up front (teacher
 forcing), so it is encoded and projected for every frame in one pass; inside
@@ -20,6 +20,12 @@ step's projection is autoregressive. Inside the sequence kernel's envelope
 flows with a recurrent own-face encoder take the per-frame kernel, and flows
 outside both envelopes take the plain ``flow.frame_rev`` path. The choice is
 made from the ``FlowSpec`` alone.
+
+Inversion (``sequence_invert``): the stored latents are decoded frame by
+frame with the conditioning teacher-forced from the ground truth. On the card,
+inside the per-frame kernel's envelope, each frame is one ``frame_rev_fused``
+call; the kernel returns no logdet, which is recovered afterwards from the
+GRU states it wrote (each step's scale depends on its new state alone).
 """
 
 from __future__ import annotations
@@ -225,3 +231,71 @@ def sequence_sample(spec: FlowSpec, params, data, seq_len: int, *,
         face_hist = torch.cat([face_hist[:, 1:], x_t[:, None]], dim=1)
         xs.append(x_t)
     return torch.stack(xs, dim=1)
+
+
+def inversion_route(spec: FlowSpec, device) -> str:
+    """'kernel' (``frame_rev_fused`` per frame) for CUDA tensors inside the
+    per-frame kernel's envelope, else 'plain' (``flow.frame_rev``)."""
+    if torch.device(device).type == "cuda" and flow_kernels.fused_supported(spec):
+        return "kernel"
+    return "plain"
+
+
+def reverse_logdet_from_states(spec: FlowSpec, weights, flow_params, new_states):
+    """The reverse logdet [N, B] of teacher-forced frames from the GRU states
+    the flow wrote ([N, K, B, H]): step k's scale is
+    ``max(sigmoid(h_k @ out_w_scale_k + out_b_scale_k + 2), eps)`` on the
+    folded head (``flow_kernels.fold_output_head``), and the logdet is
+    ``-(sum_k sum_c log scale + logdet_const)``."""
+    half = spec.coupling_out_dim // 2
+    raw = (torch.einsum("nkbh,khc->nkbc", new_states, weights.out_w_t[:, :, half:])
+           + weights.out_b[None, :, None, half:])
+    scale = ops.affine_scale(raw, spec.scale_eps)
+    return -(torch.log(scale).sum(dim=(1, 3))
+             + train_kernels.logdet_const(spec, flow_params))
+
+
+@torch.no_grad()
+def sequence_invert(spec: FlowSpec, params, z_seq, data, *, route: str | None = None):
+    """Teacher-forced decode of stored latents (models.py:617-645): the
+    conditioning comes from the ground-truth ``data['p1_face']`` history, not
+    the decoded output. ``z_seq`` [N, B, C]. ``route``: 'kernel' or 'plain'
+    (default ``inversion_route``); on CPU tensors the kernel route runs the
+    kernel's plain version. Returns (reconstruction [B, N, C], backward loss
+    scalar: the mean over frames and batch of the NLL in bits)."""
+    x = data["p1_face"]
+    b = x.shape[0]
+    start = spec.cond.longest_history
+    n = z_seq.shape[0]
+    times = torch.arange(start, start + n, device=x.device)
+    frame_nbs = _frame_numbers(spec, data, n) if spec.cond.use_frame_nb else None
+    cond_all = encoders.encode_conditioning(spec.cond, params.encoder, data, x,
+                                            times, frame_nbs=frame_nbs)
+    cond_projs = flow.project_cond_frames(params.flow, cond_all).contiguous()
+    states = flow.init_flow_states(spec, b, x.device)
+    zs = z_seq.to(x.device, torch.float32).contiguous()              # [N, B, C]
+    route = route or inversion_route(spec, x.device)
+
+    xs = []
+    if route == "kernel":
+        weights = flow_kernels.prepare_sampling_weights(spec, params.flow)
+        new_states = []
+        for i in range(n):
+            x_t, states = flow_kernels.frame_rev_fused(spec, weights, zs[i],
+                                                       cond_projs[i], states)
+            xs.append(x_t)
+            new_states.append(states)
+        logdet = reverse_logdet_from_states(spec, weights, params.flow,
+                                            torch.stack(new_states))
+    elif route == "plain":
+        logdets = []
+        for i in range(n):
+            x_t, ld, states = flow.frame_rev(spec, params.flow, zs[i], None, states,
+                                             cond_projs=cond_projs[i])
+            xs.append(x_t)
+            logdets.append(ld)
+        logdet = torch.stack(logdets)
+    else:
+        raise ValueError(f"route={route!r}: expected 'kernel' or 'plain'")
+    losses = nll_from_objective(logdet + ops.gaussian_logp(zs))          # [N, B]
+    return torch.stack(xs, dim=1), losses.mean()

@@ -1,5 +1,6 @@
-"""Training checkpoints: one ``torch.save`` file per save (the port of
-``lets_face_it_tpu/train/checkpoint.py``, which writes orbax directories).
+"""Training checkpoints: one ``torch.save`` file per save, in a directory
+named by the step (the port of ``lets_face_it_tpu/train/checkpoint.py``,
+which writes orbax directories).
 
 A file holds the model's ``state_dict`` in the reference's glow_pytorch names
 (``sample/weights.py::state_dict_reference``, so that
@@ -25,7 +26,6 @@ from lets_face_it_tpu_torch.train.state import TrainState
 def save_checkpoint(path, state: TrainState, hp, *, epoch: int, epoch_step: int,
                     actnorm_inited: bool, val_loss: float | None = None) -> Path:
     path = Path(path)
-    path.parent.mkdir(parents=True, exist_ok=True)
     payload = {
         "state_dict": state_dict_reference(state.model),
         "hparams": {k: v for k, v in vars(hp).items()},
@@ -37,8 +37,12 @@ def save_checkpoint(path, state: TrainState, hp, *, epoch: int, epoch_step: int,
                  "last_mismatched_nll": float(state.last_mismatched_nll),
                  "val_loss": None if val_loss is None else float(val_loss)},
     }
-    tmp = path.with_suffix(".tmp")
+    # written beside the step's directory, then moved in: a step directory
+    # never holds a partial file
+    tmp = path.parent.parent / f".{path.parent.name}.tmp"
+    tmp.parent.mkdir(parents=True, exist_ok=True)
     torch.save(payload, tmp)
+    path.parent.mkdir(exist_ok=True)
     tmp.replace(path)
     return path
 
@@ -57,20 +61,22 @@ def restore_checkpoint(path, state: TrainState) -> dict:
 
 
 class CheckpointManager:
-    """``step_<n>.pt`` files in a directory, the newest ``max_to_keep`` kept."""
+    """One directory per save, ``<directory>/<step>/checkpoint.pt`` (numbered
+    directories, as ``tools/supervise_train.py`` looks for them), the newest
+    ``max_to_keep`` kept."""
 
     def __init__(self, directory, max_to_keep: int = 3):
         self.directory = Path(directory)
         self.max_to_keep = max_to_keep
 
     def path(self, step: int) -> Path:
-        return self.directory / f"step_{step:08d}.pt"
+        return self.directory / str(step) / "checkpoint.pt"
 
     def all_steps(self) -> list[int]:
         if not self.directory.is_dir():
             return []
-        return sorted(int(p.stem.split("_")[1])
-                      for p in self.directory.glob("step_*.pt"))
+        return sorted(int(p.parent.name) for p in self.directory.glob("*/checkpoint.pt")
+                      if p.parent.name.isdigit())
 
     def latest(self) -> Path | None:
         steps = self.all_steps()
@@ -80,4 +86,5 @@ class CheckpointManager:
         path = save_checkpoint(self.path(state.step), state, hp, **meta)
         for step in self.all_steps()[:-self.max_to_keep]:
             self.path(step).unlink()
+            self.path(step).parent.rmdir()
         return path

@@ -1,7 +1,6 @@
 """Training-time self-checks (the port of ``lets_face_it_tpu/train/metrics.py``;
-reference mimicry_logger.py): jerk statistics and matched-vs-deranged NLL
-probes. The invertibility error waits for ``sequence_invert`` (evaluation
-slice); ``final_model`` sets ``check_invertion: false``."""
+reference mimicry_logger.py): jerk statistics, the invertibility error and
+matched-vs-deranged NLL probes."""
 
 from __future__ import annotations
 
@@ -25,6 +24,15 @@ def jerk_metrics(gt_seq, generated_seq) -> dict:
     gen = calc_jerk(generated_seq)
     return {"jerk/gt_jerk": gt, "jerk/generated_jerk": gen,
             "jerk/generated_jerk_ratio": gen / gt}
+
+
+@torch.no_grad()
+def invertibility_error(spec, model, batch, z_seq, loss):
+    """Percentage disagreement between the forward NLL ``loss`` of ``batch``
+    and the backward NLL of decoding its latents ``z_seq``
+    (mimicry_logger.py:241-251)."""
+    _, backward_loss = seqglow.sequence_invert(spec, model, z_seq, batch)
+    return torch.abs((backward_loss + loss) / loss) * 100.0
 
 
 @torch.no_grad()

@@ -40,17 +40,24 @@ for name in names:
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.") or m == "jaxlib"
        or m == "lets_face_it_tpu" or m.startswith("lets_face_it_tpu.")]
-print(len(names), bad)
+# absent on GPU hosts: imported only where used, never at module import
+optional = [m for m in ("tensorboardX", "comet_ml", "cv2", "h5py", "triton")
+            if m in sys.modules]
+print(len(names), bad, optional)
 assert not bad, bad
+assert not optional, optional
 """
 
 
 def test_port_imports_no_jax_and_no_jax_package():
+    """Every module of the port imports, without JAX, the JAX package, or
+    (at module import) the optional TensorBoard, Comet, OpenCV, HDF5 and
+    Triton packages."""
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 15, out.stdout
+    assert n_modules >= 30, out.stdout
 
 
 def test_chip_smoke_imports_no_jax():
