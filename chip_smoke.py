@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py
 
-Drives the port's serving path and its training path of
-``hparams/final_model.yaml`` at full width on seeded random weights, from
-the sources in this checkout:
+Drives the port's serving path, its training path of
+``hparams/final_model.yaml`` at full width on seeded random weights, and its
+render path at the FLAME 2019 sizes, from the sources in this checkout:
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the CUDA kernels (``lets_face_it_tpu_torch/csrc``) with nvcc
@@ -54,6 +54,17 @@ the sources in this checkout:
     validation with ``check_invertion`` and ``scale_logging`` on, each way
     twice, in turns): the batches of both data paths bit for bit, the
     per-step NLL of both runs, and the loop's steps and windows per second.
+15. renders a study segment on the synthetic head at the FLAME 2019 sizes
+    (V=5023): ``stimulus.render_segment`` with the step 4 ``Generator``
+    (one ``seq_rev`` call) and the FLAME decoder on the card, its mp4 write
+    swapped for a stand-in that keeps the vertices; the same faces, and one
+    face of 1,500 frames, through ``RenderService.get_vertices`` from the
+    byte protocol's blobs; the vertices held against the float64 CPU path,
+    4 frames of the pair through the raster stage
+    (``render/video.py::render_double_face_frames``, 2048x1024) against the
+    frames of the float64 vertices, and, where OpenCV is installed, written
+    as an mp4 and read back; the mesh stage's times, a profile window, the
+    raster time and the peak device memory.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
@@ -63,6 +74,7 @@ It needs no network, imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import importlib.util
 import io
 import json
 import math
@@ -132,6 +144,29 @@ LOOP_CHUNKS, LOOP_WARM, LOOP_WINDOW = 40, 3, 8
 # directions (4e-5). Measured on an H100: 1.542e-05.
 CPU_STEPS, CPU_BATCH = 2, 32
 CPU_NLL_RTOL1, CPU_NLL_RTOL, CPU_PARAM_ATOL = 1e-5, 1e-4, 4e-5
+# Step 15: the render phase at the FLAME 2019 sizes on the synthetic head (the
+# real model is not redistributable): V=5023, 300 shape + 100 expression
+# components, 36 pose correctives, 5 joints; 2048x1024 frames. A segment of
+# 100 packed frames (N=76 generated), one face of RENDER_LONG frames (a
+# minute at 25 fps), RENDER_FRAMES frames rasterized.
+RENDER_VERTICES, RENDER_LONG, RENDER_FRAMES = 5023, 1500, 4
+# The card's vertices against the CPU path in float64 from the same float32
+# inputs: float32 products over 400 components, then a chain of 4x4
+# transforms per vertex. The generated side's coefficients (random weights)
+# put coordinates at |x| up to about 2.1, where the CPU's own float32 path
+# reads 2.0e-06 against float64; the limit keeps 10x headroom for another
+# summation order, while a wrong index, joint or blend weight moves vertices
+# by 1e-3 or more.
+RENDER_VERT_ATOL = 2e-5
+# Frames rasterized from the card's vertices against the same frames from
+# the float64 vertices. A shade that moved by rounding truncates to the next
+# uint8 level anywhere: at most RASTER_LEVEL_SHARE of the pixels may differ
+# (the CPU's float32 vertices give 1.4e-02 on these frames, textured). A
+# larger difference only where a pixel centre changes triangle: at most
+# RASTER_EDGE_SHARE of the pixels (CPU float32: 3.8e-06), each on a visible
+# triangle edge (its 3x3 neighbourhood in a face-id render holds another face
+# or the background).
+RASTER_LEVEL_SHARE, RASTER_EDGE_SHARE = 5e-2, 1e-4
 
 
 def kernel_wrappers() -> dict:
@@ -500,6 +535,249 @@ def cond_gates_bound_ms(spec, n: int, b: int):
     k, cond, g = spec.n_steps, spec.cond.cond_dim, 3 * spec.hidden_channels
     n_bytes = 4 * (n * k * b * cond + k * (cond + 1) * g + n * k * b * g)
     return _bound(n_bytes, 2 * n * b * k * cond * g)
+
+
+def face_id_frames(verts_l, verts_r, faces, width: int, height: int):
+    """[T, H, W] the visible face of ``render_double_face_frames``'s scene
+    (faces of the left head, then of the right; -1 for the background): each
+    face drawn with vertices of its own in a colour that encodes its index,
+    unlit (ambient 1, no lights), so that every covered pixel reads back its
+    face's index exactly."""
+    import numpy as np
+
+    from lets_face_it_tpu_torch.render.rasterizer import Rasterizer
+    from lets_face_it_tpu_torch.render.video import FACE_SHIFT
+
+    n_faces = faces.shape[0]
+    ids = np.arange(2 * n_faces)
+    rgb = np.stack([(ids >> 16) & 255, (ids >> 8) & 255, ids & 255], axis=1)
+    colors = np.repeat((rgb + 0.5) / 255.0, 3, axis=0).astype(np.float32)
+    corners = faces.reshape(-1)
+    verts = np.concatenate([verts_l[:, corners], verts_r[:, corners]], axis=1)
+    verts[:, :3 * n_faces, 0] -= FACE_SHIFT
+    verts[:, 3 * n_faces:, 0] += FACE_SHIFT
+    raster = Rasterizer(width=width, height=height, x=width // 2, y=400, z=-1,
+                        f=(4754.97941935, 4754.97941935), ambient=1.0, lights=[])
+    img = raster.render([(np.ascontiguousarray(verts, np.float32),
+                          np.arange(6 * n_faces, dtype=np.int32).reshape(-1, 3),
+                          colors)]).astype(np.int64)
+    face = (img[..., 0] << 16) | (img[..., 1] << 8) | img[..., 2]
+    return np.where(face == 0xFFFFFF, -1, face)
+
+
+def visible_edges(ids):
+    """[T, H, W] True where a pixel's 3x3 neighbourhood holds another face
+    (or the background) than the pixel's own."""
+    import numpy as np
+
+    pad = np.pad(ids, ((0, 0), (1, 1), (1, 1)), mode="edge")
+    h, w = ids.shape[1:]
+    edge = np.zeros(ids.shape, bool)
+    for dy in (0, 1, 2):
+        for dx in (0, 1, 2):
+            edge |= pad[:, dy:dy + h, dx:dx + w] != ids
+    return edge
+
+
+def render_checks(gen, tmp, dev) -> dict:
+    """Step 15's path and checks on ``dev``: ``stimulus.render_segment`` with
+    the port's ``Generator`` (one ``seq_rev`` call) and its FLAME decoder on
+    the synthetic head, the mp4 write swapped for a stand-in that keeps what
+    it is handed; the two faces again as a POST hands them to
+    ``RenderService.get_vertices``; one RENDER_LONG-frame face; all held
+    against the float64 CPU path; RENDER_FRAMES frames of the pair through
+    the raster stage held against those of the float64 vertices, then
+    written as an mp4 where OpenCV imports. Returns what the timings reuse
+    and the readings."""
+    import numpy as np
+    import torch
+
+    from lets_face_it_tpu_torch import stimulus
+    from lets_face_it_tpu_torch.render import flame, video
+    from lets_face_it_tpu_torch.render.server import RenderService, byteify, debyteify
+
+    rng = np.random.default_rng(SEED + 15)
+    head = flame.synthetic_flame_model(RENDER_VERTICES, seed=SEED, device=dev)
+    head64 = flame.synthetic_flame_model(RENDER_VERTICES, seed=SEED, device="cpu",
+                                         dtype=torch.float64)
+    t_pad = gen.hp.Validation["seq_len"]
+    padded = rng.standard_normal((t_pad, 273)).astype(np.float32)
+    n = t_pad - gen.spec.cond.longest_history
+    frames = padded[-n:]
+    info = {"left_gender": "female", "right_gender": "male",
+            "left_shape": rng.standard_normal(300).tolist(),
+            "right_shape": rng.standard_normal(300).tolist(),
+            "left_skin_color": "white", "right_skin_color": "black"}
+
+    handed, generated = [], []
+
+    def mp4_stand_in(file_name, vertices, vertices2, faces, **kwargs):
+        handed.append((vertices, vertices2, kwargs))
+        Path(file_name).write_bytes(b"")
+        return file_name
+
+    generate = gen.generate
+
+    def keep_generated(packed):
+        generated.append(generate(packed))
+        return generated[-1]
+
+    stimulus.render_double_face_video, gen.generate = mp4_stand_in, keep_generated
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        stimulus.render_segment(gen, head, frames, padded, "S1", "segment.mp4",
+                                Path(tmp) / "stimuli", info, 2.0, 1.0)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+    finally:
+        stimulus.render_double_face_video = video.render_double_face_video
+        del gen.generate
+    segment_s = time.perf_counter() - t0
+    launches = read_launches()
+    (v_left, v_right, kwargs), = handed
+    kwargs = {k: v for k, v in kwargs.items() if k != "fps"}
+    if v_left.device.type != dev.type or v_left.shape != (n, RENDER_VERTICES, 3):
+        fail(f"render_segment handed vertices {tuple(v_left.shape)} on {v_left.device}")
+
+    # the two faces as a POST of the byte protocol carries them: left ground
+    # truth (p1 talks more, so p1 sits left), right generated
+    def request(face, shape, rows):
+        pose = np.zeros((rows, 12), np.float32)
+        pose[:, :3], pose[:, 3:6] = face["neck"][-rows:], face["jaw"][-rows:]
+        return {"expression": byteify(np.asarray(face["expression"][-rows:], np.float32)),
+                "pose": byteify(pose),
+                "shape": byteify(np.repeat(np.asarray(shape, np.float32)[None], rows, 0)),
+                "rotation": byteify(np.zeros((rows, 3), np.float32))}
+
+    pred = generated[0][0]
+    faces_pair = [request(stimulus.face_block(frames, 0), info["left_shape"], n),
+                  request({"expression": pred[:, :50], "jaw": pred[:, 100:103],
+                           "neck": pred[:, 103:106]}, info["right_shape"], n)]
+    rows = RENDER_LONG
+    face_long = request({"expression": 0.5 * rng.standard_normal((rows, 50)),
+                         "jaw": 0.2 * rng.standard_normal((rows, 3)),
+                         "neck": 0.2 * rng.standard_normal((rows, 3))},
+                        info["left_shape"], rows)
+    face_long["rotation"] = byteify((0.1 * rng.standard_normal((rows, 3))).astype(np.float32))
+    service = RenderService(head, video_dir=Path(tmp) / "videos", device=dev)
+
+    def reference(face):
+        f = {k: torch.from_numpy(debyteify(face, k)).double() for k in face}
+        return flame.get_vertices(head64, f["expression"], f["pose"], f["rotation"],
+                                  shape=f["shape"])
+
+    errs = {}
+    served = [service.get_vertices(f) for f in faces_pair]
+    refs = [reference(f) for f in faces_pair]
+    for side, seg_v, got, ref in zip(("left", "right"), (v_left, v_right), served, refs):
+        errs[f"{side}_vs_render_segment"] = check_close(
+            f"RenderService.get_vertices {side} N={n} vs render_segment's",
+            got, seg_v, atol=RENDER_VERT_ATOL, rtol=0.0)
+        errs[f"{side}_vs_cpu_f64"] = check_close(
+            f"RenderService.get_vertices {side} N={n} vs the CPU float64 path",
+            got, ref, atol=RENDER_VERT_ATOL, rtol=0.0)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+    long_v = service.get_vertices(face_long)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - held if dev.type == "cuda" else None
+    errs[f"long_n{rows}_vs_cpu_f64"] = check_close(
+        f"RenderService.get_vertices N={rows} vs the CPU float64 path", long_v,
+        reference(face_long), atol=RENDER_VERT_ATOL, rtol=0.0)
+    max_abs = max(r.abs().max().item() for r in refs)
+    print(f"check render vertices (V={RENDER_VERTICES}, |x| <= {max_abs:.3f}; atol "
+          f"{RENDER_VERT_ATOL}): {json.dumps(errs)}  ok")
+
+    # the raster stage: the card's vertices against the float64 vertices
+    k = RENDER_FRAMES
+    ref_l, ref_r = (r[:k].float().numpy() for r in refs)
+    ids = face_id_frames(ref_l, ref_r, head.faces, 2048, 1024)
+    ref_imgs = video.render_double_face_frames(ref_l, ref_r, head.faces, **kwargs)
+    t0 = time.perf_counter()
+    imgs = video.render_double_face_frames(v_left[:k], v_right[:k], head.faces, **kwargs)
+    raster_ms = (time.perf_counter() - t0) * 1e3 / k
+    if imgs.shape != (k, 1024, 2048, 3):
+        fail(f"raster stage: images {imgs.shape}")
+    diff = (imgs != ref_imgs).any(-1)
+    big = np.abs(imgs.astype(np.int16) - ref_imgs.astype(np.int16)).max(-1) > 1
+    off_edge = int((big & ~visible_edges(ids)).sum())
+    share, big_share = float(diff.mean()), float(big.mean())
+    if share > RASTER_LEVEL_SHARE or big_share > RASTER_EDGE_SHARE or off_edge:
+        fail(f"raster stage: {share:.3e} of pixels differ (limit {RASTER_LEVEL_SHARE}), "
+             f"{big_share:.3e} by more than one level (limit {RASTER_EDGE_SHARE}), "
+             f"{off_edge} of those off a visible triangle edge")
+    coverage = float((ids >= 0).mean())
+    print(f"check raster stage, {k} frames 2048x1024 (textured): {share:.3e} of "
+          f"pixels differ from the float64 vertices' frames (limit "
+          f"{RASTER_LEVEL_SHARE}), {big_share:.3e} by more than one level (limit "
+          f"{RASTER_EDGE_SHARE}), all on visible triangle edges; the heads cover "
+          f"{coverage:.4f} of a frame  ok")
+    # the mp4 write where OpenCV is installed (GPU hosts may lack it)
+    mp4 = None
+    if importlib.util.find_spec("cv2") is None:
+        print("render: the mp4 write (cv2.VideoWriter) is left out: cv2 is not "
+              "installed here; the CPU tests cover it (tests/test_torch_render.py)")
+    else:
+        import cv2
+
+        path = Path(tmp) / "segment.mp4"
+        t0 = time.perf_counter()
+        video.render_double_face_video(path, v_left[:k], v_right[:k], head.faces,
+                                       fps=25, **kwargs)
+        mp4_s = time.perf_counter() - t0
+        cap = cv2.VideoCapture(str(path))
+        try:
+            count = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+            read, frame = cap.read()
+        finally:
+            cap.release()
+        if count != k or not read or frame.shape != (1024, 2048, 3):
+            fail(f"render_double_face_video: {count} frames, first read {read}")
+        mp4 = {"frames": count, "bytes": path.stat().st_size, "wall_s": mp4_s}
+        print(f"check render_double_face_video: {k} frames rasterized and written "
+              f"as mp4 in {mp4_s:.3f} s ({mp4['bytes']} bytes), read back with "
+              f"{count} frames of 2048x1024  ok")
+    return {"service": service, "head": head, "faces_pair": faces_pair,
+            "face_long": face_long, "kwargs": kwargs, "v_pair": (v_left, v_right),
+            "launches": launches, "readings": {
+                "segment_frames": n, "segment_wall_s": segment_s, "max_abs_err": errs,
+                "raster_diff_share": share, "raster_diff_over_one_level_share": big_share,
+                "coverage": coverage, "raster_ms_per_frame": raster_ms, "mp4": mp4,
+                "long_call_peak_bytes": peak}}
+
+
+def render_times(checked, card: str) -> dict:
+    """Step 15's times on the card: the mesh stage (``RenderService.get_vertices``
+    from a request's blobs, and the decoder alone on tensors already on the
+    card) at N=76 and N=RENDER_LONG by CUDA events, and a profile window of
+    the long call."""
+    import torch
+
+    from lets_face_it_tpu_torch.render import flame
+    from lets_face_it_tpu_torch.render.server import debyteify
+
+    service, head = checked["service"], checked["head"]
+    out = {}
+    for face, reps in ((checked["faces_pair"][1], 10), (checked["face_long"], 5)):
+        rows = len(debyteify(face, "expression"))
+        t = {k: torch.from_numpy(debyteify(face, k)).to(service.device) for k in face}
+        served = time_ms(lambda: service.get_vertices(face), reps)
+        decoder = time_ms(lambda: flame.get_vertices(
+            head, t["expression"], t["pose"], t["rotation"], shape=t["shape"]), reps)
+        out[f"mesh_n{rows}"] = {"get_vertices_ms": served, "decoder_ms": decoder}
+        print(f"render mesh stage N={rows} V={RENDER_VERTICES} on {card}: "
+              f"RenderService.get_vertices {served:.3f} ms (blobs decoded on the host, "
+              f"uploaded, decoded on the card), the decoder alone {decoder:.3f} ms "
+              f"(CUDA events, {reps} calls)")
+    window = trace_window(f"render_get_vertices_n{RENDER_LONG}",
+                          lambda: service.get_vertices(checked["face_long"]), 3)
+    print(json.dumps(window))
+    out["trace_long"] = window
+    return out
 
 
 def eager_flow_sequence(spec, flow_params, xs, cond_seq, states0):
@@ -1513,10 +1791,32 @@ def main() -> int:
                                      "loop": loop_runs, "train_step_ms": t_step,
                                      "auto_budget_bytes": budget,
                                      "total_memory": total_mem}}))
+
+        # -- 15. the render service and the study-stimulus path ----------------
+        checked = render_checks(gen, tmp, dev)
+        render_launches = checked["launches"]
+        require_launches("render_segment", render_launches,
+                         ("seq_rev", "sample_gates", "sample_chain"))
+        if render_launches["seq_rev"] != 1:
+            fail(f"render_segment launched seq_rev {render_launches['seq_rev']} "
+                 "times, expected one a segment")
+        readings = checked["readings"]
+        print(f"render_segment: one segment of {readings['segment_frames']} generated "
+              f"frames on {card} in {readings['segment_wall_s']:.3f} s (generation and "
+              f"the FLAME decoder on the card; the mp4 write swapped out); launches "
+              f"{render_launches}; raster stage {readings['raster_ms_per_frame']:.1f} ms "
+              f"a 2048x1024 frame on the host ({RENDER_FRAMES} frames, the heads "
+              f"covering {readings['coverage']:.4f} of a frame); peak device memory "
+              f"of the N={RENDER_LONG} get_vertices call "
+              f"{readings['long_call_peak_bytes'] / 1e9:.3f} GB above what was held")
+        print(json.dumps({"render": {**readings, **render_times(checked, card)}}))
+        del checked
+
         paths = {"serving": launches, "training": train_launches,
                  "invert": invert_launches, "run_test": rt_launches,
                  "train_cache_off": loop_runs[0]["launches"],
-                 "train_cache_on": loop_runs[1]["launches"]}
+                 "train_cache_on": loop_runs[1]["launches"],
+                 "render": render_launches}
         for rec in records:
             rec["launches_by_path"] = {p: cnt[rec["name"]] for p, cnt in paths.items()
                                        if rec["name"] in cnt}

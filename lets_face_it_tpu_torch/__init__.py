@@ -3,8 +3,11 @@
 The port runs on an NVIDIA Hopper GPU (``sm_90a``). It carries the serving
 path of the paper's ``final_model`` (offline generation,
 ``sample.generate.Generator``, and live streaming,
-``sample.streaming.StreamingGenerator``) and its training path
-(``train.loop.train``, ``python -m lets_face_it_tpu_torch.train``). The four
+``sample.streaming.StreamingGenerator``), its training path
+(``train.loop.train``, ``python -m lets_face_it_tpu_torch.train``), and the
+render service and study-stimulus path (``render/``, with the FLAME decoder
+on the card and ``python -m lets_face_it_tpu_torch.render.server``;
+``data_segments/``; ``stimulus``). The four
 Pallas kernels of the JAX package are hand-written CUDA C++ here
 (``csrc/``), built with ``nvcc`` at first use and bound through ``ctypes``
 (``ops/flow_kernels.py`` for sampling, ``ops/train_kernels.py`` for the

@@ -4,7 +4,8 @@
         [--max_steps N] [--batch_size B] [--max_epochs E] [--seed S]
         [--ckpt_dir DIR] [--dataset_root DIR] [--resume_from CKPT]
         [--log_dir DIR] [--stall_timeout_s S] [--render_url URL]
-        [--device_data_cache auto|on|off] [--device cuda]
+        [--device_data_cache auto|on|off] [--precision 32] [--debug_nans]
+        [--device cuda]
 
 HPARAMS is a YAML config (``hparams/final_model.yaml``, or an unmodified
 reference one). ``--synthetic-data`` trains on the synthetic corpus built in
@@ -52,20 +53,31 @@ def main(argv=None):
                              "(e.g. http://localhost:8000)")
     parser.add_argument("--device_data_cache", default=None,
                         choices=("auto", "on", "off"))
+    parser.add_argument("--precision", type=int, default=None, choices=(16, 32),
+                        help="override the config's precision; 16 (reduced "
+                             "precision) is not supported by the port yet")
+    parser.add_argument("--debug_nans", action="store_true",
+                        help="stop at the first non-finite loss or gradient "
+                             "norm (the reference's terminate_on_nan); "
+                             "synchronises every step")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
 
     from lets_face_it_tpu_torch.hparams import load_hparams
-    from lets_face_it_tpu_torch.train.loop import synthetic_corpus, train
+    from lets_face_it_tpu_torch.train.loop import (check_precision,
+                                                   synthetic_corpus, train)
     from lets_face_it_tpu_torch.utils.device import resolve_device
 
     resolve_device(args.device)
     overrides = {k: getattr(args, k) for k in ("batch_size", "max_epochs",
                                                 "stall_timeout_s",
-                                                "device_data_cache")
+                                                "device_data_cache", "precision")
                  if getattr(args, k) is not None}
+    if args.debug_nans:
+        overrides["terminate_on_nan"] = True
     hp = load_hparams(args.hparams_file, dataset_root=args.dataset_root,
                       overrides=overrides)
+    check_precision(hp)
     corpus = synthetic_corpus(hp, args.seed) if args.synthetic_data else None
     ckpt_dir = args.ckpt_dir or str(Path("checkpoints") / Path(args.hparams_file).stem)
     render_client = None

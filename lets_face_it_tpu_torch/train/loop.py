@@ -25,8 +25,13 @@ Metrics go to stdout as JSON lines, and to TensorBoard (``tensorboardX``) and
 Comet where those import. ``hp.stall_timeout_s`` arms a watchdog that exits
 the process with code 17 when steps stop (``utils/watchdog.py``).
 
-Left out, as in ``ROADMAP.md``: k steps per dispatch and the bf16 wire
-format.
+``hp.terminate_on_nan`` (the CLI's ``--debug_nans``) checks each step's
+loss and gradient norm on the host and raises ``FloatingPointError`` at the
+first non-finite one; only this mode synchronises every step. The port
+trains in float32: ``hp.precision`` below 32 is refused (``check_precision``).
+
+Left out, as in ``ROADMAP.md``: reduced precision, k steps per dispatch and
+the bf16 wire format.
 """
 
 from __future__ import annotations
@@ -116,6 +121,28 @@ class MetricLogger:
     def close(self):
         if self.writer is not None:
             self.writer.close()
+
+
+def check_precision(hp: HParams) -> None:
+    """Raise ``ValueError`` for ``hp.precision`` below 32: the port's kernels
+    and matmuls run in float32 only (reduced precision waits in ROADMAP.md
+    §1, "The trainer's remaining switches")."""
+    precision = int(getattr(hp, "precision", 32) or 32)
+    if precision < 32:
+        raise ValueError(f"precision {precision} is not supported: the port "
+                         "trains in float32 only (precision 32); reduced "
+                         "precision waits in ROADMAP.md §1, \"The trainer's "
+                         "remaining switches\"")
+
+
+def check_finite(step: int, metrics: dict) -> None:
+    """Raise ``FloatingPointError`` when the step's loss or gradient norm is
+    not finite (the reference's ``terminate_on_nan``)."""
+    values = torch.stack([metrics["loss"].float(), metrics["grad_norm"].float()])
+    if not bool(torch.isfinite(values).all()):
+        loss, grad_norm = values.tolist()
+        raise FloatingPointError(f"non-finite training step {step}: loss {loss}, "
+                                 f"grad_norm {grad_norm}")
 
 
 def scale_histograms(model: SeqGlow) -> dict:
@@ -235,7 +262,11 @@ def train(hp: HParams, *, seed: int = 1234, ckpt_dir=None, log_dir=None,
     the validation's generated sequences when ``Validation.render`` is on.
     ``step_hook(step, metrics)`` fires after every step and
     ``val_hook(step, metrics)`` after each validation; either may raise to
-    stop the run. Returns (final TrainState, best val loss)."""
+    stop the run. ``hp.precision`` below 32 raises ``ValueError``;
+    ``hp.terminate_on_nan`` raises ``FloatingPointError`` at the first step
+    whose loss or gradient norm is not finite. Returns (final TrainState,
+    best val loss)."""
+    check_precision(hp)
     device = resolve_device(device)
     train_ds, val_ds = load_datasets(hp, corpus)
     spec = FlowSpec.build(hp)
@@ -275,6 +306,7 @@ def train(hp: HParams, *, seed: int = 1234, ckpt_dir=None, log_dir=None,
 
         watchdog = ProgressWatchdog(float(hp.stall_timeout_s))
 
+    terminate_on_nan = bool(getattr(hp, "terminate_on_nan", False))
     best_val = float("inf")
     max_epochs = int(hp.max_epochs or 1)
     val_every = int(getattr(hp, "check_val_every_n_epoch", 1) or 1)
@@ -296,6 +328,8 @@ def train(hp: HParams, *, seed: int = 1234, ckpt_dir=None, log_dir=None,
                     train_state.run_actnorm_init(spec, state, jb)
                     actnorm_inited = True
                 m = train_state.train_step(spec, hp, state, jb)
+                if terminate_on_nan:
+                    check_finite(state.step, m)
                 epoch_step += 1
                 if watchdog is not None:
                     watchdog.beat()

@@ -4,12 +4,11 @@ render path, mimicry_logger.py:65-124): de-standardize the generated and
 ground-truth face sequences, serialize them in the render service's byte
 protocol (latin-1-decoded ``np.save`` blobs in JSON), and POST them to the
 service from a daemon thread, so that rendering never stalls training.
-Plain HTTP to a separate service process; it needs nothing of the service
-itself."""
+Plain HTTP to a separate service process; of the service it uses only
+the byte protocol's ``byteify`` (``render/server.py``)."""
 
 from __future__ import annotations
 
-import io
 import json
 import sys
 import urllib.request
@@ -19,14 +18,7 @@ from threading import Thread
 import numpy as np
 
 from lets_face_it_tpu_torch.data.windows import face_means_stds, load_standardization
-
-
-def byteify(x: np.ndarray) -> str:
-    """``np.save`` bytes as a latin-1 string (render/server.py:39-44)."""
-    buf = io.BytesIO()
-    np.save(buf, np.asarray(x))
-    buf.seek(0)
-    return buf.read().decode("latin-1")
+from lets_face_it_tpu_torch.render.server import byteify
 
 
 class RenderClient:

@@ -120,6 +120,66 @@ def test_training_entry_points_raise_without_cuda(no_cuda, tmp_path):
     assert not (tmp_path / "ck").exists()
 
 
+def test_render_entry_points_raise_without_cuda(no_cuda, tmp_path):
+    """The render service, its CLI, the FLAME model's constructors and
+    ``render_segment`` default to the GPU and raise without one, before
+    any work."""
+    from types import SimpleNamespace
+
+    from lets_face_it_tpu_torch import stimulus
+    from lets_face_it_tpu_torch.render import flame, server
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        server.RenderService(video_dir=tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        server.main(["--port", "0", "--video_dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        flame.synthetic_flame_model(64)
+    frames = np.zeros((30, 273), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        stimulus.render_segment(SimpleNamespace(device=torch.device("cuda")),
+                                flame.synthetic_flame_model(64, device="cpu"),
+                                frames, frames, "S1", "seg.mp4", tmp_path / "out",
+                                {}, 1.0, 0.0)
+    assert not (tmp_path / "out").exists()
+
+
+def test_render_server_cli_runs_on_cpu_when_asked(tmp_path):
+    """``python -m lets_face_it_tpu_torch.render.server --device cpu`` serves
+    a render request on a free port and the video it wrote."""
+    import json
+    import select
+    import urllib.request
+
+    from lets_face_it_tpu_torch.render.server import byteify
+
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "lets_face_it_tpu_torch.render.server", "--device",
+         "cpu", "--port", "0", "--video_dir", str(tmp_path / "videos")],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        ready, _, _ = select.select([proc.stdout], [], [], 120)
+        line = proc.stdout.readline() if ready else ""
+        assert "render server on :" in line and "device: cpu" in line, (
+            line, proc.stderr.read() if proc.poll() is not None else "")
+        port = int(line.split(":")[1].split()[0])
+        face = {k: byteify(np.zeros((2, d), np.float32))
+                for k, d in (("expression", 50), ("pose", 12), ("rotation", 3))}
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/render",
+            data=json.dumps({"seqs": [face, face], "file_name": "cli.mp4"}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            url = json.loads(resp.read())["url"]
+        assert url.endswith("/cli.mp4")
+        assert (tmp_path / "videos" / "cli.mp4").stat().st_size > 500
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)
+        proc.stdout.close()
+        proc.stderr.close()
+
+
 def test_cli_runs_on_cpu_when_asked(tmp_path, monkeypatch):
     """The CLI with --device cpu: a Lightning-style .ckpt with its hparams."""
     spec, pspec = specs(tiny_hp())

@@ -3,8 +3,10 @@ tests/test_watchdog.py) and the loop's heartbeats and its stop on an
 exception, the checkpoints' layout for tools/supervise_train.py, the metric
 logger, the parameter histograms against the JAX package's, the render
 client against the JAX package's payload and against a stub render service
-over HTTP, ``run_validation`` with ``check_invertion``, ``scale_logging``
-and ``render`` on, the config file, and the trainer CLI's new flags."""
+behind the port's HTTP handler, ``run_validation`` with ``check_invertion``,
+``scale_logging`` and ``render`` on, the config file, the trainer CLI's new
+flags, the refusal of precision below 32 and the stop at a non-finite step
+(``terminate_on_nan``, ``--debug_nans``)."""
 
 import json
 import math
@@ -22,11 +24,11 @@ import yaml
 
 from lets_face_it_tpu import config as jconfig
 from lets_face_it_tpu.render.server import byteify as jbyteify
-from lets_face_it_tpu.render.server import debyteify, make_handler
 from lets_face_it_tpu.train import loop as jloop
 from lets_face_it_tpu.train.render_client import RenderClient as JaxRenderClient
 from lets_face_it_tpu_torch import config as pconfig
 from lets_face_it_tpu_torch.model import seqglow as pseqglow
+from lets_face_it_tpu_torch.render.server import debyteify, make_handler
 from lets_face_it_tpu_torch.train import __main__ as train_cli
 from lets_face_it_tpu_torch.train import loop as ploop
 from lets_face_it_tpu_torch.train import metrics as pmetrics
@@ -266,7 +268,7 @@ def test_render_payload_matches_jax(tmp_path):
 
 
 class _StubService:
-    """Stands in for the render service behind the repo's HTTP handler:
+    """Stands in for the render service behind the port's HTTP handler:
     records each payload and answers with a file name."""
 
     def __init__(self, video_dir, fail=False):
@@ -432,3 +434,68 @@ def test_train_cli_new_flags(tmp_path, capsys):
     assert all("reconstruction/error_percentage" in m for m in vals)
     assert CheckpointManager(tmp_path / "ck").all_steps() == [2, 3]
     assert list((tmp_path / "tb").glob("events.out.tfevents.*"))
+
+
+# ---------------------------------------------------------------------------
+# precision and terminate_on_nan
+# ---------------------------------------------------------------------------
+
+def test_precision_below_32_raises(tmp_path):
+    """The port trains in float32: ``precision: 16`` in the config, or
+    ``--precision 16``, is refused before any work."""
+    hp = _tiny_run_hp(precision=16)
+    with pytest.raises(ValueError, match="ROADMAP.md §1, \"The trainer's remaining"):
+        ploop.train(hp, max_steps=1, device="cpu", corpus=_corpus(hp), verbose=False)
+    cfg = _write_hparams(tmp_path, train_hp())
+    with pytest.raises(ValueError, match="precision 16"):
+        train_cli.main([str(cfg), "--synthetic-data", "--device", "cpu",
+                        "--precision", "16", "--ckpt_dir", str(tmp_path / "ck")])
+    assert not (tmp_path / "ck").exists()
+
+
+def _poison_before_step(monkeypatch, step):
+    """Writes NaN into the actnorm biases just before training step ``step``
+    runs (the loss and the gradients of that step are then NaN)."""
+    original = ploop.train_state.train_step
+
+    def poisoned(spec, hp, state, batch, **kwargs):
+        if state.step == step - 1:
+            with torch.no_grad():
+                state.model.flow["actnorm"]["bias"].fill_(float("nan"))
+        return original(spec, hp, state, batch, **kwargs)
+
+    monkeypatch.setattr(ploop.train_state, "train_step", poisoned)
+
+
+@pytest.mark.parametrize("route", ["terminate_on_nan", "debug_nans_cli"])
+def test_nan_check_stops_at_the_injected_step(route, tmp_path, monkeypatch):
+    _poison_before_step(monkeypatch, 3)
+    with pytest.raises(FloatingPointError, match="step 3: loss nan"):
+        if route == "terminate_on_nan":
+            hp = _tiny_run_hp(terminate_on_nan=True)
+            ploop.train(hp, seed=1, max_steps=5, device="cpu", corpus=_corpus(hp),
+                        verbose=False)
+        else:
+            hp = train_hp()
+            hp.batch_size = 8
+            train_cli.main([str(_write_hparams(tmp_path, hp)), "--synthetic-data",
+                            "--device", "cpu", "--max_steps", "5", "--debug_nans",
+                            "--ckpt_dir", str(tmp_path / "ck")])
+
+
+def test_default_run_unchanged_by_the_nan_check(monkeypatch):
+    """The check changes no value: the same losses with it on and off; and
+    without it a NaN step does not stop the run."""
+    def run(**kw):
+        hp, losses = _tiny_run_hp(**kw), []
+        ploop.train(hp, seed=1, max_steps=4, device="cpu", corpus=_corpus(hp),
+                    verbose=False, step_hook=lambda s, m: losses.append(float(m["loss"])))
+        return losses
+
+    checked = run(terminate_on_nan=True)
+    assert run() == checked and len(checked) == 4
+    assert all(math.isfinite(v) for v in checked)
+    _poison_before_step(monkeypatch, 3)
+    poisoned = run()
+    assert poisoned[:2] == checked[:2] and len(poisoned) == 4
+    assert math.isnan(poisoned[2])
