@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Drives the port's serving path, its training path of
-``hparams/final_model.yaml`` at full width on seeded random weights, and its
-render path at the FLAME 2019 sizes, from the sources in this checkout:
+``hparams/final_model.yaml`` at full width on seeded random weights, its
+render path and its feature extraction at the FLAME 2019 sizes, from the
+sources in this checkout:
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the CUDA kernels (``lets_face_it_tpu_torch/csrc``) with nvcc
@@ -65,6 +66,21 @@ render path at the FLAME 2019 sizes, from the sources in this checkout:
     frames of the float64 vertices, and, where OpenCV is installed, written
     as an mp4 and read back; the mesh stage's times, a profile window, the
     raster time and the peak device memory.
+16. extracts features on the card (``lets_face_it_tpu_torch/features``): a
+    10-minute stereo session at 44.1 kHz through the prosody (traced), MFCC
+    and VAD functions, held against the same functions on the CPU, with
+    seconds per minute of audio and Viterbi's share; the batched FLAME
+    landmark fit at B=256, 30 + 60 steps, on the synthetic head at V=5023
+    (frames/s, landmark RMS, line-search trials a step), at B=64 the
+    objective's value and gradient and then whole fits held against the
+    CPU; RingNet-lite and a fit seeded by it; 20 s of lipsync meshes
+    through the mesh fit; then the extraction CLI's audio and voca stages
+    on two sessions of 20 s with the synthetic head, the participants'
+    landmark fits and the combiner in memory (the stages that write HDF5
+    run in the CPU tests), ``final_model`` trained 3 steps from that corpus
+    and a sequence generated from its checkpoint (``cond_gates``,
+    ``seq_fwd``, ``seq_bwd`` and ``seq_rev`` launched on that path); one
+    ``{"extract": ...}`` line.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
@@ -167,6 +183,41 @@ RENDER_VERT_ATOL = 2e-5
 # triangle edge (its 3x3 neighbourhood in a face-id render holds another face
 # or the background).
 RASTER_LEVEL_SHARE, RASTER_EDGE_SHARE = 5e-2, 1e-4
+# Step 16: the extraction path. The audio of a 10-minute stereo session at
+# 44.1 kHz, to EXTRACT_FPS frames; the landmark fit at B=FIT_BATCH on the
+# synthetic head at the FLAME 2019 sizes (the real model and its landmark
+# embedding are not redistributable), 30 + 60 steps, with targets projected
+# from known parameters as tools/flame_fit_probe.py's make_targets projects
+# them (seed 3, scale 512, offset 512); LIPSYNC_SECONDS of lipsync meshes at
+# LIPSYNC_FPS through the mesh fit with LIPSYNC_STEPS steps; then the CLI's
+# stages on two sessions of CLI_SECONDS and the trainer on their corpus.
+EXTRACT_FS, EXTRACT_MINUTES, EXTRACT_FPS = 44100, 10, 25
+FIT_BATCH, FIT_CPU_BATCH = 256, 64
+LIPSYNC_SECONDS, LIPSYNC_FPS, LIPSYNC_STEPS = 20, 60, 40
+CLI_SECONDS, CLI_FS = 20, 16000
+# The card against the CPU path of the same port functions. The energy
+# features and the VAD tracks at the CPU tests' limits against the JAX
+# package (tests/test_torch_features_audio.py): atol 1e-5. The pitch track
+# (30,000 frames at 20 ms) at the same 1e-5, but for at most
+# PITCH_OFF_GRID_FRAMES frames, each within what one step of the sinc lag
+# grid (PITCH_GRID_STEP samples) moves it: a chosen peak may sit on two grid
+# points equal to rounding, which cuFFT and pocketfft round the other way
+# (one such frame in a 10-minute session on an H100), and each such
+# analysis frame reaches the two track frames interpolated from it; the
+# resampled pitch features then within 1e-5 plus what those frames move
+# them. MFCC atol 2e-3: over the
+# 60,000 frames of this session the two FFT libraries round differently,
+# and preemphasis of a 140 Hz voice at 44.1 kHz cancels most of the signal,
+# which magnifies that rounding in the log filterbank energies; two H100
+# runs read 5.9e-04 and 7.1e-04 (the CPU test's 2e-4 was set on 1-2 s
+# signals). The fit's objective value rtol 1e-5 and
+# gradient rtol/atol 1e-5 (tests/test_torch_flame_fit.py); whole fits
+# (chaotic in float32 beyond a few steps, see that file) by quality: the
+# median landmark RMS and the median loss within FIT_QUALITY_RTOL of the
+# CPU's at B=FIT_CPU_BATCH.
+EXTRACT_MFCC_ATOL, EXTRACT_PROSODY_ATOL, EXTRACT_VAD_ATOL = 2e-3, 1e-5, 1e-5
+PITCH_GRID_STEP, PITCH_OFF_GRID_FRAMES = 1.0 / 16, 4
+FIT_GRAD_RTOL, FIT_GRAD_ATOL, FIT_QUALITY_RTOL = 1e-5, 1e-5, 0.15
 
 
 def kernel_wrappers() -> dict:
@@ -778,6 +829,431 @@ def render_times(checked, card: str) -> dict:
     print(json.dumps(window))
     out["trace_long"] = window
     return out
+
+
+def session_audio(rng, fs: int, seconds: float, f_base: float, turn_s: float,
+                  first: bool):
+    """One channel of a dyadic session: a voice whose f0 glides around
+    ``f_base`` (as tests/test_integration_pipeline.py builds its audio) that
+    speaks every other turn of ``turn_s`` seconds (the first turn when
+    ``first``) and is heard at 3 % as crosstalk in the others, plus noise."""
+    import numpy as np
+
+    t = np.arange(int(fs * seconds)) / fs
+    phase = 2 * np.pi * (f_base + 40 * np.sin(2 * np.pi * 0.2 * t)) * t
+    gain = np.where(((t // turn_s) % 2 == 0) == first, 0.3, 0.009).astype(np.float32)
+    voice = np.sin(phase).astype(np.float32) * gain
+    return voice + 0.01 * rng.standard_normal(t.shape, dtype=np.float32)
+
+
+def extract_audio_checks(dev, card) -> dict:
+    """Step 16's audio: a 10-minute stereo session through
+    ``extract_prosodic_features`` (traced), ``extract_mfcc_to_frames`` and
+    ``crosstalk_vad`` on the card, each held against the same function on
+    the CPU; seconds per minute of audio and Viterbi's share of prosody."""
+    import numpy as np
+    import torch
+
+    from lets_face_it_tpu_torch.features import mfcc, prosody, vad
+
+    rng = np.random.default_rng(SEED + 16)
+    fs, seconds = EXTRACT_FS, 60 * EXTRACT_MINUTES
+    nb = int(seconds * EXTRACT_FPS)
+    t0 = time.perf_counter()
+    x1 = session_audio(rng, fs, seconds, 140.0, 7.0, True)
+    x2 = session_audio(rng, fs, seconds, 210.0, 7.0, False)
+    gen_s = time.perf_counter() - t0
+
+    def one_call(fn):
+        """(output, host seconds) of one synchronised call after a warm one."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    card_out = {}
+
+    def run_prosody():
+        card_out["prosody"] = prosody.extract_prosodic_features(x1, fs, nb,
+                                                                device=dev)
+
+    window = trace_window("extract_prosodic_features_10min", run_prosody, 1)
+    print(json.dumps(window))
+    prosody_s = window["wall_ms_per_call"] / 1e3
+    freqs, strengths, _ = prosody.pitch_candidates(x1, fs=fs, time_step=0.02,
+                                                   device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prosody.viterbi_pitch(freqs, strengths)     # ends in a copy to the host
+    viterbi_s = time.perf_counter() - t0
+    mfcc_card, mfcc_s = one_call(lambda: mfcc.extract_mfcc_to_frames(
+        x1 * 32768.0, fs, nb, device=dev))
+    vad_card, vad_s = one_call(lambda: vad.crosstalk_tracks(x1, x2, fs, nb, device=dev))
+    bin_card = vad.crosstalk_vad(x1, x2, fs, nb, device=dev)
+
+    tracks_card = prosody.compute_prosody(x1, fs, 0.02, device=dev)
+    t0 = time.perf_counter()
+    prosody_cpu = prosody.extract_prosodic_features(x1, fs, nb, device="cpu")
+    mfcc_cpu = mfcc.extract_mfcc_to_frames(x1 * 32768.0, fs, nb, device="cpu")
+    vad_cpu = vad.crosstalk_tracks(x1, x2, fs, nb, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    tracks_cpu = prosody.compute_prosody(x1, fs, 0.02, device="cpu")
+    pitch_diff, energy_diff = ((c.cpu() - h).abs() for c, h in zip(tracks_card, tracks_cpu))
+    off_grid = int((pitch_diff > EXTRACT_PROSODY_ATOL).sum())
+    by_channel = (card_out["prosody"].cpu() - prosody_cpu).abs().amax(dim=0).tolist()
+    errs = {"pitch_track": pitch_diff.max().item(), "pitch_track_frames": len(pitch_diff),
+            "pitch_track_off_grid_frames": off_grid,
+            "energy_track": energy_diff.max().item(), "prosody_by_channel": by_channel,
+            "mfcc": (mfcc_card.cpu() - mfcc_cpu).abs().max().item()}
+    print(f"extract audio card vs CPU (before the checks): {json.dumps(errs)}")
+    # a frame whose lag moved one grid step moves log(f0 + 1) by at most
+    # PITCH_GRID_STEP / lag at the shortest lag, fs / 600 Hz; the resampling
+    # to the video frames moves no output by more than the sum of its input
+    # moves, and the derivative takes each input move twice over the 20 ms
+    # step; a voicing decision taken the other way would move a frame by ~1
+    pitch_atol = PITCH_GRID_STEP / (fs / prosody.PITCH_CEILING)
+    if not (energy_diff.max() <= EXTRACT_PROSODY_ATOL
+            and off_grid <= PITCH_OFF_GRID_FRAMES and pitch_diff.max() <= pitch_atol):
+        fail(f"compute_prosody card vs CPU: energy max|diff| {errs['energy_track']:.3e} "
+             f"(limit {EXTRACT_PROSODY_ATOL}); pitch max|diff| {errs['pitch_track']:.3e} "
+             f"(limit {pitch_atol:.3e}) in {off_grid} frames beyond "
+             f"{EXTRACT_PROSODY_ATOL} (limit {PITCH_OFF_GRID_FRAMES})")
+    limits = [EXTRACT_PROSODY_ATOL, EXTRACT_PROSODY_ATOL,
+              EXTRACT_PROSODY_ATOL + off_grid * pitch_atol,
+              EXTRACT_PROSODY_ATOL + off_grid * 2 * pitch_atol / 20.0]
+    for ch, (err, limit) in enumerate(zip(by_channel, limits)):
+        if not err <= limit:
+            fail(f"extract_prosodic_features channel {ch}: max|diff| {err:.3e} from "
+                 f"the CPU's exceeds {limit:.3e}")
+    check_close("extract_mfcc_to_frames card vs CPU", mfcc_card, mfcc_cpu,
+                EXTRACT_MFCC_ATOL, 0.0)
+    for i, (card_t, cpu_t, binary) in enumerate(zip(vad_card, vad_cpu, bin_card)):
+        errs[f"vad_track{i + 1}"] = check_close(f"crosstalk_tracks {i + 1}", card_t,
+                                                cpu_t, EXTRACT_VAD_ATOL, 0.0)
+        clear = (cpu_t - 0.1).abs() > 1e-3
+        if not torch.equal(binary.cpu()[clear], (cpu_t >= 0.1).float()[clear]):
+            fail(f"crosstalk_vad {i + 1}: the binary track differs from the CPU's")
+    active = [float(b.mean()) for b in bin_card]
+    minutes = seconds / 60
+    out = {"audio_minutes": minutes, "fs": fs, "frames": nb,
+           "s_per_audio_minute": {"prosody": prosody_s / minutes,
+                                  "mfcc": mfcc_s / minutes, "vad": vad_s / minutes},
+           "viterbi_s": viterbi_s, "viterbi_share_of_prosody": viterbi_s / prosody_s,
+           "vad_active_share": active, "signal_s": gen_s,
+           "cpu_reference_s": cpu_s, "max_abs_err_vs_cpu": errs,
+           "prosody_trace": window}
+    print(f"extract audio: {minutes:g} min of {fs / 1e3:g} kHz stereo to {nb} frames on "
+          f"{card}: prosody {prosody_s / minutes:.4f} s per audio minute (Viterbi "
+          f"{viterbi_s:.3f} s of the call's {prosody_s:.3f} s, "
+          f"{viterbi_s / prosody_s:.3f}), MFCC {mfcc_s / minutes:.4f}, VAD "
+          f"{vad_s / minutes:.4f}; against the CPU: pitch track off grid in "
+          f"{off_grid} of {len(pitch_diff)} frames, features within {limits} "
+          f"by channel, MFCC within "
+          f"{EXTRACT_MFCC_ATOL}, VAD tracks within {EXTRACT_VAD_ATOL}; VAD active "
+          f"{active}  ok")
+    return out
+
+
+def probe_targets(model, emb, n: int, seed: int = 3):
+    """Landmarks of random ground-truth parameters, projected at scale 512
+    and offset 512 (tools/flame_fit_probe.py's make_targets, the same draws
+    in the same order), as numpy."""
+    import numpy as np
+    import torch
+
+    from lets_face_it_tpu_torch.features import flame_fit
+
+    rng = np.random.default_rng(seed)
+    gt = {"trans": rng.normal(0, 0.05, (n, 3)), "rot": rng.normal(0, 0.1, (n, 3)),
+          "pose": np.zeros((n, 12)), "shape": rng.normal(0, 0.3, (n, 300)),
+          "exp": rng.normal(0, 0.3, (n, 100))}
+    gt = {k: torch.as_tensor(v, dtype=torch.float32, device=model.device)
+          for k, v in gt.items()}
+    with torch.no_grad():
+        return (512.0 * flame_fit.model_landmarks(model, emb, gt)[..., :2]
+                + 512.0).cpu().numpy()
+
+
+def landmark_rms(model, emb, params, targets):
+    """Per-frame RMS (px) of the fitted landmarks against the targets."""
+    import numpy as np
+    import torch
+
+    from lets_face_it_tpu_torch.features import flame_fit
+
+    with torch.no_grad():
+        lmks = flame_fit.model_landmarks(model, emb, params)
+        proj = (params["scale"][:, None, None] * lmks[..., :2]).cpu().numpy()
+    return np.sqrt(((proj - targets) ** 2).sum(-1).mean(-1))
+
+
+def extract_fit_checks(dev, card) -> dict:
+    """Step 16's fits on the synthetic head at FLAME 2019 sizes: ``fit_batch``
+    at B=FIT_BATCH (frames/s, landmark RMS, evaluations a step) and a
+    traced window of 2 + 2 steps; at B=FIT_CPU_BATCH the objective's value
+    and gradient and then whole fits against the CPU; ``estimate_init`` and a fit seeded by it; the lipsync
+    meshes of LIPSYNC_SECONDS through ``fit_to_vertices``."""
+    import numpy as np
+    import torch
+
+    from lets_face_it_tpu_torch.features import flame_fit, lipsync, ringnet_lite
+    from lets_face_it_tpu_torch.render import flame
+
+    head = flame.synthetic_flame_model(RENDER_VERTICES, seed=0, device=dev)
+    emb = flame_fit.synthetic_landmark_embedding(head, 51, seed=2)
+    targets = probe_targets(head, emb, FIT_BATCH)
+    flame_fit.fit_batch(head, emb, targets[:8], stage1_steps=1, stage2_steps=1)
+
+    def fit(init=None, n=FIT_BATCH, model=head, embedding=emb):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, losses, evals = flame_fit.fit_batch(model, embedding, targets[:n], init)
+        if model.device.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rms = landmark_rms(model, embedding, params, targets[:n])
+        return params, losses.cpu().numpy(), rms, wall, evals
+
+    _, losses, rms, fit_s, (e1, e2) = fit()
+    steps = 30 + 60
+    window = trace_window(f"fit_batch_b{FIT_BATCH}_2+2_steps", lambda: flame_fit.fit_batch(
+        head, emb, targets, stage1_steps=2, stage2_steps=2), 1)
+    print(json.dumps(window))
+    fit_reading = {"batch": FIT_BATCH, "wall_s": fit_s, "frames_per_s": FIT_BATCH / fit_s,
+                   "rms_px_median": float(np.median(rms)),
+                   "rms_px_p95": float(np.percentile(rms, 95)),
+                   "loss_median": float(np.median(losses)),
+                   "evals": [e1, e2], "line_search_evals_per_step": (e1 + e2 - steps) / steps,
+                   "trace_2_2_steps": window}
+    print(f"extract fit: fit_batch B={FIT_BATCH}, 30 + 60 steps, V={RENDER_VERTICES} on "
+          f"{card}: {fit_s:.3f} s = {FIT_BATCH / fit_s:.1f} frames/s; landmark RMS "
+          f"median {fit_reading['rms_px_median']:.3f} px, p95 "
+          f"{fit_reading['rms_px_p95']:.3f} px; {e1} + {e2} objective evaluations "
+          f"({fit_reading['line_search_evals_per_step']:.2f} line-search trials a step)")
+
+    # the card against the CPU at B=FIT_CPU_BATCH: the objective, then fits
+    head_cpu = flame.synthetic_flame_model(RENDER_VERTICES, seed=0, device="cpu")
+    emb_cpu = flame_fit.synthetic_landmark_embedding(head_cpu, 51, seed=2)
+    rng = np.random.default_rng(SEED + 18)
+    n = FIT_CPU_BATCH
+    point = {"trans": rng.uniform(-0.05, 0.05, (n, 3)), "rot": rng.uniform(-0.3, 0.3, (n, 3)),
+             "pose": rng.uniform(-0.2, 0.2, (n, 12)), "shape": rng.normal(0, 0.5, (n, 300)),
+             "exp": rng.normal(0, 0.5, (n, 100)), "scale": np.full(n, 512.0)}
+    grads = {}
+    for where, model, embedding in (("card", head, emb), ("cpu", head_cpu, emb_cpu)):
+        rm, re = flame_fit.restrict_to_landmarks(model, embedding)
+        p = {k: torch.tensor(v, dtype=torch.float32, device=model.device,
+                             requires_grad=True) for k, v in point.items()}
+        t = torch.as_tensor(targets[:n], device=model.device)
+        loss = flame_fit._lmk_dist(rm, re, p, t) + flame_fit._regularizers(p)
+        grads[where] = (loss.detach().cpu(),
+                        dict(zip(p, (g.cpu() for g in torch.autograd.grad(loss.sum(),
+                                                                        list(p.values()))))))
+    value_err = check_close("fit objective card vs CPU", grads["card"][0],
+                            grads["cpu"][0], 0.0, FIT_GRAD_RTOL)
+    value_err /= grads["cpu"][0].abs().max().item()
+    grad_err = max(check_close(f"fit gradient {k} card vs CPU", g, grads["cpu"][1][k],
+                               FIT_GRAD_ATOL, FIT_GRAD_RTOL)
+                   for k, g in grads["card"][1].items())
+    # the card's fits of these frames are those of its B=FIT_BATCH run
+    l_card, r_card = losses[:n], rms[:n]
+    _, l_cpu, r_cpu, cpu_s, _ = fit(n=n, model=head_cpu, embedding=emb_cpu)
+    quality = {"rms_px_median": (float(np.median(r_card)), float(np.median(r_cpu))),
+               "loss_median": (float(np.median(l_card)), float(np.median(l_cpu)))}
+    for name, (a, b) in quality.items():
+        if not abs(a - b) <= FIT_QUALITY_RTOL * b:
+            fail(f"fit B={n} {name}: card {a:.4f} vs CPU {b:.4f} (rtol {FIT_QUALITY_RTOL})")
+    quality["rms_px_p95"] = (float(np.percentile(r_card, 95)),
+                             float(np.percentile(r_cpu, 95)))
+    print(f"check fit card vs CPU at B={n}: objective max rel diff {value_err:.3e}, "
+          f"gradient max|diff| {grad_err:.3e} (rtol/atol {FIT_GRAD_RTOL}); whole fits "
+          f"(card, CPU in {cpu_s:.1f} s): {json.dumps(quality)} (medians within "
+          f"{FIT_QUALITY_RTOL})  ok")
+
+    # RingNet-lite, and a fit seeded by it (the init the session driver reads)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    est = ringnet_lite.estimate_init(head, emb, targets)
+    torch.cuda.synchronize()
+    ringnet_s = time.perf_counter() - t0
+    _, l_seed, r_seed, seeded_s, _ = fit(init={k: est[k] for k in ("rot", "shape", "exp")})
+    ringnet = {"wall_s": ringnet_s, "frames_per_s": FIT_BATCH / ringnet_s,
+               "seeded_fit_wall_s": seeded_s,
+               "seeded_rms_px_median": float(np.median(r_seed)),
+               "seeded_loss_median": float(np.median(l_seed))}
+    print(f"extract ringnet-lite: estimate_init B={FIT_BATCH} {ringnet_s:.3f} s on {card}; "
+          f"the fit seeded by it {seeded_s:.3f} s, landmark RMS median "
+          f"{ringnet['seeded_rms_px_median']:.3f} px (unseeded "
+          f"{fit_reading['rms_px_median']:.3f})")
+
+    # lipsync meshes through the mesh fit
+    audio = session_audio(rng, 16000, LIPSYNC_SECONDS, 140.0, 3.0, True)
+    lip = lipsync.EnvelopeLipsync(head, out_fps=LIPSYNC_FPS)
+    meshes = lip(audio, 16000, head.v_template.cpu().numpy())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, _ = flame_fit.fit_to_vertices(head, meshes, n_steps=LIPSYNC_STEPS)
+    torch.cuda.synchronize()
+    mesh_s = time.perf_counter() - t0
+    with torch.no_grad():
+        recon = flame.flame_vertices(head, params["shape"], params["exp"],
+                                     params["jaw"], params["neck"]) + params["trans"][:, None]
+        err = (recon - torch.as_tensor(meshes, device=dev)).square().sum(-1)
+    vertex_rms = float(err.mean().sqrt())
+    if not (vertex_rms < 1e-2 and torch.isfinite(err).all()):
+        fail(f"fit_to_vertices: vertex RMS {vertex_rms}")
+    mesh = {"meshes": int(meshes.shape[0]), "steps": LIPSYNC_STEPS, "wall_s": mesh_s,
+            "meshes_per_s": meshes.shape[0] / mesh_s, "vertex_rms": vertex_rms}
+    print(f"extract lipsync: {meshes.shape[0]} EnvelopeLipsync meshes (V={RENDER_VERTICES}) "
+          f"through fit_to_vertices, {LIPSYNC_STEPS} steps, on {card}: {mesh_s:.3f} s, "
+          f"vertex RMS {vertex_rms:.3e}")
+    return {"fit": fit_reading, "cpu_check": {"objective_rel": value_err,
+                                              "gradient_abs": grad_err, **quality},
+            "ringnet": ringnet, "mesh_fit": mesh, "head": head, "emb": emb}
+
+
+def extract_cli_checks(tmp, dev, card, head, emb, frames) -> dict:
+    """Step 16's CLI leg: two sessions of CLI_SECONDS through the CLI's
+    audio and voca stages with the synthetic head passed as ``assets``; the
+    participants' landmark fits (``fit_participant``, one chunk each) and
+    the combiner (``combine_corpus``) in memory; ``final_model`` trains 3
+    steps from that corpus, and its checkpoint generates (the
+    ``extract_train`` path's launches)."""
+    import numpy as np
+    import torch
+
+    from lets_face_it_tpu_torch import extract_features as cli
+    from lets_face_it_tpu_torch.data.windows import WindowDataset, face_means_stds
+    from lets_face_it_tpu_torch.features import audio_io, combine, flame_fit
+    from lets_face_it_tpu_torch.hparams import load_hparams
+    from lets_face_it_tpu_torch.render import flame
+    from lets_face_it_tpu_torch.sample.generate import Generator
+    from lets_face_it_tpu_torch.train import loop as train_loop
+    from lets_face_it_tpu_torch.train.checkpoint import CheckpointManager
+
+    root = Path(tmp) / "extract"
+    rng = np.random.default_rng(SEED + 17)
+    n_frames = CLI_SECONDS * EXTRACT_FPS
+    sessions = [root / "S1", root / "S2"]
+    for sess in sessions:
+        stereo = np.stack([session_audio(rng, CLI_FS, CLI_SECONDS, 140.0, 5.0, True),
+                           session_audio(rng, CLI_FS, CLI_SECONDS, 210.0, 5.0, False)], 1)
+        audio_io.write_wav(sess / "audio_c1_c2.wav", stereo, CLI_FS)
+        for part in ("P1", "P2"):
+            d = sess / part
+            d.mkdir(parents=True)
+            (d / f"frames_{EXTRACT_FPS}fps.txt").write_text(str(n_frames))
+            shape = np.repeat(rng.normal(0, 0.3, (1, 300)), n_frames, 0)
+            gt = {"trans": rng.normal(0, 0.03, (n_frames, 3)),
+                  "rot": rng.normal(0, 0.1, (n_frames, 3)), "pose": np.zeros((n_frames, 12)),
+                  "shape": shape, "exp": 0.3 * rng.standard_normal((n_frames, 100))}
+            gt = {k: torch.as_tensor(v, dtype=torch.float32, device=dev)
+                  for k, v in gt.items()}
+            with torch.no_grad():
+                lm = (700.0 * flame_fit.model_landmarks(head, emb, gt)[..., :2]
+                      + 512.0).cpu().numpy()
+                neutral = flame.neutral_mesh_vertices(head, gt["shape"][:1])
+            flame.write_ply(d / "neutral_mesh.ply", neutral, head.faces)
+            with open(d / f"openface_{EXTRACT_FPS}fps.csv", "w") as f:
+                f.write(",".join(f"c{i}" for i in range(436)) + "\n")
+                for ts in range(n_frames):
+                    full = np.zeros((68, 2), np.float32)
+                    full[17:] = lm[ts]
+                    full[17:, 1] = 1024.0 - full[17:, 1]
+                    f.write(",".join(["0", str(ts), str(ts / EXTRACT_FPS), "0.99", "1"]
+                                     + ["0"] * 294 + [str(v) for v in full[:, 0]]
+                                     + [str(v) for v in full[:, 1]] + ["0"]) + "\n")
+    span = [[40, CLI_SECONDS * 1000 - 40]]
+    splits = root / "splits" / "train_val_test.json"
+    splits.parent.mkdir()
+    splits.write_text(json.dumps({"train": {"S1": span, "S2": span},
+                                  "val": {"S2": span}, "test": {"S1": span}}))
+    assets = (head, emb)
+    print(f"extract: the CLI's ringnet, flame and combine stages write HDF5 (h5py "
+          f"{'imports' if importlib.util.find_spec('h5py') else 'is not installed'} "
+          "here); they run in tests/test_torch_extract_pipeline.py on the CPU, and "
+          "here the fits and the combiner run in memory")
+    stage_s = {}
+    for name, run in (
+            ("audio", lambda: cli.stage_audio(sessions, EXTRACT_FPS, device=dev)),
+            ("voca", lambda: cli.stage_voca(root, EXTRACT_FPS, device=dev, assets=assets))):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        stage_s[name] = time.perf_counter() - t0
+    fitted, rms = {}, []
+    t0 = time.perf_counter()
+    for sess in sessions:
+        for part in ("P1", "P2"):
+            d = sess / part
+            for name, width in ((f"prosodic_features_{EXTRACT_FPS}fps.npy", 4),
+                                (f"mfcc_{EXTRACT_FPS}fps.npy", 26)):
+                a = np.load(d / name)
+                if a.shape != (n_frames, width) or not np.isfinite(a).all():
+                    fail(f"extract CLI: {d / name} is {a.shape}")
+            n_params = len(list((root / "Sessions_50fps_voca" / sess.name / part
+                                 / "flame_params").glob("*.npy")))
+            if n_params != n_frames:
+                fail(f"extract CLI: {n_params} voca flame_params files for {d}")
+            # the fit is host-bound: one chunk of all the frames takes about
+            # the time of a chunk of 256
+            tf = flame_fit.fit_participant(d, EXTRACT_FPS, head, emb, batch_frames=n_frames)
+            fitted.setdefault(sess.name, {})[part] = tf
+            params = {k[3:]: torch.as_tensor(v, device=dev) for k, v in tf.items()}
+            targets = flame_fit.read_openface_targets(d, EXTRACT_FPS)
+            with torch.no_grad():
+                xy = flame_fit.model_landmarks(head, emb, params)[..., :2].cpu().numpy()
+            scale = (xy * targets).sum((1, 2)) / (xy * xy).sum((1, 2))
+            rms.append(np.sqrt(((scale[:, None, None] * xy - targets) ** 2)
+                               .sum(-1).mean(-1)))
+    torch.cuda.synchronize()
+    stage_s["fit_participant"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cli.validate_splits_dir(splits)
+    corpus = combine.combine_corpus(root, combine.load_split_spec(splits), EXTRACT_FPS,
+                                    flame=fitted)
+    stage_s["combine_corpus"] = time.perf_counter() - t0
+    rms = np.concatenate(rms)
+    print(f"extract CLI on {card}: stages {json.dumps(stage_s)} (two sessions of "
+          f"{CLI_SECONDS} s, {n_frames} frames a participant); fitted landmarks RMS "
+          f"median {np.median(rms):.3f} px  ok")
+
+    hp = load_hparams(REPO / "hparams" / "final_model.yaml", dataset_root=str(root))
+    n_windows = len(WindowDataset.from_chunks(corpus, "train", hp.Data, hp.Conditioning,
+                                              hp.Train["seq_len"]))
+    hp.batch_size = min(hp.batch_size, n_windows)
+    ckpt_dir = root / "ckpt"
+    step_log = []
+    reset_launches()
+    t0 = time.perf_counter()
+    train_loop.train(hp, seed=SEED, ckpt_dir=ckpt_dir, max_steps=3, device=dev,
+                     corpus=corpus, verbose=False,
+                     step_hook=lambda s, m: step_log.append(float(m["nll"])))
+    gen = Generator.from_checkpoint(CheckpointManager(ckpt_dir).latest(),
+                                    dataset_root=str(root), device=dev)
+    gen.face_means, gen.face_stds = face_means_stds(corpus.means, corpus.stds,
+                                                    hp.Data["expression_dim"])
+    generated = gen.generate(frames, seed=SEED)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = read_launches()
+    require_launches("extract_train", launches,
+                     ("cond_gates", "seq_fwd", "seq_bwd", "seq_rev"))
+    if len(step_log) != 3 or not np.isfinite(step_log).all() \
+            or not np.isfinite(generated).all():
+        fail(f"extract_train: nll {step_log}, generated finite "
+             f"{np.isfinite(generated).all()}")
+    train = {"windows": n_windows, "batch": hp.batch_size, "nll": step_log,
+             "wall_s": train_s, "generated_shape": list(generated.shape),
+             "launches": launches}
+    print(f"extract -> train: final_model 3 steps at B={hp.batch_size} from the "
+          f"extracted corpus ({n_windows} train windows), its checkpoint generated "
+          f"{tuple(generated.shape)}, {train_s:.3f} s on {card}; launches {launches}  ok")
+    return {"sessions": 2, "seconds": CLI_SECONDS, "frames_per_participant": n_frames,
+            "stage_wall_s": stage_s, "fitted_rms_px_median": float(np.median(rms)),
+            "fitted_rms_px_p95": float(np.percentile(rms, 95)), "train": train}
 
 
 def eager_flow_sequence(spec, flow_params, xs, cond_seq, states0):
@@ -1812,11 +2288,24 @@ def main() -> int:
         print(json.dumps({"render": {**readings, **render_times(checked, card)}}))
         del checked
 
+        # -- 16. the extraction path, then training on what it wrote ----------
+        t16 = time.perf_counter()
+        extract = {"audio": extract_audio_checks(dev, card)}
+        fits = extract_fit_checks(dev, card)
+        extract["cli"] = extract_cli_checks(tmp, dev, card, fits.pop("head"),
+                                            fits.pop("emb"), frames)
+        extract.update(fits)
+        extract["step_s"] = time.perf_counter() - t16
+        print(json.dumps({"extract": extract}))
+        print(f"step 16 (extraction, CLI, training on its corpus): "
+              f"{extract['step_s']:.1f} s on {card}")
+
         paths = {"serving": launches, "training": train_launches,
                  "invert": invert_launches, "run_test": rt_launches,
                  "train_cache_off": loop_runs[0]["launches"],
                  "train_cache_on": loop_runs[1]["launches"],
-                 "render": render_launches}
+                 "render": render_launches,
+                 "extract_train": extract["cli"]["train"]["launches"]}
         for rec in records:
             rec["launches_by_path"] = {p: cnt[rec["name"]] for p, cnt in paths.items()
                                        if rec["name"] in cnt}

@@ -7,7 +7,9 @@ path of the paper's ``final_model`` (offline generation,
 (``train.loop.train``, ``python -m lets_face_it_tpu_torch.train``), and the
 render service and study-stimulus path (``render/``, with the FLAME decoder
 on the card and ``python -m lets_face_it_tpu_torch.render.server``;
-``data_segments/``; ``stimulus``). The four
+``data_segments/``; ``stimulus``), and the feature extraction that makes
+the trainer's data (``features/``, ``python -m
+lets_face_it_tpu_torch.extract_features``). The four
 Pallas kernels of the JAX package are hand-written CUDA C++ here
 (``csrc/``), built with ``nvcc`` at first use and bound through ``ctypes``
 (``ops/flow_kernels.py`` for sampling, ``ops/train_kernels.py`` for the

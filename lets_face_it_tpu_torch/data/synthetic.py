@@ -14,10 +14,11 @@ HDF5 where ``h5py`` imports.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
 from pathlib import Path
 
 import numpy as np
+
+from lets_face_it_tpu_torch.data.windows import Corpus
 
 KINDS = ("flame_expression", "flame_jaw", "flame_neck", "mfcc", "prosody", "openface")
 DIMS = {"flame_expression": 50, "flame_jaw": 3, "flame_neck": 3,
@@ -62,19 +63,9 @@ def dims_for(data_hparams: dict) -> dict:
     return tiny_dims(exp, speech - 3, 3)
 
 
-@dataclass
-class SyntheticCorpus:
-    """splits[name] is a list of chunks, each {kind: {"agent": [T, d],
-    "interlocutor": [T, d]}} as stored; means/stds are the train-agent
-    statistics per kind."""
-    splits: dict
-    means: dict
-    stds: dict
-
-
 def make_synthetic_corpus(*, n_train_chunks=4, n_val_chunks=2, n_test_chunks=2,
                           frames_per_chunk=160, seed=0,
-                          dims: dict | None = None) -> SyntheticCorpus:
+                          dims: dict | None = None) -> Corpus:
     dims = dims or DIMS
     rng = np.random.default_rng(seed)
     counts = {"train": n_train_chunks, "val": n_val_chunks, "test": n_test_chunks}
@@ -98,7 +89,7 @@ def make_synthetic_corpus(*, n_train_chunks=4, n_val_chunks=2, n_test_chunks=2,
                    for kind in dims}
                   for agent, inter in split_chunks]
               for s, split_chunks in chunks.items()}
-    return SyntheticCorpus(splits, means, stds)
+    return Corpus(splits, means, stds)
 
 
 def write_synthetic_dataset(path, **kwargs) -> Path:

@@ -13,16 +13,27 @@ All chunks of a split are concatenated once into one host array per
 modality; a window is ``big[start : start + seq_len]``, and a batch is the
 copy of its windows (``data/prefetch.py::NativeGather``). The chunks come
 from an HDF5 file (``WindowDataset.from_file``, which imports ``h5py``) or
-from a corpus in memory (``WindowDataset.from_chunks``, e.g.
-``data/synthetic.py``).
+from a ``Corpus`` in memory (``WindowDataset.from_chunks``: from
+``data/synthetic.py`` or ``features/combine.py::combine_corpus``).
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from pathlib import Path
 from typing import Iterator
 
 import numpy as np
+
+
+@dataclass
+class Corpus:
+    """The store in memory: splits[name] is a list of chunks, each {kind:
+    {"agent": [T, d], "interlocutor": [T, d]}} as stored; means/stds are
+    the train-agent statistics per kind."""
+    splits: dict
+    means: dict
+    stds: dict
 
 
 class WindowDataset:
@@ -82,9 +93,9 @@ class WindowDataset:
                               else np.zeros((0,), np.int64))
 
     @classmethod
-    def from_chunks(cls, corpus, split: str, data_hparams: dict,
+    def from_chunks(cls, corpus: Corpus, split: str, data_hparams: dict,
                     conditioning_hparams: dict, seq_len: int) -> "WindowDataset":
-        """A split of an in-memory corpus (``data/synthetic.py``)."""
+        """A split of a corpus in memory."""
         return cls(corpus.splits[split], data_hparams, conditioning_hparams,
                    seq_len, corpus.means, corpus.stds)
 

@@ -39,6 +39,7 @@ for name in names:
     importlib.import_module(name)
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+       or m == "optax" or m.startswith("optax.")
        or m == "lets_face_it_tpu" or m.startswith("lets_face_it_tpu.")]
 # absent on GPU hosts: imported only where used, never at module import
 optional = [m for m in ("tensorboardX", "comet_ml", "cv2", "h5py", "triton")
@@ -50,9 +51,9 @@ assert not optional, optional
 
 
 def test_port_imports_no_jax_and_no_jax_package():
-    """Every module of the port imports, without JAX, the JAX package, or
-    (at module import) the optional TensorBoard, Comet, OpenCV, HDF5 and
-    Triton packages."""
+    """Every module of the port imports, without JAX, optax, the JAX
+    package, or (at module import) the optional TensorBoard, Comet, OpenCV,
+    HDF5 and Triton packages."""
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -71,7 +72,7 @@ def test_chip_smoke_imports_no_jax():
         elif isinstance(node, ast.ImportFrom):
             names.add(node.module)
     roots = {n.split(".")[0] for n in names}
-    assert "jax" not in roots and "lets_face_it_tpu" not in roots
+    assert not roots & {"jax", "optax", "lets_face_it_tpu"}
 
 
 @pytest.fixture
@@ -142,6 +143,36 @@ def test_render_entry_points_raise_without_cuda(no_cuda, tmp_path):
                                 frames, frames, "S1", "seg.mp4", tmp_path / "out",
                                 {}, 1.0, 0.0)
     assert not (tmp_path / "out").exists()
+
+
+def test_extraction_entry_points_raise_without_cuda(no_cuda, tmp_path):
+    """``python -m lets_face_it_tpu_torch.extract_features`` and the
+    extraction functions default to the GPU and raise without one, before
+    any work; ``--device cpu`` runs."""
+    from lets_face_it_tpu_torch import extract_features
+    from lets_face_it_tpu_torch.features import flame_fit, mfcc, prosody
+
+    (tmp_path / "S1" / "P1").mkdir(parents=True)
+    (tmp_path / "S1" / "P1" / "frames_25fps.txt").write_text("10")
+    x = np.zeros(8000, np.float32)
+    for call in (lambda: extract_features.main(["--dataset_dir", str(tmp_path)]),
+                 lambda: prosody.extract_prosodic_features(x, 8000, 10),
+                 lambda: mfcc.extract_mfcc_to_frames(x, 8000, 10),
+                 lambda: flame_fit.fit_session_participant(tmp_path / "S1" / "P1", 25),
+                 lambda: flame_fit.landmark_embedding_from_arrays(
+                     np.zeros((51, 3), np.int64), np.ones((51, 3)))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert sorted(p.name for p in (tmp_path / "S1" / "P1").iterdir()) == [
+        "frames_25fps.txt"]
+    extract_features.main(["--dataset_dir", str(tmp_path), "--stages",
+                           "audio,flame", "--device", "cpu"])
+    out = subprocess.run(
+        [sys.executable, "-m", "lets_face_it_tpu_torch.extract_features",
+         "--dataset_dir", str(tmp_path), "--stages", "audio"], cwd=REPO,
+        capture_output=True, text=True, timeout=120,
+        env={"PATH": "/usr/bin:/bin", "CUDA_VISIBLE_DEVICES": ""})
+    assert out.returncode != 0 and "CUDA" in out.stderr, out.stderr[-2000:]
 
 
 def test_render_server_cli_runs_on_cpu_when_asked(tmp_path):
