@@ -81,6 +81,27 @@ sources in this checkout:
     and a sequence generated from its checkpoint (``cond_gates``,
     ``seq_fwd``, ``seq_bwd`` and ``seq_rev`` launched on that path); one
     ``{"extract": ...}`` line.
+17. the matmul precision modes and the trainer's other switches: what an
+    eager float32 product gives under each torch setting on this card;
+    every kernel at "high" (TF32 operands) and "medium" (bf16 operands)
+    against its plain twin at the same mode at the main paths' shapes, with
+    the launch counters of each call, each kernel's first step (one product
+    deep) held tighter and the same kernel launched at each other mode
+    required to fail that limit, and ``seq_rev`` and ``frame_rev`` bit for
+    bit as their gates and chain kernels launched one by one; each kernel's time at each mode beside
+    its plain twin, the library call at torch's same setting and its bound
+    at the mode's tensor-core rate; each mode's path (two training steps, a
+    validation, three pushes) with its launches; the B=256 step at precision
+    32 and 16 and a trace of it at 16; a short A/B (300 steps a arm, a
+    validation every 100) with the val-NLL deltas held; the trainer with
+    ``steps_per_dispatch`` 5 (one CUDA graph a block, replays counted)
+    against 1 over 25 steps (replays on fresh blocks, a deranged step and
+    a new epoch's rate among them), with the loop's ms a step and idle
+    share; the bf16 wire with
+    the cache off (batches bit for bit, ms a step); and the CLI at
+    ``--precision 16`` with ``--profile_dir`` for 3 steps; one
+    ``{"precision": ...}`` line. The kernels' line gains a record per
+    kernel and reduced mode.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
@@ -425,52 +446,68 @@ def _row_step_flops(spec) -> int:
     return matmul + pointwise
 
 
-def _weight_floats(weights) -> int:
-    """Floats of the flow's sampling weights, each once: ``chain`` is a
-    re-laid copy of some of the others (``flow_kernels.chain_weights``)."""
-    return sum(t.numel() for n, t in weights._asdict().items() if n != "chain")
+# The sampling weights that are product operands: a set rounded to bf16 for
+# "medium" holds them at 2 bytes (``flow_kernels.round_sampling_weights``);
+# the biases and the actnorm stay float32.
+PRODUCT_WEIGHTS = ("w_ih_t", "w_hh_t", "out_w_t", "w_inv")
 
 
-def frame_bound_ms(spec, weights, b: int):
+def _weight_bytes(weights, weight_bytes: int = 4) -> int:
+    """Bytes of the flow's sampling weights, each once (``chain`` is a
+    re-laid copy of some of the others, ``flow_kernels.chain_weights``),
+    the products' operands at ``weight_bytes`` each."""
+    return sum(t.numel() * (weight_bytes if n in PRODUCT_WEIGHTS else 4)
+               for n, t in weights._asdict().items() if n not in ("chain", "mode"))
+
+
+def weights64(weights):
+    """A sampling weight set in float64 (the plain versions' other twin)."""
+    return weights._replace(**{n: t.double() for n, t in weights._asdict().items()
+                               if n != "mode"})
+
+
+def frame_bound_ms(spec, weights, b: int, peak=PEAK_F32_FLOP_S, weight_bytes=4):
     k, c, h = spec.n_steps, spec.channels, spec.hidden_channels
-    w_bytes = _weight_floats(weights) * 4
     io = 4 * (b * c + k * b * spec.cond.cond_dim + k * b * h      # inputs
               + b * c + k * b * h)                                 # outputs
-    flops = b * k * _row_step_flops(spec)
-    t_bytes, t_ops = (w_bytes + io) / PEAK_BYTES_S, flops / PEAK_F32_FLOP_S
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+    return _bound(_weight_bytes(weights, weight_bytes) + io,
+                  b * k * _row_step_flops(spec), peak)
 
 
-def seq_bound_ms(spec, weights, n: int, b: int):
+def seq_bound_ms(spec, weights, n: int, b: int, peak=PEAK_F32_FLOP_S, weight_bytes=4):
     k, c, h = spec.n_steps, spec.channels, spec.hidden_channels
     p1, cond = spec.cond.p1_face.out_dim, spec.cond.cond_dim
-    w_bytes = (_weight_floats(weights) + k * p1 * cond) * 4
+    w_bytes = _weight_bytes(weights, weight_bytes) + k * p1 * cond * weight_bytes
     io = 4 * (n * b * c + n * k * b * cond + b * p1 + k * b * h   # inputs
               + n * b * c)                                         # output
     flops = n * b * k * (_row_step_flops(spec) + 2 * p1 * cond)
-    t_bytes, t_ops = (w_bytes + io) / PEAK_BYTES_S, flops / PEAK_F32_FLOP_S
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+    return _bound(w_bytes + io, flops, peak)
 
 
-def gates_bound_ms(spec, b: int, p1: int):
-    """One frame's gates: proj (P1 > 0), gc and gh for all K steps."""
+def gates_bound_ms(spec, b: int, p1: int, peak=PEAK_F32_FLOP_S, weight_bytes=4):
+    """One frame's gates: proj (P1 > 0), gc and gh for all K steps; the
+    products' weights at ``weight_bytes`` each."""
     k, h, cond = spec.n_steps, spec.hidden_channels, spec.cond.cond_dim
     g = 3 * h
-    w_floats = k * (p1 * cond + (cond + 1) * g + (h + 1) * g)
+    w_bytes = k * ((p1 * cond + cond * g + h * g) * weight_bytes + 2 * g * 4)
     io = k * b * cond + b * p1 + k * b * h + (k * b * cond if p1 else 0) + 2 * k * b * g
     flops = 2 * b * k * (p1 * cond + cond * g + h * g)
-    return _bound(4 * (w_floats + io), flops)
+    return _bound(w_bytes + 4 * io, flops, peak)
 
 
-def chain_bound_ms(spec, weights, b: int, p1: int):
-    """One frame's serial chain: its resident weights read once, the gates
-    and states in, x, the states and the history out."""
+def chain_bound_ms(spec, weights, b: int, p1: int, peak=PEAK_F32_FLOP_S,
+                   weight_bytes=4):
+    """One frame's serial chain: its resident weights read once (the
+    products' at ``weight_bytes`` each), the gates and states in, x, the
+    states and the history out."""
     k, c, z1, h = spec.n_steps, spec.channels, spec.z1_dim, spec.hidden_channels
     cout, g = spec.coupling_out_dim, 3 * spec.hidden_channels
     io = b * c + 2 * k * b * g + k * b * h + b * p1 + b * c + k * b * h + b * p1
+    products = k * (z1 * g + h * cout + c * c)
+    w_bytes = 4 * weights.chain.numel() - (4 - weight_bytes) * products
     matmul = 2 * (z1 * g + h * cout + c * c)
     pointwise = 12 * h + 6 * (cout // 2) + 2 * c
-    return _bound(4 * (weights.chain.numel() + io), b * k * (matmul + pointwise))
+    return _bound(w_bytes + 4 * io, b * k * (matmul + pointwise), peak)
 
 
 # ---------------------------------------------------------------------------
@@ -541,18 +578,21 @@ def _bwd_row_step_flops(spec) -> int:
     return _row_step_flops(spec) + matmul + pointwise
 
 
-def _bound(n_bytes, flops):
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, flops / PEAK_F32_FLOP_S
+def _bound(n_bytes, flops, peak=PEAK_F32_FLOP_S):
+    """(ms, what bounds it): the larger of ``n_bytes`` at the memory's
+    rate and ``flops`` at ``peak`` (float32 FMA, or a reduced precision's
+    tensor-core rate)."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def train_fwd_bound_ms(spec, tw, n: int, b: int):
+def train_fwd_bound_ms(spec, tw, n: int, b: int, peak=PEAK_F32_FLOP_S):
     k, c, h = spec.n_steps, spec.channels, spec.hidden_channels
     half, cond = spec.coupling_out_dim // 2, spec.cond.cond_dim
     w_bytes = sum(t.numel() for t in tw) * 4
     io = 4 * (n * b * c + n * k * b * cond + k * b * h                  # inputs
               + n * b * c + n * k * b * (half + c + h))                   # outputs
-    return _bound(w_bytes + io, n * b * k * _row_step_flops(spec))
+    return _bound(w_bytes + io, n * b * k * _row_step_flops(spec), peak)
 
 
 def train_serial_bound_ms(spec, n: int, b: int):
@@ -570,22 +610,22 @@ def train_serial_bound_ms(spec, n: int, b: int):
     return _bound(4 * (w_floats + io), n * b * k * flops)
 
 
-def train_bwd_bound_ms(spec, tw, n: int, b: int):
+def train_bwd_bound_ms(spec, tw, n: int, b: int, peak=PEAK_F32_FLOP_S):
     k, c, h = spec.n_steps, spec.channels, spec.hidden_channels
     half, cond, cout = spec.coupling_out_dim // 2, spec.cond.cond_dim, spec.coupling_out_dim
     w_bytes = (sum(t.numel() for t in tw)
                + k * (c * c + 3 * h * h + 3 * h * spec.z1_dim + cout * h)) * 4
     io = 4 * (n * b * c + n * k * b * (half + c + h + cond) + k * b * h  # inputs
               + n * b * c + k * b * h + n * k * b * (3 * h + h + cout + c))  # outputs
-    return _bound(w_bytes + io, n * b * k * _bwd_row_step_flops(spec))
+    return _bound(w_bytes + io, n * b * k * _bwd_row_step_flops(spec), peak)
 
 
-def cond_gates_bound_ms(spec, n: int, b: int):
+def cond_gates_bound_ms(spec, n: int, b: int, peak=PEAK_F32_FLOP_S):
     """The conditioning gates of every frame and step: [N*B, cond] @
     [cond, 3H] per step, cond read, weights and bias read, gc written."""
     k, cond, g = spec.n_steps, spec.cond.cond_dim, 3 * spec.hidden_channels
     n_bytes = 4 * (n * k * b * cond + k * (cond + 1) * g + n * k * b * g)
-    return _bound(n_bytes, 2 * n * b * k * cond * g)
+    return _bound(n_bytes, 2 * n * b * k * cond * g, peak)
 
 
 def face_id_frames(verts_l, verts_r, faces, width: int, height: int):
@@ -1284,6 +1324,681 @@ def sequence_objective(z, logdet, new_states):
             + 0.01 * (z ** 2).sum())
 
 
+# ---------------------------------------------------------------------------
+# Step 17: the matmul precision modes, k steps a dispatch, the bf16 wire,
+# the profiler switch
+# ---------------------------------------------------------------------------
+
+MODES_CHECKED = ("high", "medium")
+# Dense tensor-core peaks of an H100 SXM at 700 W (NVIDIA data sheet), the
+# operations' rate the reduced modes' bounds use: TF32 and bf16.
+PEAK_MODE_FLOP_S = {"high": 495e12, "medium": 989e12}
+# A kernel against its plain twin at a reduced mode. Both round the same
+# operands, but they sum in other orders, so an activation within a float32
+# rounding of a TF32 or bf16 rounding boundary can round the other way and
+# move by one step of that grid (2^-10 relative for TF32, 2^-7 for bf16),
+# and the K steps spread it. The largest |difference| is held to
+# MODE_MAX_STEPS steps of the output's largest |value|, the root mean square
+# to MODE_RMS_STEPS steps of the output's or, where more, to SEQ_MODE_RATIO
+# times the plain twin's own float32 - float64 spread at the same rounding:
+# on these random weights the K steps amplify flips until at "high" they
+# move many elements (frame_rev B=64: 0.47 steps rms on an H100, as the
+# plain version against itself in float64), while the tests on the CPU hold
+# the rounding sites on small inputs at 0.125 steps. The first probe on an
+# H100 read at most 1.1 steps of the largest value (frame_rev B=512 at
+# "high").
+MODE_GRID = {"high": 2.0 ** -10, "medium": 2.0 ** -7}
+MODE_MAX_STEPS, MODE_RMS_STEPS = 4.0, 0.25
+# Whole sequences at a reduced mode: the 76 autoregressive frames amplify a
+# flip until the kernel's sequence and the plain one part (the plain version
+# in float32 against itself in float64 parts as much: 8.4 at "medium" on
+# the first probe). The first frame is held as one frame; at B=128 the root
+# mean square of kernel - plain over the whole sequence is held to
+# SEQ_MODE_RATIO times the plain version's own float32 - float64.
+SEQ_MODE_RATIO = 3.0
+# The short A/B: 100 steps an epoch at B=256 (80 chunks of 400 frames give
+# 25,680 windows), a validation at the end of each; the bf16 arm's val NLL
+# within AB_REL of the f32 arm's at every shared validation.
+AB_STEPS, AB_CHUNKS, AB_REL = 300, 80, 0.02
+# The limits above bound a kernel's whole outputs but do not tell the modes
+# apart: after a few products a flip has spread as far as the other mode's
+# rounding would. A kernel's first step is one product deep (seq_bwd's
+# cotangent of the GRU state one past the head's), where a flip moves one
+# operand and the other mode's rounding every one: its output's rms against the plain
+# twin is held to MODE_SHALLOW_RMS steps of the grid, and the same kernel
+# launched at each other mode must read above that (the control), or the
+# check fails as blind to a kernel that ignores its mode. seq_rev and
+# frame_rev are held bit for bit to their gates and chain kernels launched
+# one by one through their wrappers. On an H100 (80GB HBM3, 700 W) this
+# step read the kernels' first steps at most 0.0004 steps from their twins
+# and the controls at least 0.163 (seq_bwd; the others 0.197-2.55): the
+# limit sits between them on a log scale.
+MODE_SHALLOW_RMS = 0.02
+# Bytes of a product's weight in the bounds at each mode: a set rounded to
+# bf16 holds its values in 2 bytes; TF32 has no narrower storage.
+MODE_WEIGHT_BYTES = {"high": 4, "medium": 2}
+# k steps a dispatch: 64 chunks of 160 frames give 20 steps of 256 an epoch.
+# K_CHECK steps held against k = 1 at step 10's limits (the two differ only
+# in how Adam rounds: capturable, its rate a device tensor): an eager block,
+# the captured one, then three replays on fresh blocks, the last in the next
+# epoch at the next rate (the check's schedule steps the rate every epoch),
+# with a deranged step in a replay after the first required; then K_WARM
+# steps, K_WINDOW timed and K_WINDOW traced, each way twice in turns.
+K_DISPATCH, K_CHUNKS, K_CHECK, K_WARM, K_WINDOW = 5, 64, 25, 10, 10
+
+
+def mode_check(name, got, ref, ref64, precision) -> tuple:
+    """``got`` (the kernel) against ``ref`` (its plain twin) at
+    ``precision``: the largest |d| within MODE_MAX_STEPS grid steps of
+    max|ref|, the rms within MODE_RMS_STEPS steps of rms(ref) or
+    SEQ_MODE_RATIO x rms(ref - ref64), ``ref64`` the plain twin in float64
+    -> (largest |d| in steps, rms in steps, the plain's own rms in steps,
+    largest |d|)."""
+    import torch
+
+    got, ref, ref64 = got.double(), ref.double(), ref64.double()
+    if got.shape != ref.shape or not torch.isfinite(got).all():
+        fail(f"{name} at {precision}: shape {tuple(got.shape)} or non-finite")
+    step = MODE_GRID[precision]
+    d = got - ref
+    max_steps = d.abs().max().item() / (step * max(ref.abs().max().item(), 1.0))
+    unit = step * max(ref.pow(2).mean().sqrt().item(), 1e-30)
+    rms_steps = d.pow(2).mean().sqrt().item() / unit
+    plain_steps = (ref - ref64).pow(2).mean().sqrt().item() / unit
+    if max_steps > MODE_MAX_STEPS or rms_steps > max(MODE_RMS_STEPS,
+                                                     SEQ_MODE_RATIO * plain_steps):
+        fail(f"{name} at {precision}: largest |diff| {max_steps:.3f} steps of the "
+             f"grid (limit {MODE_MAX_STEPS}), rms {rms_steps:.4f} steps (limit "
+             f"{MODE_RMS_STEPS}, or {SEQ_MODE_RATIO} x the plain twin's float32 - "
+             f"float64 {plain_steps:.4f})")
+    return max_steps, rms_steps, plain_steps, d.abs().max().item()
+
+
+def kernels_at_modes(spec, hp, model, dev, out) -> tuple:
+    """Every kernel at each reduced mode against its plain twin at the same
+    mode, with the launch counters of each call, the controls (the kernel at
+    each other mode against the same twin) and the composition checks; then
+    each kernel's times at each mode. -> (errs, rows, controls), readings
+    added to ``out``."""
+    import torch
+
+    from lets_face_it_tpu_torch.ops import flow_kernels as fk
+    from lets_face_it_tpu_torch.ops import train_kernels as tk
+    from lets_face_it_tpu_torch.utils.precision import matmul_precision
+
+    k_steps, c, h = spec.n_steps, spec.channels, spec.hidden_channels
+    cond, p1 = spec.cond.cond_dim, spec.cond.p1_face.out_dim
+    n_seq = hp.Validation["seq_len"] - spec.cond.longest_history
+    b_tr, n_tr = hp.batch_size, hp.Train["seq_len"] - spec.cond.longest_history
+    z1 = spec.z1_dim
+    w = fk.prepare_sampling_weights(spec, model.flow)
+    w_p1 = model.flow["cond_proj"]["w"][:, :, :p1].transpose(1, 2).contiguous().detach()
+    w64 = weights64(w)
+    gru = {kk: v.detach().contiguous() for kk, v in model.flow["rnn"].items()}
+    tw = tk.TrainWeights(*(t.detach().contiguous()
+                           for t in tk.prepare_train_weights(spec, model.flow)))
+    tw64 = tk.TrainWeights(*(t.double() for t in tw))
+    g = torch.Generator(device=dev).manual_seed(SEED + 17)
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=g, device=dev)
+
+    print(f"mode tolerance: kernel vs plain twin at the same mode, largest |diff| "
+          f"<= {MODE_MAX_STEPS} steps of the mode's grid (2^-10 TF32, 2^-7 bf16) "
+          f"of max|value|, rms <= {MODE_RMS_STEPS} steps of rms(value); sequences: "
+          f"frame 0 so, rms over all {n_seq} frames at B=128 <= {SEQ_MODE_RATIO} x "
+          "the plain version's float32 - float64 (same rounding); each kernel's "
+          f"first step's output rms <= {MODE_SHALLOW_RMS} steps, which the kernel at "
+          "each other mode must exceed; seq_rev and frame_rev bit for bit as their "
+          "gates and chain kernels launched one by one")
+    errs, rows, controls = {}, {}, {}
+
+    def note(name, prec, *readings):
+        prev = errs.get((name, prec), (0.0, 0.0, 0.0, 0.0))
+        for r in readings:
+            prev = tuple(max(a_, b_) for a_, b_ in zip(prev, r))
+        errs[name, prec] = prev
+
+    first_steps = out.setdefault("first_steps", {})
+
+    def shallow(label, prec, got, ref, others):
+        """``got`` (a kernel's first-step output at ``prec``) against ``ref``
+        (its plain twin's), and ``others`` {mode: the kernel's at that
+        mode}, held by ``shallow_check``; the readings kept by kernel (the
+        first word of ``label``) and by ``label``."""
+        real, ctrl = shallow_check(label, prec, got, ref, others)
+        first_steps[f"{label} at {prec}"] = {"rms": real, "controls": ctrl}
+        key = (label.split()[0], prec)
+        prev = controls.get(key, (0.0, math.inf))
+        controls[key] = (max(prev[0], real), min(prev[1], min(ctrl.values())))
+
+    def d64(*ts):
+        return [t.double() for t in ts]
+
+    def counted(call, expect):
+        reset_launches()
+        result = call()
+        torch.cuda.synchronize()
+        got = read_launches()
+        for name, n in expect.items():
+            if got[name] != n:
+                fail(f"launch counters at a mode: {name} {got[name]}, expected {n}")
+        return result
+
+    def composed(prec, zs, fixed, hist, states):
+        """The frames of ``sequence_rev_fused`` (``fixed`` [N, K, B, cond])
+        as its two kernels launched one by one through their wrappers."""
+        xs = []
+        for t in range(zs.shape[0]):
+            _, gc_t, gh_t = fk.sample_gates(spec, w, w_p1[:, :hist.shape[-1]], fixed[t],
+                                            hist, states, precision=prec)
+            x_t, states, hist_n = fk.sample_chain(spec, w, zs[t], gc_t, gh_t, states,
+                                                  hist if hist.shape[-1] else None,
+                                                  precision=prec)
+            hist = hist_n if hist_n is not None else hist
+            xs.append(x_t)
+        return torch.stack(xs)
+
+    with torch.no_grad():
+        for prec in MODES_CHECKED:
+            m = fk.MODES[prec]
+            others = [p_ for p_ in ("highest",) + MODES_CHECKED if p_ != prec]
+            for b in (1, 64, 512):
+                z, pr, st = randn(b, c), randn(k_steps, b, cond), randn(k_steps, b, h, scale=0.5)
+                x, s_new = counted(lambda: fk.frame_rev_fused(spec, w, z, pr, st, precision=prec),
+                                   {"frame_rev": 1, "sample_gates": 1, "sample_chain": 1})
+                xr, sr = fk.frame_rev_fused_ref(spec, w, z, pr, st, m)
+                x6, s6 = fk.frame_rev_fused_ref(spec, w64, *d64(z, pr, st), m)
+                note("frame_rev", prec,
+                     mode_check(f"frame_rev B={b} x", x, xr, x6, prec),
+                     mode_check(f"frame_rev B={b} states", s_new, sr, s6, prec))
+                # the first reversed step's state: one product deep
+                shallow(f"frame_rev B={b} states[K-1]", prec, s_new[-1], sr[-1],
+                        {p_: fk.frame_rev_fused(spec, w, z, pr, st, precision=p_)[1][-1]
+                         for p_ in others})
+                xc = composed(prec, z[None], pr[None], z.new_zeros(b, 0), st)
+                if not torch.equal(xc[0], x):
+                    fail(f"frame_rev B={b} at {prec}: not bit for bit its gates and chain "
+                         f"launched one by one (max|d| {(xc[0] - x).abs().max().item():.3e})")
+            for b, own in ((1, True), (64, False), (128, True)):
+                z, pr, st = randn(b, c), randn(k_steps, b, cond), randn(k_steps, b, h, scale=0.5)
+                p1_b = p1 if own else 0
+                hist = randn(b, p1_b)
+                got = counted(lambda: fk.sample_gates(spec, w, w_p1[:, :p1_b], pr, hist, st,
+                                                      precision=prec),
+                              {"sample_gates": 2 if own else 1, "sample_chain": 0})
+                ref = fk.sample_gates_ref(spec, w, w_p1[:, :p1_b], pr, hist, st, m)
+                r64 = fk.sample_gates_ref(spec, w64, *d64(w_p1[:, :p1_b], pr, hist, st), m)
+                for nm, a_, r_, q_ in zip(("proj", "gc", "gh"), got, ref, r64):
+                    note("sample_gates", prec,
+                         mode_check(f"sample_gates B={b} {nm}", a_, r_, q_, prec))
+                ctrl = {p_: fk.sample_gates(spec, w, w_p1[:, :p1_b], pr, hist, st, precision=p_)
+                        for p_ in others}
+                # one product deep: gh, and proj (own face) or gc (without)
+                for i, nm in ((2, "gh"), (0, "proj") if own else (1, "gc")):
+                    shallow(f"sample_gates B={b} {nm}", prec, got[i], ref[i],
+                            {p_: v[i] for p_, v in ctrl.items()})
+                _, gc, gh = ref
+                hist_c = hist if own else None
+                got = counted(lambda: fk.sample_chain(spec, w, z, gc, gh, st, hist_c,
+                                                      precision=prec),
+                              {"sample_chain": 1, "sample_gates": 0})
+                ref = fk.sample_chain_ref(spec, w, z, gc, gh, st, hist_c, m)
+                r64 = fk.sample_chain_ref(spec, w64, *d64(z, gc, gh, st),
+                                          None if hist_c is None else hist_c.double(), m)
+                for nm, a_, r_, q_ in zip(("x", "states", "hist"), got, ref, r64):
+                    if r_ is not None:
+                        note("sample_chain", prec,
+                             mode_check(f"sample_chain B={b} {nm}", a_, r_, q_, prec))
+                # the first step's state from zero gates and states: the z1
+                # product alone (given gates would outweigh it)
+                zero_g, zero_s = torch.zeros_like(gc), torch.zeros_like(st)
+                shallow(f"sample_chain B={b} states[K-1] (zero gates)", prec,
+                        fk.sample_chain(spec, w, z, zero_g, zero_g, zero_s, hist_c,
+                                        precision=prec)[1][-1],
+                        fk.sample_chain_ref(spec, w, z, zero_g, zero_g, zero_s, hist_c,
+                                            m)[1][-1],
+                        {p_: fk.sample_chain(spec, w, z, zero_g, zero_g, zero_s, hist_c,
+                                             precision=p_)[1][-1] for p_ in others})
+            for b in (1, 128):
+                zs, fixed = randn(n_seq, b, c), randn(n_seq, k_steps, b, cond)
+                hist0, st0 = randn(b, p1), torch.zeros(k_steps, b, h, device=dev)
+                xs = counted(lambda: fk.sequence_rev_fused(spec, w, w_p1, zs, fixed, hist0, st0,
+                                                           precision=prec),
+                             {"seq_rev": 1, "sample_gates": 2 * n_seq, "sample_chain": n_seq})
+                xr = fk.sequence_rev_fused_ref(spec, w, w_p1, zs, fixed, hist0, st0, m)
+                x64 = fk.sequence_rev_fused_ref(spec, w64, *d64(w_p1, zs, fixed, hist0, st0),
+                                                m)
+                note("seq_rev", prec, mode_check(f"seq_rev B={b} frame 0", xs[0], xr[0],
+                                                 x64[0], prec))
+                # the sequence as its kernels launched one by one, which the
+                # checks above hold at this mode; the kernel at another mode
+                # must not match it
+                xc = composed(prec, zs, fixed, hist0, st0)
+                if not torch.equal(xc, xs):
+                    fail(f"seq_rev B={b} at {prec}: not bit for bit its gates and chain "
+                         f"launched one by one (max|d| {(xc - xs).abs().max().item():.3e})")
+                for p_ in others:
+                    if torch.equal(fk.sequence_rev_fused(spec, w, w_p1, zs, fixed, hist0, st0,
+                                                         precision=p_), xc):
+                        fail(f"seq_rev B={b}: the kernel at {p_} matches its kernels at "
+                             f"{prec} bit for bit: the mode does not reach them")
+                if b == 128:
+                    rms_k = (xs.double() - xr.double()).pow(2).mean().sqrt().item()
+                    rms_p = (xr.double() - x64).pow(2).mean().sqrt().item()
+                    out[f"seq_rev_b128_{prec}"] = {"rms_kernel_vs_plain": rms_k,
+                                                   "rms_plain32_vs_plain64": rms_p,
+                                                   **drift(xs, xr)}
+                    if rms_k > SEQ_MODE_RATIO * rms_p:
+                        fail(f"seq_rev B=128 at {prec}: rms kernel - plain {rms_k:.3e} > "
+                             f"{SEQ_MODE_RATIO} x plain float32 - float64 {rms_p:.3e}")
+                    print(f"check seq_rev B=128 N={n_seq} at {prec}: rms kernel - plain "
+                          f"{rms_k:.3e}, plain float32 - float64 {rms_p:.3e}; drift "
+                          f"{json.dumps(drift(xs, xr))}  ok")
+            xs_t, cs_t, st_t = randn(n_tr, b_tr, c), randn(n_tr, k_steps, b_tr, cond), \
+                randn(k_steps, b_tr, h, scale=0.3)
+            gc_k = counted(lambda: tk.cond_gates(spec, tw, cs_t, precision=prec),
+                           {"cond_gates": 1})
+            gc_r = tk.cond_gates_ref(spec, tw, cs_t, m)
+            note("cond_gates", prec, mode_check(
+                "cond_gates", gc_k, gc_r, tk.cond_gates_ref(spec, tw64, cs_t.double(), m), prec))
+            shallow("cond_gates", prec, gc_k, gc_r,
+                    {p_: tk.cond_gates(spec, tw, cs_t, precision=p_) for p_ in others})
+            del gc_k, gc_r
+            got = counted(lambda: tk.seq_fwd(spec, tw, xs_t, cs_t, st_t, precision=prec),
+                          {"seq_fwd": 1, "cond_gates": 1})
+            ref = tk.seq_fwd_ref(spec, tw, xs_t, cs_t, st_t, m)
+            r64 = tk.seq_fwd_ref(spec, tw64, *d64(xs_t, cs_t, st_t), m)
+            for nm, a_, r_, q_ in zip(("z", "scales", "zs_res", "states_res", "gc"), got,
+                                      ref, r64):
+                note("seq_fwd", prec, mode_check(f"seq_fwd {nm}", a_, r_, q_, prec))
+            del r64
+            # frame 0's first 1x1 product, the z1 half of step 1's input
+            shallow("seq_fwd zs_res[0, 1, :, :Z1]", prec, got[2][0, 1, :, :z1],
+                    ref[2][0, 1, :, :z1],
+                    {p_: tk.seq_fwd(spec, tw, xs_t, cs_t, st_t, precision=p_)[2][0, 1, :, :z1]
+                     for p_ in others})
+            _, scales_r, zs_res, st_res, gc_r = ref
+            hprev = torch.cat([st_t[None], st_res[:-1]])
+            cot = (randn(*xs_t.shape), randn(*scales_r.shape), randn(*st_t.shape))
+            got = counted(lambda: tk.seq_bwd(spec, tw, gc_r, zs_res, hprev, *cot,
+                                             precision=prec), {"seq_bwd": 1})
+            ref = tk.seq_bwd_ref(spec, tw, gc_r, zs_res, hprev, *cot, m)
+            r64 = tk.seq_bwd_ref(spec, tw64, *d64(gc_r, zs_res, hprev, *cot), m)
+            for nm, a_, r_, q_ in zip(("dx", "dstates0", "dgi", "dghn", "dhout", "dzb"),
+                                      got, ref, r64):
+                note("seq_bwd", prec, mode_check(f"seq_bwd {nm}", a_, r_, q_, prec))
+            del r64
+            # the backward's first step (the last frame's last): the cotangent
+            # of the new GRU state is one product of the coupling head's deep
+            shallow("seq_bwd dghn[N-1, K-1]", prec, got[3][-1, -1], ref[3][-1, -1],
+                    {p_: tk.seq_bwd(spec, tw, gc_r, zs_res, hprev, *cot,
+                                    precision=p_)[3][-1, -1] for p_ in others})
+            print(f"check kernels at {prec} against their plain twins (largest |diff|, "
+                  "rms, the plain twin's float32 - float64 rms, in steps of the grid): "
+                  + ", ".join(f"{n} {e[0]:.3f}/{e[1]:.4f}/{e[2]:.4f}"
+                              for (n, p), e in errs.items() if p == prec)
+                  + "; first steps (rms in steps, the kernel's; the least at another "
+                  "mode): " + ", ".join(f"{n[:-len(prec) - 4]} {v['rms']:.4f}/"
+                                        f"{min(v['controls'].values()):.4f}"
+                                        for n, v in first_steps.items()
+                                        if n.endswith(f" at {prec}"))
+                  + f" (limit {MODE_SHALLOW_RMS}); launch counters per call  ok")
+
+            # -- times at the mode, beside the plain twin, the library call at
+            # torch's same setting and the bound at the tensor cores' rate, the
+            # weights of a set rounded to bf16 at 2 bytes
+            peak = PEAK_MODE_FLOP_S[prec]
+            wb = MODE_WEIGHT_BYTES[prec]
+            z, pr, st = randn(1, c), randn(k_steps, 1, cond), randn(k_steps, 1, h, scale=0.5)
+            zs, fixed = randn(n_seq, 1, c), randn(n_seq, k_steps, 1, cond)
+            hist0, st0 = randn(1, p1), torch.zeros(k_steps, 1, h, device=dev)
+            _, gc1, gh1 = fk.sample_gates_ref(spec, w, w_p1, pr, hist0, st, m)
+            wm = fk.round_sampling_weights(spec, w, m)   # as their owners hold them
+            cases = {
+                "frame_rev": (lambda: fk.frame_rev_fused(spec, wm, z, pr, st, precision=prec),
+                              lambda: fk.frame_rev_fused_ref(spec, wm, z, pr, st, m),
+                              lambda: library_frame_rev(spec, w, gru, z, pr, st),
+                              frame_bound_ms(spec, w, 1, peak, wb), "B=1", 20),
+                "seq_rev": (lambda: fk.sequence_rev_fused(spec, wm, w_p1, zs, fixed, hist0,
+                                                          st0, precision=prec),
+                            lambda: fk.sequence_rev_fused_ref(spec, wm, w_p1, zs, fixed,
+                                                              hist0, st0, m),
+                            lambda: library_seq_rev(spec, w, gru, w_p1, zs, fixed, hist0, st0),
+                            seq_bound_ms(spec, w, n_seq, 1, peak, wb), f"B=1, N={n_seq}", 3),
+                "sample_gates": (lambda: fk.sample_gates(spec, wm, w_p1, pr, hist0, st,
+                                                         precision=prec),
+                                 lambda: fk.sample_gates_ref(spec, wm, w_p1, pr, hist0, st, m),
+                                 lambda: library_gates(spec, w, w_p1, pr, hist0, st),
+                                 gates_bound_ms(spec, 1, p1, peak, wb), "B=1, own face", 20),
+                "sample_chain": (lambda: fk.sample_chain(spec, wm, z, gc1, gh1, st, hist0,
+                                                         precision=prec),
+                                 lambda: fk.sample_chain_ref(spec, wm, z, gc1, gh1, st, hist0, m),
+                                 lambda: fk.sample_chain_ref(spec, wm, z, gc1, gh1, st, hist0, m),
+                                 chain_bound_ms(spec, w, 1, p1, peak, wb), "B=1, own face", 20),
+                "cond_gates": (lambda: tk.cond_gates(spec, tw, cs_t, precision=prec),
+                               lambda: tk.cond_gates_ref(spec, tw, cs_t, m),
+                               None, cond_gates_bound_ms(spec, n_tr, b_tr, peak),
+                               f"B={b_tr}, N={n_tr}", 3),
+                "seq_fwd": (lambda: tk.seq_fwd(spec, tw, xs_t, cs_t, st_t, precision=prec),
+                            lambda: tk.seq_fwd_ref(spec, tw, xs_t, cs_t, st_t, m),
+                            lambda: eager_flow_sequence(spec, model.flow, xs_t, cs_t, st_t),
+                            train_fwd_bound_ms(spec, tw, n_tr, b_tr, peak),
+                            f"B={b_tr}, N={n_tr}", 3),
+                "seq_bwd": (lambda: tk.seq_bwd(spec, tw, gc_r, zs_res, hprev, *cot,
+                                               precision=prec),
+                            lambda: tk.seq_bwd_ref(spec, tw, gc_r, zs_res, hprev, *cot, m),
+                            None, train_bwd_bound_ms(spec, tw, n_tr, b_tr, peak),
+                            f"B={b_tr}, N={n_tr}", 3),
+            }
+            lib_a = torch.nn.functional.leaky_relu(cs_t, 0.01).permute(1, 0, 2, 3).reshape(
+                k_steps, -1, cond).contiguous()
+            lib_w = tw.w_ih_t[:, spec.z1_dim:].contiguous()
+            lib_b = tw.b_ih[:, None, :].contiguous()
+            for name, (call, plain, lib, (bound, by), shape, reps) in cases.items():
+                if name == "cond_gates":
+                    lib = lambda: torch.baddbmm(lib_b, lib_a, lib_w)  # noqa: E731
+                row = {"ms": time_ms(graphed(call), reps), "wrapper_ms": time_ms(call, reps),
+                       "plain_ms": time_ms(plain, 1, warmup=1)}
+                if lib is None:      # seq_bwd: its library yardstick is step 11's
+                    row["library_ms"] = None
+                else:
+                    with matmul_precision(prec):
+                        row["library_ms"] = time_ms(graphed(lib), reps)
+                row.update(bound_ms=bound, bound_by=by, shape=shape)
+                rows[name, prec] = row
+                print(f"{name} at {prec} ({shape}): kernel {row['ms']:.4f} ms (graph "
+                      f"replay; {row['wrapper_ms']:.4f} ms through the wrapper), plain "
+                      f"{row['plain_ms']:.4f} ms, library at torch's {prec} "
+                      + (f"{row['library_ms']:.4f} ms" if row["library_ms"] is not None
+                         else "not timed")
+                      + f", bound {bound:.4f} ms ({by}, {peak / 1e12:.0f} TFLOP/s)")
+            del lib_a
+    return errs, rows, controls
+
+def shallow_check(name, prec, got, ref, others) -> tuple:
+    """A kernel's first-step output ``got`` at ``prec`` against its plain
+    twin's ``ref``: the rms in grid steps of rms(ref) within
+    MODE_SHALLOW_RMS, and that of each of ``others`` ({mode: the kernel's
+    output at that mode}, the controls) beyond it -> (rms, {mode: rms})."""
+    import torch
+
+    ref = ref.double()
+    unit = MODE_GRID[prec] * max(ref.pow(2).mean().sqrt().item(), 1e-30)
+
+    def rms(x):
+        return (x.double() - ref).pow(2).mean().sqrt().item() / unit
+
+    real, ctrl = rms(got), {p: rms(x) for p, x in others.items()}
+    if not torch.isfinite(got).all() or real > MODE_SHALLOW_RMS:
+        fail(f"{name} at {prec}: first-step rms {real:.4f} steps of the grid "
+             f"(limit {MODE_SHALLOW_RMS})")
+    for p, v in ctrl.items():
+        if v <= MODE_SHALLOW_RMS:
+            fail(f"{name}: the kernel at {p} reads {v:.4f} steps from the plain twin "
+                 f"at {prec}, within the limit {MODE_SHALLOW_RMS}: the check cannot "
+                 "tell the modes apart")
+    return real, ctrl
+
+
+def precision_step(tmp, dev, card, records) -> dict:
+    """Step 17 (see the module docstring): returns the readings, appends a
+    kernel record per kernel and reduced mode to ``records``."""
+    import numpy as np
+    import torch
+
+    from lets_face_it_tpu_torch import precision_ab
+    from lets_face_it_tpu_torch.data.prefetch import gather_host, receive
+    from lets_face_it_tpu_torch.hparams import load_hparams
+    from lets_face_it_tpu_torch.model.spec import FlowSpec
+    from lets_face_it_tpu_torch.ops import flow_kernels as fk
+    from lets_face_it_tpu_torch.ops import train_kernels as tk
+    from lets_face_it_tpu_torch.sample.streaming import StreamingGenerator
+    from lets_face_it_tpu_torch.sample.weights import seeded_random_model
+    from lets_face_it_tpu_torch.train import __main__ as train_cli
+    from lets_face_it_tpu_torch.train import loop as train_loop
+    from lets_face_it_tpu_torch.train import state as train_state
+    from lets_face_it_tpu_torch.utils.precision import matmul_precision
+
+    t17 = time.perf_counter()
+    hp = load_hparams(REPO / "hparams" / "final_model.yaml", dataset_root=tmp)
+    spec = FlowSpec.build(hp)
+    b_tr = hp.batch_size
+    model = seeded_random_model(spec, SEED).to(dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 18)
+    out = {"card": card}
+
+    # -- the eager products under "medium" on this card ------------------------
+    a = torch.randn(256, 512, generator=g, device=dev)
+    b = torch.randn(512, 384, generator=g, device=dev)
+    exact = (a.double() @ b.double())
+    eager = {}
+    for prec in ("highest", "high", "medium"):
+        with matmul_precision(prec):
+            eager[prec] = (a @ b).double()
+    tf32 = fk.round_tf32(a).double() @ fk.round_tf32(b).double()
+    bf16 = fk.round_operand(a, 2).double() @ fk.round_operand(b, 2).double()
+    eager_read = {p: {"vs_exact": (e - exact).abs().max().item(),
+                      "vs_tf32_operands": (e - tf32).abs().max().item(),
+                      "vs_bf16_operands": (e - bf16).abs().max().item()}
+                  for p, e in eager.items()}
+    out["eager_matmul"] = eager_read
+    print(f"eager float32 matmul [256x512]@[512x384] on {card}: "
+          + "; ".join(f"{p}: max|d| vs exact {r['vs_exact']:.3e}, vs TF32 operands "
+                      f"{r['vs_tf32_operands']:.3e}, vs bf16 operands "
+                      f"{r['vs_bf16_operands']:.3e}" for p, r in eager_read.items()))
+
+    errs, rows, controls = kernels_at_modes(spec, hp, model, dev, out)
+
+    # -- each mode's path: two training steps at B=256, a validation (NLL,
+    # generation) and three pushes of a stream, under torch's setting -------
+    train_ds, val_ds = train_loop.load_datasets(
+        hp, train_loop.synthetic_corpus(hp, SEED, n_train_chunks=TRAIN_CHUNKS))
+    mode_launches = {}
+    for prec in MODES_CHECKED:
+        st_m = train_state.TrainState.create(seeded_random_model(spec, SEED).to(dev), hp,
+                                             3, SEED)
+        jb = train_loop.to_device(train_ds.get_batch(np.arange(b_tr)), dev)
+        s = StreamingGenerator(spec, st_m.model, batch_size=1, seed=SEED, device="cuda")
+        frame = {kk: jb[kk][:1, 0].cpu().numpy()
+                 for kk in ("p2_face", "p1_speech", "p2_speech") if kk in jb}
+        reset_launches()
+        with matmul_precision(prec):
+            for _ in range(2):
+                mets = train_state.train_step(spec, hp, st_m, jb)
+            val = train_loop.run_validation(spec, hp, st_m.model, val_ds, dev, 2, SEED)
+            for _ in range(3):
+                s.push(**frame)
+        torch.cuda.synchronize()
+        mode_launches[prec] = read_launches()
+        require_launches(f"the path at {prec}", mode_launches[prec],
+                         ("cond_gates", "seq_fwd", "seq_bwd", "seq_rev", "frame_rev",
+                          "sample_gates", "sample_chain"))
+        if not (math.isfinite(float(mets["loss"])) and math.isfinite(val["val_loss"])):
+            fail(f"the path at {prec}: loss {float(mets['loss'])}, val {val['val_loss']}")
+        print(f"path at {prec}: 2 steps, a validation (val NLL {val['val_loss']:.3f}) and "
+              f"3 pushes; launches {mode_launches[prec]}")
+    for (name, prec), row in rows.items():
+        src = {"frame_rev": ("csrc/frame_rev.cu", "pallas_flow.py:130"),
+               "seq_rev": ("csrc/seq_rev.cu", "pallas_flow.py:346"),
+               "sample_gates": ("csrc/sample_gates.cuh", "pallas_flow.py:172"),
+               "sample_chain": ("csrc/sample_chain.cuh", "pallas_flow.py:152"),
+               "cond_gates": ("csrc/cond_gates.cu", "pallas_train.py:241"),
+               "seq_fwd": ("csrc/seq_fwd.cu", "pallas_train.py:182"),
+               "seq_bwd": ("csrc/seq_bwd.cu", "pallas_train.py:330")}[name]
+        records.append(dict(
+            name=name, precision=prec, route="cuda",
+            source=f"lets_face_it_tpu_torch/{src[0]}",
+            replaces=f"lets_face_it_tpu/ops/{src[1]}",
+            launches=mode_launches[prec][name], max_abs_err_grid_steps=errs[name, prec][0],
+            max_abs_err=errs[name, prec][3],
+            rms_err_grid_steps=errs[name, prec][1],
+            plain_float64_rms_grid_steps=errs[name, prec][2],
+            first_step_rms_grid_steps=controls.get((name, prec), (None,))[0],
+            control_least_rms_grid_steps=controls.get((name, prec), (None, None))[1],
+            **row))
+
+    # -- the training step at precision 32 and 16 --------------------------------
+    st_p = train_state.TrainState.create(seeded_random_model(spec, SEED).to(dev), hp, 3, SEED)
+    jb = train_loop.to_device(train_ds.get_batch(np.arange(b_tr)), dev)
+    step_ms = {}
+    for bits, prec in ((32, "highest"), (16, "medium")):
+        with matmul_precision(prec):
+            step_ms[bits] = time_ms(lambda: train_state.train_step(spec, hp, st_p, jb),
+                                    reps=3, warmup=1)
+    with matmul_precision("medium"):
+        step_trace = trace_window(f"train_step_b{b_tr}_precision16",
+                                  lambda: train_state.train_step(spec, hp, st_p, jb), 3)
+    out["train_step_ms"] = step_ms
+    out["train_step_trace_precision16"] = step_trace
+    print(f"training step B={b_tr}: precision 32 {step_ms[32]:.3f} ms, precision 16 "
+          f"{step_ms[16]:.3f} ms ({step_ms[32] / step_ms[16]:.3f}x) on {card}")
+    print(json.dumps(step_trace))
+
+    # -- the short A/B ------------------------------------------------------------
+    reset_launches()
+    ab = precision_ab.run(max_steps=AB_STEPS, n_train_chunks=AB_CHUNKS,
+                          frames_per_chunk=400, n_val_chunks=2, device=dev)
+    ab_launches = read_launches()
+    require_launches("the A/B (both arms)", ab_launches,
+                     ("cond_gates", "seq_fwd", "seq_bwd", "seq_rev", "sample_gates",
+                      "sample_chain"))
+    rel = ab["summary"]["delta_relative_by_step"]
+    if ab["summary"]["shared_val_steps"] != AB_STEPS // 100 or any(
+            not math.isfinite(v) or abs(v) > AB_REL for v in rel.values()):
+        fail(f"A/B: bf16 against f32 val NLL relative {rel} (limit {AB_REL})")
+    out["ab"] = {k: ab[k] for k in ("summary", "arms", "fixture")}
+    print(f"A/B {AB_STEPS} steps a arm at B={b_tr}: val NLL f32 "
+          f"{[r['val_loss'] for r in ab['arms']['f32']['curve']]}, bf16 "
+          f"{[r['val_loss'] for r in ab['arms']['bf16']['curve']]}, bf16 - f32 relative "
+          f"{rel} (limit {AB_REL}); steps/s f32 {ab['arms']['f32']['steps_per_sec']:.3f}, "
+          f"bf16 {ab['arms']['bf16']['steps_per_sec']:.3f}  ok")
+
+    # -- k steps a dispatch as a CUDA graph, against k = 1 --------------------------
+    hp_k = load_hparams(REPO / "hparams" / "final_model.yaml", dataset_root=tmp)
+    hp_k.max_epochs, hp_k.check_val_every_n_epoch, hp_k.logger = 1000, 1000, False
+    hp_k.device_data_cache = "on"
+    corpus_k = train_loop.synthetic_corpus(hp_k, SEED, n_train_chunks=K_CHUNKS)
+    hp_c = load_hparams(REPO / "hparams" / "final_model.yaml", dataset_root=tmp)
+    hp_c.max_epochs, hp_c.check_val_every_n_epoch, hp_c.logger = 1000, 1000, False
+    hp_c.device_data_cache = "on"
+    hp_c.Optim["Schedule"]["args"]["step"]["step_size"] = 1
+    checked = {}
+    for k in (1, K_DISPATCH):
+        hp_c.steps_per_dispatch = k
+        mets = []
+        replays0 = train_state.MultiStep.replays
+        state_k, _ = train_loop.train(hp_c, seed=SEED, max_steps=K_CHECK, device="cuda",
+                                      corpus=corpus_k, verbose=False,
+                                      step_hook=lambda s_, m_: mets.append(m_))
+        checked[k] = ([float(m_["nll"]) for m_ in mets],
+                      [float(m_["deranged"]) for m_ in mets],
+                      [p.detach().clone() for p in state_k.model.parameters()],
+                      train_state.MultiStep.replays - replays0)
+    (nll_1, der_1, w_1, _), (nll_k, der_k, w_k, replays_k) = checked[1], checked[K_DISPATCH]
+    if len(nll_1) != K_CHECK or len(nll_k) != K_CHECK or der_k != der_1:
+        fail(f"k={K_DISPATCH} vs k=1: {len(nll_k)} and {len(nll_1)} steps, deranged "
+             f"steps {der_k} vs {der_1}")
+    for i, (a_, b_) in enumerate(zip(nll_k, nll_1)):
+        rtol = CPU_NLL_RTOL1 if i == 0 else CPU_NLL_RTOL
+        if abs(a_ - b_) > rtol * abs(b_):
+            fail(f"k={K_DISPATCH} vs k=1, step {i + 1}: nll {a_} vs {b_} (rtol {rtol})")
+    e_w = max((p - q).abs().max().item() for p, q in zip(w_k, w_1))
+    if e_w > CPU_PARAM_ATOL:
+        fail(f"k={K_DISPATCH} vs k=1: weights max|d| {e_w:.3e} > {CPU_PARAM_ATOL}")
+    deranged_steps = [i + 1 for i, v in enumerate(der_1) if v]
+    rates = {state_k.schedule(0), state_k.schedule(K_CHECK - 1)}
+    if (replays_k != K_CHECK // K_DISPATCH - 1 or len(rates) != 2
+            or not any(s_ > 2 * K_DISPATCH for s_ in deranged_steps)):
+        fail(f"k={K_DISPATCH} check: {replays_k} replays, rates {sorted(rates)}, deranged "
+             f"steps {deranged_steps}: it must replay on fresh blocks, cross a rate "
+             "change and derange in a replay after the first")
+    print(f"check k={K_DISPATCH} (an eager block, the captured one, {replays_k - 1} more "
+          f"replays) vs k=1: nll of {K_CHECK} steps within rtol {CPU_NLL_RTOL1}/"
+          f"{CPU_NLL_RTOL} (largest relative "
+          f"{max(abs(a_ - b_) / abs(b_) for a_, b_ in zip(nll_k, nll_1)):.3e}), deranged "
+          f"steps {deranged_steps} alike, rates {sorted(rates)}, weights max|d| "
+          f"{e_w:.3e} <= {CPU_PARAM_ATOL}  ok")
+    out["k_steps_weights_max_abs_diff"] = e_w
+    out["k_steps_check"] = {"steps": K_CHECK, "replays": replays_k,
+                            "deranged_steps": deranged_steps, "rates": sorted(rates),
+                            "nll_max_rel_diff": max(abs(a_ - b_) / abs(b_)
+                                                    for a_, b_ in zip(nll_k, nll_1))}
+    k_runs = []
+    for k in (1, K_DISPATCH, K_DISPATCH, 1):
+        hp_k.steps_per_dispatch = k
+        trace = LoopTrace(K_WARM, K_WINDOW)
+        replays0 = train_state.MultiStep.replays
+        reset_launches()
+        train_loop.train(hp_k, seed=SEED, max_steps=trace.max_steps, device="cuda",
+                         corpus=corpus_k, verbose=False, step_hook=trace)
+        torch.cuda.synchronize()
+        counts = read_launches()
+        replays = train_state.MultiStep.replays - replays0
+        if counts["seq_bwd"] != trace.max_steps:
+            fail(f"k={k}: seq_bwd launched {counts['seq_bwd']} times in "
+                 f"{trace.max_steps} steps (a replay must count its launches)")
+        if replays != (trace.max_steps // k - 1 if k > 1 else 0):
+            fail(f"k={k}: {replays} graph replays in {trace.max_steps} steps")
+        window = trace.summary(f"train_loop_k{k}")
+        k_runs.append({"k": k, "replays": replays, "launches": counts,
+                       "loop_ms_per_step": window["untraced_wall_ms_per_step"],
+                       "trace": window})
+        print(f"train k={k} (device cache on): {trace.max_steps} steps, {replays} graph "
+              f"replays; loop {window['untraced_wall_ms_per_step']:.3f} ms/step, traced "
+              f"{window['wall_ms_per_call']:.3f} ms/step wall, "
+              f"{window['device_ms_per_call']:.3f} ms/step on the card, idle share "
+              f"{window['idle_share']:.3f}; launches {counts}")
+    out["k_steps"] = k_runs
+
+    # -- the bf16 wire, the device cache off ------------------------------------
+    hp_k.steps_per_dispatch, hp_k.device_data_cache, hp_k.wire_dtype = 1, "off", "bf16"
+    train_k, _ = train_loop.load_datasets(hp_k, corpus_k)
+    wire = train_loop.batch_transfer(train_k, dev, None, wire_bf16=True)
+    sels = list(train_k.epoch_index_batches(b_tr, rng=np.random.default_rng([SEED, 0]),
+                                            shuffle=True, drop_last=True))[:4]
+    for sel in sels:
+        got = receive(wire(sel))
+        for kk, v in gather_host(train_k, sel).items():
+            ref = v.to(torch.bfloat16).float()
+            if not torch.equal(got[kk].cpu().view(torch.int32), ref.view(torch.int32)):
+                fail(f"bf16 wire: batch {kk} differs from the bf16-rounded host batch")
+    trace = LoopTrace(3, 8)
+    train_loop.train(hp_k, seed=SEED, max_steps=trace.max_steps, device="cuda",
+                     corpus=corpus_k, verbose=False, step_hook=trace)
+    window = trace.summary("train_loop_wire_bf16")
+    out["wire_bf16"] = {"loop_ms_per_step": window["untraced_wall_ms_per_step"],
+                        "trace": window}
+    print(f"check bf16 wire: {len(sels)} batches bit-equal to the bf16-rounded host "
+          f"batches  ok; loop (cache off, bf16 wire) "
+          f"{window['untraced_wall_ms_per_step']:.3f} ms/step, idle share "
+          f"{window['idle_share']:.3f}")
+
+    # -- the CLI at precision 16 with --profile_dir ---------------------------------
+    prof_dir = Path(tmp) / "profile"
+    t0 = time.perf_counter()
+    train_cli.main([str(REPO / "hparams" / "final_model.yaml"), "--synthetic-data",
+                    "--max_steps", "3", "--precision", "16", "--dataset_root", tmp,
+                    "--ckpt_dir", str(Path(tmp) / "ck_profile"),
+                    "--profile_dir", str(prof_dir)])
+    trace_file = prof_dir / "trace.json"
+    events = json.loads(trace_file.read_text()).get("traceEvents", [])
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    if not kernels or torch.get_float32_matmul_precision() != "highest":
+        fail(f"--profile_dir: {len(kernels)} kernel events in {trace_file}, matmul "
+             f"precision left at {torch.get_float32_matmul_precision()}")
+    out["profile"] = {"events": len(events), "kernel_events": len(kernels),
+                      "bytes": trace_file.stat().st_size,
+                      "cli_s": time.perf_counter() - t0}
+    print(f"check CLI --precision 16 --profile_dir: 3 steps, trace of "
+          f"{trace_file.stat().st_size} bytes with {len(kernels)} kernel events; matmul "
+          "precision restored  ok")
+    out["step_s"] = time.perf_counter() - t17
+    out["launches"] = {"high": mode_launches["high"], "medium": mode_launches["medium"],
+                       "ab": ab_launches}
+    return out
+
+
 def main() -> int:
     if not (REPO / "lets_face_it_tpu_torch" / "csrc").is_dir():
         fail("run from a checkout: lets_face_it_tpu_torch/ is not beside "
@@ -1429,7 +2144,7 @@ def main() -> int:
                 xs = fk.sequence_rev_fused(spec, w_r, w_p1_r, *args)
                 ref32 = fk.sequence_rev_fused_ref(spec, w_r, w_p1_r, *args)
                 ref64 = fk.sequence_rev_fused_ref(
-                    spec, fk.SamplingWeights(*(t.double() for t in w_r)),
+                    spec, weights64(w_r),
                     w_p1_r.double(), *(t.double() for t in args))
                 print(f"drift, not held ({label}, B=128 N={n_seq}): kernel vs "
                       f"plain {json.dumps(drift(xs, ref32))}; plain float32 vs "
@@ -2300,6 +3015,13 @@ def main() -> int:
         print(f"step 16 (extraction, CLI, training on its corpus): "
               f"{extract['step_s']:.1f} s on {card}")
 
+        # -- 17. the precision modes, k steps a dispatch, the wire, the profiler
+        modes = precision_step(tmp, dev, card, records)
+        print(json.dumps({"precision": {k: v for k, v in modes.items()
+                                        if k != "launches"}}))
+        print(f"step 17 (precision modes, k-step graph, bf16 wire, profiler): "
+              f"{modes['step_s']:.1f} s on {card}")
+
         paths = {"serving": launches, "training": train_launches,
                  "invert": invert_launches, "run_test": rt_launches,
                  "train_cache_off": loop_runs[0]["launches"],
@@ -2307,7 +3029,11 @@ def main() -> int:
                  "render": render_launches,
                  "extract_train": extract["cli"]["train"]["launches"]}
         for rec in records:
-            rec["launches_by_path"] = {p: cnt[rec["name"]] for p, cnt in paths.items()
+            by_path = (paths if "precision" not in rec else
+                       {f"path_{rec['precision']}": modes["launches"][rec["precision"]],
+                        **({"ab_both_arms": modes["launches"]["ab"]}
+                           if rec["precision"] == "medium" else {})})
+            rec["launches_by_path"] = {p: cnt[rec["name"]] for p, cnt in by_path.items()
                                        if rec["name"] in cnt}
 
     print(f"total: {time.perf_counter() - t_all:.1f} s")

@@ -21,13 +21,18 @@
 // tiles of depth 8 are double-buffered in shared memory: the weight tile by
 // cp.async (zero-filled past the edge), the cond tile through registers,
 // where leaky_relu is applied and the tile is transposed as it is stored.
-// The bias is added in the epilogue. The rows of one k are strided in cond
+// The bias is added in the epilogue. At a reduced matmul precision (mode,
+// flow_step.cuh::FlowPrecision) the activation is rounded with leaky_relu,
+// before it is stored; the wrapper hands the weights rounded. The rows of
+// one k are strided in cond
 // and gc ([N, K, B, *]); the kernel maps row m = t * B + b itself. This file
 // allocates nothing and launches on the caller's stream.
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
+
+#include "flow_step.cuh"
 
 namespace {
 
@@ -51,7 +56,7 @@ cond_gates_kernel(const float* __restrict__ cond,   // [N, K, B, COND]
                   const float* __restrict__ w_ih_t, // [K, Z1 + COND, G]
                   const float* __restrict__ b_ih,   // [K, G]
                   float* __restrict__ gc,           // [N, K, B, G]
-                  int B, int N, int K, int Z1, int COND, int G) {
+                  int B, int N, int K, int Z1, int COND, int G, int mode) {
   __shared__ __align__(16) float As[2][BK][BM + APAD];
   __shared__ __align__(16) float Bs[2][BK][BN];
   const int tid = threadIdx.x;
@@ -78,7 +83,8 @@ cond_gates_kernel(const float* __restrict__ cond,   // [N, K, B, COND]
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (a_row && k0 + ak < COND)
       v = *reinterpret_cast<const float4*>(a_src + k0 + ak);
-    return make_float4(leaky(v.x), leaky(v.y), leaky(v.z), leaky(v.w));
+    return round_operand(make_float4(leaky(v.x), leaky(v.y), leaky(v.z),
+                                     leaky(v.w)), mode);
   };
   auto store_a = [&](int buf, float4 v) {
     As[buf][ak + 0][am] = v.x;
@@ -157,13 +163,15 @@ cond_gates_kernel(const float* __restrict__ cond,   // [N, K, B, COND]
 
 extern "C" int cond_gates_launch(const float* cond, const float* w_ih_t,
                                  const float* b_ih, float* gc, int B, int N,
-                                 int K, int Z1, int COND, int H, void* stream) {
+                                 int K, int Z1, int COND, int H, int mode,
+                                 void* stream) {
   const int G = 3 * H;
   if (B < 1 || N < 1 || K < 1 || COND % 4 != 0 || G % 4 != 0 || Z1 < 0
+      || !precision_valid(mode)
       || (long long)N * B >= (1LL << 31) / BM)
     return (int)cudaErrorInvalidValue;
   const dim3 grid((N * B + BM - 1) / BM, (G + BN - 1) / BN, K);
   cond_gates_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      cond, w_ih_t, b_ih, gc, B, N, K, Z1, COND, G);
+      cond, w_ih_t, b_ih, gc, B, N, K, Z1, COND, G, mode);
   return (int)cudaGetLastError();
 }

@@ -3,11 +3,21 @@
 // The training kernels (seq_fwd.cu, seq_bwd.cu, via flow_stream.cuh) and the
 // sampling kernels (sample_gates.cuh, sample_chain.cuh) include it.
 //
-// All arithmetic of the kernels is float32 with fused multiply-adds; no
-// tensor cores, so no TF32 rounding.
+// All arithmetic of the kernels is float32 with fused multiply-adds on the
+// CUDA cores. The matmul precision of a launch (FlowPrecision, the JAX
+// package's Precision.HIGHEST / HIGH / DEFAULT) rounds the operands of the
+// products only: the kernels round each activation operand as they load it
+// (round_operand), and take the weight operands rounded once in the same way
+// (ops/flow_kernels.py::round_operand), or, in the sampling gates kernel,
+// round them as they load them too. A product of two
+// bf16 or TF32 values is exact in float32, so the float32 sums give what a
+// tensor core would give, up to the order of the sum.
 
 #pragma once
 
+#include <cstdint>
+
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 // Largest batch tile the serial kernels are instantiated for
@@ -83,6 +93,50 @@ __host__ __device__ inline bool widths_vec4(const FlowWeights& w) {
          && w.C % 4 == 0;
 }
 
+// The matmul precision of a launch (ops/flow_kernels.py::MODES).
+enum FlowPrecision : int {
+  FLOW_F32 = 0,    // "highest": float32 operands
+  FLOW_TF32 = 1,   // "high": operands rounded to TF32 (10 mantissa bits,
+                   // nearest, ties away from zero)
+  FLOW_BF16 = 2,   // "medium": operands rounded to bf16 (nearest even)
+};
+
+template <int MODE>
+__device__ __forceinline__ float round_operand(float x) {
+  if constexpr (MODE == FLOW_TF32) {
+    uint32_t r;
+    asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+    return __uint_as_float(r & 0xffffe000u);
+  } else if constexpr (MODE == FLOW_BF16) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  } else {
+    return x;
+  }
+}
+
+template <int MODE>
+__device__ __forceinline__ float4 round_operand(float4 v) {
+  return make_float4(round_operand<MODE>(v.x), round_operand<MODE>(v.y),
+                     round_operand<MODE>(v.z), round_operand<MODE>(v.w));
+}
+
+// The same with the mode as a launch argument, for operands rounded once as
+// they are staged (outside the products' loops).
+__device__ __forceinline__ float round_operand(float x, int mode) {
+  return mode == FLOW_TF32   ? round_operand<FLOW_TF32>(x)
+         : mode == FLOW_BF16 ? round_operand<FLOW_BF16>(x)
+                             : x;
+}
+
+__device__ __forceinline__ float4 round_operand(float4 v, int mode) {
+  return make_float4(round_operand(v.x, mode), round_operand(v.y, mode),
+                     round_operand(v.z, mode), round_operand(v.w, mode));
+}
+
+__host__ __device__ inline bool precision_valid(int mode) {
+  return mode == FLOW_F32 || mode == FLOW_TF32 || mode == FLOW_BF16;
+}
+
 __device__ __forceinline__ float sigmoidf_(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
@@ -100,4 +154,13 @@ __device__ __forceinline__ float leaky_relu_(float x) {
     case 4: { constexpr int BT = 4; __VA_ARGS__; break; } \
     case 8: { constexpr int BT = 8; __VA_ARGS__; break; } \
     default: return (int)cudaErrorInvalidValue;        \
+  }
+
+// Runtime matmul precision -> template instantiation (MODE).
+#define FLOW_DISPATCH_MODE(mode, ...)                                   \
+  switch (mode) {                                                       \
+    case FLOW_F32: { constexpr int MODE = FLOW_F32; __VA_ARGS__; break; }   \
+    case FLOW_TF32: { constexpr int MODE = FLOW_TF32; __VA_ARGS__; break; } \
+    case FLOW_BF16: { constexpr int MODE = FLOW_BF16; __VA_ARGS__; break; } \
+    default: return (int)cudaErrorInvalidValue;                         \
   }

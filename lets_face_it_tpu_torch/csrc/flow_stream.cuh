@@ -320,7 +320,8 @@ __device__ inline void produce(Ring& ring, const float* Wt, int IN, int NC,
 // (shared) must be complete on entry; `bias` and `addend` may be null,
 // `addend` is read for rows < addend_rows only and may alias `out` element
 // for element. Ends with the consumers synchronised and `out` complete.
-template <int BT>
+// MODE (FlowPrecision): X is rounded as it is read; the weights come rounded.
+template <int BT, int MODE>
 __device__ void stream_matvec(Ring& ring, int IN, int NC, int rpc, int slices,
                               float inv_groups, const float* X, int ldx,
                               const float* bias, const float* addend, int ldd,
@@ -353,7 +354,8 @@ __device__ void stream_matvec(Ring& ring, int IN, int NC, int rpc, int slices,
         const float4 w3 = wq[(4 * q + 3) * groups];
 #pragma unroll
         for (int r = 0; r < BT; ++r) {
-          const float4 x = *reinterpret_cast<const float4*>(xq + r * ldx + 4 * q);
+          const float4 x = round_operand<MODE>(
+              *reinterpret_cast<const float4*>(xq + r * ldx + 4 * q));
           acc[r].x = fmaf(x.x, w0.x, acc[r].x);
           acc[r].y = fmaf(x.x, w0.y, acc[r].y);
           acc[r].z = fmaf(x.x, w0.z, acc[r].z);

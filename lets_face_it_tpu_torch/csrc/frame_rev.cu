@@ -18,7 +18,9 @@
 // float32 FMA). Small batches are bound by bytes, large ones by operations;
 // the chain's K serial steps add their latency at every batch.
 //
-// The wrapper (ops/flow_kernels.py::frame_rev_fused) allocates the outputs
+// `mode` is the matmul precision of both launches
+// (flow_step.cuh::FlowPrecision). The wrapper
+// (ops/flow_kernels.py::frame_rev_fused) allocates the outputs
 // and the gates' scratch; this file allocates nothing. It adds the gates
 // and chain launches it makes to launches[0] and launches[1], which the
 // wrapper adds to their counters.
@@ -32,9 +34,9 @@ extern "C" int frame_rev_launch(
     const float* w_ih_t, const float* w_hh_t, const float* b_ih,
     const float* b_hh, const float* chain_w, float* gc, float* gh,
     int B, int K, int C, int Z1, int COND, int H, int COUT, float scale_eps,
-    void* stream, int* launches) {
+    int mode, void* stream, int* launches) {
   ChainArgs a{chain_w, K, C, Z1, H, COUT, scale_eps, B, 0, z, gc, gh, states,
-              states_out, x_out, nullptr, nullptr, 0, 0, 0, nullptr};
+              states_out, x_out, nullptr, nullptr, 0, 0, 0, nullptr, mode};
   if (!chain_valid(a) || COND % 4 != 0) return FLOW_ERR_ARGS;
   FlowDevice d;
   cudaError_t err = flow_device(&d);
@@ -44,7 +46,7 @@ extern "C" int frame_rev_launch(
   cudaStream_t st = (cudaStream_t)stream;
   err = sample_gates_enqueue(cond_projs, nullptr, nullptr, states, w_ih_t,
                              w_hh_t, b_ih, b_hh, nullptr, gc, gh, B, 0, K, Z1,
-                             COND, H, 0, 0, d, st, &launches[0]);
+                             COND, H, 0, 0, mode, d, st, &launches[0]);
   if (err != cudaSuccess) return (int)err;
   return (int)chain_enqueue(a, plan, d, st, &launches[1], true);
 }

@@ -23,16 +23,18 @@
 // [B, P1] from hist_in; weights [K, chain_step_floats] as ChainArgs says.
 // bt, cs, m: rows per tile, blocks per cluster, tiles per cluster, 0 for the
 // plan's. trace: null, or [blocks, CHAIN_TRACE_SLOTS] device times of the
-// first tile (sample_chain.cuh::ChainArgs). The launch is added to
+// first tile (sample_chain.cuh::ChainArgs; at mode FLOW_F32 only). mode:
+// the matmul precision (flow_step.cuh::FlowPrecision). The launch is added to
 // launches[1] (launches[0] counts gates, as in the other launchers).
 extern "C" int sample_chain_launch(
     const float* z, const float* gc, const float* gh, const float* states_in,
     float* states_out, float* x_out, const float* hist_in, float* hist_out,
     const float* weights, int B, int P1, int K, int C, int Z1, int H, int COUT,
     float scale_eps, int bt, int cs, int m, unsigned long long* trace,
-    void* stream, int* launches) {
+    int mode, void* stream, int* launches) {
   ChainArgs a{weights, K, C, Z1, H, COUT, scale_eps, B, P1, z, gc, gh,
-              states_in, states_out, x_out, hist_in, hist_out, 0, 0, 0, trace};
+              states_in, states_out, x_out, hist_in, hist_out, 0, 0, 0, trace,
+              mode};
   if (!chain_valid(a)) return FLOW_ERR_ARGS;
   FlowDevice d;
   cudaError_t err = flow_device(&d);

@@ -113,6 +113,10 @@ struct ChainArgs {
   // the SM's cycle counter at z in hand and at the end of that step (their
   // ratio to the times is the SM clock)
   unsigned long long* trace;
+  // the matmul precision (flow_step.cuh::FlowPrecision): the activation
+  // operands of the three products are rounded as they are read, the
+  // weights come rounded; the traced instantiation takes FLOW_F32 only
+  int mode;
 };
 
 constexpr int CHAIN_TRACE_SLOTS = 32;
@@ -190,8 +194,9 @@ __device__ __forceinline__ void cluster_wait() {
 }
 
 // TRACE: the probe's instantiation, which records ChainArgs::trace; the
-// main paths launch TRACE = false, which compiles no timestamp.
-template <int BT, bool TRACE>
+// main paths launch TRACE = false, which compiles no timestamp. MODE:
+// ChainArgs::mode.
+template <int BT, bool TRACE, int MODE>
 __global__ void __launch_bounds__(CHAIN_THREADS, 1)
 sample_chain_kernel(ChainArgs a) {
   extern __shared__ __align__(128) float csm[];
@@ -319,7 +324,7 @@ sample_chain_kernel(ChainArgs a) {
             const int i = CHAIN_PARTS_GRU * m + part;
 #pragma unroll
             for (int r = 0; r < BT; ++r) {
-              const float x = cur[r * C + i];
+              const float x = round_operand<MODE>(cur[r * C + i]);
               ar[r] = fmaf(x, w0, ar[r]);
               az[r] = fmaf(x, w1, az[r]);
               an[r] = fmaf(x, w2, an[r]);
@@ -373,7 +378,7 @@ sample_chain_kernel(ChainArgs a) {
             const float w0 = wm[0], w1 = wm[CHAIN_SLICES_OUT * half];
 #pragma unroll
             for (int r = 0; r < BT; ++r) {
-              const float hv = i < H ? hb[r * H + i] : 0.0f;
+              const float hv = i < H ? round_operand<MODE>(hb[r * H + i]) : 0.0f;
               sh[r] = fmaf(hv, w0, sh[r]);
               sc[r] = fmaf(hv, w1, sc[r]);
             }
@@ -422,7 +427,8 @@ sample_chain_kernel(ChainArgs a) {
             const float w = wc[m * CHAIN_SLICES_MIX * C];
 #pragma unroll
             for (int r = 0; r < BT; ++r)
-              v[r] = fmaf(i < C ? cur[r * C + i] : 0.0f, w, v[r]);
+              v[r] = fmaf(i < C ? round_operand<MODE>(cur[r * C + i]) : 0.0f, w,
+                          v[r]);
           }
         }
 #pragma unroll
@@ -581,11 +587,13 @@ inline cudaLaunchConfig_t chain_config(const ChainPlan& p, cudaStream_t stream,
 template <int BT>
 inline int chain_resident(const ChainPlan& p, const FlowDevice& d) {
   static bool allowed[FLOW_MAX_DEVICES] = {};
-  if (chain_allow(sample_chain_kernel<BT, false>, d, allowed) != cudaSuccess) return -1;
+  // the shape of a launch is the same at every mode
+  if (chain_allow(sample_chain_kernel<BT, false, FLOW_F32>, d, allowed) != cudaSuccess)
+    return -1;
   cudaLaunchAttribute attr[2];
   cudaLaunchConfig_t cfg = chain_config(p, nullptr, attr);
   int n = 0;
-  if (cudaOccupancyMaxActiveClusters(&n, sample_chain_kernel<BT, false>, &cfg)
+  if (cudaOccupancyMaxActiveClusters(&n, sample_chain_kernel<BT, false, FLOW_F32>, &cfg)
       != cudaSuccess)
     return -1;
   return n;
@@ -627,26 +635,43 @@ inline bool chain_valid(const ChainArgs& a) {
   return a.B >= 1 && a.K >= 1 && a.C % 4 == 0 && a.H % 4 == 0 && a.COUT % 4 == 0
          && a.COUT == 2 * (a.C - a.Z1) && a.Z1 >= 1
          && round_up(a.Z1, CHAIN_PARTS_GRU) <= a.C
-         && (a.P1 == 0 || (a.P1 >= a.C && a.P1 % 4 == 0));
+         && (a.P1 == 0 || (a.P1 >= a.C && a.P1 % 4 == 0))
+         && precision_valid(a.mode);
 }
 
-template <int BT, bool TRACE>
+template <int BT, bool TRACE, int MODE>
 inline cudaError_t chain_launch_bt(const cudaLaunchConfig_t& cfg, const ChainArgs& a,
                                    const FlowDevice& d) {
   static bool allowed[FLOW_MAX_DEVICES] = {};
-  cudaError_t err = chain_allow(sample_chain_kernel<BT, TRACE>, d, allowed);
+  cudaError_t err = chain_allow(sample_chain_kernel<BT, TRACE, MODE>, d, allowed);
   if (err != cudaSuccess) return err;
-  return cudaLaunchKernelEx(&cfg, sample_chain_kernel<BT, TRACE>, a);
+  return cudaLaunchKernelEx(&cfg, sample_chain_kernel<BT, TRACE, MODE>, a);
+}
+
+template <int BT, bool TRACE>
+inline cudaError_t chain_launch_mode(const cudaLaunchConfig_t& cfg,
+                                     const ChainArgs& a, const FlowDevice& d) {
+  if constexpr (TRACE) {
+    if (a.mode != FLOW_F32) return (cudaError_t)FLOW_ERR_ARGS;
+    return chain_launch_bt<BT, true, FLOW_F32>(cfg, a, d);
+  } else {
+    switch (a.mode) {
+      case FLOW_F32: return chain_launch_bt<BT, false, FLOW_F32>(cfg, a, d);
+      case FLOW_TF32: return chain_launch_bt<BT, false, FLOW_TF32>(cfg, a, d);
+      case FLOW_BF16: return chain_launch_bt<BT, false, FLOW_BF16>(cfg, a, d);
+      default: return (cudaError_t)FLOW_ERR_ARGS;
+    }
+  }
 }
 
 template <bool TRACE>
 inline cudaError_t chain_launch(const cudaLaunchConfig_t& cfg, const ChainArgs& a,
                                 int bt, const FlowDevice& d) {
   switch (bt) {
-    case 1: return chain_launch_bt<1, TRACE>(cfg, a, d);
-    case 2: return chain_launch_bt<2, TRACE>(cfg, a, d);
-    case 4: return chain_launch_bt<4, TRACE>(cfg, a, d);
-    case 8: return chain_launch_bt<8, TRACE>(cfg, a, d);
+    case 1: return chain_launch_mode<1, TRACE>(cfg, a, d);
+    case 2: return chain_launch_mode<2, TRACE>(cfg, a, d);
+    case 4: return chain_launch_mode<4, TRACE>(cfg, a, d);
+    case 8: return chain_launch_mode<8, TRACE>(cfg, a, d);
     default: return (cudaError_t)FLOW_ERR_PLAN;
   }
 }

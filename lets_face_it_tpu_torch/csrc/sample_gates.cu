@@ -18,14 +18,15 @@
 
 // fixed [K, B, COND], hist [B, P1], w_p1_t [K, P1, COND], states [K, B, H]
 // -> proj [K, B, COND] (P1 > 0), gc, gh [K, B, 3H]. bt: rows per block, gr:
-// column groups of four per block (8 or 32), 0 for the plan's. The launches
+// column groups of four per block (8 or 32), 0 for the plan's; mode: the
+// matmul precision (flow_step.cuh::FlowPrecision). The launches
 // made are added to launches[0] (launches[1] counts chains, as in the other
 // launchers).
 extern "C" int sample_gates_launch(
     const float* fixed, const float* hist, const float* w_p1_t,
     const float* states, const float* w_ih_t, const float* w_hh_t,
     const float* b_ih, const float* b_hh, float* proj, float* gc, float* gh,
-    int B, int P1, int K, int Z1, int COND, int H, int bt, int gr,
+    int B, int P1, int K, int Z1, int COND, int H, int bt, int gr, int mode,
     void* stream, int* launches) {
   if (B < 1 || K < 1 || COND % 4 != 0 || H % 4 != 0 || P1 % 4 != 0)
     return FLOW_ERR_ARGS;
@@ -34,6 +35,6 @@ extern "C" int sample_gates_launch(
   if (err != cudaSuccess) return (int)err;
   return (int)sample_gates_enqueue(fixed, hist, w_p1_t, states, w_ih_t, w_hh_t,
                                    b_ih, b_hh, proj, gc, gh, B, P1, K, Z1,
-                                   COND, H, bt, gr, d,
+                                   COND, H, bt, gr, mode, d,
                                    (cudaStream_t)stream, &launches[0]);
 }

@@ -19,7 +19,11 @@
 // shared-memory sum. Few rows take narrow tiles (GR = 8 column groups, 32
 // columns, 32 slices: many blocks for few bytes each); many rows take wide
 // ones (GR = 32, 128 columns, 8 slices: more work a thread between the
-// sums), as probe_sampling_kernels.py measured (PERF.md).
+// sums), as probe_sampling_kernels.py measured (PERF.md). At a reduced
+// matmul precision (GateLaunch::mode) the staged rows of X are rounded once
+// and each weight as it is loaded (flow_step.cuh::round_operand), so the
+// weights may come rounded (the prepared set) or not (the own-face slice
+// w_p1_t, which the caller hands as it is).
 //
 // Included by the launchers (frame_rev.cu, seq_rev.cu, sample_gates.cu).
 
@@ -70,6 +74,7 @@ struct GateLaunch {
   int K, B;
   int blocks0;     // blocks of product 0 (K * its col_tiles)
   int max_in;      // the widest IN, for the X tile in shared memory
+  int mode;        // FlowPrecision of the products
 };
 
 __host__ __device__ inline int gates_smem_floats(int bt, int gr, int max_in) {
@@ -104,7 +109,7 @@ sample_gates_kernel(GateLaunch L) {
     if (P.leaky)
       v = make_float4(leaky_relu_(v.x), leaky_relu_(v.y), leaky_relu_(v.z),
                       leaky_relu_(v.w));
-    *reinterpret_cast<float4*>(xs + r * IN + 4 * q) = v;
+    *reinterpret_cast<float4*>(xs + r * IN + 4 * q) = round_operand(v, L.mode);
   }
   __syncthreads();
 
@@ -120,10 +125,16 @@ sample_gates_kernel(GateLaunch L) {
 #pragma unroll 2
     for (int q = sl; q < quads; q += SLICES) {
       const float* wq = wk + (size_t)(4 * q) * NC;
-      const float4 w0 = __ldg(reinterpret_cast<const float4*>(wq));
-      const float4 w1 = __ldg(reinterpret_cast<const float4*>(wq + NC));
-      const float4 w2 = __ldg(reinterpret_cast<const float4*>(wq + 2 * NC));
-      const float4 w3 = __ldg(reinterpret_cast<const float4*>(wq + 3 * NC));
+      float4 w0 = __ldg(reinterpret_cast<const float4*>(wq));
+      float4 w1 = __ldg(reinterpret_cast<const float4*>(wq + NC));
+      float4 w2 = __ldg(reinterpret_cast<const float4*>(wq + 2 * NC));
+      float4 w3 = __ldg(reinterpret_cast<const float4*>(wq + 3 * NC));
+      if (L.mode != FLOW_F32) {
+        w0 = round_operand(w0, L.mode);
+        w1 = round_operand(w1, L.mode);
+        w2 = round_operand(w2, L.mode);
+        w3 = round_operand(w3, L.mode);
+      }
 #pragma unroll
       for (int r = 0; r < BT; ++r) {
         const float4 x = *reinterpret_cast<const float4*>(xs + r * IN + 4 * q);
@@ -228,13 +239,15 @@ inline GateProduct gate_product(const float* X, long long x_k, int ldx,
   return p;
 }
 
-// One launch of up to two products over K steps and B rows, added to
-// *launches; bt_req and gr_req (8 or 32 column groups a block) 0 for the
-// defaults.
+// One launch of up to two products over K steps and B rows at matmul
+// precision `mode`, added to *launches; bt_req and gr_req (8 or 32 column
+// groups a block) 0 for the defaults.
 inline cudaError_t gates_enqueue(const GateProduct* prods, int n, int K, int B,
-                                 int bt_req, int gr_req, const FlowDevice& d,
-                                 cudaStream_t stream, int* launches) {
-  if (gr_req != 0 && gr_req != 8 && gr_req != 32) return (cudaError_t)FLOW_ERR_ARGS;
+                                 int bt_req, int gr_req, int mode,
+                                 const FlowDevice& d, cudaStream_t stream,
+                                 int* launches) {
+  if ((gr_req != 0 && gr_req != 8 && gr_req != 32) || !precision_valid(mode))
+    return (cudaError_t)FLOW_ERR_ARGS;
   int max_in = 0;
   for (int i = 0; i < n; ++i) {
     const GateProduct& p = prods[i];
@@ -251,6 +264,7 @@ inline cudaError_t gates_enqueue(const GateProduct* prods, int n, int K, int B,
   L.K = K;
   L.B = B;
   L.max_in = max_in;
+  L.mode = mode;
   int blocks = 0;
   for (int i = 0; i < n; ++i) {
     L.p[i] = prods[i];
@@ -269,14 +283,14 @@ inline cudaError_t gates_enqueue(const GateProduct* prods, int n, int K, int B,
 // The gates of one frame. fixed [K, B, COND] (the frame's slice of
 // fixed_projs, or the given cond_projs when P1 == 0), hist [B, P1],
 // w_p1_t [K, P1, COND], states [K, B, H]; writes proj [K, B, COND] (P1 > 0
-// only), gc and gh [K, B, 3H]. Two launches when P1 > 0, else one; each is
-// added to *launches.
+// only), gc and gh [K, B, 3H], at matmul precision `mode`. Two launches
+// when P1 > 0, else one; each is added to *launches.
 inline cudaError_t sample_gates_enqueue(
     const float* fixed, const float* hist, const float* w_p1_t,
     const float* states, const float* w_ih_t, const float* w_hh_t,
     const float* b_ih, const float* b_hh, float* proj, float* gc, float* gh,
     int B, int P1, int K, int Z1, int COND, int H, int bt_req, int gr_req,
-    const FlowDevice& d, cudaStream_t stream, int* launches) {
+    int mode, const FlowDevice& d, cudaStream_t stream, int* launches) {
   const int G = 3 * H, IN = Z1 + COND;
   const GateProduct p_gh = gate_product(states, (long long)B * H, H, w_hh_t,
                                         (long long)H * G, H, G, b_hh, nullptr,
@@ -289,7 +303,8 @@ inline cudaError_t sample_gates_enqueue(
                      nullptr, fixed, (long long)B * COND, proj,
                      (long long)B * COND, false),
         p_gh};
-    err = gates_enqueue(first, 2, K, B, bt_req, gr_req, d, stream, launches);
+    err = gates_enqueue(first, 2, K, B, bt_req, gr_req, mode, d, stream,
+                        launches);
     if (err != cudaSuccess) return err;
     cond = proj;
   }
@@ -297,9 +312,11 @@ inline cudaError_t sample_gates_enqueue(
                                         w_ih_t + (size_t)Z1 * G,
                                         (long long)IN * G, COND, G, b_ih,
                                         nullptr, 0, gc, (long long)B * G, true);
-  if (P1 > 0) return gates_enqueue(&p_gc, 1, K, B, bt_req, gr_req, d, stream, launches);
+  if (P1 > 0)
+    return gates_enqueue(&p_gc, 1, K, B, bt_req, gr_req, mode, d, stream,
+                         launches);
   const GateProduct both[2] = {p_gc, p_gh};
-  return gates_enqueue(both, 2, K, B, bt_req, gr_req, d, stream, launches);
+  return gates_enqueue(both, 2, K, B, bt_req, gr_req, mode, d, stream, launches);
 }
 
 }  // namespace

@@ -62,7 +62,7 @@ __host__ __device__ inline int bwd_other_floats(int bt, const FlowWeights& w) {
          + 2 * bwd_step_floats(bt, w);
 }
 
-template <int BT>
+template <int BT, int MODE>
 __global__ void __launch_bounds__(STREAM_THREADS, 1)
 seq_bwd_kernel(FlowWeights w, BwdWeights wb, int B, int N, int nslots,
                int slot_floats, StreamTable tab, int cs,
@@ -180,13 +180,13 @@ seq_bwd_kernel(FlowWeights w, BwdWeights wb, int B, int N, int nslots,
           if (k == K - 1) dz[idx] = P[o_dz + idx];
           ztmp[idx] = (P[o_zs + idx] + P[c]) * P[o_am + c];
         }
-        stream_matvec<BT>(ring, H, G, tab.rpc[0], tab.slices[0],
+        stream_matvec<BT, MODE>(ring, H, G, tab.rpc[0], tab.slices[0],
                           tab.inv_groups[0], hprev, H,
                           P + o_bh, nullptr, 0, 0, gh, G, partial);
-        stream_matvec<BT>(ring, C, C, tab.rpc[1], tab.slices[1],
+        stream_matvec<BT, MODE>(ring, C, C, tab.rpc[1], tab.slices[1],
                           tab.inv_groups[1], ztmp, C,
                           nullptr, nullptr, 0, 0, z, C, partial);
-        stream_matvec<BT>(ring, Z1, G, tab.rpc[2], tab.slices[2],
+        stream_matvec<BT, MODE>(ring, Z1, G, tab.rpc[2], tab.slices[2],
                           tab.inv_groups[2], z, C, nullptr,
                           P + o_gc, G, BT, gi, G, partial);
         for (int idx = tid; idx < BT * H; idx += STREAM_CONSUMERS) {
@@ -199,7 +199,7 @@ seq_bwd_kernel(FlowWeights w, BwdWeights wb, int B, int N, int nslots,
           hnew[idx] = (1.0f - ug) * ng + ug * hprev[idx];
         }
         consumer_sync();
-        stream_matvec<BT>(ring, H, COUT, tab.rpc[3], tab.slices[3],
+        stream_matvec<BT, MODE>(ring, H, COUT, tab.rpc[3], tab.slices[3],
                           tab.inv_groups[3], hnew, H,
                           P + o_ob, nullptr, 0, 0, hout, COUT, partial);
 
@@ -225,7 +225,7 @@ seq_bwd_kernel(FlowWeights w, BwdWeights wb, int B, int N, int nslots,
         }
         consumer_sync();
         // dh = dhout @ out_w[k] + dstate[k]
-        stream_matvec<BT>(ring, COUT, H, tab.rpc[4], tab.slices[4],
+        stream_matvec<BT, MODE>(ring, COUT, H, tab.rpc[4], tab.slices[4],
                           tab.inv_groups[4], dhout, COUT,
                           nullptr, dst, H, BT, dh, H, partial);
 
@@ -262,17 +262,17 @@ seq_bwd_kernel(FlowWeights w, BwdWeights wb, int B, int N, int nslots,
         }
         consumer_sync();
         // dstate[k] = dh * u + dgh @ w_hh[k]   (out aliases addend elementwise)
-        stream_matvec<BT>(ring, G, H, tab.rpc[5], tab.slices[5],
+        stream_matvec<BT, MODE>(ring, G, H, tab.rpc[5], tab.slices[5],
                           tab.inv_groups[5], dgh, G, nullptr,
                           dst, H, BT, dst, H, partial);
         // dzb[:, :Z1] = dz[:, :Z1] + dgi @ w_ih[k][:, :Z1]
-        stream_matvec<BT>(ring, G, Z1, tab.rpc[6], tab.slices[6],
+        stream_matvec<BT, MODE>(ring, G, Z1, tab.rpc[6], tab.slices[6],
                           tab.inv_groups[6], dgi, G, nullptr,
                           dz, C, BT, dzb, C, partial);
         for (int idx = tid; idx < rows * C; idx += STREAM_CONSUMERS)
           dzb_g[(tk * B + row0) * C + idx] = dzb[idx];
         // dz = (dzb @ W[k]^T) * an_scale[k]
-        stream_matvec<BT>(ring, C, C, tab.rpc[7], tab.slices[7],
+        stream_matvec<BT, MODE>(ring, C, C, tab.rpc[7], tab.slices[7],
                           tab.inv_groups[7], dzb, C, nullptr,
                           nullptr, 0, 0, ztmp, C, partial);
         for (int idx = tid; idx < BT * C; idx += STREAM_CONSUMERS)
@@ -335,11 +335,12 @@ extern "C" int seq_bwd_launch(
     const float* w_t, const float* w_hh, const float* w_ih_z1,
     const float* out_w,
     int B, int N, int K, int C, int Z1, int COND, int H, int COUT,
-    float scale_eps, int bt, int cs, int slots, void* stream) {
+    float scale_eps, int bt, int cs, int slots, int mode, void* stream) {
   FlowWeights w{w_ih_t, w_hh_t, b_ih, b_hh, out_w_t, out_b, w_mix, an_bias,
                 an_scale, K, C, Z1, COND, H, COUT, scale_eps};
   BwdWeights wb{w_t, w_hh, w_ih_z1, out_w};
-  if (!bwd_valid(w, B, N)) return (int)cudaErrorInvalidValue;
+  if (!bwd_valid(w, B, N) || !precision_valid(mode))
+    return (int)cudaErrorInvalidValue;
   FlowDevice d;
   cudaError_t err = flow_device(&d);
   if (err != cudaSuccess) return (int)err;
@@ -349,17 +350,17 @@ extern "C" int seq_bwd_launch(
   auto replan = [&](int c, StreamPlan* p) {
     return bwd_plan(w, B, plan.bt, c, slots, d, p);
   };
-  FLOW_DISPATCH_BT(plan.bt, {
-    static bool allowed[FLOW_MAX_DEVICES] = {};
-    if (cs == 0) {
-      err = fit_one_wave(seq_bwd_kernel<BT>, d, allowed, &plan, replan);
-      if (err != cudaSuccess) return (int)err;
-    }
-    err = launch_stream(seq_bwd_kernel<BT>, plan, d, allowed, st, w, wb,
-                        B, N, plan.nslots, plan.slot_floats, plan.table, plan.cs,
-                        dz_seq, dscales, zs, hprev, dnew_states, gc, dx,
-                        dstates0, dgi, dghn, dhout, dzb);
-  });
+  FLOW_DISPATCH_BT(plan.bt, FLOW_DISPATCH_MODE(mode, {
+      static bool allowed[FLOW_MAX_DEVICES] = {};
+      if (cs == 0) {
+        err = fit_one_wave(seq_bwd_kernel<BT, MODE>, d, allowed, &plan, replan);
+        if (err != cudaSuccess) return (int)err;
+      }
+      err = launch_stream(seq_bwd_kernel<BT, MODE>, plan, d, allowed, st, w, wb,
+                          B, N, plan.nslots, plan.slot_floats, plan.table, plan.cs,
+                          dz_seq, dscales, zs, hprev, dnew_states, gc, dx,
+                          dstates0, dgi, dghn, dhout, dzb);
+  }));
   return (int)err;
 }
 
@@ -379,12 +380,13 @@ extern "C" int seq_bwd_plan(int B, int K, int C, int Z1, int COND, int H,
   };
   int clusters = -1;
   FLOW_DISPATCH_BT(plan.bt, {
+    constexpr int MODE = FLOW_F32;   // the plan is the same at every mode
     static bool allowed[FLOW_MAX_DEVICES] = {};
     if (cs == 0) {
-      err = fit_one_wave(seq_bwd_kernel<BT>, d, allowed, &plan, replan);
+      err = fit_one_wave(seq_bwd_kernel<BT, MODE>, d, allowed, &plan, replan);
       if (err != cudaSuccess) return (int)err;
     }
-    clusters = stream_max_clusters(seq_bwd_kernel<BT>, plan, d, allowed);
+    clusters = stream_max_clusters(seq_bwd_kernel<BT, MODE>, plan, d, allowed);
   });
   out[0] = plan.bt; out[1] = plan.cs; out[2] = plan.blocks;
   out[3] = plan.nslots; out[4] = plan.slot_floats * 4;

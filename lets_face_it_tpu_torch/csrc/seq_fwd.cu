@@ -56,7 +56,7 @@ __host__ __device__ inline int fwd_other_floats(int bt, const FlowWeights& w) {
          + round4(bt * w.COUT) + 2 * fwd_step_floats(bt, w);
 }
 
-template <int BT>
+template <int BT, int MODE>
 __global__ void __launch_bounds__(STREAM_THREADS, 1)
 seq_fwd_kernel(FlowWeights w, int B, int N, int nslots, int slot_floats,
                StreamTable tab, int cs,
@@ -148,13 +148,13 @@ seq_fwd_kernel(FlowWeights w, int B, int N, int nslots, int slot_floats,
           if (idx / C < rows) zs_res[(tk * B + row0) * C + idx] = zv;
           ztmp[idx] = (zv + P[c]) * P[o_am + c];
         }
-        stream_matvec<BT>(ring, H, G, tab.rpc[0], tab.slices[0],
+        stream_matvec<BT, MODE>(ring, H, G, tab.rpc[0], tab.slices[0],
                           tab.inv_groups[0], h, H, P + o_bh,
                           nullptr, 0, 0, gh, G, partial);
-        stream_matvec<BT>(ring, C, C, tab.rpc[1], tab.slices[1],
+        stream_matvec<BT, MODE>(ring, C, C, tab.rpc[1], tab.slices[1],
                           tab.inv_groups[1], ztmp, C,
                           nullptr, nullptr, 0, 0, z, C, partial);
-        stream_matvec<BT>(ring, Z1, G, tab.rpc[2], tab.slices[2],
+        stream_matvec<BT, MODE>(ring, Z1, G, tab.rpc[2], tab.slices[2],
                           tab.inv_groups[2], z, C, nullptr,
                           P + o_gc, G, BT, gi, G, partial);
         for (int idx = tid; idx < BT * H; idx += STREAM_CONSUMERS) {
@@ -169,7 +169,7 @@ seq_fwd_kernel(FlowWeights w, int B, int N, int nslots, int slot_floats,
           if (r < rows) st_res[(tk * B + row0) * H + idx] = hn;
         }
         consumer_sync();   // the new state is complete
-        stream_matvec<BT>(ring, H, COUT, tab.rpc[3], tab.slices[3],
+        stream_matvec<BT, MODE>(ring, H, COUT, tab.rpc[3], tab.slices[3],
                           tab.inv_groups[3], h, H,
                           P + o_ob, nullptr, 0, 0, hout, COUT, partial);
         for (int idx = tid; idx < BT * half; idx += STREAM_CONSUMERS) {
@@ -225,10 +225,11 @@ extern "C" int seq_fwd_launch(
     const float* w_ih_t, const float* w_hh_t, const float* b_ih,
     const float* b_hh, const float* out_w_t, const float* out_b,
     int B, int N, int K, int C, int Z1, int COND, int H, int COUT,
-    float scale_eps, int bt, int cs, int slots, void* stream) {
+    float scale_eps, int bt, int cs, int slots, int mode, void* stream) {
   FlowWeights w{w_ih_t, w_hh_t, b_ih, b_hh, out_w_t, out_b, w_mix, an_bias,
                 an_scale, K, C, Z1, COND, H, COUT, scale_eps};
-  if (!fwd_valid(w, B, N)) return (int)cudaErrorInvalidValue;
+  if (!fwd_valid(w, B, N) || !precision_valid(mode))
+    return (int)cudaErrorInvalidValue;
   FlowDevice d;
   cudaError_t err = flow_device(&d);
   if (err != cudaSuccess) return (int)err;
@@ -238,16 +239,16 @@ extern "C" int seq_fwd_launch(
   auto replan = [&](int c, StreamPlan* p) {
     return fwd_plan(w, B, plan.bt, c, slots, d, p);
   };
-  FLOW_DISPATCH_BT(plan.bt, {
-    static bool allowed[FLOW_MAX_DEVICES] = {};
-    if (cs == 0) {
-      err = fit_one_wave(seq_fwd_kernel<BT>, d, allowed, &plan, replan);
-      if (err != cudaSuccess) return (int)err;
-    }
-    err = launch_stream(seq_fwd_kernel<BT>, plan, d, allowed, st, w, B, N,
-                        plan.nslots, plan.slot_floats, plan.table, plan.cs, xs,
-                        gc, states0, z_out, scales, zs_res, st_res);
-  });
+  FLOW_DISPATCH_BT(plan.bt, FLOW_DISPATCH_MODE(mode, {
+      static bool allowed[FLOW_MAX_DEVICES] = {};
+      if (cs == 0) {
+        err = fit_one_wave(seq_fwd_kernel<BT, MODE>, d, allowed, &plan, replan);
+        if (err != cudaSuccess) return (int)err;
+      }
+      err = launch_stream(seq_fwd_kernel<BT, MODE>, plan, d, allowed, st, w, B, N,
+                          plan.nslots, plan.slot_floats, plan.table, plan.cs, xs,
+                          gc, states0, z_out, scales, zs_res, st_res);
+  }));
   return (int)err;
 }
 
@@ -269,12 +270,13 @@ extern "C" int seq_fwd_plan(int B, int K, int C, int Z1, int COND, int H,
   };
   int clusters = -1;
   FLOW_DISPATCH_BT(plan.bt, {
+    constexpr int MODE = FLOW_F32;   // the plan is the same at every mode
     static bool allowed[FLOW_MAX_DEVICES] = {};
     if (cs == 0) {
-      err = fit_one_wave(seq_fwd_kernel<BT>, d, allowed, &plan, replan);
+      err = fit_one_wave(seq_fwd_kernel<BT, MODE>, d, allowed, &plan, replan);
       if (err != cudaSuccess) return (int)err;
     }
-    clusters = stream_max_clusters(seq_fwd_kernel<BT>, plan, d, allowed);
+    clusters = stream_max_clusters(seq_fwd_kernel<BT, MODE>, plan, d, allowed);
   });
   out[0] = plan.bt; out[1] = plan.cs; out[2] = plan.blocks;
   out[3] = plan.nslots; out[4] = plan.slot_floats * 4;

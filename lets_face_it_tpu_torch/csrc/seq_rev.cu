@@ -29,7 +29,9 @@
 // launch overlaps the end of launch 2. With P1 = 0, launches 1 and 2 are
 // one (gh and gc together).
 //
-// The wrapper (ops/flow_kernels.py::sequence_rev_fused) allocates the
+// `mode` is the matmul precision of every launch
+// (flow_step.cuh::FlowPrecision). The wrapper
+// (ops/flow_kernels.py::sequence_rev_fused) allocates the
 // output and every scratch buffer (proj, gc, gh, the two histories, the
 // running states); this file allocates nothing. It adds the gates and chain
 // launches it makes to launches[0] and launches[1], which the wrapper adds
@@ -46,9 +48,9 @@ extern "C" int seq_rev_launch(
     float* proj, float* gc, float* gh, float* hist_a, float* hist_b,
     float* states,
     int B, int N, int P1, int K, int C, int Z1, int COND, int H, int COUT,
-    float scale_eps, void* stream, int* launches) {
+    float scale_eps, int mode, void* stream, int* launches) {
   ChainArgs a{chain_w, K, C, Z1, H, COUT, scale_eps, B, P1, nullptr, gc, gh,
-              states, states, nullptr, nullptr, nullptr, 0, 0, 0, nullptr};
+              states, states, nullptr, nullptr, nullptr, 0, 0, 0, nullptr, mode};
   if (!chain_valid(a) || COND % 4 != 0 || N < 1) return FLOW_ERR_ARGS;
   FlowDevice d;
   cudaError_t err = flow_device(&d);
@@ -68,7 +70,7 @@ extern "C" int seq_rev_launch(
     const float* fixed = fixed_projs + (size_t)t * K * B * COND;
     err = sample_gates_enqueue(fixed, hist, w_p1_t, states, w_ih_t, w_hh_t,
                                b_ih, b_hh, proj, gc, gh, B, P1, K, Z1, COND,
-                               H, 0, 0, d, st, &launches[0]);
+                               H, 0, 0, mode, d, st, &launches[0]);
     if (err != cudaSuccess) return (int)err;
     a.z_in = zs + (size_t)t * B * C;
     a.x_out = xs + (size_t)t * B * C;

@@ -64,6 +64,14 @@ class DeviceWindowBatcher:
         starts = torch.from_numpy(starts).to(self.device, non_blocking=True)
         return gather_windows(self.arrays, starts, self.seq_len)
 
+    def get_starts_block(self, blocks) -> dict:
+        """The window starts of a block of index batches ([k, B] indices) as
+        one int32 tensor [k, B] on the device, for the k-step function
+        (``train/state.py::MultiStep``), which gathers each batch itself."""
+        starts = self.window_starts[np.asarray(blocks)].astype(np.int32)
+        return {"starts": torch.from_numpy(starts).to(self.device,
+                                                      non_blocking=True)}
+
 
 def cache_mode(hp) -> str:
     """``hp.device_data_cache`` as 'auto', 'on' or 'off'. YAML 1.1 parses a

@@ -115,6 +115,16 @@ def frame_dropout_mask(spec: EncSpec, shape, generator: torch.Generator):
                       device=generator.device) < 1.0 - spec.dropout
 
 
+def dropout_mask_shapes(cond: CondSpec, b: int, n: int) -> dict:
+    """{modality: [B, N, h]} of the frame-dropout masks that a training
+    encode of B sequences of N frames draws, in the order it draws them
+    (``encode_conditioning``)."""
+    names = (["p1_face"] if cond.p1_face.out_dim > 0 else []) + [
+        name for name in MODALITY_ORDER[1:] if getattr(cond, name) is not None]
+    return {name: (b, n, getattr(cond, name).history) for name in names
+            if getattr(cond, name).dropout > 0.0}
+
+
 def _frame_dropout(spec: EncSpec, windows, mask):
     """Zero whole history frames of [B, N, h, D] windows, scale the rest."""
     keep = 1.0 - spec.dropout

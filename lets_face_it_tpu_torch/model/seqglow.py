@@ -204,8 +204,11 @@ def sequence_sample(spec: FlowSpec, params, data, seq_len: int, *,
         zs = z_seq.to(dev, torch.float32).contiguous()
 
     path = sampling_path(spec)
+    if path != "plain":
+        weights = flow_kernels.round_sampling_weights(
+            spec, flow_kernels.prepare_sampling_weights(spec, params.flow),
+            flow_kernels.precision_mode())
     if path == "sequence":
-        weights = flow_kernels.prepare_sampling_weights(spec, params.flow)
         hist0 = (face_hist.reshape(b, p1_dim).contiguous() if p1_dim
                  else x_seed.new_zeros(b, 0))
         w_p1_t = w_p1.transpose(1, 2).contiguous()
@@ -213,8 +216,6 @@ def sequence_sample(spec: FlowSpec, params, data, seq_len: int, *,
                                              fixed_projs, hist0, states)
         return xs.transpose(0, 1)
 
-    weights = (flow_kernels.prepare_sampling_weights(spec, params.flow)
-               if path == "frame" else None)
     xs = []
     for t in range(n):
         proj_t = fixed_projs[t]
@@ -222,7 +223,7 @@ def sequence_sample(spec: FlowSpec, params, data, seq_len: int, *,
             p1_enc = encoders.encode_p1_face_single(spec.cond, params.encoder,
                                                     face_hist)
             proj_t = proj_t + torch.einsum("bd,kcd->kbc", p1_enc, w_p1)
-        if weights is not None:
+        if path == "frame":
             x_t, states = flow_kernels.frame_rev_fused(
                 spec, weights, zs[t], proj_t.contiguous(), states)
         else:
@@ -279,9 +280,11 @@ def sequence_invert(spec: FlowSpec, params, z_seq, data, *, route: str | None = 
     xs = []
     if route == "kernel":
         weights = flow_kernels.prepare_sampling_weights(spec, params.flow)
+        launched = flow_kernels.round_sampling_weights(
+            spec, weights, flow_kernels.precision_mode())
         new_states = []
         for i in range(n):
-            x_t, states = flow_kernels.frame_rev_fused(spec, weights, zs[i],
+            x_t, states = flow_kernels.frame_rev_fused(spec, launched, zs[i],
                                                        cond_projs[i], states)
             xs.append(x_t)
             new_states.append(states)

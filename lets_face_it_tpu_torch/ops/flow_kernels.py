@@ -30,9 +30,20 @@ launchers report the gates and chain kernels they launch (an ``int *`` out
 parameter, counted where each launch is enqueued), which the wrappers add to
 ``sample_gates.launches`` and ``sample_chain.launches``.
 
-The kernels compute in float32 with fused multiply-adds (the JAX package's
-``highest`` matmul precision); ``precision="highest"`` is the only value
-accepted. The weights are prepared once by ``prepare_sampling_weights``: the
+The kernels compute in float32 with fused multiply-adds. Each wrapper takes
+a matmul ``precision`` (``MODES``; None, the default, follows the ambient
+torch setting, ``ambient_matmul_precision``, as the JAX kernels follow
+JAX's): "highest" multiplies float32 operands, "high" rounds the operands of
+every product to TF32 and "medium" to bf16, with float32 sums either way.
+The rounding happens at the products the JAX kernels mark with
+``precision=`` and nowhere else: the weight operands are rounded once
+(``round_sampling_weights``, which tags the set with its mode) and the
+kernels round the activation operands as they read them (the gates kernel
+its weights too, so the own-face slice ``w_p1_t`` goes to it as it is); the
+plain versions round both. The owners of the weights (``model/seqglow.py``,
+``sample/streaming.py``) hand the wrappers a set rounded at the launch's
+mode, which a wrapper takes as it is; a float32 set it rounds per call. The
+weights are prepared once by ``prepare_sampling_weights``: the
 coupling head is folded to contiguous ``[shift | scale_raw]`` halves and the
 1x1 inverse is taken in float64 and rounded to float32, as the reference does
 (modules.py:175-177).
@@ -55,6 +66,52 @@ from lets_face_it_tpu_torch.ops import cuda_build
 # own limit and plan from it.
 MAX_SMEM_BYTES = 232_448
 
+# The kernels' matmul precisions, by torch's names for the ambient setting,
+# and the launchers' ``mode`` (csrc/flow_step.cuh::FlowPrecision). The JAX
+# package's classes they stand for: HIGHEST (float32 operands), HIGH (TF32
+# operands) and DEFAULT (bf16 operands, the TPU's production arithmetic).
+MODES = {"highest": 0, "high": 1, "medium": 2}
+
+
+def ambient_matmul_precision() -> str:
+    """The precision the kernels take when the caller names none: torch's
+    ``get_float32_matmul_precision()``, mapped as the JAX package maps JAX's
+    ambient setting (pallas_flow.py:35): "highest" and "high" as they are,
+    anything else "medium"."""
+    v = torch.get_float32_matmul_precision()
+    return v if v in ("highest", "high") else "medium"
+
+
+def precision_mode(precision=None) -> int:
+    """``precision`` (None: ``ambient_matmul_precision()``) -> the launchers'
+    mode; raises ``ValueError`` for a name not in ``MODES``."""
+    if precision is None:
+        precision = ambient_matmul_precision()
+    if precision not in MODES:
+        raise ValueError(f"precision {precision!r}: expected one of "
+                         f"{', '.join(MODES)} (or None for the ambient one)")
+    return MODES[precision]
+
+
+def round_tf32(x):
+    """x rounded to TF32 (10 mantissa bits, to nearest, ties away from zero,
+    as ``cvt.rna.tf32.f32``), float32 -> float32, bit for bit on the int32
+    view (torch has no tf32 dtype). NaN passes through."""
+    u = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    u = (u + 0x1000) & 0xFFFFE000
+    u = torch.where(u >= 2**31, u - 2**32, u).to(torch.int32)
+    return torch.where(torch.isnan(x), x, u.view(torch.float32).view(x.shape))
+
+
+def round_operand(x, mode: int):
+    """A product operand at matmul precision ``mode``: as it is (0), rounded
+    to TF32 (1) or to bf16 (2, to nearest even), in x's dtype."""
+    if mode == 0:
+        return x
+    if mode == 2:
+        return x.to(torch.bfloat16).to(x.dtype)
+    return round_tf32(x.float()).to(x.dtype)
+
 
 class SamplingWeights(NamedTuple):
     """Flow weights prepared for the sampling kernels (all float32, contiguous)."""
@@ -68,6 +125,7 @@ class SamplingWeights(NamedTuple):
     an_bias: torch.Tensor   # [K, C]
     an_neg_logs_exp: torch.Tensor  # [K, C] = exp(-logs)
     chain: torch.Tensor     # [K, chain_step_floats]  see chain_weights
+    mode: int = 0           # precision the products' operands are rounded at
 
 
 def fold_output_head(out_params, cout: int):
@@ -77,8 +135,8 @@ def fold_output_head(out_params, cout: int):
     scale = torch.exp(out_params["logs"] * 3.0)
     w = out_params["w"] * scale[..., None]
     b = out_params["b"] * scale
-    perm = torch.cat([torch.arange(0, cout, 2), torch.arange(1, cout, 2)]
-                     ).to(w.device)
+    perm = torch.cat([torch.arange(0, cout, 2, device=w.device),
+                      torch.arange(1, cout, 2, device=w.device)])
     return w[:, perm, :], b[:, perm]
 
 
@@ -106,6 +164,29 @@ def prepare_sampling_weights(spec: FlowSpec, flow_params) -> SamplingWeights:
         an_neg_logs_exp=c(torch.exp(-flow_params["actnorm"]["logs"])),
     )
     return SamplingWeights(**w, chain=chain_weights(spec, **w))
+
+
+_SAMPLING_PRODUCT_WEIGHTS = ("w_ih_t", "w_hh_t", "out_w_t", "w_inv")
+
+
+def round_sampling_weights(spec: FlowSpec, w: SamplingWeights,
+                           mode: int) -> SamplingWeights:
+    """The set for matmul precision ``mode``: the weight operands of the
+    products rounded (the chain's copy laid out again from them), the
+    biases and the actnorm float32, tagged with ``mode``; ``w`` itself when
+    it is tagged so already. Rounding is idempotent, so rounding once here
+    is rounding at every use; a set rounded at another mode cannot be
+    unrounded and raises."""
+    if w.mode == mode:
+        return w
+    if w.mode != 0:
+        raise ValueError(f"weights rounded at mode {w.mode} cannot run at {mode}")
+    fields = w._asdict()
+    for name in _SAMPLING_PRODUCT_WEIGHTS:
+        fields[name] = round_operand(fields[name], mode).contiguous()
+    fields.pop("chain")
+    fields["mode"] = mode
+    return SamplingWeights(**fields, chain=chain_weights(spec, **fields))
 
 
 # Slices of the chain's three products: each of a product's lanes takes the
@@ -219,7 +300,14 @@ def sampling_seq_supported(spec: FlowSpec) -> bool:
 # Plain versions
 # ---------------------------------------------------------------------------
 
-def _step_tail_ref(spec: FlowSpec, w: SamplingWeights, k: int, z, gi, gh, h):
+def _mm(x, w, mode: int):
+    """A product at matmul precision ``mode``: x rounded here, the weight
+    operand ``w`` rounded by the caller (``round_sampling_weights``)."""
+    return round_operand(x, mode) @ w
+
+
+def _step_tail_ref(spec: FlowSpec, w: SamplingWeights, k: int, z, gi, gh, h,
+                   mode: int = 0):
     """A reversed step given its GRU pre-activations gi and gh: the GRU
     update, the coupling, the 1x1 inverse and the actnorm -> (z, new state)."""
     z1d = spec.z1_dim
@@ -230,35 +318,42 @@ def _step_tail_ref(spec: FlowSpec, w: SamplingWeights, k: int, z, gi, gh, h):
     zz = torch.sigmoid(gi[:, hd:2 * hd] + gh[:, hd:2 * hd])
     n = torch.tanh(gi[:, 2 * hd:] + r * gh[:, 2 * hd:])
     h_new = (1.0 - zz) * n + zz * h
-    hout = h_new @ w.out_w_t[k] + w.out_b[k]
+    hout = _mm(h_new, w.out_w_t[k], mode) + w.out_b[k]
     scale = torch.clamp(torch.sigmoid(hout[:, half:] + 2.0), min=spec.scale_eps)
-    z = torch.cat([z1, z2 / scale - hout[:, :half]], dim=-1) @ w.w_inv[k]
+    z = _mm(torch.cat([z1, z2 / scale - hout[:, :half]], dim=-1), w.w_inv[k],
+            mode)
     return z * w.an_neg_logs_exp[k] - w.an_bias[k], h_new
 
 
-def _reverse_step_ref(spec: FlowSpec, w: SamplingWeights, k: int, z, proj, h):
+def _reverse_step_ref(spec: FlowSpec, w: SamplingWeights, k: int, z, proj, h,
+                      mode: int = 0):
     """One reversed step on folded weights: -> (z, new GRU state)."""
     rnn_in = torch.cat([z[:, :spec.z1_dim], ops.leaky_relu(proj)], dim=-1)
-    gi = rnn_in @ w.w_ih_t[k] + w.b_ih[k]
-    gh = h @ w.w_hh_t[k] + w.b_hh[k]
-    return _step_tail_ref(spec, w, k, z, gi, gh, h)
+    gi = _mm(rnn_in, w.w_ih_t[k], mode) + w.b_ih[k]
+    gh = _mm(h, w.w_hh_t[k], mode) + w.b_hh[k]
+    return _step_tail_ref(spec, w, k, z, gi, gh, h, mode)
 
 
 def frame_rev_fused_ref(spec: FlowSpec, weights: SamplingWeights, z,
-                        cond_projs, states):
-    """Plain version of ``frame_rev_fused``: a Python loop over k."""
+                        cond_projs, states, mode: int = 0):
+    """Plain version of ``frame_rev_fused``: a Python loop over k, at matmul
+    precision ``mode``."""
+    weights = round_sampling_weights(spec, weights, mode)
     new_states = states.clone()
     for k in reversed(range(spec.n_steps)):
         z, new_states[k] = _reverse_step_ref(spec, weights, k, z,
-                                             cond_projs[k], states[k])
+                                             cond_projs[k], states[k], mode)
     return z, new_states
 
 
 def sequence_rev_fused_ref(spec: FlowSpec, weights: SamplingWeights, w_p1_t,
-                           zs, fixed_projs, hist0, states0):
-    """Plain version of ``sequence_rev_fused``: loops over t and k."""
+                           zs, fixed_projs, hist0, states0, mode: int = 0):
+    """Plain version of ``sequence_rev_fused``: loops over t and k, at
+    matmul precision ``mode``."""
     c = spec.channels
     p1_dim = hist0.shape[-1]
+    weights = round_sampling_weights(spec, weights, mode)
+    w_p1_t = round_operand(w_p1_t, mode)
     states = states0.clone()
     hist = hist0
     xs = []
@@ -267,9 +362,9 @@ def sequence_rev_fused_ref(spec: FlowSpec, weights: SamplingWeights, w_p1_t,
         for k in reversed(range(spec.n_steps)):
             proj = fixed_projs[t, k]
             if p1_dim:
-                proj = proj + hist @ w_p1_t[k]
+                proj = proj + _mm(hist, w_p1_t[k], mode)
             z, states[k] = _reverse_step_ref(spec, weights, k, z, proj,
-                                             states[k])
+                                             states[k], mode)
         xs.append(z)
         if p1_dim:
             hist = torch.cat([hist[:, c:], z], dim=-1)
@@ -277,31 +372,34 @@ def sequence_rev_fused_ref(spec: FlowSpec, weights: SamplingWeights, w_p1_t,
 
 
 def sample_gates_ref(spec: FlowSpec, weights: SamplingWeights, w_p1_t, fixed,
-                     hist, states):
+                     hist, states, mode: int = 0):
     """Plain version of ``sample_gates``: the products of one frame that do
     not depend on the chain -> (proj [K, B, cond], gc [K, B, 3H],
     gh [K, B, 3H]); proj is ``fixed`` itself when P1 = 0."""
+    weights = round_sampling_weights(spec, weights, mode)
     proj = fixed
     if hist.shape[-1]:
-        proj = fixed + torch.einsum("bp,kpc->kbc", hist, w_p1_t)
-    gc = (ops.leaky_relu(proj) @ weights.w_ih_t[:, spec.z1_dim:]
+        proj = fixed + torch.einsum("bp,kpc->kbc", round_operand(hist, mode),
+                                    round_operand(w_p1_t, mode))
+    gc = (_mm(ops.leaky_relu(proj), weights.w_ih_t[:, spec.z1_dim:], mode)
           + weights.b_ih[:, None])
-    gh = states @ weights.w_hh_t + weights.b_hh[:, None]
+    gh = _mm(states, weights.w_hh_t, mode) + weights.b_hh[:, None]
     return proj, gc, gh
 
 
 def sample_chain_ref(spec: FlowSpec, weights: SamplingWeights, z, gc, gh,
-                     states, hist=None):
+                     states, hist=None, mode: int = 0):
     """Plain version of ``sample_chain``: the K reversed steps of one frame
     given its gates -> (x [B, C], new_states [K, B, H], the next own-face
     history [B, P1], or None without one)."""
     z1d = spec.z1_dim
+    weights = round_sampling_weights(spec, weights, mode)
     x = z
     new_states = states.clone()
     for k in reversed(range(spec.n_steps)):
-        gi = gc[k] + x[:, :z1d] @ weights.w_ih_t[k, :z1d]
+        gi = gc[k] + _mm(x[:, :z1d], weights.w_ih_t[k, :z1d], mode)
         x, new_states[k] = _step_tail_ref(spec, weights, k, x, gi, gh[k],
-                                          states[k])
+                                          states[k], mode)
     new_hist = None
     if hist is not None and hist.shape[-1]:
         new_hist = torch.cat([hist[:, spec.channels:], x], dim=-1)
@@ -319,7 +417,7 @@ _I = ctypes.c_int
 @functools.cache
 def _frame_fn():
     fn = cuda_build.load("frame_rev").frame_rev_launch
-    fn.argtypes = [_P] * 12 + [_I] * 7 + [ctypes.c_float, _P, _P]
+    fn.argtypes = [_P] * 12 + [_I] * 7 + [ctypes.c_float, _I, _P, _P]
     fn.restype = _I
     return fn
 
@@ -327,7 +425,7 @@ def _frame_fn():
 @functools.cache
 def _seq_fn():
     fn = cuda_build.load("seq_rev").seq_rev_launch
-    fn.argtypes = [_P] * 17 + [_I] * 9 + [ctypes.c_float, _P, _P]
+    fn.argtypes = [_P] * 17 + [_I] * 9 + [ctypes.c_float, _I, _P, _P]
     fn.restype = _I
     return fn
 
@@ -335,7 +433,7 @@ def _seq_fn():
 @functools.cache
 def _gates_fn():
     fn = cuda_build.load("sample_gates").sample_gates_launch
-    fn.argtypes = [_P] * 11 + [_I] * 8 + [_P, _P]
+    fn.argtypes = [_P] * 11 + [_I] * 9 + [_P, _P]
     fn.restype = _I
     return fn
 
@@ -343,7 +441,8 @@ def _gates_fn():
 @functools.cache
 def _chain_fn():
     fn = cuda_build.load("sample_chain").sample_chain_launch
-    fn.argtypes = [_P] * 9 + [_I] * 7 + [ctypes.c_float] + [_I] * 3 + [_P] * 3
+    fn.argtypes = ([_P] * 9 + [_I] * 7 + [ctypes.c_float] + [_I] * 3 + [_P, _I]
+                   + [_P] * 2)
     fn.restype = _I
     return fn
 
@@ -368,12 +467,6 @@ def _check_weights(spec: FlowSpec, w: SamplingWeights, device):
               "an_neg_logs_exp": (k, c), "chain": (k, chain_step_bytes(spec) // 4)}
     for name, shape in shapes.items():
         _check(name, getattr(w, name), shape, device)
-
-
-def _check_precision(precision):
-    if precision != "highest":
-        raise ValueError(f"precision {precision!r}: only 'highest' (float32 "
-                         "FMA) is implemented")
 
 
 def _spec_ints(spec: FlowSpec):
@@ -411,16 +504,17 @@ def _count_launches(call):
 
 
 def frame_rev_fused(spec: FlowSpec, weights: SamplingWeights, z, cond_projs,
-                    states, *, precision: str = "highest"):
+                    states, *, precision: str | None = None):
     """Inverse of one frame through all K steps: z [B, C], cond_projs
     [K, B, cond] (pre-activation), states [K, B, H] -> (x [B, C],
     new_states [K, B, H]). On the card: one ``sample_gates`` launch (gc, gh)
-    and one ``sample_chain`` launch."""
-    _check_precision(precision)
+    and one ``sample_chain`` launch. ``precision``: a name of ``MODES``, or
+    None for the ambient one."""
+    mode = precision_mode(precision)
     if not fused_supported(spec):
         raise ValueError("spec is outside the per-frame kernel's envelope")
     if z.device.type == "cpu":
-        return frame_rev_fused_ref(spec, weights, z, cond_projs, states)
+        return frame_rev_fused_ref(spec, weights, z, cond_projs, states, mode)
     if z.device.type != "cuda":
         raise ValueError(f"no sampling kernel for device {z.device}")
     b = z.shape[0]
@@ -429,6 +523,7 @@ def frame_rev_fused(spec: FlowSpec, weights: SamplingWeights, z, cond_projs,
     _check("cond_projs", cond_projs, (k, b, cond), z.device)
     _check("states", states, (k, b, h), z.device)
     _check_weights(spec, weights, z.device)
+    weights = round_sampling_weights(spec, weights, mode)
     x = torch.empty_like(z)
     new_states = torch.empty_like(states)
     gc = z.new_empty((k, b, 3 * h))
@@ -437,8 +532,8 @@ def frame_rev_fused(spec: FlowSpec, weights: SamplingWeights, z, cond_projs,
     err = _count_launches(lambda launches: _frame_fn()(
         z.data_ptr(), cond_projs.data_ptr(), states.data_ptr(), x.data_ptr(),
         new_states.data_ptr(), *_launcher_weight_ptrs(weights), gc.data_ptr(),
-        gh.data_ptr(), b, *_spec_ints(spec), float(spec.scale_eps), stream,
-        launches))
+        gh.data_ptr(), b, *_spec_ints(spec), float(spec.scale_eps), mode,
+        stream, launches))
     _raise_on(err, "frame_rev")
     frame_rev_fused.launches += 1
     return x, new_states
@@ -449,20 +544,21 @@ frame_rev_fused.launches = 0
 
 def sequence_rev_fused(spec: FlowSpec, weights: SamplingWeights, w_p1_t, zs,
                        fixed_projs, hist0, states0, *,
-                       precision: str = "highest"):
+                       precision: str | None = None):
     """Generate a whole sequence: zs [N, B, C] latents, fixed_projs
     [N, K, B, cond] (the non-autoregressive part of every projection, bias
     included), hist0 [B, P1] flattened own-face history (oldest frame first),
     w_p1_t [K, P1, cond] own-face projection slice, states0 [K, B, H]
     -> xs [N, B, C]. P1 = 0 turns the own-face path off. On the card: per
     frame the ``sample_gates`` launches and one ``sample_chain`` launch, all
-    from one call into ``csrc/seq_rev.cu``."""
-    _check_precision(precision)
+    from one call into ``csrc/seq_rev.cu``. ``precision`` as in
+    ``frame_rev_fused``."""
+    mode = precision_mode(precision)
     if not sampling_seq_supported(spec):
         raise ValueError("spec is outside the sequence kernel's envelope")
     if zs.device.type == "cpu":
         return sequence_rev_fused_ref(spec, weights, w_p1_t, zs, fixed_projs,
-                                      hist0, states0)
+                                      hist0, states0, mode)
     if zs.device.type != "cuda":
         raise ValueError(f"no sampling kernel for device {zs.device}")
     n, b, c = zs.shape
@@ -475,6 +571,7 @@ def sequence_rev_fused(spec: FlowSpec, weights: SamplingWeights, w_p1_t, zs,
     _check("w_p1_t", w_p1_t, (k, p1, cond), dev)
     _check("states0", states0, (k, b, h), dev)
     _check_weights(spec, weights, dev)
+    weights = round_sampling_weights(spec, weights, mode)
     xs = torch.empty_like(zs)
     # scratch of the frame loop: the gates, two histories, the running states
     proj = zs.new_empty((k, b, cond) if p1 else (0,))
@@ -488,7 +585,8 @@ def sequence_rev_fused(spec: FlowSpec, weights: SamplingWeights, w_p1_t, zs,
         w_p1_t.data_ptr(), states0.data_ptr(), xs.data_ptr(),
         *_launcher_weight_ptrs(weights), proj.data_ptr(), gc.data_ptr(),
         gh.data_ptr(), hist_a.data_ptr(), hist_b.data_ptr(), states.data_ptr(),
-        b, n, p1, *_spec_ints(spec), float(spec.scale_eps), stream, launches))
+        b, n, p1, *_spec_ints(spec), float(spec.scale_eps), mode, stream,
+        launches))
     _raise_on(err, "seq_rev")
     sequence_rev_fused.launches += 1
     return xs
@@ -498,19 +596,21 @@ sequence_rev_fused.launches = 0
 
 
 def sample_gates(spec: FlowSpec, weights: SamplingWeights, w_p1_t, fixed,
-                 hist, states, *, precision: str = "highest", rows: int = 0,
+                 hist, states, *, precision: str | None = None, rows: int = 0,
                  groups: int = 0):
     """The products of one frame that do not depend on the chain: fixed
     [K, B, cond] (the frame's non-autoregressive projections, or its whole
     cond_projs when P1 = 0), hist [B, P1], w_p1_t [K, P1, cond], states
     [K, B, H] -> (proj [K, B, cond], gc [K, B, 3H], gh [K, B, 3H]); proj is
     ``fixed`` itself when P1 = 0. ``rows``: batch rows per block, ``groups``:
-    column groups of four per block (8 or 32), 0 for the launcher's choice."""
-    _check_precision(precision)
+    column groups of four per block (8 or 32), 0 for the launcher's choice.
+    ``precision`` as in ``frame_rev_fused``."""
+    mode = precision_mode(precision)
     if not fused_supported(spec):
         raise ValueError("spec is outside the per-frame kernel's envelope")
     if fixed.device.type == "cpu":
-        return sample_gates_ref(spec, weights, w_p1_t, fixed, hist, states)
+        return sample_gates_ref(spec, weights, w_p1_t, fixed, hist, states,
+                                mode)
     if fixed.device.type != "cuda":
         raise ValueError(f"no sampling kernel for device {fixed.device}")
     k, _, z1, cond, h, _ = _spec_ints(spec)
@@ -521,6 +621,7 @@ def sample_gates(spec: FlowSpec, weights: SamplingWeights, w_p1_t, fixed,
     _check("w_p1_t", w_p1_t, (k, p1, cond), dev)
     _check("states", states, (k, b, h), dev)
     _check_weights(spec, weights, dev)
+    weights = round_sampling_weights(spec, weights, mode)
     proj = torch.empty_like(fixed) if p1 else fixed
     gc = fixed.new_empty((k, b, 3 * h))
     gh = torch.empty_like(gc)
@@ -530,7 +631,7 @@ def sample_gates(spec: FlowSpec, weights: SamplingWeights, w_p1_t, fixed,
         weights.w_ih_t.data_ptr(), weights.w_hh_t.data_ptr(),
         weights.b_ih.data_ptr(), weights.b_hh.data_ptr(), proj.data_ptr(),
         gc.data_ptr(), gh.data_ptr(), b, p1, k, z1, cond, h, rows, groups,
-        stream, launches))
+        mode, stream, launches))
     _raise_on(err, "sample_gates")
     return proj, gc, gh
 
@@ -539,7 +640,7 @@ sample_gates.launches = 0
 
 
 def sample_chain(spec: FlowSpec, weights: SamplingWeights, z, gc, gh, states,
-                 hist=None, *, precision: str = "highest", tile=(0, 0, 0),
+                 hist=None, *, precision: str | None = None, tile=(0, 0, 0),
                  trace=None):
     """The K reversed steps of one frame given its gates: z [B, C], gc and
     gh [K, B, 3H], states [K, B, H], hist [B, P1] or None -> (x [B, C],
@@ -548,12 +649,13 @@ def sample_chain(spec: FlowSpec, weights: SamplingWeights, z, gc, gh, states,
     launcher's plan. ``trace``: None, or an int64 CUDA tensor [blocks,
     CHAIN_TRACE_SLOTS] that receives each block's device times (ns) of the
     first tile: start, cluster synchronised, z in hand, the end of each
-    held step, the hand-off sent (``csrc/sample_chain.cuh``)."""
-    _check_precision(precision)
+    held step, the hand-off sent (``csrc/sample_chain.cuh``; "highest"
+    only). ``precision`` as in ``frame_rev_fused``."""
+    mode = precision_mode(precision)
     if not fused_supported(spec):
         raise ValueError("spec is outside the per-frame kernel's envelope")
     if z.device.type == "cpu":
-        return sample_chain_ref(spec, weights, z, gc, gh, states, hist)
+        return sample_chain_ref(spec, weights, z, gc, gh, states, hist, mode)
     if z.device.type != "cuda":
         raise ValueError(f"no sampling kernel for device {z.device}")
     b = z.shape[0]
@@ -567,6 +669,7 @@ def sample_chain(spec: FlowSpec, weights: SamplingWeights, z, gc, gh, states,
     if p1:
         _check("hist", hist, (b, p1), dev)
     _check_weights(spec, weights, dev)
+    weights = round_sampling_weights(spec, weights, mode)
     x = torch.empty_like(z)
     new_states = torch.empty_like(states)
     new_hist = torch.empty_like(hist) if p1 else None
@@ -576,7 +679,8 @@ def sample_chain(spec: FlowSpec, weights: SamplingWeights, z, gc, gh, states,
         new_states.data_ptr(), x.data_ptr(), hist.data_ptr() if p1 else None,
         new_hist.data_ptr() if p1 else None, weights.chain.data_ptr(), b, p1,
         k, c, spec.z1_dim, h, spec.coupling_out_dim, float(spec.scale_eps),
-        *tile, None if trace is None else trace.data_ptr(), stream, launches))
+        *tile, None if trace is None else trace.data_ptr(), mode, stream,
+        launches))
     _raise_on(err, "sample_chain")
     return x, new_states, new_hist
 

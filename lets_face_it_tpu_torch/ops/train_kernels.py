@@ -31,8 +31,14 @@ differentiable ``prepare_train_weights``.
 A wrapper runs its plain version (``*_ref``) only when it is given CPU
 tensors; given CUDA tensors it launches its kernel or raises. Each wrapper
 counts its kernel launches in its ``launches`` attribute. The kernels
-compute in float32 with fused multiply-adds; ``precision="highest"`` is the
-only value accepted.
+compute in float32 with fused multiply-adds at a matmul ``precision``
+(``flow_kernels.MODES``; None, the default, follows the ambient torch
+setting): the operands of the products the JAX kernels mark with
+``precision=`` (the GRU input and hidden products, the coupling head, the
+1x1, the backward's four cotangent products and the weight-gradient
+contractions) are rounded to TF32 ("high") or bf16 ("medium"), float32
+sums either way. The wrappers round the weight operands once
+(``round_train_weights``), the kernels the activations as they read them.
 """
 
 from __future__ import annotations
@@ -47,10 +53,12 @@ from lets_face_it_tpu_torch.core import ops
 from lets_face_it_tpu_torch.model.spec import FlowSpec
 from lets_face_it_tpu_torch.ops import cuda_build
 from lets_face_it_tpu_torch.ops.flow_kernels import (MAX_SMEM_BYTES, _check,
-                                                     _check_precision,
                                                      _raise_on, _round4,
                                                      _spec_ints,
-                                                     fold_output_head)
+                                                     fold_output_head,
+                                                     ambient_matmul_precision,
+                                                     precision_mode,
+                                                     round_operand)
 
 
 class TrainWeights(NamedTuple):
@@ -89,6 +97,20 @@ def prepare_train_weights(spec: FlowSpec, flow_params) -> TrainWeights:
         out_w_t=out_w.transpose(1, 2).contiguous(),
         out_b=out_b.contiguous(),
     )
+
+
+_TRAIN_PRODUCT_WEIGHTS = ("w", "w_ih_t", "w_hh_t", "out_w_t")
+
+
+def round_train_weights(tw: TrainWeights, mode: int) -> TrainWeights:
+    """The weight operands of the products rounded at matmul precision
+    ``mode`` (not differentiable: the autograd Function's gradients reach
+    the float32 weights, as a JAX dot's do); biases and actnorm stay
+    float32. Rounding is idempotent."""
+    if mode == 0:
+        return tw
+    return tw._replace(**{name: round_operand(getattr(tw, name), mode).contiguous()
+                          for name in _TRAIN_PRODUCT_WEIGHTS})
 
 
 def logdet_const(spec: FlowSpec, flow_params):
@@ -140,38 +162,50 @@ def train_supported(spec: FlowSpec) -> bool:
 # Plain versions
 # ---------------------------------------------------------------------------
 
-def cond_gates_ref(spec: FlowSpec, tw: TrainWeights, cond_seq):
+def _rounded(mode: int):
+    """The operand rounding of matmul precision ``mode``."""
+    return lambda x: round_operand(x, mode)
+
+
+def cond_gates_ref(spec: FlowSpec, tw: TrainWeights, cond_seq, mode: int = 0):
     """Plain version of ``cond_gates``: cond_seq [N, K, B, cond] ->
-    leaky_relu(cond_seq) @ w_ih_t[:, Z1:] + b_ih, [N, K, B, 3H]."""
-    w_c = tw.w_ih_t[:, spec.z1_dim:]
-    gc = torch.einsum("nkbi,kig->nkbg", ops.leaky_relu(cond_seq), w_c)
+    leaky_relu(cond_seq) @ w_ih_t[:, Z1:] + b_ih, [N, K, B, 3H], at matmul
+    precision ``mode``."""
+    rnd = _rounded(mode)
+    w_c = rnd(tw.w_ih_t[:, spec.z1_dim:])
+    gc = torch.einsum("nkbi,kig->nkbg", rnd(ops.leaky_relu(cond_seq)), w_c)
     return (gc + tw.b_ih[None, :, None, :]).contiguous()
 
 
-def _recompute_step(spec: FlowSpec, tw: TrainWeights, k: int, z, gc_k, h_prev):
-    """One forward step on prepared weights, the conditioning gates gc_k
-    given -> (zb, gi, gh, r, u, n, h_new, hout, sig, scale)."""
+def _recompute_step(spec: FlowSpec, tw: TrainWeights, k: int, z, gc_k, h_prev,
+                    mode: int = 0):
+    """One forward step on prepared weights (rounded for ``mode``), the
+    conditioning gates gc_k given -> (zb, gi, gh, r, u, n, h_new, hout, sig,
+    scale)."""
+    rnd = _rounded(mode)
     hd, z1d, half = spec.hidden_channels, spec.z1_dim, spec.coupling_out_dim // 2
     za = (z + tw.an_bias[k]) * tw.an_scale[k]
-    zb = za @ tw.w[k]
-    gi = zb[:, :z1d] @ tw.w_ih_t[k, :z1d] + gc_k
-    gh = h_prev @ tw.w_hh_t[k] + tw.b_hh[k]
+    zb = rnd(za) @ tw.w[k]
+    gi = rnd(zb[:, :z1d]) @ tw.w_ih_t[k, :z1d] + gc_k
+    gh = rnd(h_prev) @ tw.w_hh_t[k] + tw.b_hh[k]
     r = torch.sigmoid(gi[:, :hd] + gh[:, :hd])
     u = torch.sigmoid(gi[:, hd:2 * hd] + gh[:, hd:2 * hd])
     n = torch.tanh(gi[:, 2 * hd:] + r * gh[:, 2 * hd:])
     h_new = (1.0 - u) * n + u * h_prev
-    hout = h_new @ tw.out_w_t[k] + tw.out_b[k]
+    hout = rnd(h_new) @ tw.out_w_t[k] + tw.out_b[k]
     sig = torch.sigmoid(hout[:, half:] + 2.0)
     scale = torch.clamp(sig, min=spec.scale_eps)
     return zb, gi, gh, r, u, n, h_new, hout, sig, scale
 
 
-def seq_fwd_ref(spec: FlowSpec, tw: TrainWeights, xs, cond_seq, states0):
+def seq_fwd_ref(spec: FlowSpec, tw: TrainWeights, xs, cond_seq, states0,
+                mode: int = 0):
     """Plain version of ``seq_fwd``: ``cond_gates_ref``, then loops over t
-    and k."""
+    and k, at matmul precision ``mode``."""
     n_frames, b, c = xs.shape
     k_steps, z1d, half = spec.n_steps, spec.z1_dim, spec.coupling_out_dim // 2
-    gc = cond_gates_ref(spec, tw, cond_seq)
+    tw = round_train_weights(tw, mode)
+    gc = cond_gates_ref(spec, tw, cond_seq, mode)
     z_seq = torch.empty_like(xs)
     scales = xs.new_empty((n_frames, k_steps, b, half))
     zs_res = xs.new_empty((n_frames, k_steps, b, c))
@@ -182,7 +216,7 @@ def seq_fwd_ref(spec: FlowSpec, tw: TrainWeights, xs, cond_seq, states0):
         for k in range(k_steps):
             zs_res[t, k] = z
             zb, *_, h_new, hout, _, scale = _recompute_step(
-                spec, tw, k, z, gc[t, k], states[k])
+                spec, tw, k, z, gc[t, k], states[k], mode)
             states[k] = h_new
             states_res[t, k] = h_new
             scales[t, k] = scale
@@ -193,8 +227,11 @@ def seq_fwd_ref(spec: FlowSpec, tw: TrainWeights, xs, cond_seq, states0):
 
 
 def seq_bwd_ref(spec: FlowSpec, tw: TrainWeights, gc, zs_res, hprev_all,
-                dz_seq, dscales, dnew_states):
-    """Plain version of ``seq_bwd``: loops over t and k in reverse."""
+                dz_seq, dscales, dnew_states, mode: int = 0):
+    """Plain version of ``seq_bwd``: loops over t and k in reverse, at
+    matmul precision ``mode``."""
+    tw = round_train_weights(tw, mode)
+    rnd = _rounded(mode)
     n_frames, b, c = dz_seq.shape
     k_steps, hd = spec.n_steps, spec.hidden_channels
     z1d, half = spec.z1_dim, spec.coupling_out_dim // 2
@@ -209,12 +246,12 @@ def seq_bwd_ref(spec: FlowSpec, tw: TrainWeights, gc, zs_res, hprev_all,
         for k in reversed(range(k_steps)):
             h_prev = hprev_all[t, k]
             zb, gi, gh, r, u, n, _, hout, sig, scale = _recompute_step(
-                spec, tw, k, zs_res[t, k], gc[t, k], h_prev)
+                spec, tw, k, zs_res[t, k], gc[t, k], h_prev, mode)
             dz2p = dz[:, z1d:]
             dscale = dz2p * (zb[:, z1d:] + hout[:, :half]) + dscales[t, k]
             dsraw = torch.where(sig > spec.scale_eps, dscale, 0.0) * sig * (1.0 - sig)
             dhout = torch.cat([dz2p * scale, dsraw], dim=-1)
-            dh_new = dhout @ tw.out_w_t[k].T + dstates[k]
+            dh_new = rnd(dhout) @ tw.out_w_t[k].T + dstates[k]
             du = dh_new * (h_prev - n)
             dgn = dh_new * (1.0 - u) * (1.0 - n * n)
             dghn = dgn * r
@@ -222,12 +259,12 @@ def seq_bwd_ref(spec: FlowSpec, tw: TrainWeights, gc, zs_res, hprev_all,
             dgu = du * u * (1.0 - u)
             dgi = torch.cat([dgr, dgu, dgn], dim=-1)
             dgh = torch.cat([dgr, dgu, dghn], dim=-1)
-            dstates[k] = dh_new * u + dgh @ tw.w_hh_t[k].T
-            dz1 = dz[:, :z1d] + dgi @ tw.w_ih_t[k, :z1d].T
+            dstates[k] = dh_new * u + rnd(dgh) @ tw.w_hh_t[k].T
+            dz1 = dz[:, :z1d] + rnd(dgi) @ tw.w_ih_t[k, :z1d].T
             dzb = torch.cat([dz1, dz2p * scale], dim=-1)
             dgi_all[t, k], dghn_all[t, k] = dgi, dghn
             dhout_all[t, k], dzb_all[t, k] = dhout, dzb
-            dz = (dzb @ tw.w[k].T) * tw.an_scale[k]
+            dz = (rnd(dzb) @ tw.w[k].T) * tw.an_scale[k]
         dx[t] = dz
     return dx, dstates, dgi_all, dghn_all, dhout_all, dzb_all
 
@@ -243,7 +280,7 @@ _I = ctypes.c_int
 @functools.cache
 def _gates_fn():
     fn = cuda_build.load("cond_gates").cond_gates_launch
-    fn.argtypes = [_P] * 4 + [_I] * 6 + [_P]
+    fn.argtypes = [_P] * 4 + [_I] * 7 + [_P]
     fn.restype = _I
     return fn
 
@@ -251,7 +288,7 @@ def _gates_fn():
 @functools.cache
 def _fwd_fn():
     fn = cuda_build.load("seq_fwd").seq_fwd_launch
-    fn.argtypes = [_P] * 16 + [_I] * 8 + [ctypes.c_float] + [_I] * 3 + [_P]
+    fn.argtypes = [_P] * 16 + [_I] * 8 + [ctypes.c_float] + [_I] * 4 + [_P]
     fn.restype = _I
     return fn
 
@@ -259,7 +296,7 @@ def _fwd_fn():
 @functools.cache
 def _bwd_fn():
     fn = cuda_build.load("seq_bwd").seq_bwd_launch
-    fn.argtypes = [_P] * 25 + [_I] * 8 + [ctypes.c_float] + [_I] * 3 + [_P]
+    fn.argtypes = [_P] * 25 + [_I] * 8 + [ctypes.c_float] + [_I] * 4 + [_P]
     fn.restype = _I
     return fn
 
@@ -293,34 +330,38 @@ def _check_weights(spec: FlowSpec, tw: TrainWeights, device):
         _check(name, getattr(tw, name), shape, device)
 
 
-def _dispatch(spec: FlowSpec, precision: str, device) -> bool:
-    """True when the kernel is to be launched, False for the plain version
-    (CPU tensors); raises outside the envelope or on another device."""
-    _check_precision(precision)
+def _dispatch(spec: FlowSpec, precision, device) -> tuple[bool, int]:
+    """(whether the kernel is to be launched (False for the plain version,
+    CPU tensors), the matmul precision's mode); raises for an unknown
+    precision, outside the envelope or on another device."""
+    mode = precision_mode(precision)
     if not train_supported(spec):
         raise ValueError("spec is outside the training kernels' envelope")
     if device.type == "cpu":
-        return False
+        return False, mode
     if device.type != "cuda":
         raise ValueError(f"no training kernel for device {device}")
-    return True
+    return True, mode
 
 
 def cond_gates(spec: FlowSpec, tw: TrainWeights, cond_seq, *,
-               precision: str = "highest"):
+               precision: str | None = None):
     """Conditioning gates of every frame and step: cond_seq [N, K, B, cond]
-    (pre-activation projections) -> gc [N, K, B, 3H]."""
-    if not _dispatch(spec, precision, cond_seq.device):
-        return cond_gates_ref(spec, tw, cond_seq)
+    (pre-activation projections) -> gc [N, K, B, 3H]. ``precision``: a name
+    of ``flow_kernels.MODES``, or None for the ambient one."""
+    launch, mode = _dispatch(spec, precision, cond_seq.device)
+    if not launch:
+        return cond_gates_ref(spec, tw, cond_seq, mode)
     n, k, b, cond = cond_seq.shape
     dev = cond_seq.device
     _check("cond_seq", cond_seq, (n, spec.n_steps, b, spec.cond.cond_dim), dev)
     _check_weights(spec, tw, dev)
+    tw = round_train_weights(tw, mode)
     gc = cond_seq.new_empty((n, k, b, 3 * spec.hidden_channels))
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _gates_fn()(cond_seq.data_ptr(), tw.w_ih_t.data_ptr(),
                       tw.b_ih.data_ptr(), gc.data_ptr(), b, n, k, spec.z1_dim,
-                      cond, spec.hidden_channels, stream)
+                      cond, spec.hidden_channels, mode, stream)
     _raise_on(err, "cond_gates")
     cond_gates.launches += 1
     return gc
@@ -330,25 +371,28 @@ cond_gates.launches = 0
 
 
 def seq_fwd(spec: FlowSpec, tw: TrainWeights, xs, cond_seq, states0, *,
-            precision: str = "highest", tile=(0, 0, 0)):
+            precision: str | None = None, tile=(0, 0, 0)):
     """Teacher-forced forward: xs [N, B, C], cond_seq [N, K, B, cond]
     (pre-activation projections), states0 [K, B, H] -> (z_seq [N, B, C],
     scales [N, K, B, Cout/2], zs_res [N, K, B, C], states_res [N, K, B, H],
     gc [N, K, B, 3H]): ``cond_gates``, then ``seq_fwd_serial``."""
-    if not _dispatch(spec, precision, xs.device):
-        return seq_fwd_ref(spec, tw, xs, cond_seq, states0)
+    launch, mode = _dispatch(spec, precision, xs.device)
+    if not launch:
+        return seq_fwd_ref(spec, tw, xs, cond_seq, states0, mode)
+    tw = round_train_weights(tw, mode)
     gc = cond_gates(spec, tw, cond_seq, precision=precision)
     return (*seq_fwd_serial(spec, tw, xs, gc, states0, precision=precision,
                             tile=tile), gc)
 
 
 def seq_fwd_serial(spec: FlowSpec, tw: TrainWeights, xs, gc, states0, *,
-                   precision: str = "highest", tile=(0, 0, 0)):
+                   precision: str | None = None, tile=(0, 0, 0)):
     """The serial chain of ``seq_fwd`` on CUDA tensors, the conditioning
     gates gc [N, K, B, 3H] given -> (z_seq, scales, zs_res, states_res).
     ``tile`` = (rows per block, blocks per cluster, ring slots), 0 for the
     launcher's plan."""
-    if not _dispatch(spec, precision, xs.device):
+    launch, mode = _dispatch(spec, precision, xs.device)
+    if not launch:
         raise ValueError("seq_fwd_serial runs on CUDA tensors only")
     n, b, c = xs.shape
     k, _, _, _, h, cout = _spec_ints(spec)
@@ -357,6 +401,7 @@ def seq_fwd_serial(spec: FlowSpec, tw: TrainWeights, xs, gc, states0, *,
     _check("gc", gc, (n, k, b, 3 * h), dev)
     _check("states0", states0, (k, b, h), dev)
     _check_weights(spec, tw, dev)
+    tw = round_train_weights(tw, mode)
     z_seq = torch.empty_like(xs)
     scales = xs.new_empty((n, k, b, cout // 2))
     zs_res = xs.new_empty((n, k, b, c))
@@ -366,7 +411,7 @@ def seq_fwd_serial(spec: FlowSpec, tw: TrainWeights, xs, gc, states0, *,
                     z_seq.data_ptr(), scales.data_ptr(), zs_res.data_ptr(),
                     states_res.data_ptr(), *(t.data_ptr() for t in tw),
                     b, n, *_spec_ints(spec), float(spec.scale_eps), *tile,
-                    stream)
+                    mode, stream)
     _raise_on(err, "seq_fwd")
     seq_fwd.launches += 1
     return z_seq, scales, zs_res, states_res
@@ -376,7 +421,7 @@ seq_fwd.launches = 0
 
 
 def seq_bwd(spec: FlowSpec, tw: TrainWeights, gc, zs_res, hprev_all,
-            dz_seq, dscales, dnew_states, *, precision: str = "highest",
+            dz_seq, dscales, dnew_states, *, precision: str | None = None,
             tile=(0, 0, 0)):
     """Mirror backward: the residuals gc [N, K, B, 3H] (``seq_fwd``'s
     conditioning gates), zs_res [N, K, B, C] and hprev_all [N, K, B, H]
@@ -384,9 +429,10 @@ def seq_bwd(spec: FlowSpec, tw: TrainWeights, gc, zs_res, hprev_all,
     [N, K, B, Cout/2] and dnew_states [K, B, H] -> (dx [N, B, C], dstates0
     [K, B, H], dgi [N, K, B, 3H], dghn [N, K, B, H], dhout [N, K, B, Cout],
     dzb [N, K, B, C]). ``tile`` as in ``seq_fwd``."""
-    if not _dispatch(spec, precision, dz_seq.device):
+    launch, mode = _dispatch(spec, precision, dz_seq.device)
+    if not launch:
         return seq_bwd_ref(spec, tw, gc, zs_res, hprev_all, dz_seq,
-                           dscales, dnew_states)
+                           dscales, dnew_states, mode)
     n, b, c = dz_seq.shape
     k, _, z1, _, h, cout = _spec_ints(spec)
     dev = dz_seq.device
@@ -398,6 +444,7 @@ def seq_bwd(spec: FlowSpec, tw: TrainWeights, gc, zs_res, hprev_all,
                            ("gc", gc, (n, k, b, 3 * h))):
         _check(name, t, shape, dev)
     _check_weights(spec, tw, dev)
+    tw = round_train_weights(tw, mode)
     # the backward products read the transposed weights row by row
     transposed = (tw.w.transpose(1, 2), tw.w_hh_t.transpose(1, 2),
                   tw.w_ih_t[:, :z1].transpose(1, 2), tw.out_w_t.transpose(1, 2))
@@ -416,7 +463,7 @@ def seq_bwd(spec: FlowSpec, tw: TrainWeights, gc, zs_res, hprev_all,
                     dzb.data_ptr(), *(t.data_ptr() for t in tw),
                     *(t.data_ptr() for t in transposed),
                     b, n, *_spec_ints(spec), float(spec.scale_eps), *tile,
-                    stream)
+                    mode, stream)
     _raise_on(err, "seq_bwd")
     seq_bwd.launches += 1
     return dx, dstates0, dgi, dghn, dhout, dzb
@@ -431,18 +478,24 @@ seq_bwd.launches = 0
 
 def flow_sequence_vjp(spec: FlowSpec, tw: TrainWeights, cond_seq, gc, states0,
                       zs_res, states_res, dz_seq, dscales, dnew_states, *,
-                      precision: str = "highest"):
+                      precision: str | None = None):
     """Cotangents of (z_seq, scales, new_states) -> gradients on
     (TrainWeights..., xs, cond_seq, states0): ``seq_bwd`` for the serial
     chains, then the weight gradients as contractions over frames x rows
-    (pallas_train.py:554-602)."""
+    (pallas_train.py:554-602), every operand of them rounded at the matmul
+    precision as the JAX package's einsums take it."""
     z1d, h = spec.z1_dim, spec.hidden_channels
+    mode = precision_mode(precision)
+    tw = round_train_weights(tw, mode)
+    rnd = _rounded(mode)
     hprev_all = torch.cat([states0[None], states_res[:-1]], dim=0)
     dx, dstates0, dgi, dghn, dhout, dzb = seq_bwd(
         spec, tw, gc, zs_res, hprev_all, dz_seq, dscales, dnew_states,
         precision=precision)
 
-    ein = torch.einsum
+    def ein(eq, a, b):
+        return torch.einsum(eq, rnd(a), rnd(b))
+
     bias = tw.an_bias[None, :, None, :]
     scale = tw.an_scale[None, :, None, :]
     za = (zs_res + bias) * scale
@@ -470,11 +523,15 @@ def flow_sequence_vjp(spec: FlowSpec, tw: TrainWeights, cond_seq, gc, states0,
 
 class _FlowSequence(torch.autograd.Function):
     """(TrainWeights..., xs, cond_seq, states0) -> (z_seq, scales,
-    new_states), forward by ``seq_fwd``, backward by ``flow_sequence_vjp``."""
+    new_states), forward by ``seq_fwd``, backward by ``flow_sequence_vjp``,
+    both at ``precision`` (a name of ``flow_kernels.MODES``; the weights are
+    rounded once here and saved so, and their gradients are those of the
+    float32 weights)."""
 
     @staticmethod
     def forward(ctx, spec, precision, *inputs):
-        tw = TrainWeights(*inputs[:9])
+        tw = round_train_weights(TrainWeights(*inputs[:9]),
+                                 precision_mode(precision))
         xs, cond_seq, states0 = inputs[9:]
         z_seq, scales, zs_res, states_res, gc = seq_fwd(
             spec, tw, xs, cond_seq, states0, precision=precision)
@@ -493,13 +550,17 @@ class _FlowSequence(torch.autograd.Function):
 
 
 def flow_sequence_fused(spec: FlowSpec, flow_params, xs, cond_seq, states0, *,
-                        precision: str = "highest"):
+                        precision: str | None = None):
     """The teacher-forced flow traversal of a whole sequence on the training
     kernel pair, differentiable. xs [N, B, C]; cond_seq [N, K, B, cond]
     pre-projected conditioning (``flow.project_cond_frames``); states0
-    [K, B, H], all contiguous. Returns (z_seq [N, B, C], logdet [N, B],
-    new_states [K, B, H], scales [N, K, B, Cout/2])."""
-    _check_precision(precision)
+    [K, B, H], all contiguous. ``precision``: a name of
+    ``flow_kernels.MODES``, or None for the ambient one (read here, once, so
+    the backward runs at the forward's). Returns (z_seq [N, B, C], logdet
+    [N, B], new_states [K, B, H], scales [N, K, B, Cout/2])."""
+    if precision is None:
+        precision = ambient_matmul_precision()
+    precision_mode(precision)
     if not train_supported(spec):
         raise ValueError("spec is outside the training kernels' envelope")
     tw = prepare_train_weights(spec, flow_params)

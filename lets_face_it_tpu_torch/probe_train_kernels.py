@@ -1,6 +1,6 @@
 """Probe of the training kernels' launch plan on one NVIDIA GPU.
 
-    python -m lets_face_it_tpu_torch.probe_train_kernels
+    python -m lets_face_it_tpu_torch.probe_train_kernels [--precision highest|high|medium]
 
 For ``hparams/final_model.yaml`` on seeded random weights at B=256, N=56
 (the training path's shape), from the sources in this checkout:
@@ -18,12 +18,18 @@ For ``hparams/final_model.yaml`` on seeded random weights at B=256, N=56
    the plain versions again and times them by CUDA-graph replay; then times
    ``cond_gates`` beside one cuBLAS call for the same product.
 
+``--precision`` runs every kernel and plain version at that matmul
+precision (``ops/flow_kernels.py::MODES``); at "high" and "medium" the
+checks hold the largest |difference| to 4 steps of the mode's grid (2^-10
+TF32, 2^-7 bf16) of the output's largest |value|, as chip_smoke.py does.
+
 One JSON line per reading, the card's name and power limit first. Imports
 nothing of JAX.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import tempfile
@@ -34,8 +40,10 @@ import torch
 from lets_face_it_tpu_torch.hparams import load_hparams
 from lets_face_it_tpu_torch.model.spec import FlowSpec
 from lets_face_it_tpu_torch.ops import cuda_build
+from lets_face_it_tpu_torch.ops import flow_kernels as fk
 from lets_face_it_tpu_torch.ops import train_kernels as tk
 from lets_face_it_tpu_torch.sample.weights import seeded_random_model
+from lets_face_it_tpu_torch.utils.precision import matmul_precision
 
 REPO = Path(__file__).resolve().parent.parent
 SEED = 20240
@@ -43,6 +51,8 @@ CLUSTERS = (1, 2, 4, 8)
 ROWS_PER_BLOCK = (2, 4, 8)
 SLOTS = (2, 3, 4, 6)   # ring slots tried at 2 rows per block
 FWD_TOL, BWD_TOL = (1e-5, 1e-5), (2e-5, 1e-4)
+# at a reduced precision: steps of its grid, of the output's largest |value|
+MODE_GRID, MODE_STEPS = {"high": 2.0 ** -10, "medium": 2.0 ** -7}, 4.0
 
 
 def _time_ms(fn, reps=5):
@@ -67,10 +77,13 @@ def _time_ms(fn, reps=5):
     return start.elapsed_time(end) / reps
 
 
-def _max_err(name, got, ref, tol):
-    atol, rtol = tol
+def _max_err(name, got, ref, tol, precision="highest"):
     worst = 0.0
     for i, (a, r) in enumerate(zip(got, ref)):
+        atol, rtol = tol
+        if precision != "highest":
+            atol = MODE_STEPS * MODE_GRID[precision] * max(r.abs().max().item(), 1.0)
+            rtol = 0.0
         err = (a.double() - r.double()).abs()
         if not torch.isfinite(a).all() or (err > atol + rtol * r.double().abs()).any():
             raise SystemExit(f"{name} output {i}: max|diff| {err.max().item():.3e} "
@@ -79,14 +92,19 @@ def _max_err(name, got, ref, tol):
     return worst
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument("--precision", default="highest", choices=tuple(fk.MODES))
+    prec = parser.parse_args(argv).precision
+    mode = fk.MODES[prec]
     if not torch.cuda.is_available():
         raise SystemExit("this probe needs a CUDA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.splitlines()[0]
-    print(json.dumps({"card": card.strip(), "torch": torch.__version__}))
+    print(json.dumps({"card": card.strip(), "torch": torch.__version__,
+                      "precision": prec}))
 
     paths = cuda_build.build(("cond_gates", "seq_fwd", "seq_bwd"))
     for name, path in paths.items():
@@ -115,19 +133,21 @@ def main() -> int:
         cases = {}
         for b, frames in ((5, 5), (hp.batch_size, n)):
             xs, cs, st0 = inputs(b, frames)
-            ref = tk.seq_fwd_ref(spec, tw, xs, cs, st0)
+            ref = tk.seq_fwd_ref(spec, tw, xs, cs, st0, mode)
             hprev = torch.cat([st0[None], ref[3][:-1]])
             cot = (torch.randn(xs.shape, generator=g, device=dev),
                    torch.randn(ref[1].shape, generator=g, device=dev),
                    torch.randn(st0.shape, generator=g, device=dev))
             gc = ref[4]
-            bwd_ref = tk.seq_bwd_ref(spec, tw, gc, ref[2], hprev, *cot)
-            e_gc = _max_err("cond_gates", [tk.cond_gates(spec, tw, cs)], [gc], FWD_TOL)
-            e_f = _max_err(f"seq_fwd B={b}", tk.seq_fwd(spec, tw, xs, cs, st0), ref,
-                           FWD_TOL)
+            bwd_ref = tk.seq_bwd_ref(spec, tw, gc, ref[2], hprev, *cot, mode)
+            e_gc = _max_err("cond_gates", [tk.cond_gates(spec, tw, cs, precision=prec)],
+                            [gc], FWD_TOL, prec)
+            e_f = _max_err(f"seq_fwd B={b}",
+                           tk.seq_fwd(spec, tw, xs, cs, st0, precision=prec), ref,
+                           FWD_TOL, prec)
             e_b = _max_err(f"seq_bwd B={b}",
-                           tk.seq_bwd(spec, tw, gc, ref[2], hprev, *cot), bwd_ref,
-                           BWD_TOL)
+                           tk.seq_bwd(spec, tw, gc, ref[2], hprev, *cot, precision=prec),
+                           bwd_ref, BWD_TOL, prec)
             torch.cuda.synchronize()
             print(json.dumps({"check": "default plan", "batch": b, "frames": frames,
                               "fwd_plan": tk.serial_plan("seq_fwd", spec, b),
@@ -154,13 +174,15 @@ def main() -> int:
                 continue
 
             def fwd():
-                return tk.seq_fwd_serial(spec, tw, xs, gc, st0, tile=tile)
+                return tk.seq_fwd_serial(spec, tw, xs, gc, st0, tile=tile,
+                                         precision=prec)
 
             def bwd():
-                return tk.seq_bwd(spec, tw, gc, ref[2], hprev, *cot, tile=tile)
+                return tk.seq_bwd(spec, tw, gc, ref[2], hprev, *cot, tile=tile,
+                                  precision=prec)
 
-            row["fwd_err"] = _max_err(f"seq_fwd {tile}", fwd(), ref[:4], FWD_TOL)
-            row["bwd_err"] = _max_err(f"seq_bwd {tile}", bwd(), bwd_ref, BWD_TOL)
+            row["fwd_err"] = _max_err(f"seq_fwd {tile}", fwd(), ref[:4], FWD_TOL, prec)
+            row["bwd_err"] = _max_err(f"seq_bwd {tile}", bwd(), bwd_ref, BWD_TOL, prec)
             row["serial_fwd_ms"] = _time_ms(fwd)
             row["bwd_ms"] = _time_ms(bwd)
             print(json.dumps(row))
@@ -169,10 +191,11 @@ def main() -> int:
             k, -1, spec.cond.cond_dim).contiguous()
         w_c = tw.w_ih_t[:, spec.z1_dim:].contiguous()
         bias = tw.b_ih[:, None, :].contiguous()
+        with matmul_precision(prec):
+            lib_ms = _time_ms(lambda: torch.baddbmm(bias, a, w_c))
         print(json.dumps({
-            "cond_gates_ms": _time_ms(lambda: tk.cond_gates(spec, tw, cs)),
-            "cublas_baddbmm_ms": _time_ms(lambda: torch.baddbmm(bias, a, w_c)),
-            "batch": b, "frames": n}))
+            "cond_gates_ms": _time_ms(lambda: tk.cond_gates(spec, tw, cs, precision=prec)),
+            "cublas_baddbmm_ms": lib_ms, "precision": prec, "batch": b, "frames": n}))
     return 0
 
 

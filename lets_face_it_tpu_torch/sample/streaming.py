@@ -37,7 +37,9 @@ class StreamingGenerator:
         self.params = params.to(self.device).eval()
         self.eps_std = float(eps_std)
         self.rng = torch.Generator(device=self.device).manual_seed(seed)
-        self._weights = (flow_kernels.prepare_sampling_weights(spec, params.flow)
+        # the float32 weights and their set rounded at each matmul precision
+        # a push has run at, by mode
+        self._weights = ({0: flow_kernels.prepare_sampling_weights(spec, params.flow)}
                          if flow_kernels.fused_supported(spec) else None)
         b, c, cond = batch_size, spec.channels, spec.cond
 
@@ -91,9 +93,13 @@ class StreamingGenerator:
                             device=self.device) * self.eps_std
         z = torch.as_tensor(z, dtype=torch.float32, device=self.device).contiguous()
         if self._weights is not None:
+            mode = flow_kernels.precision_mode()
+            if mode not in self._weights:
+                self._weights[mode] = flow_kernels.round_sampling_weights(
+                    spec, self._weights[0], mode)
             proj = flow.project_cond(params.flow, cond_t).contiguous()
             x_t, self.states = flow_kernels.frame_rev_fused(
-                spec, self._weights, z, proj, self.states)
+                spec, self._weights[mode], z, proj, self.states)
         else:
             x_t, _, self.states = flow.frame_rev(spec, params.flow, z, cond_t,
                                                  self.states)

@@ -4,8 +4,9 @@
         [--max_steps N] [--batch_size B] [--max_epochs E] [--seed S]
         [--ckpt_dir DIR] [--dataset_root DIR] [--resume_from CKPT]
         [--log_dir DIR] [--stall_timeout_s S] [--render_url URL]
-        [--device_data_cache auto|on|off] [--precision 32] [--debug_nans]
-        [--device cuda]
+        [--device_data_cache auto|on|off] [--precision 32|16]
+        [--steps_per_dispatch K] [--wire_dtype f32|bf16] [--profile_dir DIR]
+        [--debug_nans] [--device cuda]
 
 HPARAMS is a YAML config (``hparams/final_model.yaml``, or an unmodified
 reference one). ``--synthetic-data`` trains on the synthetic corpus built in
@@ -18,8 +19,14 @@ checkpoints (``<step>/checkpoint.pt``, loadable by ``Generator.from_checkpoint``
 command with ``--resume_from``. ``--render_url`` posts the validation's
 generated sequence to a render service when ``Validation.render`` is on.
 ``--device_data_cache`` keeps the splits on the device and gathers batches
-there (default ``auto``: on the card when they fit). ``--device cpu`` runs the
-plain PyTorch versions of the kernels.
+there (default ``auto``: on the card when they fit). ``--precision 16``
+trains, and validates, with bf16 operands in every product of the kernels
+(float32 sums), the JAX trainer's production mode; 32 (the default) in
+float32. ``--steps_per_dispatch K`` runs K optimizer steps as one CUDA graph
+over the device data cache (it needs the cache). ``--wire_dtype bf16``
+uploads the host-gathered batches as bf16 (cache off). ``--profile_dir``
+writes a ``torch.profiler`` trace of the first steps there. ``--device cpu``
+runs the plain PyTorch versions of the kernels.
 """
 
 from __future__ import annotations
@@ -54,8 +61,18 @@ def main(argv=None):
     parser.add_argument("--device_data_cache", default=None,
                         choices=("auto", "on", "off"))
     parser.add_argument("--precision", type=int, default=None, choices=(16, 32),
-                        help="override the config's precision; 16 (reduced "
-                             "precision) is not supported by the port yet")
+                        help="override the config's precision: 32 = float32 "
+                             "products, 16 = bf16 operands with float32 sums")
+    parser.add_argument("--steps_per_dispatch", type=int, default=None,
+                        help="optimizer steps per CUDA graph replay; needs "
+                             "the device data cache")
+    parser.add_argument("--wire_dtype", default=None, choices=("f32", "bf16"),
+                        help="host-to-device batch format of the host gather "
+                             "(the values rounded to bf16, widened on the "
+                             "device)")
+    parser.add_argument("--profile_dir", default=None,
+                        help="write a torch.profiler trace of the first "
+                             "training steps into this directory")
     parser.add_argument("--debug_nans", action="store_true",
                         help="stop at the first non-finite loss or gradient "
                              "norm (the reference's terminate_on_nan); "
@@ -64,20 +81,21 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     from lets_face_it_tpu_torch.hparams import load_hparams
-    from lets_face_it_tpu_torch.train.loop import (check_precision,
-                                                   synthetic_corpus, train)
+    from lets_face_it_tpu_torch.train.loop import synthetic_corpus, train
+    from lets_face_it_tpu_torch.utils.precision import training_precision
     from lets_face_it_tpu_torch.utils.device import resolve_device
 
     resolve_device(args.device)
     overrides = {k: getattr(args, k) for k in ("batch_size", "max_epochs",
                                                 "stall_timeout_s",
-                                                "device_data_cache", "precision")
+                                                "device_data_cache", "precision",
+                                                "steps_per_dispatch", "wire_dtype")
                  if getattr(args, k) is not None}
     if args.debug_nans:
         overrides["terminate_on_nan"] = True
     hp = load_hparams(args.hparams_file, dataset_root=args.dataset_root,
                       overrides=overrides)
-    check_precision(hp)
+    training_precision(hp)
     corpus = synthetic_corpus(hp, args.seed) if args.synthetic_data else None
     ckpt_dir = args.ckpt_dir or str(Path("checkpoints") / Path(args.hparams_file).stem)
     render_client = None
@@ -88,7 +106,7 @@ def main(argv=None):
     _, best_val = train(hp, seed=args.seed, ckpt_dir=ckpt_dir, log_dir=args.log_dir,
                         max_steps=args.max_steps, device=args.device,
                         corpus=corpus, resume_from=args.resume_from,
-                        render_client=render_client)
+                        render_client=render_client, profile_dir=args.profile_dir)
     print(f"training done; best val_loss = {best_val:.4f}; checkpoints in {ckpt_dir}")
 
 

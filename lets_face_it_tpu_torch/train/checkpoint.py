@@ -53,6 +53,13 @@ def restore_checkpoint(path, state: TrainState) -> dict:
     payload = torch.load(path, map_location="cpu", weights_only=True)
     load_state_dict(state.model, payload["state_dict"])
     state.optimizer.load_state_dict(payload["optimizer"])
+    for group in state.optimizer.param_groups:
+        # a run of k steps a dispatch on the card saves its rate as a device
+        # tensor and Adam as capturable; each run sets both as it needs them
+        if torch.is_tensor(group["lr"]):
+            group["lr"] = float(group["lr"])
+        if group.get("capturable"):
+            group["capturable"] = False
     state.generator.set_state(payload["generator"])
     meta = payload["meta"]
     state.step = int(meta["step"])

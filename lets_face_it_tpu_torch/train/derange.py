@@ -49,9 +49,3 @@ def mismatched_modalities(conditioning: dict):
         return [], None
     name = "p2" if len(modalities) == 2 else modalities[0]
     return modalities, name
-
-
-def select_batch(use_deranged: bool, deranged, original):
-    """The deranged batch when ``use_deranged``, else the original (the host
-    decides; no traced select is needed in eager PyTorch)."""
-    return deranged if use_deranged else original

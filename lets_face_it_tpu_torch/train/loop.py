@@ -27,11 +27,19 @@ the process with code 17 when steps stop (``utils/watchdog.py``).
 
 ``hp.terminate_on_nan`` (the CLI's ``--debug_nans``) checks each step's
 loss and gradient norm on the host and raises ``FloatingPointError`` at the
-first non-finite one; only this mode synchronises every step. The port
-trains in float32: ``hp.precision`` below 32 is refused (``check_precision``).
+first non-finite one; only this mode synchronises every step (every block
+of k steps, below).
 
-Left out, as in ``ROADMAP.md``: reduced precision, k steps per dispatch and
-the bf16 wire format.
+The trainer's switches of the JAX package (train.py:34-64):
+``hp.precision`` 32 or 16 runs the training and its validation at torch's
+ambient matmul precision "highest" or "medium" (``utils/precision.py``),
+which the kernels follow; ``hp.steps_per_dispatch`` k > 1 runs whole
+blocks of k steps as one CUDA graph over the device data cache
+(``train/state.py::MultiStep``), the rest of an epoch step by step, with
+the data order, validations and checkpoints of k = 1; ``hp.wire_dtype``
+"bf16" ships the host-gathered batches' float arrays as bf16 and widens
+them on the device; ``profile_dir`` records a ``torch.profiler`` trace of
+the first steps.
 """
 
 from __future__ import annotations
@@ -59,6 +67,11 @@ from lets_face_it_tpu_torch.train import state as train_state
 from lets_face_it_tpu_torch.train.checkpoint import (CheckpointManager,
                                                      restore_checkpoint)
 from lets_face_it_tpu_torch.utils.device import resolve_device
+from lets_face_it_tpu_torch.utils.precision import (matmul_precision,
+                                                    training_precision)
+
+# Steps a ``profile_dir`` trace records.
+PROFILE_STEPS = 5
 
 
 class MetricLogger:
@@ -123,26 +136,53 @@ class MetricLogger:
             self.writer.close()
 
 
-def check_precision(hp: HParams) -> None:
-    """Raise ``ValueError`` for ``hp.precision`` below 32: the port's kernels
-    and matmuls run in float32 only (reduced precision waits in ROADMAP.md
-    §1, "The trainer's remaining switches")."""
-    precision = int(getattr(hp, "precision", 32) or 32)
-    if precision < 32:
-        raise ValueError(f"precision {precision} is not supported: the port "
-                         "trains in float32 only (precision 32); reduced "
-                         "precision waits in ROADMAP.md §1, \"The trainer's "
-                         "remaining switches\"")
-
-
 def check_finite(step: int, metrics: dict) -> None:
     """Raise ``FloatingPointError`` when the step's loss or gradient norm is
-    not finite (the reference's ``terminate_on_nan``)."""
-    values = torch.stack([metrics["loss"].float(), metrics["grad_norm"].float()])
-    if not bool(torch.isfinite(values).all()):
-        loss, grad_norm = values.tolist()
-        raise FloatingPointError(f"non-finite training step {step}: loss {loss}, "
+    not finite (the reference's ``terminate_on_nan``). With metrics stacked
+    [j] for the steps ``step - j + 1 .. step`` of a block, it names the
+    first non-finite one."""
+    values = torch.stack([metrics["loss"].float().reshape(-1),
+                          metrics["grad_norm"].float().reshape(-1)])
+    finite = torch.isfinite(values).all(dim=0).tolist()
+    if not all(finite):
+        i = finite.index(False)
+        loss, grad_norm = values[:, i].tolist()
+        bad = step - len(finite) + 1 + i
+        raise FloatingPointError(f"non-finite training step {bad}: loss {loss}, "
                                  f"grad_norm {grad_norm}")
+
+
+class StepProfiler:
+    """A ``torch.profiler`` trace (host, and the card where there is one)
+    of the first ``PROFILE_STEPS`` training steps, written to
+    ``directory/trace.json`` (Chrome trace format) when they are done or
+    the run ends."""
+
+    def __init__(self, directory, device):
+        from torch.profiler import ProfilerActivity, profile
+
+        self.path = Path(directory) / "trace.json"
+        self.device = torch.device(device)
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        self.prof = profile(activities=activities)
+        self.prof.__enter__()
+
+    def after(self, steps_done: int):
+        if self.prof is not None and steps_done >= PROFILE_STEPS:
+            self.stop()
+
+    def stop(self):
+        if self.prof is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.prof.__exit__(None, None, None)
+        self.path.parent.mkdir(parents=True, exist_ok=True)
+        self.prof.export_chrome_trace(str(self.path))
+        self.prof = None
+        print(f"profiler trace written to {self.path}", flush=True)
 
 
 def scale_histograms(model: SeqGlow) -> dict:
@@ -179,17 +219,34 @@ def to_device(batch: dict, device) -> dict:
             for k, v in batch.items()}
 
 
-def batch_transfer(ds: WindowDataset, device, dev_batcher=None) -> SideStreamTransfer:
+def upload(batch: dict, device, wire_bf16: bool = False) -> dict:
+    """A host batch on ``device``. With ``wire_bf16`` the float tensors
+    cross as bf16 and are widened back to float32 there (the values rounded
+    to the bf16 grid, JAX loop.py:276-290); other tensors pass as they are."""
+    if not wire_bf16:
+        return {k: v.to(device, non_blocking=True) for k, v in batch.items()}
+    out = {}
+    for k, v in batch.items():
+        if v.is_floating_point():
+            out[k] = v.to(torch.bfloat16).to(device, non_blocking=True).float()
+        else:
+            out[k] = v.to(device, non_blocking=True)
+    return out
+
+
+def batch_transfer(ds: WindowDataset, device, dev_batcher=None,
+                   wire_bf16: bool = False) -> SideStreamTransfer:
     """Index batch -> batch on ``device``, for the prefetch worker: the
     on-device gather of ``dev_batcher`` when given, else the host gather
-    into page-locked memory (on the card) and its upload."""
+    into page-locked memory (on the card) and its upload (as bf16 with
+    ``wire_bf16``)."""
     device = torch.device(device)
     if dev_batcher is not None:
         return SideStreamTransfer(dev_batcher.get_batch, device)
     pin = device.type == "cuda"
     return SideStreamTransfer(
-        lambda sel: {k: v.to(device, non_blocking=True)
-                     for k, v in gather_host(ds, sel, pin_memory=pin).items()},
+        lambda sel: upload(gather_host(ds, sel, pin_memory=pin), device,
+                           wire_bf16),
         device)
 
 
@@ -252,7 +309,8 @@ def run_validation(spec: FlowSpec, hp: HParams, model: SeqGlow,
 def train(hp: HParams, *, seed: int = 1234, ckpt_dir=None, log_dir=None,
           max_steps: int | None = None, device="cuda", corpus=None,
           resume_from=None, render_client=None, log_every: int = 10,
-          verbose: bool = True, step_hook=None, val_hook=None):
+          verbose: bool = True, step_hook=None, val_hook=None,
+          profile_dir=None):
     """Full training run on ``device``. The data come from ``corpus`` (in
     memory) when given, else from the HDF5 store under ``hp.dataset_root``.
     ``resume_from`` (or ``hp.resume_from_checkpoint``): a checkpoint file, or
@@ -262,11 +320,46 @@ def train(hp: HParams, *, seed: int = 1234, ckpt_dir=None, log_dir=None,
     the validation's generated sequences when ``Validation.render`` is on.
     ``step_hook(step, metrics)`` fires after every step and
     ``val_hook(step, metrics)`` after each validation; either may raise to
-    stop the run. ``hp.precision`` below 32 raises ``ValueError``;
+    stop the run. ``profile_dir``: a ``torch.profiler`` trace of the first
+    ``PROFILE_STEPS`` steps goes there. ``hp.precision`` (32 or 16) sets the
+    matmul precision of the run and its validations, restored on return;
+    ``hp.steps_per_dispatch`` and ``hp.wire_dtype`` as the module says.
     ``hp.terminate_on_nan`` raises ``FloatingPointError`` at the first step
     whose loss or gradient norm is not finite. Returns (final TrainState,
     best val loss)."""
-    check_precision(hp)
+    with matmul_precision(training_precision(hp)):
+        return _train(hp, seed=seed, ckpt_dir=ckpt_dir, log_dir=log_dir,
+                      max_steps=max_steps, device=device, corpus=corpus,
+                      resume_from=resume_from, render_client=render_client,
+                      log_every=log_every, verbose=verbose,
+                      step_hook=step_hook, val_hook=val_hook,
+                      profile_dir=profile_dir)
+
+
+def _steps_per_dispatch(hp: HParams, dev_batcher, state) -> int:
+    """``hp.steps_per_dispatch``, or 1 where the k-step function cannot
+    run (said once): without the device data cache, as the JAX loop does,
+    or on the card with an optimizer that cannot step inside a graph."""
+    k = int(getattr(hp, "steps_per_dispatch", 1) or 1)
+    if k <= 1:
+        return 1
+    if dev_batcher is None:
+        print(f"steps_per_dispatch={k} needs the device data cache "
+              "(device_data_cache=on, or auto on the card); running one step "
+              "per dispatch", flush=True)
+        return 1
+    if dev_batcher.device.type == "cuda" and not train_state.graph_supported(
+            state.optimizer):
+        print(f"steps_per_dispatch={k}: {type(state.optimizer).__name__} "
+              "cannot step inside a CUDA graph; running one step per dispatch",
+              flush=True)
+        return 1
+    return k
+
+
+def _train(hp: HParams, *, seed, ckpt_dir, log_dir, max_steps, device, corpus,
+           resume_from, render_client, log_every, verbose, step_hook,
+           val_hook, profile_dir):
     device = resolve_device(device)
     train_ds, val_ds = load_datasets(hp, corpus)
     spec = FlowSpec.build(hp)
@@ -294,7 +387,17 @@ def train(hp: HParams, *, seed: int = 1234, ckpt_dir=None, log_dir=None,
     val_batcher = (make_device_batcher(val_ds, hp, device,
                                        reserved_bytes=dev_batcher.total_bytes)
                    if dev_batcher is not None else None)
-    transfer = batch_transfer(train_ds, device, dev_batcher)
+    wire_bf16 = str(getattr(hp, "wire_dtype", "f32") or "f32") == "bf16"
+    transfer = batch_transfer(train_ds, device, dev_batcher, wire_bf16)
+    k_dispatch = _steps_per_dispatch(hp, dev_batcher, state)
+    multi = None
+    if k_dispatch > 1:
+        multi = train_state.MultiStep(spec, hp, state, dev_batcher.arrays,
+                                      train_ds.seq_len, hp.batch_size,
+                                      k_dispatch)
+        transfer = SideStreamTransfer(dev_batcher.get_starts_block, device)
+    # logged every log_every steps, or every ceil(log_every / k) blocks
+    log_blocks = max(1, -(-log_every // k_dispatch))
 
     logger = MetricLogger(log_dir, enabled=bool(getattr(hp, "logger", True)))
     if render_client is not None and getattr(render_client, "on_rendered",
@@ -305,6 +408,7 @@ def train(hp: HParams, *, seed: int = 1234, ckpt_dir=None, log_dir=None,
         from lets_face_it_tpu_torch.utils.watchdog import ProgressWatchdog
 
         watchdog = ProgressWatchdog(float(hp.stall_timeout_s))
+    profiler = StepProfiler(profile_dir, device) if profile_dir else None
 
     terminate_on_nan = bool(getattr(hp, "terminate_on_nan", False))
     best_val = float("inf")
@@ -312,6 +416,14 @@ def train(hp: HParams, *, seed: int = 1234, ckpt_dir=None, log_dir=None,
     val_every = int(getattr(hp, "check_val_every_n_epoch", 1) or 1)
     start_step, t_start = state.step, time.perf_counter()
     done = max_steps is not None and state.step >= max_steps
+
+    def log(m):
+        m = {k: float(v) for k, v in m.items()}
+        m["train_loss"] = m.pop("loss")
+        m["steps_per_sec"] = ((state.step - start_step)
+                              / (time.perf_counter() - t_start))
+        logger.scalars(state.step, m)
+
     try:
         for epoch in range(start_epoch, max_epochs):
             if done:
@@ -322,26 +434,46 @@ def train(hp: HParams, *, seed: int = 1234, ckpt_dir=None, log_dir=None,
             if max_steps is not None:
                 sels = sels[:skip + max_steps - state.step]
             epoch_step = skip
-            for staged in prefetch_batches(iter(sels[skip:]), transfer=transfer):
-                jb = receive(staged)
-                if not actnorm_inited:
-                    train_state.run_actnorm_init(spec, state, jb)
+            todo = sels[skip:]
+            if multi is not None:
+                if not actnorm_inited and todo:
+                    # the first block's first batch, gathered once more here
+                    train_state.run_actnorm_init(
+                        spec, state, dev_batcher.get_batch(todo[0]))
                     actnorm_inited = True
-                m = train_state.train_step(spec, hp, state, jb)
+                # whole blocks of k steps, then the rest as one short block
+                todo = [todo[i:i + k_dispatch]
+                        for i in range(0, len(todo), k_dispatch)]
+            for n_items, staged in enumerate(
+                    prefetch_batches(iter(todo), transfer=transfer), 1):
+                jb = receive(staged)
+                if multi is not None:
+                    m = multi(jb["starts"])
+                    j = int(jb["starts"].shape[0])
+                else:
+                    if not actnorm_inited:
+                        train_state.run_actnorm_init(spec, state, jb)
+                        actnorm_inited = True
+                    m = train_state.train_step(spec, hp, state, jb)
+                    j = 1
                 if terminate_on_nan:
                     check_finite(state.step, m)
-                epoch_step += 1
+                epoch_step += j
                 if watchdog is not None:
                     watchdog.beat()
+                if profiler is not None:
+                    profiler.after(state.step - start_step)
                 done = max_steps is not None and state.step >= max_steps
                 if step_hook is not None:
-                    step_hook(state.step, m)
-                if verbose and (state.step % log_every == 0 or done):
-                    m = {k: float(v) for k, v in m.items()}
-                    m["train_loss"] = m.pop("loss")
-                    m["steps_per_sec"] = ((state.step - start_step)
-                                          / (time.perf_counter() - t_start))
-                    logger.scalars(state.step, m)
+                    for i in range(j):
+                        step_hook(state.step - j + 1 + i,
+                                  {key: v[i] for key, v in m.items()}
+                                  if multi is not None else m)
+                if verbose and (done or (state.step % log_every == 0
+                                         if multi is None
+                                         else n_items % log_blocks == 0)):
+                    log({key: v[-1] for key, v in m.items()}
+                        if multi is not None else m)
                 if done:
                     break
             skip = 0
@@ -364,5 +496,7 @@ def train(hp: HParams, *, seed: int = 1234, ckpt_dir=None, log_dir=None,
         # the process minutes later, in whatever the caller does next
         if watchdog is not None:
             watchdog.stop()
+        if profiler is not None:
+            profiler.stop()
         logger.close()
     return state, best_val

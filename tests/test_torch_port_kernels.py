@@ -133,13 +133,19 @@ def test_envelopes_and_guards():
     hp = tiny_hp()
     hp.Glow["rnn_type"] = "lstm"
     assert not fk.fused_supported(PortFlowSpec.build(port_hp(hp)))
-    # the plain versions are for CPU tensors only, and precision is pinned
+    # the plain versions are for CPU tensors only; a reduced precision runs
+    # as its plain twin at that mode, an unknown one is refused
     spec, pspec, _, _, _, pw = _setup()
-    z = torch.zeros(2, spec.channels)
-    projs = torch.zeros(spec.n_steps, 2, spec.cond.cond_dim)
-    states = torch.zeros(spec.n_steps, 2, spec.hidden_channels)
+    g = torch.Generator().manual_seed(0)
+    z = torch.randn(2, spec.channels, generator=g)
+    projs = torch.randn(spec.n_steps, 2, spec.cond.cond_dim, generator=g)
+    states = 0.5 * torch.randn(spec.n_steps, 2, spec.hidden_channels, generator=g)
+    x, st = fk.frame_rev_fused(pspec, pw, z, projs, states, precision="high")
+    x_ref, st_ref = fk.frame_rev_fused_ref(pspec, pw, z, projs, states,
+                                           fk.MODES["high"])
+    assert torch.equal(x, x_ref) and torch.equal(st, st_ref)
     with pytest.raises(ValueError, match="precision"):
-        fk.frame_rev_fused(pspec, pw, z, projs, states, precision="high")
+        fk.frame_rev_fused(pspec, pw, z, projs, states, precision="bf16")
     with pytest.raises(ValueError, match="device"):
         fk.frame_rev_fused(pspec, pw, z.to("meta"), projs, states)
 

@@ -30,6 +30,7 @@ from lets_face_it_tpu_torch.model import flow as pflow
 from lets_face_it_tpu_torch.model.spec import FlowSpec as PortFlowSpec
 from lets_face_it_tpu_torch.ops import train_kernels as tk
 from lets_face_it_tpu_torch.ops.flow_kernels import MAX_SMEM_BYTES
+from lets_face_it_tpu_torch.ops.flow_kernels import MODES as fk_modes
 
 from test_torch_port_common import (assert_close, jax_params, port_hp,
                                     port_model, specs, tiny_hp, train_hp)
@@ -201,9 +202,17 @@ def test_envelope_and_guards():
     spec, pspec = specs(train_hp())
     model = port_model(jax_params(spec), pspec)
     xs, cond, states0 = (torch.as_tensor(a) for a in _inputs(spec, n=2, b=2))
+    # a reduced precision runs as its plain twin at that mode; an unknown
+    # one is refused
+    with torch.no_grad():
+        z_seq, *_ = tk.flow_sequence_fused(pspec, model.flow, xs, cond, states0,
+                                           precision="high")
+        tw = tk.prepare_train_weights(pspec, model.flow)
+        z_ref = tk.seq_fwd_ref(pspec, tw, xs, cond, states0, fk_modes["high"])[0]
+    assert torch.equal(z_seq, z_ref)
     with pytest.raises(ValueError, match="precision"):
         tk.flow_sequence_fused(pspec, model.flow, xs, cond, states0,
-                               precision="high")
+                               precision="bf16")
     tw = tk.prepare_train_weights(pspec, model.flow)
     with pytest.raises(ValueError, match="device"):
         tk.seq_fwd(pspec, tw, xs.to("meta"), cond, states0)

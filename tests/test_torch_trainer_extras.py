@@ -5,7 +5,7 @@ logger, the parameter histograms against the JAX package's, the render
 client against the JAX package's payload and against a stub render service
 behind the port's HTTP handler, ``run_validation`` with ``check_invertion``,
 ``scale_logging`` and ``render`` on, the config file, the trainer CLI's new
-flags, the refusal of precision below 32 and the stop at a non-finite step
+flags, training at precision 16 and the stop at a non-finite step
 (``terminate_on_nan``, ``--debug_nans``)."""
 
 import json
@@ -441,16 +441,25 @@ def test_train_cli_new_flags(tmp_path, capsys):
 # ---------------------------------------------------------------------------
 
 def test_precision_below_32_raises(tmp_path):
-    """The port trains in float32: ``precision: 16`` in the config, or
-    ``--precision 16``, is refused before any work."""
+    """``precision: 16`` in the config, or ``--precision 16``, trains (bf16
+    operands in the kernels' products, torch's "medium") with finite losses
+    and leaves torch's matmul settings as it found them; only 16 and 32 are
+    taken, another value is refused before any work."""
     hp = _tiny_run_hp(precision=16)
-    with pytest.raises(ValueError, match="ROADMAP.md §1, \"The trainer's remaining"):
-        ploop.train(hp, max_steps=1, device="cpu", corpus=_corpus(hp), verbose=False)
+    losses = []
+    ploop.train(hp, max_steps=2, device="cpu", corpus=_corpus(hp), verbose=False,
+                step_hook=lambda s, m: losses.append(float(m["loss"])))
+    assert len(losses) == 2 and all(math.isfinite(v) for v in losses)
+    assert torch.get_float32_matmul_precision() == "highest"
     cfg = _write_hparams(tmp_path, train_hp())
-    with pytest.raises(ValueError, match="precision 16"):
-        train_cli.main([str(cfg), "--synthetic-data", "--device", "cpu",
-                        "--precision", "16", "--ckpt_dir", str(tmp_path / "ck")])
-    assert not (tmp_path / "ck").exists()
+    train_cli.main([str(cfg), "--synthetic-data", "--device", "cpu",
+                    "--precision", "16", "--max_steps", "2", "--batch_size", "8",
+                    "--ckpt_dir", str(tmp_path / "ck")])
+    assert CheckpointManager(tmp_path / "ck").all_steps() == [2]
+    assert torch.get_float32_matmul_precision() == "highest"
+    with pytest.raises(ValueError, match="precision 8"):
+        ploop.train(_tiny_run_hp(precision=8), max_steps=1, device="cpu",
+                    corpus=_corpus(hp), verbose=False)
 
 
 def _poison_before_step(monkeypatch, step):
