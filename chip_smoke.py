@@ -67,7 +67,7 @@ sources in this checkout:
     as an mp4 and read back; the mesh stage's times, a profile window, the
     raster time and the peak device memory.
 16. extracts features on the card (``lets_face_it_tpu_torch/features``): a
-    10-minute stereo session at 44.1 kHz through the prosody (traced), MFCC
+    5-minute stereo session at 44.1 kHz through the prosody (traced), MFCC
     and VAD functions, held against the same functions on the CPU, with
     seconds per minute of audio and Viterbi's share; the batched FLAME
     landmark fit at B=256, 30 + 60 steps, on the synthetic head at V=5023
@@ -92,7 +92,7 @@ sources in this checkout:
     its plain twin, the library call at torch's same setting and its bound
     at the mode's tensor-core rate; each mode's path (two training steps, a
     validation, three pushes) with its launches; the B=256 step at precision
-    32 and 16 and a trace of it at 16; a short A/B (300 steps a arm, a
+    32 and 16 and a trace of it at 16; a short A/B (100 steps a arm, a
     validation every 100) with the val-NLL deltas held; the trainer with
     ``steps_per_dispatch`` 5 (one CUDA graph a block, replays counted)
     against 1 over 25 steps (replays on fresh blocks, a deranged step and
@@ -102,6 +102,24 @@ sources in this checkout:
     ``--precision 16`` with ``--profile_dir`` for 3 steps; one
     ``{"precision": ...}`` line. The kernels' line gains a record per
     kernel and reduced mode.
+18. the kernels at two specs of the JAX kernels' envelope that the
+    final_model checks do not reach: C = 54 (each half of the coupling
+    split padded from 27 to 28 lanes) and C = 54 at H = 512 (the chain's
+    weights read from global memory): each spec's path (2 steps, a
+    validation, 3 pushes) with its launches, then every kernel against its
+    plain twin at the final_model limits, timed beside the library call and
+    its bound; the chain at C = 54, H = 128 also forced to global memory,
+    for its time beside the resident one's; one ``{"widened": ...}`` line
+    and a record per kernel and spec in the kernels' line.
+19. the hyperparameter search (``train/tuning.py``): ``Study.optimize`` on
+    final_model over ``hparam_tuning_configs/large_hparam_search.py``, 3
+    trials of 25 steps from a pinned seed, each in a spawned subprocess on
+    the card; each trial's spec, state, seconds and launches, none failed,
+    and each inside the JAX kernels' envelope on the training and sampling
+    kernels; one ``{"tuning": ...}`` line.
+20. data parallelism (``parallel/mesh.py``): 5 steps at B=256 on world size
+    1 over NCCL and world size 2 over gloo on the one card, against one
+    process (step 10's limits); one ``{"ddp": ...}`` line.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
@@ -204,15 +222,16 @@ RENDER_VERT_ATOL = 2e-5
 # triangle edge (its 3x3 neighbourhood in a face-id render holds another face
 # or the background).
 RASTER_LEVEL_SHARE, RASTER_EDGE_SHARE = 5e-2, 1e-4
-# Step 16: the extraction path. The audio of a 10-minute stereo session at
-# 44.1 kHz, to EXTRACT_FPS frames; the landmark fit at B=FIT_BATCH on the
+# Step 16: the extraction path. The audio of a 5-minute stereo session at
+# 44.1 kHz (10 minutes until steps 18-20 needed the time), to EXTRACT_FPS
+# frames; the landmark fit at B=FIT_BATCH on the
 # synthetic head at the FLAME 2019 sizes (the real model and its landmark
 # embedding are not redistributable), 30 + 60 steps, with targets projected
 # from known parameters as tools/flame_fit_probe.py's make_targets projects
 # them (seed 3, scale 512, offset 512); LIPSYNC_SECONDS of lipsync meshes at
 # LIPSYNC_FPS through the mesh fit with LIPSYNC_STEPS steps; then the CLI's
 # stages on two sessions of CLI_SECONDS and the trainer on their corpus.
-EXTRACT_FS, EXTRACT_MINUTES, EXTRACT_FPS = 44100, 10, 25
+EXTRACT_FS, EXTRACT_MINUTES, EXTRACT_FPS = 44100, 5, 25
 FIT_BATCH, FIT_CPU_BATCH = 256, 64
 LIPSYNC_SECONDS, LIPSYNC_FPS, LIPSYNC_STEPS = 20, 60, 40
 CLI_SECONDS, CLI_FS = 20, 16000
@@ -303,6 +322,21 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def timed(fn):
+    """(fn(), ms of that one call by CUDA events): a plain version timed
+    by the run that is checked."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def drift(got, ref) -> dict:
@@ -887,7 +921,7 @@ def session_audio(rng, fs: int, seconds: float, f_base: float, turn_s: float,
 
 
 def extract_audio_checks(dev, card) -> dict:
-    """Step 16's audio: a 10-minute stereo session through
+    """Step 16's audio: a 5-minute stereo session through
     ``extract_prosodic_features`` (traced), ``extract_mfcc_to_frames`` and
     ``crosstalk_vad`` on the card, each held against the same function on
     the CPU; seconds per minute of audio and Viterbi's share of prosody."""
@@ -919,7 +953,7 @@ def extract_audio_checks(dev, card) -> dict:
         card_out["prosody"] = prosody.extract_prosodic_features(x1, fs, nb,
                                                                 device=dev)
 
-    window = trace_window("extract_prosodic_features_10min", run_prosody, 1)
+    window = trace_window(f"extract_prosodic_features_{EXTRACT_MINUTES}min", run_prosody, 1)
     print(json.dumps(window))
     prosody_s = window["wall_ms_per_call"] / 1e3
     freqs, strengths, _ = prosody.pitch_candidates(x1, fs=fs, time_step=0.02,
@@ -1358,8 +1392,10 @@ MODE_MAX_STEPS, MODE_RMS_STEPS = 4.0, 0.25
 SEQ_MODE_RATIO = 3.0
 # The short A/B: 100 steps an epoch at B=256 (80 chunks of 400 frames give
 # 25,680 windows), a validation at the end of each; the bf16 arm's val NLL
-# within AB_REL of the f32 arm's at every shared validation.
-AB_STEPS, AB_CHUNKS, AB_REL = 300, 80, 0.02
+# within AB_REL of the f32 arm's at every shared validation. One epoch a
+# arm (three until steps 18-20 needed the time; the 5,000-step A/B is
+# precision_ab.py's).
+AB_STEPS, AB_CHUNKS, AB_REL = 100, 80, 0.02
 # The limits above bound a kernel's whole outputs but do not tell the modes
 # apart: after a few products a flip has spread as far as the other mode's
 # rounding would. A kernel's first step is one product deep (seq_bwd's
@@ -1996,6 +2032,498 @@ def precision_step(tmp, dev, card, records) -> dict:
     out["step_s"] = time.perf_counter() - t17
     out["launches"] = {"high": mode_launches["high"], "medium": mode_launches["medium"],
                        "ab": ab_launches}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Steps 18-20: the widened kernels, tuning, data parallelism
+# ---------------------------------------------------------------------------
+
+# Step 18: final_model at the widths of the JAX kernels' envelope that the
+# kernels take on padded lanes (C = 54: expression 48, each half of the
+# coupling split 27 -> 28) and whose chain weights overflow a cluster's
+# shared memory (H = 512, K = 16: the chain reads them from global memory).
+# Each spec's path (2 steps at B=WIDE_BATCH, a validation, 3 pushes) with
+# its launches, then every kernel against its plain twin at the limits of
+# the final_model checks above.
+WIDE_SPECS = (("C=54", {"expression_dim": 48}),
+              ("C=54, H=512", {"expression_dim": 48, "hidden_channels": 512}))
+WIDE_BATCH = 64
+# The whole generated sequence of a widened spec against its plain twin:
+# SEQ_LOOSE_ATOL, or WIDE_SEQ_RATIO times the plain twin's own float32 -
+# float64 drift where the random flow amplifies rounding more than
+# final_model's does (its first SEQ_TIGHT frames are held at the one-frame
+# limits either way).
+WIDE_SEQ_RATIO = 3.0
+# Step 19: the search on final_model over large_hparam_search: a pinned
+# sampler seed and worker, so that the 3 trials are the same each run. Seed
+# 35 proposes one spec outside the JAX kernels' envelope (H = 64, K = 4: the
+# plain path, cheap at K x N = 52) and two inside it that need the widened
+# kernels: C = 34 at K = 32, H = 128 (padded lanes, the chain's weights
+# from global memory, the sequence kernel) and C = 54 at H = 512, K = 4
+# with an mlp own face (padded lanes, global memory, the per-frame kernel).
+# (Seed 1's three took 149 s, one plain trial at K x N = 1,024 83 s of it.)
+# 25 steps each on a
+# corpus of TUNE_CHUNKS train chunks of TUNE_FRAMES frames (at least 25
+# steps of 256 an epoch at every suggested seq_len, so each trial validates
+# once, at its end).
+TUNE_SEED, TUNE_TRIALS, TUNE_STEPS = 35, 3, 25
+TUNE_CHUNKS, TUNE_FRAMES = 40, 250
+# Step 20: data-parallel steps at final_model's B=256 against one process:
+# world size 1 over NCCL, world size 2 over gloo on the one card (NCCL
+# refuses two ranks on one device); step 10's limits.
+DDP_STEPS = 5
+
+
+def _wide_hp(tmp, overrides: dict):
+    from lets_face_it_tpu_torch.hparams import load_hparams
+
+    hp = load_hparams(REPO / "hparams" / "final_model.yaml", dataset_root=tmp)
+    if "expression_dim" in overrides:
+        hp.Data["expression_dim"] = overrides["expression_dim"]
+        c = hp.Data["expression_dim"] + hp.Data["jaw_dim"] + hp.Data["neck_dim"]
+        hp.Conditioning["p1_face"]["dim"] = hp.Conditioning["p2_face"]["dim"] = c
+    if "hidden_channels" in overrides:
+        hp.Glow["hidden_channels"] = overrides["hidden_channels"]
+    hp.batch_size = WIDE_BATCH
+    return hp
+
+
+def widened_step(tmp, dev, card, records) -> dict:
+    """Step 18: every kernel at the widened specs against its plain twin,
+    timed beside the library call and its bound, after each spec's path."""
+    import numpy as np
+    import torch
+
+    from lets_face_it_tpu_torch.model import seqglow
+    from lets_face_it_tpu_torch.model.spec import FlowSpec
+    from lets_face_it_tpu_torch.ops import flow_kernels as fk
+    from lets_face_it_tpu_torch.ops import train_kernels as tk
+    from lets_face_it_tpu_torch.sample.streaming import StreamingGenerator
+    from lets_face_it_tpu_torch.sample.weights import seeded_random_model
+    from lets_face_it_tpu_torch.train import loop as train_loop
+    from lets_face_it_tpu_torch.train import state as train_state
+
+    t18 = time.perf_counter()
+    out = {}
+    g = torch.Generator(device=dev).manual_seed(SEED)
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=g, device=dev)
+
+    for label, overrides in WIDE_SPECS:
+        hp = _wide_hp(tmp, overrides)
+        spec = FlowSpec.build(hp)
+        ks = fk.kernel_spec(spec)
+        if seqglow.training_path(spec) != "kernels" or \
+                seqglow.sampling_path(spec) != "sequence":
+            fail(f"{label}: outside the kernels' envelope")
+        resident = fk.chain_resident(spec)
+        print(f"step 18, {label}: C={spec.channels} on the kernels' {ks.channels} "
+              f"lanes, K={spec.n_steps} H={spec.hidden_channels} "
+              f"cond={spec.cond.cond_dim}; chain weights "
+              f"{fk.chain_step_bytes(spec) * spec.n_steps / 1e6:.2f} MB, "
+              f"{'resident in' if resident else 'read from global memory, over'} "
+              f"a cluster's shared memory")
+
+        # the spec's path: 2 steps, a validation, 3 pushes
+        corpus = train_loop.synthetic_corpus(hp, SEED, n_train_chunks=4,
+                                             n_val_chunks=1)
+        train_ds, val_ds = train_loop.load_datasets(hp, corpus)
+        model = seeded_random_model(spec, SEED).to(dev)
+        state = train_state.TrainState.create(model, hp, 3, SEED)
+        jb = train_loop.to_device(train_ds.get_batch(np.arange(WIDE_BATCH)), dev)
+        frame = {kk: jb[kk][:1, 0].cpu().numpy()
+                 for kk in ("p2_face", "p1_speech", "p2_speech") if kk in jb}
+        reset_launches()
+        train_state.run_actnorm_init(spec, state, jb)
+        for _ in range(2):
+            mets = train_state.train_step(spec, hp, state, jb)
+        val = train_loop.run_validation(spec, hp, model, val_ds, dev, 2, SEED)
+        s = StreamingGenerator(spec, model, batch_size=1, seed=SEED, device=dev)
+        for _ in range(3):
+            s.push(**frame)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        require_launches(f"{label} path", launches, kernel_wrappers())
+        if not (math.isfinite(float(mets["loss"])) and math.isfinite(val["val_loss"])):
+            fail(f"{label} path: loss {float(mets['loss'])}, val {val['val_loss']}")
+        print(f"{label} path: 2 steps B={WIDE_BATCH}, a validation (val NLL "
+              f"{val['val_loss']:.3f}), 3 pushes; launches {launches}")
+        del s, state
+
+        k_steps, c, h = spec.n_steps, spec.channels, spec.hidden_channels
+        cond, cp, p1 = spec.cond.cond_dim, ks.channels, spec.cond.p1_face.out_dim
+        n_seq = hp.Validation["seq_len"] - spec.cond.longest_history
+        n_tr = hp.Train["seq_len"] - spec.cond.longest_history
+        rows = {}
+        with torch.no_grad():
+            w = fk.prepare_sampling_weights(spec, model.flow)
+            w_p1_t = model.flow["cond_proj"]["w"][:, :, :p1].transpose(1, 2).contiguous()
+            w_p1_k = fk.pad_history(spec, w_p1_t, 1)
+            gru = {"w_ih": w.w_ih_t.transpose(1, 2).contiguous(),
+                   "w_hh": w.w_hh_t.transpose(1, 2).contiguous(),
+                   "b_ih": w.b_ih, "b_hh": w.b_hh}
+            pad = lambda t: fk.pad_lanes(spec, t)  # noqa: E731
+            unpad = lambda t: fk.unpad_lanes(spec, t)  # noqa: E731
+
+            # frame_rev at B=1 (a push), through its logical wrapper
+            z, projs, st = randn(1, c), randn(k_steps, 1, cond), randn(k_steps, 1, h, scale=0.5)
+            x, st_new = fk.frame_rev_fused(spec, w, z, projs, st)
+            x_r, st_r = fk.frame_rev_fused_ref(ks, w, pad(z), projs, st)
+            err = max(check_close(f"{label} frame_rev x", x, unpad(x_r)),
+                      check_close(f"{label} frame_rev states", st_new, st_r))
+            call = lambda: fk.frame_rev_fused(spec, w, z, projs, st)  # noqa: E731
+            rows["frame_rev"] = dict(
+                batch=1, max_abs_err=err, ms=time_ms(graphed(call), 20),
+                wrapper_ms=time_ms(call, 20),
+                plain_ms=time_ms(lambda: fk.frame_rev_fused_ref(ks, w, pad(z), projs, st), 3),
+                library_ms=time_ms(graphed(lambda: library_frame_rev(
+                    ks, w, gru, pad(z), projs, st)), 20),
+                **dict(zip(("bound_ms", "bound_by"), frame_bound_ms(ks, w, 1))))
+
+            # seq_rev at B=1 over a validation's frames
+            zs, fixed = randn(n_seq, 1, c), randn(n_seq, k_steps, 1, cond)
+            hist0, st0 = randn(1, p1), torch.zeros(k_steps, 1, h, device=dev)
+            xs = fk.sequence_rev_fused(spec, w, w_p1_t, zs, fixed, hist0, st0)
+            ref_args = (ks, w, w_p1_k, pad(zs), fixed, fk.pad_history(spec, hist0, 1), st0)
+            xs_r, seq_plain = timed(lambda: fk.sequence_rev_fused_ref(*ref_args))
+            xs_r = unpad(xs_r)
+            xs_64 = unpad(fk.sequence_rev_fused_ref(
+                ks, weights64(w), *(t.double() for t in ref_args[2:])))
+            check_close(f"{label} seq_rev first {SEQ_TIGHT} frames", xs[:SEQ_TIGHT],
+                        xs_r[:SEQ_TIGHT])
+            own = (xs_r.double() - xs_64).abs().max().item()
+            print(f"{label} seq_rev all {n_seq} frames: kernel vs plain "
+                  f"{json.dumps(drift(xs, xs_r))}; plain float32 vs float64 "
+                  f"{json.dumps(drift(xs_r, xs_64))}; max|x| "
+                  f"{xs_64.abs().max().item():.2f}")
+            err = check_close(f"{label} seq_rev all frames", xs, xs_r,
+                              atol=max(SEQ_LOOSE_ATOL, WIDE_SEQ_RATIO * own), rtol=0.0)
+            call = lambda: fk.sequence_rev_fused(  # noqa: E731
+                spec, w, w_p1_t, zs, fixed, hist0, st0)
+            rows["seq_rev"] = dict(
+                batch=1, frames=n_seq, max_abs_err=err,
+                ms=time_ms(graphed(call), 3, warmup=1), wrapper_ms=time_ms(call, 3, warmup=1),
+                plain_ms=seq_plain,
+                library_ms=time_ms(graphed(lambda: library_seq_rev(
+                    ks, w, gru, w_p1_k, *ref_args[3:])), 3, warmup=1),
+                **dict(zip(("bound_ms", "bound_by"), seq_bound_ms(ks, w, n_seq, 1))))
+
+            # the gates and the chain alone, in the kernels' lanes, at B=1
+            # with the own face (a generated frame)
+            hist = fk.pad_history(spec, randn(1, p1), 1)
+            z_k = pad(randn(1, c))
+            gates = lambda: fk.sample_gates(ks, w, w_p1_k, projs, hist, st)  # noqa: E731
+            got = gates()
+            ref = fk.sample_gates_ref(ks, w, w_p1_k, projs, hist, st)
+            err = max(check_close(f"{label} sample_gates {nm}", a_, r_)
+                      for nm, a_, r_ in zip(("proj", "gc", "gh"), got, ref))
+            rows["sample_gates"] = dict(
+                batch=1, max_abs_err=err, ms=time_ms(graphed(gates), 20),
+                wrapper_ms=time_ms(gates, 20),
+                plain_ms=time_ms(lambda: fk.sample_gates_ref(ks, w, w_p1_k, projs, hist, st), 5),
+                library_ms=time_ms(graphed(lambda: library_gates(
+                    ks, w, w_p1_k, projs, hist, st)), 20),
+                **dict(zip(("bound_ms", "bound_by"), gates_bound_ms(ks, 1, ks.cond.p1_face.out_dim))))
+            _, gc, gh = ref
+            chain = {}
+            for place in ((True, False) if resident else (False,)):
+                call = lambda: fk.sample_chain(  # noqa: E731
+                    ks, w, z_k, gc, gh, st, hist, resident=place)
+                got = call()
+                ref_c = fk.sample_chain_ref(ks, w, z_k, gc, gh, st, hist)
+                err = max(check_close(f"{label} sample_chain resident={place} {nm}", a_, r_)
+                          for nm, a_, r_ in zip(("x", "states", "hist"), got, ref_c))
+                chain[place] = (err, time_ms(graphed(call), 20), time_ms(call, 20))
+            plan = fk.chain_plan(spec, 1)
+            chain_plain = time_ms(lambda: fk.sample_chain_ref(ks, w, z_k, gc, gh, st, hist), 5)
+            rows["sample_chain"] = dict(
+                batch=1, resident=resident, max_abs_err=chain[resident][0],
+                ms=chain[resident][1], wrapper_ms=chain[resident][2],
+                plain_ms=chain_plain, library_ms=time_ms(graphed(
+                    lambda: fk.sample_chain_ref(ks, w, z_k, gc, gh, st, hist)), 20),
+                plan=plan,
+                **({"global_memory_ms": chain[False][1],
+                    "global_memory_max_abs_err": chain[False][0]} if resident else {}),
+                **dict(zip(("bound_ms", "bound_by"),
+                           chain_bound_ms(ks, w, 1, ks.cond.p1_face.out_dim))))
+
+            # the training kernels in the kernels' lanes at B=WIDE_BATCH
+            b = WIDE_BATCH
+            tw = tk.TrainWeights(*(t.detach() for t in tk.prepare_train_weights(
+                spec, model.flow)))
+            xs_t = pad(randn(n_tr, b, c))
+            cs, st_t = randn(n_tr, k_steps, b, cond), randn(k_steps, b, h, scale=0.3)
+            gates_err = check_close(f"{label} cond_gates", tk.cond_gates(ks, tw, cs),
+                                    tk.cond_gates_ref(ks, tw, cs),
+                                    TRAIN_VAL_ATOL, TRAIN_VAL_RTOL)
+            got = tk.seq_fwd(ks, tw, xs_t, cs, st_t)
+            ref, fwd_plain = timed(lambda: tk.seq_fwd_ref(ks, tw, xs_t, cs, st_t))
+            fwd_err = max(check_close(f"{label} seq_fwd {nm}", a_, r_,
+                                      TRAIN_VAL_ATOL, TRAIN_VAL_RTOL)
+                          for nm, a_, r_ in zip(("z", "scales", "zs_res", "states_res",
+                                                 "gc"), got, ref))
+            _, scales_r, zs_res, st_res, gc_t = ref
+            hprev = torch.cat([st_t[None], st_res[:-1]])
+            # the padded lanes' cotangents are zero, as the Function's
+            cot = (pad(randn(n_tr, b, c)),
+                   torch.nn.functional.pad(randn(n_tr, k_steps, b, c // 2),
+                                           (0, cp // 2 - c // 2)),
+                   randn(k_steps, b, h))
+            got = tk.seq_bwd(ks, tw, gc_t, zs_res, hprev, *cot)
+            ref, bwd_plain = timed(lambda: tk.seq_bwd_ref(ks, tw, gc_t, zs_res, hprev,
+                                                          *cot))
+            bwd_err = max(check_close(f"{label} seq_bwd {nm}", a_, r_,
+                                      TRAIN_BWD_ATOL, TRAIN_BWD_RTOL)
+                          for nm, a_, r_ in zip(("dx", "dstates0", "dgi", "dghn", "dhout",
+                                                 "dzb"), got, ref))
+            gates_call = lambda: tk.cond_gates(ks, tw, cs)  # noqa: E731
+            fwd_call = lambda: tk.seq_fwd(ks, tw, xs_t, cs, st_t)  # noqa: E731
+            bwd_call = lambda: tk.seq_bwd(ks, tw, gc_t, zs_res, hprev, *cot)  # noqa: E731
+            lib_a = torch.nn.functional.leaky_relu(cs, 0.01).permute(1, 0, 2, 3).reshape(
+                k_steps, -1, cond).contiguous()
+            lib_w = tw.w_ih_t[:, ks.z1_dim:].contiguous()
+            lib_b = tw.b_ih[:, None, :].contiguous()
+            xs_l = unpad(xs_t)
+            rows["cond_gates"] = dict(
+                batch=b, frames=n_tr, max_abs_err=gates_err,
+                ms=time_ms(graphed(gates_call), 3), wrapper_ms=time_ms(gates_call, 3),
+                plain_ms=time_ms(lambda: tk.cond_gates_ref(ks, tw, cs), 3),
+                library_ms=time_ms(graphed(lambda: torch.baddbmm(lib_b, lib_a, lib_w)), 3),
+                **dict(zip(("bound_ms", "bound_by"), cond_gates_bound_ms(ks, n_tr, b))))
+            rows["seq_fwd"] = dict(
+                batch=b, frames=n_tr, max_abs_err=fwd_err,
+                ms=time_ms(graphed(fwd_call), 3), wrapper_ms=time_ms(fwd_call, 3),
+                plain_ms=fwd_plain,
+                library_ms=time_ms(graphed(lambda: eager_flow_sequence(
+                    spec, model.flow, xs_l, cs, st_t)), 3),
+                **dict(zip(("bound_ms", "bound_by"), train_fwd_bound_ms(ks, tw, n_tr, b))))
+            bwd_ms, bwd_wrap = time_ms(graphed(bwd_call), 3), time_ms(bwd_call, 3)
+        # the library backward: the eager loop's autograd backward, graphed
+        # forward + backward less the graphed forward
+        lib_in = [x.clone().requires_grad_() for x in (xs_l, cs, st_t)]
+        lib_wts = [p for n_, p in model.flow.named_parameters()
+                   if p.requires_grad and not n_.startswith("cond_proj")]
+        cot_l = (unpad(cot[0]), cot[1][..., :c // 2], cot[2])
+
+        def lib_forward():
+            z_, _, ns, sc = eager_flow_sequence(spec, model.flow, *lib_in)
+            return z_, sc, ns
+
+        lib_bwd = (time_ms(graphed(lambda: torch.autograd.grad(
+            lib_forward(), lib_in + lib_wts, cot_l)), 3)
+                   - time_ms(graphed(lib_forward), 3))
+        rows["seq_bwd"] = dict(
+            batch=b, frames=n_tr, max_abs_err=bwd_err, ms=bwd_ms, wrapper_ms=bwd_wrap,
+            plain_ms=bwd_plain, library_ms=lib_bwd,
+            **dict(zip(("bound_ms", "bound_by"), train_bwd_bound_ms(ks, tw, n_tr, b))))
+        for name, row in rows.items():
+            src, rep_ = KERNEL_SOURCES[name]
+            records.append(dict(name=name, widened=label, route="cuda",
+                                source=f"lets_face_it_tpu_torch/{src}",
+                                replaces=f"lets_face_it_tpu/ops/{rep_}",
+                                launches=launches[name], **row))
+            extra = (f", global memory {row['global_memory_ms']:.4f} ms"
+                     if "global_memory_ms" in row else "")
+            print(f"{label} {name} B={row['batch']}: max|d| {row['max_abs_err']:.3e}; "
+                  f"kernel {row['ms']:.4f} ms (graph replay; {row['wrapper_ms']:.4f} "
+                  f"through the wrapper){extra}, plain {row['plain_ms']:.4f} ms, "
+                  f"library {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                  f"({row['bound_by']})  ok")
+        out[label] = {"launches": launches, "val_loss": val["val_loss"],
+                      "chain_resident": resident, "kernel_channels": ks.channels}
+        del model, w, tw
+        torch.cuda.empty_cache()
+    out["step_s"] = time.perf_counter() - t18
+    return out
+
+
+# The kernels' sources and the TPU kernels they replace.
+KERNEL_SOURCES = {
+    "frame_rev": ("csrc/frame_rev.cu", "pallas_flow.py:130"),
+    "seq_rev": ("csrc/seq_rev.cu", "pallas_flow.py:346"),
+    "sample_gates": ("csrc/sample_gates.cuh", "pallas_flow.py:172"),
+    "sample_chain": ("csrc/sample_chain.cuh", "pallas_flow.py:152"),
+    "cond_gates": ("csrc/cond_gates.cu", "pallas_train.py:241"),
+    "seq_fwd": ("csrc/seq_fwd.cu", "pallas_train.py:182"),
+    "seq_bwd": ("csrc/seq_bwd.cu", "pallas_train.py:330")}
+
+
+def tuning_step(tmp, dev, card) -> dict:
+    """Step 19: ``Study.optimize`` on final_model over large_hparam_search,
+    trials in spawned subprocesses on the card."""
+    from hparam_tuning_configs import large_hparam_search
+
+    from lets_face_it_tpu_torch.hparams import load_hparams
+    from lets_face_it_tpu_torch.model.spec import FlowSpec
+    from lets_face_it_tpu_torch.ops import flow_kernels as fk
+    from lets_face_it_tpu_torch.train import loop as train_loop
+    from lets_face_it_tpu_torch.train.tuning import Study
+
+    t19 = time.perf_counter()
+    hp = load_hparams(REPO / "hparams" / "final_model.yaml", dataset_root=tmp)
+    corpus = train_loop.synthetic_corpus(hp, SEED, n_train_chunks=TUNE_CHUNKS,
+                                         n_val_chunks=1, frames_per_chunk=TUNE_FRAMES)
+    study = Study("final_model", Path(tmp) / "studies")
+    study.optimize(hp, large_hparam_search.hparam_options, n_trials=TUNE_TRIALS,
+                   max_steps=TUNE_STEPS, seed=TUNE_SEED, device=str(dev),
+                   corpus=corpus, worker=0)
+    trials = []
+    for t in study.trials:
+        trial_hp = large_hparam_search.hparam_options(
+            load_hparams(REPO / "hparams" / "final_model.yaml", dataset_root=tmp),
+            _Replay(t["params"]))
+        spec = FlowSpec.build(trial_hp)
+        inside = fk.jax_envelope(spec)
+        attrs = t.get("user_attrs", {})
+        row = {"number": t["number"], "state": t["state"], "value": t.get("value"),
+               "note": t.get("note"), "seconds": attrs.get("seconds"),
+               "batch_size": attrs.get("batch_size"), "launches": attrs.get("launches"),
+               "spec": {"K": spec.n_steps, "H": spec.hidden_channels,
+                        "cond": spec.cond.cond_dim, "C": spec.channels,
+                        "p1_face": spec.cond.p1_face.enc, "optim": trial_hp.Optim["name"],
+                        "seq_len": trial_hp.Train["seq_len"]},
+               "jax_envelope": inside}
+        trials.append(row)
+        print(f"step 19 trial #{t['number']}: {row['spec']} (JAX kernels' envelope: "
+              f"{inside}), {t['state']}"
+              f"{'' if t.get('note') is None else ' (' + str(t['note'])[:120] + ')'}, "
+              f"{row['seconds'] if row['seconds'] is None else round(row['seconds'], 1)} s, "
+              f"launches {row['launches']}")
+        if t["state"] not in ("complete", "pruned"):
+            fail(f"tuning trial #{t['number']} {t['state']}: {t.get('note')}\n"
+                 f"{t.get('traceback', '')}")
+        if inside:
+            counts = row["launches"] or {}
+            require_launches(f"tuning trial #{t['number']}", counts,
+                             ("cond_gates", "seq_fwd", "seq_bwd"))
+            if not (counts["seq_rev"] or counts["frame_rev"]):
+                fail(f"tuning trial #{t['number']} launched no sampling kernel")
+    return {"trials": trials, "best": study.best_trial and study.best_trial["number"],
+            "step_s": time.perf_counter() - t19}
+
+
+class _Replay:
+    """A trial that suggests recorded values (to rebuild a trial's hparams)."""
+
+    def __init__(self, params):
+        self.params = params
+
+    def _get(self, name, *args, **kwargs):
+        return self.params[name]
+
+    suggest_categorical = suggest_uniform = suggest_loguniform = suggest_int = _get
+
+
+def _ddp_rank(rank, world, backend, port, inputs_path, out_path):
+    """One rank of step 20: DDP_STEPS steps on its rows of each batch."""
+    import os
+
+    import torch
+
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK=str(rank),
+                      WORLD_SIZE=str(world), LOCAL_RANK=str(rank))
+    sys.path.insert(0, str(REPO))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from lets_face_it_tpu_torch.parallel.mesh import make_mesh
+    from lets_face_it_tpu_torch.sample.weights import seeded_random_model
+    from lets_face_it_tpu_torch.train import state as train_state
+
+    mesh = make_mesh("cuda", backend)
+    inp = torch.load(inputs_path, weights_only=False)
+    spec, hp = inp["spec"], inp["hp"]
+    state = train_state.TrainState.create(seeded_random_model(spec, SEED).to(mesh.device),
+                                          hp, 10, SEED, mesh=mesh)
+    batches = [{k: mesh.local(v).to(mesh.device) for k, v in b.items()}
+               for b in inp["batches"]]
+    reset_launches()
+    train_state.run_actnorm_init(spec, state, batches[0])
+    nlls = [float(train_state.train_step(spec, hp, state, b)["nll"]) for b in batches]
+    torch.cuda.synchronize()
+    if mesh.is_main:
+        torch.save({"nll": nlls, "launches": read_launches(),
+                    "params": {k: v.detach().cpu() for k, v in
+                               state.model.state_dict().items()}}, out_path)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def ddp_step(tmp, dev, card) -> dict:
+    """Step 20: DDP_STEPS data-parallel steps at B=256 against one process."""
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    from lets_face_it_tpu_torch.hparams import load_hparams
+    from lets_face_it_tpu_torch.model.spec import FlowSpec
+    from lets_face_it_tpu_torch.sample.weights import seeded_random_model
+    from lets_face_it_tpu_torch.train import loop as train_loop
+    from lets_face_it_tpu_torch.train import state as train_state
+
+    t20 = time.perf_counter()
+    hp = load_hparams(REPO / "hparams" / "final_model.yaml", dataset_root=tmp)
+    spec = FlowSpec.build(hp)
+    b = hp.batch_size
+    # 20 chunks: 1,620 windows of 80, enough for DDP_STEPS distinct batches
+    train_ds, _ = train_loop.load_datasets(hp, train_loop.synthetic_corpus(
+        hp, SEED, n_train_chunks=20))
+    order = np.random.default_rng(SEED).permutation(len(train_ds.window_starts))
+    batches = [{k: torch.as_tensor(v) for k, v in
+                train_ds.get_batch(order[i * b:(i + 1) * b]).items()}
+               for i in range(DDP_STEPS)]
+    state = train_state.TrainState.create(seeded_random_model(spec, SEED).to(dev),
+                                          hp, 10, SEED)
+    on_dev = [{k: v.to(dev) for k, v in bt.items()} for bt in batches]
+    train_state.run_actnorm_init(spec, state, on_dev[0])
+    want = [float(train_state.train_step(spec, hp, state, bt)["nll"]) for bt in on_dev]
+    want_params = {k: v.detach() for k, v in state.model.state_dict().items()}
+    inputs = Path(tmp) / "ddp_inputs.pt"
+    torch.save({"spec": spec, "hp": hp, "batches": batches}, inputs)
+    out = {"reference_nll": want}
+    ctx = mp.get_context("spawn")
+    for world, backend in ((1, "nccl"), (2, "gloo")):
+        with socket.socket() as s_:
+            s_.bind(("localhost", 0))
+            port = s_.getsockname()[1]
+        result = Path(tmp) / f"ddp_{world}_{backend}.pt"
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=_ddp_rank,
+                             args=(r, world, backend, port, str(inputs), str(result)))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=600)
+            if p.is_alive():
+                p.kill()
+        if any(p.exitcode != 0 for p in procs):
+            fail(f"data parallel, world size {world} over {backend}: a rank exited "
+                 f"{[p.exitcode for p in procs]}")
+        got = torch.load(result, weights_only=False)
+        require_launches(f"data parallel, world size {world}", got["launches"],
+                         ("cond_gates", "seq_fwd", "seq_bwd"))
+        for i, (a_, r_) in enumerate(zip(got["nll"], want)):
+            tol = CPU_NLL_RTOL1 if i == 0 else CPU_NLL_RTOL
+            if abs(a_ - r_) > tol * abs(r_):
+                fail(f"data parallel world size {world}: step {i + 1} NLL {a_} "
+                     f"against one process's {r_} (rtol {tol})")
+        worst = max((got["params"][k].to(dev) - v).abs().max().item()
+                    for k, v in want_params.items())
+        if worst > CPU_PARAM_ATOL:
+            fail(f"data parallel world size {world}: weights {worst:.3e} from one "
+                 f"process's after {DDP_STEPS} steps (atol {CPU_PARAM_ATOL})")
+        out[f"world{world}_{backend}"] = {
+            "nll": got["nll"], "max_weight_diff": worst,
+            "launches": got["launches"], "seconds": time.perf_counter() - t0}
+        print(f"step 20, world size {world} over {backend}: {DDP_STEPS} steps of "
+              f"B={b} ({b // world} a rank) on {card}; NLL {got['nll']} against one "
+              f"process's {want}; weights within {worst:.3e}; launches "
+              f"{got['launches']}  ok")
+    out["step_s"] = time.perf_counter() - t20
     return out
 
 
@@ -3022,17 +3550,42 @@ def main() -> int:
         print(f"step 17 (precision modes, k-step graph, bf16 wire, profiler): "
               f"{modes['step_s']:.1f} s on {card}")
 
+        # -- 18. the kernels at the widened specs -----------------------------
+        wide = widened_step(tmp, dev, card, records)
+        print(json.dumps({"widened": wide}))
+        print(f"step 18 (widened kernels): {wide['step_s']:.1f} s on {card}")
+
+        # -- 19. tuning ---------------------------------------------------------
+        tuning = tuning_step(tmp, dev, card)
+        print(json.dumps({"tuning": tuning}))
+        print(f"step 19 (tuning, {TUNE_TRIALS} trials): {tuning['step_s']:.1f} s "
+              f"on {card}")
+
+        # -- 20. data parallelism -----------------------------------------------
+        ddp = ddp_step(tmp, dev, card)
+        print(json.dumps({"ddp": ddp}))
+        print(f"step 20 (data parallel): {ddp['step_s']:.1f} s on {card}")
+
         paths = {"serving": launches, "training": train_launches,
                  "invert": invert_launches, "run_test": rt_launches,
                  "train_cache_off": loop_runs[0]["launches"],
                  "train_cache_on": loop_runs[1]["launches"],
                  "render": render_launches,
-                 "extract_train": extract["cli"]["train"]["launches"]}
+                 "extract_train": extract["cli"]["train"]["launches"],
+                 **{f"tune_trial_{t['number']}": t["launches"] or {}
+                    for t in tuning["trials"]},
+                 **{f"ddp_{k}": v["launches"] for k, v in ddp.items()
+                    if k.startswith("world")}}
         for rec in records:
-            by_path = (paths if "precision" not in rec else
-                       {f"path_{rec['precision']}": modes["launches"][rec["precision"]],
-                        **({"ab_both_arms": modes["launches"]["ab"]}
-                           if rec["precision"] == "medium" else {})})
+            if "widened" in rec:
+                by_path = {f"widened {rec['widened']}":
+                           wide[rec["widened"]]["launches"]}
+            elif "precision" in rec:
+                by_path = {f"path_{rec['precision']}": modes["launches"][rec["precision"]],
+                           **({"ab_both_arms": modes["launches"]["ab"]}
+                              if rec["precision"] == "medium" else {})}
+            else:
+                by_path = paths
             rec["launches_by_path"] = {p: cnt[rec["name"]] for p, cnt in by_path.items()
                                        if rec["name"] in cnt}
 

@@ -9,8 +9,9 @@
 //      once: 15.7 of the frame's 17.1 MB of weights (final_model), which do
 //      not depend on the chain, read by the whole card;
 //   2. sample_chain.cuh: the serial chain of the K steps on a thread-block
-//      cluster whose shared memory holds the chain's weights (1.36 MB),
-//      launched to overlap the end of the gates.
+//      cluster whose shared memory holds the chain's weights (1.36 MB; where
+//      they do not fit, it reads them from global memory), launched to
+//      overlap the end of the gates.
 //
 // What bounds it on an H100: the weights are read once per frame (about
 // 16.6 MB for final_model, 5 us at 3.35 TB/s); the arithmetic is about
@@ -42,7 +43,8 @@ extern "C" int frame_rev_launch(
   cudaError_t err = flow_device(&d);
   if (err != cudaSuccess) return (int)err;
   ChainPlan plan;
-  if (!chain_plan_for(B, a, 0, 0, 0, d, &plan)) return FLOW_ERR_PLAN;
+  if (!chain_plan_for(B, a, 0, 0, 0, CHAIN_WEIGHTS_AUTO, d, &plan))
+    return FLOW_ERR_PLAN;
   cudaStream_t st = (cudaStream_t)stream;
   err = sample_gates_enqueue(cond_projs, nullptr, nullptr, states, w_ih_t,
                              w_hh_t, b_ih, b_hh, nullptr, gc, gh, B, 0, K, Z1,

@@ -46,6 +46,16 @@
 // first st.async is split into an early arrive and a late wait. Every wait
 // traps after 10 s (stream_watchdog) rather than hang the card.
 //
+// Where the K steps' chain weights do not fit the shared memory of one
+// cluster (at the final widths from H = 256 at K = 16 on: 157 KB a step at
+// H = 256, 300 KB at H = 512), the kernel runs a second plan of the same
+// function (RESIDENT = false): each step's weights are read from global
+// memory, where they stay in L2 (9.6 MB at H = 512, K = 32, of the H100's
+// 50 MB), and the shared memory holds only the tiles, the z buffers and
+// the gates. Everything else (the split of the steps over the ranks, the
+// hand-offs, the pipeline of tiles) is the same. The plan takes the
+// resident variant whenever it fits (chain_plan).
+//
 // Included by the launchers (frame_rev.cu, seq_rev.cu, sample_chain.cu).
 // Only a library that defines SAMPLE_CHAIN_PROBE before the include
 // (sample_chain.cu, which the probe and the checks call) compiles the
@@ -130,8 +140,9 @@ __host__ __device__ inline int chain_step_floats(int C, int Z1, int H, int COUT)
 }
 
 // Shared floats of a block holding `held` steps, BT-row tiles, M of them:
-// the barriers, the weights, the incoming tiles, two z buffers, the new
-// state, and a tile's gates and previous states for the held steps.
+// the barriers, the weights (step_floats 0 where they are read from global
+// memory), the incoming tiles, two z buffers, the new state, and a tile's
+// gates and previous states for the held steps.
 __host__ __device__ inline int chain_smem_floats(int held, int step_floats,
                                                  int bt, int m, int C, int H) {
   return CHAIN_BAR_FLOATS + held * step_floats + m * round4(bt * C)
@@ -195,8 +206,9 @@ __device__ __forceinline__ void cluster_wait() {
 
 // TRACE: the probe's instantiation, which records ChainArgs::trace; the
 // main paths launch TRACE = false, which compiles no timestamp. MODE:
-// ChainArgs::mode.
-template <int BT, bool TRACE, int MODE>
+// ChainArgs::mode. RESIDENT: the held steps' weights are copied into shared
+// memory once a launch (true), or read from global memory at each use.
+template <int BT, bool TRACE, int MODE, bool RESIDENT>
 __global__ void __launch_bounds__(CHAIN_THREADS, 1)
 sample_chain_kernel(ChainArgs a) {
   extern __shared__ __align__(128) float csm[];
@@ -219,8 +231,8 @@ sample_chain_kernel(ChainArgs a) {
   const uint32_t bars = smem_u32(csm);
   const uint32_t wbar = bars;                             // [held]
   const uint32_t zbar = bars + 8 * CHAIN_MAX_HELD;        // [M]
-  float* wts = csm + CHAIN_BAR_FLOATS;                    // [held, SF]
-  float* zin = wts + (size_t)held * SF;                   // [M, BT*C]
+  float* wts = csm + CHAIN_BAR_FLOATS;                    // [held, SF] resident
+  float* zin = wts + (RESIDENT ? (size_t)held * SF : 0);  // [M, BT*C]
   const int zstride = round4(BT * C);
   float* zw0 = zin + (size_t)M * zstride;                 // [BT, C]
   float* zw1 = zw0 + zstride;                             // [BT, C]
@@ -233,7 +245,8 @@ sample_chain_kernel(ChainArgs a) {
             o_am = o_ab + round4(C);
 
   if (tid == 0) {
-    for (int s = 0; s < held; ++s) mbar_init(wbar + 8 * s, 1);
+    if (RESIDENT)
+      for (int s = 0; s < held; ++s) mbar_init(wbar + 8 * s, 1);
     for (int j = 0; j < M; ++j) mbar_init(zbar + 8 * j, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     // the incoming tiles: each barrier's one arrival, and the bytes expected
@@ -241,7 +254,7 @@ sample_chain_kernel(ChainArgs a) {
       for (int j = 0; j < M; ++j)
         mbar_arrive_expect_tx(zbar + 8 * j, (uint32_t)(BT * C * 4));
     // this block's steps, one bulk copy and one barrier each
-    for (int s = 0; s < held; ++s) {
+    for (int s = 0; RESIDENT && s < held; ++s) {
       const int k = K - 1 - (i0 + s);
       const uint32_t bar = wbar + 8 * s;
       mbar_arrive_expect_tx(bar, (uint32_t)SF * 4u);
@@ -300,8 +313,8 @@ sample_chain_kernel(ChainArgs a) {
 
     for (int s = 0; s < held; ++s) {
       const int k = K - 1 - (i0 + s);
-      const float* ws = wts + (size_t)s * SF;
-      if (j == 0) mbar_wait(wbar + 8 * s, 0);
+      const float* ws = RESIDENT ? wts + (size_t)s * SF : a.weights + (size_t)k * SF;
+      if (RESIDENT && j == 0) mbar_wait(wbar + 8 * s, 0);
 
       // h = GRU(gc + z1 @ Wz, gh, h_prev): CHAIN_PARTS_GRU lanes a unit, each
       // an interleaved quarter of the Z1 rows for all BT rows; after the
@@ -490,17 +503,26 @@ struct ChainPlan {
   int clusters;
   int step_floats;
   int smem_bytes;
+  bool resident;    // the weights in shared memory (else read from global)
 };
 
 inline int chain_smem_bytes(int K, int C, int Z1, int H, int COUT, int bt,
-                            int cs, int m) {
+                            int cs, int m, bool resident) {
   const int held = (K + cs - 1) / cs;
-  return 4 * chain_smem_floats(held, chain_step_floats(C, Z1, H, COUT), bt, m,
-                               C, H);
+  return 4 * chain_smem_floats(held, resident ? chain_step_floats(C, Z1, H, COUT) : 0,
+                               bt, m, C, H);
 }
 
+// Where the weights go, as a launcher's caller asks: the plan's choice,
+// shared memory, or global memory.
+enum ChainWeights { CHAIN_WEIGHTS_AUTO = 0, CHAIN_WEIGHTS_SHARED = 1,
+                    CHAIN_WEIGHTS_GLOBAL = 2 };
+
 // Plans a launch for B rows: bt, cs and m as asked, 0 for the defaults
-// (cs: CHAIN_DEFAULT_CLUSTER, or K if that is less). A default tile is
+// (cs: CHAIN_DEFAULT_CLUSTER, or K if that is less); the weights where
+// `place` (ChainWeights) asks, by default in shared memory where a block of
+// one row of the plan holds its steps' weights, else in global memory. A
+// default tile is
 // one row (a tile's steps take about as long for one row as for a few, and
 // a cluster pipelines its tiles), doubled while the rows would need more
 // than CHAIN_MAX_TILES tiles in each of the clusters the device holds at
@@ -509,20 +531,26 @@ inline int chain_smem_bytes(int K, int C, int Z1, int H, int COUT, int bt,
 // value is out of range.
 template <typename Resident>
 inline bool chain_plan(int B, int K, int C, int Z1, int H, int COUT,
-                       int bt_req, int cs_req, int m_req, const FlowDevice& d,
-                       Resident resident, ChainPlan* plan) {
+                       int bt_req, int cs_req, int m_req, int place,
+                       const FlowDevice& d, Resident resident, ChainPlan* plan) {
   int cs = cs_req ? cs_req : CHAIN_DEFAULT_CLUSTER;
   if (cs > K) cs = K;
   int bt = bt_req ? bt_req : 1;
   if (cs < 1 || cs > CHAIN_MAX_CLUSTER || bt < 1 || bt > FLOW_MAX_BT
-      || (K + cs - 1) / cs > CHAIN_MAX_HELD || m_req < 0 || m_req > CHAIN_MAX_TILES)
+      || (K + cs - 1) / cs > CHAIN_MAX_HELD || m_req < 0 || m_req > CHAIN_MAX_TILES
+      || place < CHAIN_WEIGHTS_AUTO || place > CHAIN_WEIGHTS_GLOBAL)
     return false;
   plan->bt = bt;
   plan->cs = cs;
   plan->step_floats = chain_step_floats(C, Z1, H, COUT);
   plan->m = m_req ? m_req : 1;
   plan->clusters = ((B + bt - 1) / bt + plan->m - 1) / plan->m;
-  plan->smem_bytes = chain_smem_bytes(K, C, Z1, H, COUT, bt, cs, plan->m);
+  plan->resident = place == CHAIN_WEIGHTS_SHARED
+                   || (place == CHAIN_WEIGHTS_AUTO
+                       && chain_smem_bytes(K, C, Z1, H, COUT, bt, cs, plan->m, true)
+                              <= d.max_smem);
+  plan->smem_bytes = chain_smem_bytes(K, C, Z1, H, COUT, bt, cs, plan->m,
+                                      plan->resident);
   if (plan->smem_bytes > d.max_smem) return false;
   if (m_req == 0) {
     const int n = resident(*plan);
@@ -535,7 +563,8 @@ inline bool chain_plan(int B, int K, int C, int Z1, int H, int COUT,
     plan->bt = bt;
     plan->m = m;
     plan->clusters = (tiles + m - 1) / m;
-    plan->smem_bytes = chain_smem_bytes(K, C, Z1, H, COUT, bt, cs, m);
+    plan->smem_bytes = chain_smem_bytes(K, C, Z1, H, COUT, bt, cs, m,
+                                        plan->resident);
     if (plan->smem_bytes > d.max_smem) return false;
   }
   return true;
@@ -584,49 +613,54 @@ inline cudaLaunchConfig_t chain_config(const ChainPlan& p, cudaStream_t stream,
 
 // Clusters of the plan the device holds at once (cudaOccupancyMaxActiveClusters),
 // -1 on an error.
-template <int BT>
+template <int BT, bool RESIDENT>
 inline int chain_resident(const ChainPlan& p, const FlowDevice& d) {
   static bool allowed[FLOW_MAX_DEVICES] = {};
   // the shape of a launch is the same at every mode
-  if (chain_allow(sample_chain_kernel<BT, false, FLOW_F32>, d, allowed) != cudaSuccess)
-    return -1;
+  const auto kernel = sample_chain_kernel<BT, false, FLOW_F32, RESIDENT>;
+  if (chain_allow(kernel, d, allowed) != cudaSuccess) return -1;
   cudaLaunchAttribute attr[2];
   cudaLaunchConfig_t cfg = chain_config(p, nullptr, attr);
   int n = 0;
-  if (cudaOccupancyMaxActiveClusters(&n, sample_chain_kernel<BT, false, FLOW_F32>, &cfg)
-      != cudaSuccess)
-    return -1;
+  if (cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) != cudaSuccess) return -1;
   return n;
+}
+
+template <int BT>
+inline int chain_resident_place(const ChainPlan& p, const FlowDevice& d) {
+  return p.resident ? chain_resident<BT, true>(p, d) : chain_resident<BT, false>(p, d);
 }
 
 // The same, remembered per device and plan shape (the query costs a few
 // microseconds of host time, and a push plans every frame).
 inline int chain_resident_bt(const ChainPlan& p, const FlowDevice& d) {
-  struct Entry { int dev, bt, cs, smem, n; };
+  struct Entry { int dev, bt, cs, smem; bool resident; int n; };
   static Entry cache[32] = {};
   static int filled = 0;
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return -1;
   for (int i = 0; i < filled; ++i) {
     const Entry& e = cache[i];
-    if (e.dev == dev && e.bt == p.bt && e.cs == p.cs && e.smem == p.smem_bytes)
+    if (e.dev == dev && e.bt == p.bt && e.cs == p.cs && e.smem == p.smem_bytes
+        && e.resident == p.resident)
       return e.n;
   }
   int n = -1;
   switch (p.bt) {
-    case 1: n = chain_resident<1>(p, d); break;
-    case 2: n = chain_resident<2>(p, d); break;
-    case 4: n = chain_resident<4>(p, d); break;
-    case 8: n = chain_resident<8>(p, d); break;
+    case 1: n = chain_resident_place<1>(p, d); break;
+    case 2: n = chain_resident_place<2>(p, d); break;
+    case 4: n = chain_resident_place<4>(p, d); break;
+    case 8: n = chain_resident_place<8>(p, d); break;
     default: return -1;
   }
-  if (n > 0 && filled < 32) cache[filled++] = {dev, p.bt, p.cs, p.smem_bytes, n};
+  if (n > 0 && filled < 32)
+    cache[filled++] = {dev, p.bt, p.cs, p.smem_bytes, p.resident, n};
   return n;
 }
 
 inline bool chain_plan_for(int B, const ChainArgs& a, int bt, int cs, int m,
-                           const FlowDevice& d, ChainPlan* plan) {
-  return chain_plan(B, a.K, a.C, a.Z1, a.H, a.COUT, bt, cs, m, d,
+                           int place, const FlowDevice& d, ChainPlan* plan) {
+  return chain_plan(B, a.K, a.C, a.Z1, a.H, a.COUT, bt, cs, m, place, d,
                     [&](const ChainPlan& p) { return chain_resident_bt(p, d); },
                     plan);
 }
@@ -639,26 +673,38 @@ inline bool chain_valid(const ChainArgs& a) {
          && precision_valid(a.mode);
 }
 
-template <int BT, bool TRACE, int MODE>
+template <int BT, bool TRACE, int MODE, bool RESIDENT>
 inline cudaError_t chain_launch_bt(const cudaLaunchConfig_t& cfg, const ChainArgs& a,
                                    const FlowDevice& d) {
   static bool allowed[FLOW_MAX_DEVICES] = {};
-  cudaError_t err = chain_allow(sample_chain_kernel<BT, TRACE, MODE>, d, allowed);
+  const auto kernel = sample_chain_kernel<BT, TRACE, MODE, RESIDENT>;
+  cudaError_t err = chain_allow(kernel, d, allowed);
   if (err != cudaSuccess) return err;
-  return cudaLaunchKernelEx(&cfg, sample_chain_kernel<BT, TRACE, MODE>, a);
+  return cudaLaunchKernelEx(&cfg, kernel, a);
+}
+
+template <int BT, bool TRACE, int MODE>
+inline cudaError_t chain_launch_place(const cudaLaunchConfig_t& cfg,
+                                      const ChainArgs& a, const FlowDevice& d,
+                                      bool resident) {
+  if (resident) return chain_launch_bt<BT, TRACE, MODE, true>(cfg, a, d);
+  // the traced kernel is the resident one's
+  if constexpr (TRACE) return (cudaError_t)FLOW_ERR_ARGS;
+  else return chain_launch_bt<BT, false, MODE, false>(cfg, a, d);
 }
 
 template <int BT, bool TRACE>
 inline cudaError_t chain_launch_mode(const cudaLaunchConfig_t& cfg,
-                                     const ChainArgs& a, const FlowDevice& d) {
+                                     const ChainArgs& a, const FlowDevice& d,
+                                     bool resident) {
   if constexpr (TRACE) {
     if (a.mode != FLOW_F32) return (cudaError_t)FLOW_ERR_ARGS;
-    return chain_launch_bt<BT, true, FLOW_F32>(cfg, a, d);
+    return chain_launch_place<BT, true, FLOW_F32>(cfg, a, d, resident);
   } else {
     switch (a.mode) {
-      case FLOW_F32: return chain_launch_bt<BT, false, FLOW_F32>(cfg, a, d);
-      case FLOW_TF32: return chain_launch_bt<BT, false, FLOW_TF32>(cfg, a, d);
-      case FLOW_BF16: return chain_launch_bt<BT, false, FLOW_BF16>(cfg, a, d);
+      case FLOW_F32: return chain_launch_place<BT, false, FLOW_F32>(cfg, a, d, resident);
+      case FLOW_TF32: return chain_launch_place<BT, false, FLOW_TF32>(cfg, a, d, resident);
+      case FLOW_BF16: return chain_launch_place<BT, false, FLOW_BF16>(cfg, a, d, resident);
       default: return (cudaError_t)FLOW_ERR_ARGS;
     }
   }
@@ -666,12 +712,12 @@ inline cudaError_t chain_launch_mode(const cudaLaunchConfig_t& cfg,
 
 template <bool TRACE>
 inline cudaError_t chain_launch(const cudaLaunchConfig_t& cfg, const ChainArgs& a,
-                                int bt, const FlowDevice& d) {
-  switch (bt) {
-    case 1: return chain_launch_mode<1, TRACE>(cfg, a, d);
-    case 2: return chain_launch_mode<2, TRACE>(cfg, a, d);
-    case 4: return chain_launch_mode<4, TRACE>(cfg, a, d);
-    case 8: return chain_launch_mode<8, TRACE>(cfg, a, d);
+                                const ChainPlan& p, const FlowDevice& d) {
+  switch (p.bt) {
+    case 1: return chain_launch_mode<1, TRACE>(cfg, a, d, p.resident);
+    case 2: return chain_launch_mode<2, TRACE>(cfg, a, d, p.resident);
+    case 4: return chain_launch_mode<4, TRACE>(cfg, a, d, p.resident);
+    case 8: return chain_launch_mode<8, TRACE>(cfg, a, d, p.resident);
     default: return (cudaError_t)FLOW_ERR_PLAN;
   }
 }
@@ -688,11 +734,11 @@ inline cudaError_t chain_enqueue(ChainArgs a, const ChainPlan& p,
   cudaLaunchAttribute attr[2];
   const cudaLaunchConfig_t cfg = chain_config(p, stream, attr, after_gates);
 #ifdef SAMPLE_CHAIN_PROBE
-  cudaError_t err = a.trace ? chain_launch<true>(cfg, a, p.bt, d)
-                            : chain_launch<false>(cfg, a, p.bt, d);
+  cudaError_t err = a.trace ? chain_launch<true>(cfg, a, p, d)
+                            : chain_launch<false>(cfg, a, p, d);
 #else
   if (a.trace) return (cudaError_t)FLOW_ERR_ARGS;
-  cudaError_t err = chain_launch<false>(cfg, a, p.bt, d);
+  cudaError_t err = chain_launch<false>(cfg, a, p, d);
 #endif
   if (err != cudaSuccess) return err;
   ++*launches;

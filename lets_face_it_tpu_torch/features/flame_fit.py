@@ -243,8 +243,30 @@ def zero_params(model, n: int, init=None) -> dict:
     return params
 
 
+def _fit_split(model, emb, targets, init, mesh, **steps):
+    """``fit_batch`` of this rank's frames, gathered from every rank."""
+    targets = torch.as_tensor(targets, dtype=torch.float32, device=model.device)
+    n = targets.shape[0]
+    pad = (-n) % mesh.size
+
+    def mine(t):
+        t = torch.as_tensor(t, device=model.device)
+        if pad:
+            t = torch.cat([t, t[-1:].expand(pad, *t.shape[1:])])
+        return mesh.local(t).contiguous()
+
+    params, losses, evals = fit_batch(
+        model, emb, mine(targets),
+        None if init is None else {k: mine(v) for k, v in init.items()},
+        **steps)
+    params = {k: mesh.all_gather(v)[:n] for k, v in params.items()}
+    counts = mesh.all_gather(torch.tensor([evals], device=model.device))
+    return (params, mesh.all_gather(losses)[:n],
+            tuple(int(c) for c in counts.max(dim=0).values))
+
+
 def fit_batch(model: FlameModel, emb: LandmarkEmbedding, targets, init=None, *,
-              stage1_steps: int = 30, stage2_steps: int = 60):
+              stage1_steps: int = 30, stage2_steps: int = 60, mesh=None):
     """Fit FLAME to [N, 51, 2] target landmarks; all N frames at once on the
     model's device, the objective evaluated through the landmark-anchor
     vertices (``restrict_to_landmarks``).
@@ -259,8 +281,14 @@ def fit_batch(model: FlameModel, emb: LandmarkEmbedding, targets, init=None, *,
     other frames of its chunk (only the rounding of the products may change
     with the chunk's size), so a session may be cut into chunks of any size
     (the JAX package pads chunks to shapes it has compiled; nothing here
-    needs that).
+    needs that). ``mesh`` (``parallel/mesh.py``): the frames split over its
+    ranks (the last one repeated up to a multiple of their number), each
+    rank fitting its share on its model's device; every rank returns all
+    N frames' results and the most evaluations a rank made.
     """
+    if mesh is not None:
+        return _fit_split(model, emb, targets, init, mesh,
+                          stage1_steps=stage1_steps, stage2_steps=stage2_steps)
     device = model.device
     emb = emb.to(device)
     if not isinstance(model, RestrictedFlame):

@@ -19,7 +19,10 @@ step's projection is autoregressive. Inside the sequence kernel's envelope
 ``final_model``) the whole loop is one launch of ``sequence_rev_fused``;
 flows with a recurrent own-face encoder take the per-frame kernel, and flows
 outside both envelopes take the plain ``flow.frame_rev`` path. The choice is
-made from the ``FlowSpec`` alone.
+made from the ``FlowSpec`` alone. A spec of the JAX package's kernel
+envelope (``flow_kernels.jax_envelope``) takes the kernels, on padded lanes
+where its widths need them; where a kernel could not take such a spec the
+choice raises rather than fall to the plain path.
 
 Inversion (``sequence_invert``): the stored latents are decoded frame by
 frame with the conditioning teacher-forced from the ground truth. On the card,
@@ -40,6 +43,7 @@ from lets_face_it_tpu_torch.core import ops
 from lets_face_it_tpu_torch.model import encoders, flow
 from lets_face_it_tpu_torch.model.spec import FlowSpec
 from lets_face_it_tpu_torch.ops import flow_kernels, train_kernels
+from lets_face_it_tpu_torch.parallel.mesh import shard_batch
 
 logger = logging.getLogger(__name__)
 
@@ -97,11 +101,21 @@ def nll_from_objective(objective):
     return -objective / ops.LN2
 
 
+def _refuse_plain(spec: FlowSpec, what: str):
+    """A spec the JAX package runs on its kernels never takes the plain
+    path here."""
+    if flow_kernels.jax_envelope(spec):
+        raise ValueError(f"the {what} kernels do not take this spec of the JAX "
+                         f"kernels' envelope: {spec}")
+
+
 @functools.lru_cache(maxsize=None)
 def training_path(spec: FlowSpec) -> str:
     """'kernels' (the seq_fwd/seq_bwd pair) or 'plain' (``flow.frame_fwd``
     under autograd); decided from the spec and logged once."""
     path = "kernels" if train_kernels.train_supported(spec) else "plain"
+    if path == "plain":
+        _refuse_plain(spec, "training")
     logger.info("training path for this flow: %s", path)
     return path
 
@@ -155,6 +169,7 @@ def sampling_path(spec: FlowSpec) -> str:
     elif flow_kernels.fused_supported(spec):
         path = "frame"
     else:
+        _refuse_plain(spec, "sampling")
         path = "plain"
     logger.info("sampling path for this flow: %s", path)
     return path
@@ -163,7 +178,7 @@ def sampling_path(spec: FlowSpec) -> str:
 @torch.no_grad()
 def sequence_sample(spec: FlowSpec, params, data, seq_len: int, *,
                     eps_std: float = 1.0, generator: torch.Generator | None = None,
-                    z_seq=None):
+                    z_seq=None, mesh=None):
     """Autoregressive generation (models.py:567-596).
 
     ``params`` is a ``SeqGlow`` (or anything with ``encoder`` and ``flow``
@@ -171,8 +186,20 @@ def sequence_sample(spec: FlowSpec, params, data, seq_len: int, *,
     provides interlocutor/speech conditioning for ``seq_len`` frames, as
     tensors on one device. ``z_seq`` [N, B, C], when given, is decoded
     instead of a draw of ``randn * eps_std`` from ``generator``. Returns the
-    generated frames [B, N, C], N = seq_len - longest_history.
+    generated frames [B, N, C], N = seq_len - longest_history. ``mesh``
+    (``parallel/mesh.py``): every rank generates its rows of the batch, from
+    its rows of the latents drawn for the whole batch, and every rank
+    returns the whole batch.
     """
+    if mesh is not None:
+        b, n = data["p1_face"].shape[0], seq_len - spec.cond.longest_history
+        rows = mesh.rows(b)
+        if z_seq is None:
+            z_seq = torch.randn((n, b, spec.channels), generator=generator,
+                                device=data["p1_face"].device) * eps_std
+        local = sequence_sample(spec, params, shard_batch(mesh, data), seq_len,
+                                z_seq=z_seq[:, rows])
+        return mesh.all_gather(local)
     x_seed = data["p1_face"]
     dev = x_seed.device
     b, c = x_seed.shape[0], spec.channels
@@ -246,11 +273,14 @@ def reverse_logdet_from_states(spec: FlowSpec, weights, flow_params, new_states)
     """The reverse logdet [N, B] of teacher-forced frames from the GRU states
     the flow wrote ([N, K, B, H]): step k's scale is
     ``max(sigmoid(h_k @ out_w_scale_k + out_b_scale_k + 2), eps)`` on the
-    folded head (``flow_kernels.fold_output_head``), and the logdet is
-    ``-(sum_k sum_c log scale + logdet_const)``."""
+    folded head (``flow_kernels.fold_output_head``, ``weights`` in the
+    kernel spec's lanes), and the logdet is ``-(sum_k sum_c log scale +
+    logdet_const)`` over the logical lanes."""
     half = spec.coupling_out_dim // 2
-    raw = (torch.einsum("nkbh,khc->nkbc", new_states, weights.out_w_t[:, :, half:])
-           + weights.out_b[None, :, None, half:])
+    lo = flow_kernels.kernel_spec(spec).coupling_out_dim // 2
+    raw = (torch.einsum("nkbh,khc->nkbc", new_states,
+                        weights.out_w_t[:, :, lo:lo + half])
+           + weights.out_b[None, :, None, lo:lo + half])
     scale = ops.affine_scale(raw, spec.scale_eps)
     return -(torch.log(scale).sum(dim=(1, 3))
              + train_kernels.logdet_const(spec, flow_params))

@@ -47,11 +47,25 @@ weights are prepared once by ``prepare_sampling_weights``: the
 coupling head is folded to contiguous ``[shift | scale_raw]`` halves and the
 1x1 inverse is taken in float64 and rounded to float32, as the reference does
 (modules.py:175-177).
+
+Lanes. The kernels read their weights and activations 16 bytes at a time,
+so every width they take is a multiple of 4. A spec of the JAX kernels'
+envelope (``jax_envelope``) whose coupling halves (C/2 each) are not runs
+on padded lanes (``kernel_spec``): each half widened to the next multiple
+of 4, the logical lanes first (``lane_index``). The prepared weights carry
+zeros in the padded rows and columns, but 1 on the padded diagonal of the
+1x1 and in the padded actnorm scale, so a padded lane enters every step as
+zero and leaves it as zero; its coupling scale is sigmoid(2), not 1, so
+only the logical lanes may enter a logdet. ``frame_rev_fused`` and
+``sequence_rev_fused`` take and return the logical widths and pad inside;
+the single kernels' wrappers (``sample_gates``, ``sample_chain``) and the
+prepared weights are in the kernel spec's lanes.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import NamedTuple
 
@@ -113,8 +127,121 @@ def round_operand(x, mode: int):
     return round_tf32(x.float()).to(x.dtype)
 
 
+# ---------------------------------------------------------------------------
+# Lanes: the widths the kernels take
+# ---------------------------------------------------------------------------
+
+def jax_envelope(spec: FlowSpec) -> bool:
+    """The JAX package's kernel envelope (pallas_flow.py:248-257
+    ``pallas_supported``, pallas_train.py:114-125
+    ``train_fused_spec_supported``): GRU + affine + invconv flows with C
+    even and 3H and cond multiples of 128."""
+    return (spec.rnn_type == "gru" and spec.coupling == "affine"
+            and spec.permutation == "invconv" and spec.channels % 2 == 0
+            and (3 * spec.hidden_channels) % 128 == 0
+            and spec.cond.cond_dim % 128 == 0)
+
+
+def kernel_spec(spec: FlowSpec) -> FlowSpec:
+    """The spec whose widths the kernels run: ``spec`` itself, or, for a
+    spec of ``jax_envelope`` whose halves C/2 are not multiples of 4, the
+    same flow on padded lanes, C' = 2 * round4(C/2), with a 'none' own-face
+    window of whole padded frames. Idempotent."""
+    half = spec.channels // 2
+    if not jax_envelope(spec) or half % 4 == 0:
+        return spec
+    c = 2 * _round4(half)
+    cond, p1 = spec.cond, spec.cond.p1_face
+    if p1.enc == "none" and p1.input_dim == spec.channels and p1.out_dim:
+        wide = dataclasses.replace(p1, input_dim=c, out_dim=c * p1.history)
+        cond = dataclasses.replace(
+            cond, p1_face=wide,
+            feature_dim=cond.feature_dim + wide.out_dim - p1.out_dim)
+    return dataclasses.replace(spec, channels=c, cond=cond)
+
+
+def lane_index(spec: FlowSpec, device=None):
+    """Where the C logical lanes sit among the kernel spec's C': the
+    first C/2 at 0.., the second at C'/2.. (the Cout = C lanes of the
+    coupling head likewise)."""
+    half, wide = spec.channels // 2, kernel_spec(spec).channels // 2
+    r = torch.arange(half, device=device)
+    return torch.cat([r, r + wide])
+
+
+def _embed(t, dim: int, index, size: int):
+    """``t`` placed at ``index`` along ``dim`` of zeros ``size`` long
+    there; differentiable."""
+    shape = list(t.shape)
+    shape[dim] = size
+    return t.new_zeros(shape).index_copy(dim, index, t)
+
+
+def pad_lanes(spec: FlowSpec, x, dim: int = -1):
+    """x with its C lanes (axis ``dim``) on the kernel spec's, zeros in
+    the padded ones; x itself where there is no padding."""
+    ks = kernel_spec(spec)
+    if ks is spec:
+        return x
+    return _embed(x, dim % x.dim(), lane_index(spec, x.device), ks.channels)
+
+
+def unpad_lanes(spec: FlowSpec, x, dim: int = -1):
+    """The logical C lanes of x (axis ``dim`` in the kernel spec's
+    lanes); differentiable."""
+    if kernel_spec(spec) is spec:
+        return x
+    return x.index_select(dim, lane_index(spec, x.device)).contiguous()
+
+
+def pad_history(spec: FlowSpec, hist, dim: int):
+    """A flat 'none' own-face window (axis ``dim``: h frames of C) as h
+    frames of the kernel spec's C'; as it is when the own face is not so
+    padded."""
+    ks = kernel_spec(spec)
+    if ks.cond.p1_face.out_dim == spec.cond.p1_face.out_dim:
+        return hist
+    dim = dim % hist.dim()
+    frames = hist.unflatten(dim, (spec.cond.p1_face.history, spec.channels))
+    return pad_lanes(spec, frames, dim + 1).flatten(dim, dim + 1).contiguous()
+
+
+# The prepared weights whose padded diagonal (the 1x1 and its inverse) or
+# padded lanes (the actnorm's exp(logs) and exp(-logs)) hold 1.
+_ONE_ON_DIAGONAL = ("w", "w_inv")
+_ONE_IN_LANES = ("an_scale", "an_neg_logs_exp")
+
+
+def pad_weight(spec: FlowSpec, name: str, t):
+    """A prepared weight (a field of ``SamplingWeights`` or
+    ``train_kernels.TrainWeights``) of ``spec`` in the kernel spec's lanes:
+    zero rows and columns in the padded lanes, 1 on the padded diagonal of
+    the 1x1 and in the padded actnorm scale; differentiable."""
+    ks = kernel_spec(spec)
+    if ks is spec or name in ("w_hh_t", "b_ih", "b_hh"):
+        return t
+    idx, c = lane_index(spec, t.device), ks.channels
+    ones = 1.0 - _embed(torch.ones(spec.channels, device=t.device, dtype=t.dtype),
+                        0, idx, c)                       # 1 in the padded lanes
+    if name in _ONE_ON_DIAGONAL:
+        return _embed(_embed(t, 2, idx, c), 1, idx, c) + torch.diag(ones)
+    if name in _ONE_IN_LANES:
+        return _embed(t, 1, idx, c) + ones
+    if name in ("an_bias", "out_b"):
+        return _embed(t, 1, idx, c)
+    if name == "out_w_t":
+        return _embed(t, 2, idx, c)
+    if name == "w_ih_t":                      # rows [z1 | cond]
+        z1, wide, n = spec.z1_dim, ks.z1_dim, t.shape[1]
+        rows = torch.arange(n, device=t.device)
+        return _embed(t, 1, torch.where(rows < z1, rows, rows + wide - z1),
+                      n + wide - z1)
+    raise ValueError(f"no lane layout for weight {name!r}")
+
+
 class SamplingWeights(NamedTuple):
-    """Flow weights prepared for the sampling kernels (all float32, contiguous)."""
+    """Flow weights prepared for the sampling kernels (all float32,
+    contiguous), in the lanes of ``kernel_spec``."""
     w_ih_t: torch.Tensor    # [K, Z1+cond, 3H]  transposed GRU input weights
     w_hh_t: torch.Tensor    # [K, H, 3H]
     b_ih: torch.Tensor      # [K, 3H]
@@ -153,17 +280,18 @@ def prepare_sampling_weights(spec: FlowSpec, flow_params) -> SamplingWeights:
         return t.detach().float().contiguous()
 
     w = dict(
-        w_ih_t=c(rnn_p["w_ih"].transpose(1, 2)),
-        w_hh_t=c(rnn_p["w_hh"].transpose(1, 2)),
-        b_ih=c(rnn_p["b_ih"]),
-        b_hh=c(rnn_p["b_hh"]),
-        out_w_t=c(out_w.transpose(1, 2)),
-        out_b=c(out_b),
-        w_inv=c(w_inv),
-        an_bias=c(flow_params["actnorm"]["bias"]),
-        an_neg_logs_exp=c(torch.exp(-flow_params["actnorm"]["logs"])),
+        w_ih_t=rnn_p["w_ih"].transpose(1, 2),
+        w_hh_t=rnn_p["w_hh"].transpose(1, 2),
+        b_ih=rnn_p["b_ih"],
+        b_hh=rnn_p["b_hh"],
+        out_w_t=out_w.transpose(1, 2),
+        out_b=out_b,
+        w_inv=w_inv,
+        an_bias=flow_params["actnorm"]["bias"],
+        an_neg_logs_exp=torch.exp(-flow_params["actnorm"]["logs"]),
     )
-    return SamplingWeights(**w, chain=chain_weights(spec, **w))
+    w = {name: c(pad_weight(spec, name, t)) for name, t in w.items()}
+    return SamplingWeights(**w, chain=chain_weights(kernel_spec(spec), **w))
 
 
 _SAMPLING_PRODUCT_WEIGHTS = ("w_ih_t", "w_hh_t", "out_w_t", "w_inv")
@@ -186,7 +314,8 @@ def round_sampling_weights(spec: FlowSpec, w: SamplingWeights,
         fields[name] = round_operand(fields[name], mode).contiguous()
     fields.pop("chain")
     fields["mode"] = mode
-    return SamplingWeights(**fields, chain=chain_weights(spec, **fields))
+    return SamplingWeights(**fields,
+                           chain=chain_weights(kernel_spec(spec), **fields))
 
 
 # Slices of the chain's three products: each of a product's lanes takes the
@@ -226,9 +355,9 @@ def chain_weights(spec: FlowSpec, *, w_ih_t, out_w_t, out_b, w_inv, an_bias,
 # Envelopes (one cluster's shared memory; widths for 16-byte loads)
 # ---------------------------------------------------------------------------
 
-# csrc/sample_chain.cuh: the barrier area (floats) and the largest portable
-# cluster the envelope counts on.
-_CHAIN_BAR_FLOATS, _CHAIN_CLUSTER = 96, 8
+# csrc/sample_chain.cuh: the barrier area (floats), the largest portable
+# cluster the envelope counts on, and the most steps a block may hold.
+_CHAIN_BAR_FLOATS, _CHAIN_CLUSTER, _CHAIN_MAX_HELD = 96, 8, 16
 # csrc/sample_gates.cuh: 8 warps' partial sums of a 32-column tile.
 _GATES_RED_FLOATS = 8 * 32
 
@@ -245,7 +374,8 @@ def chain_step_bytes(spec: FlowSpec) -> int:
     """Resident bytes of one step's chain weights as ``chain_weights`` lays
     them out: w_ih_t[k][:Z1], out_w_t[k], out_b[k], W^-1[k] and the actnorm
     (csrc/sample_chain.cuh::chain_step_floats). They depend on C, Z1, H and
-    Cout only, not on the conditioning width."""
+    Cout only, not on the conditioning width (in the kernel spec's lanes)."""
+    spec = kernel_spec(spec)
     c, z1, h, cout = (spec.channels, spec.z1_dim, spec.hidden_channels,
                       spec.coupling_out_dim)
     s_gru, s_out, s_mix = _CHAIN_SLICES
@@ -253,21 +383,34 @@ def chain_step_bytes(spec: FlowSpec) -> int:
                 + _round4(cout) + _round_up(c, s_mix) * c + 2 * _round4(c))
 
 
-def chain_smem_bytes(spec: FlowSpec) -> int:
+def _chain_held(spec: FlowSpec) -> int:
+    """The most steps a block of a cluster of min(K, 8) holds."""
+    return -(-spec.n_steps // min(spec.n_steps, _CHAIN_CLUSTER))
+
+
+def chain_smem_bytes(spec: FlowSpec, resident: bool = True) -> int:
     """Least shared memory of a one-row sample_chain block in a cluster of
-    min(K, 8): the barriers, the most steps a block holds, the row's
+    min(K, 8): the barriers, the weights of the most steps a block holds
+    (with ``resident``; else they are read from global memory), the row's
     buffers and its gates and states of those steps
     (csrc/sample_chain.cuh::chain_smem_floats)."""
-    c, h = spec.channels, spec.hidden_channels
-    cs = min(spec.n_steps, _CHAIN_CLUSTER)
-    held = -(-spec.n_steps // cs)
+    spec = kernel_spec(spec)
+    c, h, held = spec.channels, spec.hidden_channels, _chain_held(spec)
     return (4 * (_CHAIN_BAR_FLOATS + 3 * _round4(c) + _round4(h) + held * 7 * h)
-            + held * chain_step_bytes(spec))
+            + (held * chain_step_bytes(spec) if resident else 0))
+
+
+def chain_resident(spec: FlowSpec) -> bool:
+    """Whether the chain holds its weights in shared memory (the plan's
+    choice where they fit, csrc/sample_chain.cuh::chain_plan) or reads them
+    from global memory."""
+    return chain_smem_bytes(spec) <= MAX_SMEM_BYTES
 
 
 def gates_smem_bytes(spec: FlowSpec) -> int:
     """Least shared memory of a one-row sample_gates block: the widest input
     row and the partial sums."""
+    spec = kernel_spec(spec)
     widest = max(spec.cond.p1_face.out_dim, spec.cond.cond_dim,
                  spec.hidden_channels)
     return 4 * (widest + _GATES_RED_FLOATS)
@@ -275,24 +418,30 @@ def gates_smem_bytes(spec: FlowSpec) -> int:
 
 def fused_supported(spec: FlowSpec) -> bool:
     """The per-frame kernels' envelope: GRU + affine + invconv flows whose
-    product widths are multiples of 4 (16-byte loads) and whose chain
-    weights fit the shared memory of one cluster of min(K, 8) blocks."""
-    widths = (spec.hidden_channels, spec.cond.cond_dim,
-              spec.coupling_out_dim, spec.channels)
-    return (spec.rnn_type == "gru" and spec.coupling == "affine"
-            and spec.permutation == "invconv"
+    product widths in the kernel spec's lanes are multiples of 4 (16-byte
+    loads), whose blocks hold at most 16 steps of a cluster of min(K, 8),
+    and whose gates and chain fit a block (the chain's weights read from
+    global memory where a cluster cannot hold them). It holds wherever
+    ``jax_envelope`` does."""
+    ks = kernel_spec(spec)
+    widths = (ks.hidden_channels, ks.cond.cond_dim, ks.coupling_out_dim,
+              ks.channels)
+    return (ks.rnn_type == "gru" and ks.coupling == "affine"
+            and ks.permutation == "invconv"
             and all(n % 4 == 0 for n in widths)
-            and _round_up(spec.z1_dim, _CHAIN_SLICES[0]) <= spec.channels
-            and chain_smem_bytes(spec) <= MAX_SMEM_BYTES
-            and gates_smem_bytes(spec) <= MAX_SMEM_BYTES)
+            and _round_up(ks.z1_dim, _CHAIN_SLICES[0]) <= ks.channels
+            and _chain_held(ks) <= _CHAIN_MAX_HELD
+            and chain_smem_bytes(ks, resident=False) <= MAX_SMEM_BYTES
+            and gates_smem_bytes(ks) <= MAX_SMEM_BYTES)
 
 
 def sampling_seq_supported(spec: FlowSpec) -> bool:
     """The whole-sequence launcher's envelope: the per-frame one, plus an
     own-face conditioning that is absent or the 'none' encoder (a flat window
     of whole frames that the chain shifts into the next history)."""
-    p1 = spec.cond.p1_face
-    p1_ok = p1.out_dim == 0 or (p1.enc == "none" and p1.out_dim >= spec.channels)
+    ks = kernel_spec(spec)
+    p1 = ks.cond.p1_face
+    p1_ok = p1.out_dim == 0 or (p1.enc == "none" and p1.out_dim >= ks.channels)
     return fused_supported(spec) and p1_ok
 
 
@@ -441,7 +590,7 @@ def _gates_fn():
 @functools.cache
 def _chain_fn():
     fn = cuda_build.load("sample_chain").sample_chain_launch
-    fn.argtypes = ([_P] * 9 + [_I] * 7 + [ctypes.c_float] + [_I] * 3 + [_P, _I]
+    fn.argtypes = ([_P] * 9 + [_I] * 7 + [ctypes.c_float] + [_I] * 4 + [_P, _I]
                    + [_P] * 2)
     fn.restype = _I
     return fn
@@ -459,6 +608,7 @@ def _check(name, t, shape, device):
 
 
 def _check_weights(spec: FlowSpec, w: SamplingWeights, device):
+    spec = kernel_spec(spec)
     k, c, h = spec.n_steps, spec.channels, spec.hidden_channels
     cout, ind = spec.coupling_out_dim, spec.z1_dim + spec.cond.cond_dim
     shapes = {"w_ih_t": (k, ind, 3 * h), "w_hh_t": (k, h, 3 * h),
@@ -477,6 +627,11 @@ def _spec_ints(spec: FlowSpec):
 # csrc/flow_step.cuh: the launchers' own refusals
 _REFUSALS = {10001: "widths or shapes the kernel does not take",
              10002: "no launch plan fits the device"}
+
+
+# CUDA's allocation failure (cudaErrorMemoryAllocation), named so that a
+# caller can tell it from the others (train/tuning.py::is_out_of_memory)
+_REFUSALS[2] = "CUDA error 2: out of memory"
 
 
 def _raise_on(err: int, what: str):
@@ -509,10 +664,16 @@ def frame_rev_fused(spec: FlowSpec, weights: SamplingWeights, z, cond_projs,
     [K, B, cond] (pre-activation), states [K, B, H] -> (x [B, C],
     new_states [K, B, H]). On the card: one ``sample_gates`` launch (gc, gh)
     and one ``sample_chain`` launch. ``precision``: a name of ``MODES``, or
-    None for the ambient one."""
+    None for the ambient one. ``weights`` in the kernel spec's lanes, z and
+    x in the logical ones."""
     mode = precision_mode(precision)
     if not fused_supported(spec):
         raise ValueError("spec is outside the per-frame kernel's envelope")
+    ks = kernel_spec(spec)
+    if ks is not spec:
+        x, new_states = frame_rev_fused(ks, weights, pad_lanes(spec, z),
+                                        cond_projs, states, precision=precision)
+        return unpad_lanes(spec, x), new_states
     if z.device.type == "cpu":
         return frame_rev_fused_ref(spec, weights, z, cond_projs, states, mode)
     if z.device.type != "cuda":
@@ -551,11 +712,17 @@ def sequence_rev_fused(spec: FlowSpec, weights: SamplingWeights, w_p1_t, zs,
     w_p1_t [K, P1, cond] own-face projection slice, states0 [K, B, H]
     -> xs [N, B, C]. P1 = 0 turns the own-face path off. On the card: per
     frame the ``sample_gates`` launches and one ``sample_chain`` launch, all
-    from one call into ``csrc/seq_rev.cu``. ``precision`` as in
-    ``frame_rev_fused``."""
+    from one call into ``csrc/seq_rev.cu``. ``precision`` and the lanes as
+    in ``frame_rev_fused``: zs, xs, hist0 and w_p1_t in the logical ones."""
     mode = precision_mode(precision)
     if not sampling_seq_supported(spec):
         raise ValueError("spec is outside the sequence kernel's envelope")
+    ks = kernel_spec(spec)
+    if ks is not spec:
+        return unpad_lanes(spec, sequence_rev_fused(
+            ks, weights, pad_history(spec, w_p1_t, 1), pad_lanes(spec, zs),
+            fixed_projs, pad_history(spec, hist0, 1), states0,
+            precision=precision))
     if zs.device.type == "cpu":
         return sequence_rev_fused_ref(spec, weights, w_p1_t, zs, fixed_projs,
                                       hist0, states0, mode)
@@ -604,10 +771,12 @@ def sample_gates(spec: FlowSpec, weights: SamplingWeights, w_p1_t, fixed,
     [K, B, H] -> (proj [K, B, cond], gc [K, B, 3H], gh [K, B, 3H]); proj is
     ``fixed`` itself when P1 = 0. ``rows``: batch rows per block, ``groups``:
     column groups of four per block (8 or 32), 0 for the launcher's choice.
-    ``precision`` as in ``frame_rev_fused``."""
+    ``precision`` as in ``frame_rev_fused``; all in the kernel spec's
+    lanes."""
     mode = precision_mode(precision)
     if not fused_supported(spec):
         raise ValueError("spec is outside the per-frame kernel's envelope")
+    spec = kernel_spec(spec)
     if fixed.device.type == "cpu":
         return sample_gates_ref(spec, weights, w_p1_t, fixed, hist, states,
                                 mode)
@@ -641,19 +810,23 @@ sample_gates.launches = 0
 
 def sample_chain(spec: FlowSpec, weights: SamplingWeights, z, gc, gh, states,
                  hist=None, *, precision: str | None = None, tile=(0, 0, 0),
-                 trace=None):
+                 resident: bool | None = None, trace=None):
     """The K reversed steps of one frame given its gates: z [B, C], gc and
     gh [K, B, 3H], states [K, B, H], hist [B, P1] or None -> (x [B, C],
     new_states [K, B, H], the next history [B, P1] or None). ``tile`` =
     (rows per tile, blocks per cluster, tiles per cluster), 0 for the
-    launcher's plan. ``trace``: None, or an int64 CUDA tensor [blocks,
+    launcher's plan. ``resident``: the weights in shared memory (True) or
+    read from global memory (False), None for the plan's choice
+    (``chain_resident``). ``trace``: None, or an int64 CUDA tensor [blocks,
     CHAIN_TRACE_SLOTS] that receives each block's device times (ns) of the
     first tile: start, cluster synchronised, z in hand, the end of each
-    held step, the hand-off sent (``csrc/sample_chain.cuh``; "highest"
-    only). ``precision`` as in ``frame_rev_fused``."""
+    held step, the hand-off sent (``csrc/sample_chain.cuh``; "highest" and
+    resident only). ``precision`` as in ``frame_rev_fused``; all in the
+    kernel spec's lanes."""
     mode = precision_mode(precision)
     if not fused_supported(spec):
         raise ValueError("spec is outside the per-frame kernel's envelope")
+    spec = kernel_spec(spec)
     if z.device.type == "cpu":
         return sample_chain_ref(spec, weights, z, gc, gh, states, hist, mode)
     if z.device.type != "cuda":
@@ -679,8 +852,8 @@ def sample_chain(spec: FlowSpec, weights: SamplingWeights, z, gc, gh, states,
         new_states.data_ptr(), x.data_ptr(), hist.data_ptr() if p1 else None,
         new_hist.data_ptr() if p1 else None, weights.chain.data_ptr(), b, p1,
         k, c, spec.z1_dim, h, spec.coupling_out_dim, float(spec.scale_eps),
-        *tile, None if trace is None else trace.data_ptr(), mode, stream,
-        launches))
+        *tile, _place(resident), None if trace is None else trace.data_ptr(),
+        mode, stream, launches))
     _raise_on(err, "sample_chain")
     return x, new_states, new_hist
 
@@ -689,18 +862,25 @@ sample_chain.launches = 0
 
 CHAIN_TRACE_SLOTS = 32   # csrc/sample_chain.cuh
 CHAIN_PLAN_KEYS = ("rows_per_tile", "cluster", "tiles_per_cluster", "clusters",
-                   "blocks", "smem_bytes", "max_active_clusters")
+                   "blocks", "smem_bytes", "max_active_clusters", "resident")
 
 
-def chain_plan(spec: FlowSpec, b: int, tile=(0, 0, 0)) -> dict:
+def _place(resident: bool | None) -> int:
+    """csrc/sample_chain.cuh::ChainWeights of a ``resident`` request."""
+    return 0 if resident is None else (1 if resident else 2)
+
+
+def chain_plan(spec: FlowSpec, b: int, tile=(0, 0, 0),
+               resident: bool | None = None) -> dict:
     """The launch plan of ``sample_chain`` for B=b rows on the current CUDA
     device, with the clusters the device holds at once
-    (``cudaOccupancyMaxActiveClusters``); ``tile`` as in ``sample_chain``."""
+    (``cudaOccupancyMaxActiveClusters``); ``tile`` and ``resident`` as in
+    ``sample_chain``."""
     fn = cuda_build.load("sample_chain").sample_chain_plan
-    fn.argtypes = [_I] * 9 + [_P]
+    fn.argtypes = [_I] * 10 + [_P]
     fn.restype = _I
-    k, c, z1, _, h, cout = _spec_ints(spec)
+    k, c, z1, _, h, cout = _spec_ints(kernel_spec(spec))
     out = (ctypes.c_int * len(CHAIN_PLAN_KEYS))()
-    _raise_on(fn(b, k, c, z1, h, cout, *tile, ctypes.addressof(out)),
-              "sample_chain plan")
+    _raise_on(fn(b, k, c, z1, h, cout, *tile, _place(resident),
+                 ctypes.addressof(out)), "sample_chain plan")
     return dict(zip(CHAIN_PLAN_KEYS, out))

@@ -28,6 +28,14 @@ rows (``torch.einsum``, as the JAX package leaves them to XLA). The
 gradients on ``TrainWeights`` reach the flow parameters through the
 differentiable ``prepare_train_weights``.
 
+Lanes as in ``flow_kernels``: ``flow_sequence_fused`` takes and returns
+the logical widths; the weights ``prepare_train_weights`` makes, the
+wrappers and the plain versions are in the lanes of
+``flow_kernels.kernel_spec`` (the two halves of the coupling split each
+padded to a multiple of 4 for a spec of the JAX kernels' envelope), and
+the logdet sums the logical lanes' scales only: a padded lane's scale is
+sigmoid(2), and its cotangents are zero.
+
 A wrapper runs its plain version (``*_ref``) only when it is given CPU
 tensors; given CUDA tensors it launches its kernel or raises. Each wrapper
 counts its kernel launches in its ``launches`` attribute. The kernels
@@ -57,12 +65,16 @@ from lets_face_it_tpu_torch.ops.flow_kernels import (MAX_SMEM_BYTES, _check,
                                                      _spec_ints,
                                                      fold_output_head,
                                                      ambient_matmul_precision,
+                                                     kernel_spec, pad_lanes,
+                                                     pad_weight,
                                                      precision_mode,
-                                                     round_operand)
+                                                     round_operand,
+                                                     unpad_lanes)
 
 
 class TrainWeights(NamedTuple):
-    """Flow weights prepared for the training kernels (float32, contiguous).
+    """Flow weights prepared for the training kernels (float32, contiguous),
+    in the lanes of ``kernel_spec``.
 
     Built by ``prepare_train_weights`` with differentiable ops, so the
     gradients the autograd Function returns for these tensors chain back to
@@ -80,23 +92,26 @@ class TrainWeights(NamedTuple):
 
 def prepare_train_weights(spec: FlowSpec, flow_params) -> TrainWeights:
     """W = P L U materialized once per call, exp(logs), the transposed GRU
-    weights and the folded coupling head; differentiable."""
+    weights and the folded coupling head, in the kernel spec's lanes;
+    differentiable."""
     if not (spec.rnn_type == "gru" and spec.coupling == "affine"
             and spec.permutation == "invconv"):
         raise ValueError("the training kernels need a GRU, affine, invconv flow")
     out_w, out_b = fold_output_head(flow_params["out"], spec.coupling_out_dim)
     rnn_p = flow_params["rnn"]
-    return TrainWeights(
-        w=ops.invconv_weight(flow_params["perm"]).contiguous(),
-        an_bias=flow_params["actnorm"]["bias"].contiguous(),
+    tw = TrainWeights(
+        w=ops.invconv_weight(flow_params["perm"]),
+        an_bias=flow_params["actnorm"]["bias"],
         an_scale=torch.exp(flow_params["actnorm"]["logs"]),
-        w_ih_t=rnn_p["w_ih"].transpose(1, 2).contiguous(),
-        w_hh_t=rnn_p["w_hh"].transpose(1, 2).contiguous(),
-        b_ih=rnn_p["b_ih"].contiguous(),
-        b_hh=rnn_p["b_hh"].contiguous(),
-        out_w_t=out_w.transpose(1, 2).contiguous(),
-        out_b=out_b.contiguous(),
+        w_ih_t=rnn_p["w_ih"].transpose(1, 2),
+        w_hh_t=rnn_p["w_hh"].transpose(1, 2),
+        b_ih=rnn_p["b_ih"],
+        b_hh=rnn_p["b_hh"],
+        out_w_t=out_w.transpose(1, 2),
+        out_b=out_b,
     )
+    return TrainWeights(*(pad_weight(spec, name, t).contiguous()
+                          for name, t in tw._asdict().items()))
 
 
 _TRAIN_PRODUCT_WEIGHTS = ("w", "w_ih_t", "w_hh_t", "out_w_t")
@@ -133,7 +148,9 @@ def train_smem_bytes(spec: FlowSpec) -> int:
     two serial kernels): the ring's barriers and three slots of four rows of
     the widest product, the K state cotangents, the backward's buffers, two
     steps of prefetched inputs and one slice of partial sums
-    (csrc/seq_bwd.cu::bwd_other_floats, csrc/flow_stream.cuh::plan_stream)."""
+    (csrc/seq_bwd.cu::bwd_other_floats, csrc/flow_stream.cuh::plan_stream),
+    in the kernel spec's lanes."""
+    spec = kernel_spec(spec)
     c, h, cout = spec.channels, spec.hidden_channels, spec.coupling_out_dim
     g = 3 * h
     widest = max(g, c, cout, h, spec.z1_dim)
@@ -146,16 +163,18 @@ def train_smem_bytes(spec: FlowSpec) -> int:
 
 def train_supported(spec: FlowSpec) -> bool:
     """The training kernels' envelope: GRU + affine + invconv flows whose
-    product widths (C, Z1, H, 3H, cond, Cout) are multiples of 4 (16-byte
-    weight loads) and whose one-row backward tile fits one block's shared
-    memory. Decided from the spec alone; the batch is arbitrary."""
-    widths = (spec.channels, spec.z1_dim, spec.hidden_channels,
-              3 * spec.hidden_channels, spec.cond.cond_dim,
-              spec.coupling_out_dim)
-    return (spec.rnn_type == "gru" and spec.coupling == "affine"
-            and spec.permutation == "invconv"
+    product widths (C, Z1, H, 3H, cond, Cout) in the kernel spec's lanes
+    are multiples of 4 (16-byte weight loads) and whose one-row backward
+    tile fits one block's shared memory. Decided from the spec alone; the
+    batch is arbitrary. It holds wherever ``flow_kernels.jax_envelope``
+    does at the widths of ``hparam_tuning_configs/large_hparam_search.py``."""
+    ks = kernel_spec(spec)
+    widths = (ks.channels, ks.z1_dim, ks.hidden_channels,
+              3 * ks.hidden_channels, ks.cond.cond_dim, ks.coupling_out_dim)
+    return (ks.rnn_type == "gru" and ks.coupling == "affine"
+            and ks.permutation == "invconv"
             and all(n % 4 == 0 for n in widths)
-            and train_smem_bytes(spec) <= MAX_SMEM_BYTES)
+            and train_smem_bytes(ks) <= MAX_SMEM_BYTES)
 
 
 # ---------------------------------------------------------------------------
@@ -314,7 +333,7 @@ def serial_plan(which: str, spec: FlowSpec, b: int, tile=(0, 0, 0)) -> dict:
     fn.argtypes = [_I] * 10 + [_P]
     fn.restype = _I
     out = (ctypes.c_int * len(PLAN_KEYS))()
-    _raise_on(fn(b, *_spec_ints(spec), *tile, ctypes.addressof(out)),
+    _raise_on(fn(b, *_spec_ints(kernel_spec(spec)), *tile, ctypes.addressof(out)),
               f"{which} plan")
     return dict(zip(PLAN_KEYS, out))
 
@@ -333,7 +352,8 @@ def _check_weights(spec: FlowSpec, tw: TrainWeights, device):
 def _dispatch(spec: FlowSpec, precision, device) -> tuple[bool, int]:
     """(whether the kernel is to be launched (False for the plain version,
     CPU tensors), the matmul precision's mode); raises for an unknown
-    precision, outside the envelope or on another device."""
+    precision, outside the envelope or on another device. The wrappers
+    below take every tensor in the kernel spec's lanes."""
     mode = precision_mode(precision)
     if not train_supported(spec):
         raise ValueError("spec is outside the training kernels' envelope")
@@ -350,6 +370,7 @@ def cond_gates(spec: FlowSpec, tw: TrainWeights, cond_seq, *,
     (pre-activation projections) -> gc [N, K, B, 3H]. ``precision``: a name
     of ``flow_kernels.MODES``, or None for the ambient one."""
     launch, mode = _dispatch(spec, precision, cond_seq.device)
+    spec = kernel_spec(spec)
     if not launch:
         return cond_gates_ref(spec, tw, cond_seq, mode)
     n, k, b, cond = cond_seq.shape
@@ -377,6 +398,7 @@ def seq_fwd(spec: FlowSpec, tw: TrainWeights, xs, cond_seq, states0, *,
     scales [N, K, B, Cout/2], zs_res [N, K, B, C], states_res [N, K, B, H],
     gc [N, K, B, 3H]): ``cond_gates``, then ``seq_fwd_serial``."""
     launch, mode = _dispatch(spec, precision, xs.device)
+    spec = kernel_spec(spec)
     if not launch:
         return seq_fwd_ref(spec, tw, xs, cond_seq, states0, mode)
     tw = round_train_weights(tw, mode)
@@ -392,6 +414,7 @@ def seq_fwd_serial(spec: FlowSpec, tw: TrainWeights, xs, gc, states0, *,
     ``tile`` = (rows per block, blocks per cluster, ring slots), 0 for the
     launcher's plan."""
     launch, mode = _dispatch(spec, precision, xs.device)
+    spec = kernel_spec(spec)
     if not launch:
         raise ValueError("seq_fwd_serial runs on CUDA tensors only")
     n, b, c = xs.shape
@@ -430,6 +453,7 @@ def seq_bwd(spec: FlowSpec, tw: TrainWeights, gc, zs_res, hprev_all,
     [K, B, H], dgi [N, K, B, 3H], dghn [N, K, B, H], dhout [N, K, B, Cout],
     dzb [N, K, B, C]). ``tile`` as in ``seq_fwd``."""
     launch, mode = _dispatch(spec, precision, dz_seq.device)
+    spec = kernel_spec(spec)
     if not launch:
         return seq_bwd_ref(spec, tw, gc, zs_res, hprev_all, dz_seq,
                            dscales, dnew_states, mode)
@@ -483,7 +507,9 @@ def flow_sequence_vjp(spec: FlowSpec, tw: TrainWeights, cond_seq, gc, states0,
     (TrainWeights..., xs, cond_seq, states0): ``seq_bwd`` for the serial
     chains, then the weight gradients as contractions over frames x rows
     (pallas_train.py:554-602), every operand of them rounded at the matmul
-    precision as the JAX package's einsums take it."""
+    precision as the JAX package's einsums take it; in the kernel spec's
+    lanes."""
+    spec = kernel_spec(spec)
     z1d, h = spec.z1_dim, spec.hidden_channels
     mode = precision_mode(precision)
     tw = round_train_weights(tw, mode)
@@ -557,7 +583,8 @@ def flow_sequence_fused(spec: FlowSpec, flow_params, xs, cond_seq, states0, *,
     [K, B, H], all contiguous. ``precision``: a name of
     ``flow_kernels.MODES``, or None for the ambient one (read here, once, so
     the backward runs at the forward's). Returns (z_seq [N, B, C], logdet
-    [N, B], new_states [K, B, H], scales [N, K, B, Cout/2])."""
+    [N, B], new_states [K, B, H], scales [N, K, B, Cout/2]), at the logical
+    widths: the kernels run in the lanes of ``kernel_spec``."""
     if precision is None:
         precision = ambient_matmul_precision()
     precision_mode(precision)
@@ -565,6 +592,10 @@ def flow_sequence_fused(spec: FlowSpec, flow_params, xs, cond_seq, states0, *,
         raise ValueError("spec is outside the training kernels' envelope")
     tw = prepare_train_weights(spec, flow_params)
     z_seq, scales, new_states = _FlowSequence.apply(
-        spec, precision, *tw, xs, cond_seq, states0)
+        kernel_spec(spec), precision, *tw, pad_lanes(spec, xs), cond_seq,
+        states0)
+    z_seq = unpad_lanes(spec, z_seq)
+    # the logical lanes' scales only: a padded lane's is sigmoid(2), not 1
+    scales = scales[..., :spec.coupling_out_dim // 2]
     logdet = torch.log(scales).sum(dim=(1, 3)) + logdet_const(spec, flow_params)
     return z_seq, logdet, new_states, scales

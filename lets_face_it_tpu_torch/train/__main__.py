@@ -6,7 +6,8 @@
         [--log_dir DIR] [--stall_timeout_s S] [--render_url URL]
         [--device_data_cache auto|on|off] [--precision 32|16]
         [--steps_per_dispatch K] [--wire_dtype f32|bf16] [--profile_dir DIR]
-        [--debug_nans] [--device cuda]
+        [--debug_nans] [--device cuda] [--dist_backend nccl|gloo]
+    torchrun --nproc_per_node=N -m lets_face_it_tpu_torch.train HPARAMS ...
 
 HPARAMS is a YAML config (``hparams/final_model.yaml``, or an unmodified
 reference one). ``--synthetic-data`` trains on the synthetic corpus built in
@@ -26,7 +27,11 @@ float32. ``--steps_per_dispatch K`` runs K optimizer steps as one CUDA graph
 over the device data cache (it needs the cache). ``--wire_dtype bf16``
 uploads the host-gathered batches as bf16 (cache off). ``--profile_dir``
 writes a ``torch.profiler`` trace of the first steps there. ``--device cpu``
-runs the plain PyTorch versions of the kernels.
+runs the plain PyTorch versions of the kernels. Under ``torchrun`` the
+run is data-parallel over its ranks (``parallel/mesh.py``): one process a
+GPU over NCCL (gloo on the CPU, or with ``--dist_backend gloo``, which also
+runs several ranks on one card), ``--batch_size`` the global batch; rank 0
+validates, logs and writes the checkpoints.
 """
 
 from __future__ import annotations
@@ -78,14 +83,19 @@ def main(argv=None):
                              "norm (the reference's terminate_on_nan); "
                              "synchronises every step")
     parser.add_argument("--device", default="cuda")
+    parser.add_argument("--dist_backend", default=None, choices=("nccl", "gloo"),
+                        help="under torchrun: the collectives' backend "
+                             "(default nccl on the card, gloo on the CPU)")
     args = parser.parse_args(argv)
 
     from lets_face_it_tpu_torch.hparams import load_hparams
+    from lets_face_it_tpu_torch.parallel.mesh import mesh_from_environment
     from lets_face_it_tpu_torch.train.loop import synthetic_corpus, train
     from lets_face_it_tpu_torch.utils.precision import training_precision
     from lets_face_it_tpu_torch.utils.device import resolve_device
 
     resolve_device(args.device)
+    mesh = mesh_from_environment(args.device, args.dist_backend)
     overrides = {k: getattr(args, k) for k in ("batch_size", "max_epochs",
                                                 "stall_timeout_s",
                                                 "device_data_cache", "precision",
@@ -106,8 +116,15 @@ def main(argv=None):
     _, best_val = train(hp, seed=args.seed, ckpt_dir=ckpt_dir, log_dir=args.log_dir,
                         max_steps=args.max_steps, device=args.device,
                         corpus=corpus, resume_from=args.resume_from,
-                        render_client=render_client, profile_dir=args.profile_dir)
-    print(f"training done; best val_loss = {best_val:.4f}; checkpoints in {ckpt_dir}")
+                        render_client=render_client, profile_dir=args.profile_dir,
+                        mesh=mesh)
+    if mesh is None or mesh.is_main:
+        print(f"training done; best val_loss = {best_val:.4f}; "
+              f"checkpoints in {ckpt_dir}")
+    if mesh is not None:
+        import torch.distributed
+
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -40,6 +40,14 @@ the data order, validations and checkpoints of k = 1; ``hp.wire_dtype``
 "bf16" ships the host-gathered batches' float arrays as bf16 and widens
 them on the device; ``profile_dir`` records a ``torch.profiler`` trace of
 the first steps.
+
+Across GPUs (``mesh``, ``parallel/mesh.py``; the CLI makes one under
+``torchrun``), every rank takes the same epoch order, gathers its slice of
+each batch's window starts (from its device cache or on the host) and
+steps as ``train/state.py`` says; validation, the checkpoints, the logged
+lines and the hooks run on rank 0, whose results and stop decisions (a
+hook's exception) are broadcast, so that no rank is left waiting in a
+collective the others never reach.
 """
 
 from __future__ import annotations
@@ -62,6 +70,7 @@ from lets_face_it_tpu_torch.hparams import HParams
 from lets_face_it_tpu_torch.model import seqglow
 from lets_face_it_tpu_torch.model.seqglow import SeqGlow
 from lets_face_it_tpu_torch.model.spec import FlowSpec
+from lets_face_it_tpu_torch.parallel.mesh import replicate
 from lets_face_it_tpu_torch.train import metrics as train_metrics
 from lets_face_it_tpu_torch.train import state as train_state
 from lets_face_it_tpu_torch.train.checkpoint import (CheckpointManager,
@@ -310,7 +319,7 @@ def train(hp: HParams, *, seed: int = 1234, ckpt_dir=None, log_dir=None,
           max_steps: int | None = None, device="cuda", corpus=None,
           resume_from=None, render_client=None, log_every: int = 10,
           verbose: bool = True, step_hook=None, val_hook=None,
-          profile_dir=None):
+          profile_dir=None, mesh=None):
     """Full training run on ``device``. The data come from ``corpus`` (in
     memory) when given, else from the HDF5 store under ``hp.dataset_root``.
     ``resume_from`` (or ``hp.resume_from_checkpoint``): a checkpoint file, or
@@ -325,15 +334,35 @@ def train(hp: HParams, *, seed: int = 1234, ckpt_dir=None, log_dir=None,
     matmul precision of the run and its validations, restored on return;
     ``hp.steps_per_dispatch`` and ``hp.wire_dtype`` as the module says.
     ``hp.terminate_on_nan`` raises ``FloatingPointError`` at the first step
-    whose loss or gradient norm is not finite. Returns (final TrainState,
-    best val loss)."""
+    whose loss or gradient norm is not finite. ``mesh``: a
+    ``parallel.mesh.Mesh``, to train data-parallel with its other ranks
+    (``hp.batch_size`` the global batch, a multiple of their number; the
+    ranks run on the mesh's devices). Returns (final TrainState, best val
+    loss), the same on every rank."""
     with matmul_precision(training_precision(hp)):
         return _train(hp, seed=seed, ckpt_dir=ckpt_dir, log_dir=log_dir,
                       max_steps=max_steps, device=device, corpus=corpus,
                       resume_from=resume_from, render_client=render_client,
                       log_every=log_every, verbose=verbose,
                       step_hook=step_hook, val_hook=val_hook,
-                      profile_dir=profile_dir)
+                      profile_dir=profile_dir, mesh=mesh)
+
+
+def _on_main(mesh, fn, *args):
+    """``fn(*args)`` on rank 0 (every process without a mesh); its result
+    and any exception it raises, broadcast, are every rank's."""
+    if mesh is None:
+        return fn(*args)
+    out = err = None
+    if mesh.is_main:
+        try:
+            out = fn(*args)
+        except BaseException as exc:  # noqa: BLE001 - re-raised on every rank
+            err = exc
+    out, err = mesh.broadcast_object((out, err))
+    if err is not None:
+        raise err
+    return out
 
 
 def _steps_per_dispatch(hp: HParams, dev_batcher, state) -> int:
@@ -349,8 +378,9 @@ def _steps_per_dispatch(hp: HParams, dev_batcher, state) -> int:
               "per dispatch", flush=True)
         return 1
     if dev_batcher.device.type == "cuda" and not train_state.graph_supported(
-            state.optimizer):
+            state.optimizer, state.mesh):
         print(f"steps_per_dispatch={k}: {type(state.optimizer).__name__} "
+              f"{'over ' + state.mesh.backend + ' ' if state.mesh else ''}"
               "cannot step inside a CUDA graph; running one step per dispatch",
               flush=True)
         return 1
@@ -359,14 +389,18 @@ def _steps_per_dispatch(hp: HParams, dev_batcher, state) -> int:
 
 def _train(hp: HParams, *, seed, ckpt_dir, log_dir, max_steps, device, corpus,
            resume_from, render_client, log_every, verbose, step_hook,
-           val_hook, profile_dir):
-    device = resolve_device(device)
+           val_hook, profile_dir, mesh):
+    device = resolve_device(device if mesh is None else mesh.device)
+    is_main = mesh is None or mesh.is_main
     train_ds, val_ds = load_datasets(hp, corpus)
     spec = FlowSpec.build(hp)
     steps_per_epoch = max(train_ds.num_batches(hp.batch_size, drop_last=True), 1)
     model = SeqGlow.init(spec, torch.Generator().manual_seed(seed)).to(device)
-    state = train_state.TrainState.create(model, hp, steps_per_epoch, seed)
-    ckpt = CheckpointManager(ckpt_dir) if ckpt_dir else None
+    state = train_state.TrainState.create(model, hp, steps_per_epoch, seed,
+                                          mesh=mesh)
+    if mesh is not None:
+        mesh.rows(hp.batch_size)     # the global batch splits evenly
+    ckpt = CheckpointManager(ckpt_dir) if ckpt_dir and is_main else None
 
     actnorm_inited, start_epoch, skip = False, 0, 0
     resume_from = resume_from or getattr(hp, "resume_from_checkpoint", None)
@@ -377,6 +411,8 @@ def _train(hp: HParams, *, seed, ckpt_dir, log_dir, max_steps, device, corpus,
             if path is None:
                 raise FileNotFoundError(f"no checkpoint under {resume_from}")
         meta = restore_checkpoint(path, state)
+        if mesh is not None:   # every rank read the file; rank 0's is the state
+            replicate(mesh, state.model, state.optimizer)
         actnorm_inited = bool(meta["actnorm_inited"])
         start_epoch, skip = int(meta["epoch"]), int(meta["epoch_step"])
         if skip >= steps_per_epoch:
@@ -399,7 +435,8 @@ def _train(hp: HParams, *, seed, ckpt_dir, log_dir, max_steps, device, corpus,
     # logged every log_every steps, or every ceil(log_every / k) blocks
     log_blocks = max(1, -(-log_every // k_dispatch))
 
-    logger = MetricLogger(log_dir, enabled=bool(getattr(hp, "logger", True)))
+    logger = MetricLogger(log_dir, enabled=is_main
+                          and bool(getattr(hp, "logger", True)))
     if render_client is not None and getattr(render_client, "on_rendered",
                                              None) is None:
         render_client.on_rendered = logger.video_url
@@ -418,6 +455,8 @@ def _train(hp: HParams, *, seed, ckpt_dir, log_dir, max_steps, device, corpus,
     done = max_steps is not None and state.step >= max_steps
 
     def log(m):
+        if not is_main:
+            return
         m = {k: float(v) for k, v in m.items()}
         m["train_loss"] = m.pop("loss")
         m["steps_per_sec"] = ((state.step - start_step)
@@ -435,6 +474,8 @@ def _train(hp: HParams, *, seed, ckpt_dir, log_dir, max_steps, device, corpus,
                 sels = sels[:skip + max_steps - state.step]
             epoch_step = skip
             todo = sels[skip:]
+            if mesh is not None:   # this rank's rows of every batch
+                todo = [mesh.local(sel) for sel in todo]
             if multi is not None:
                 if not actnorm_inited and todo:
                     # the first block's first batch, gathered once more here
@@ -466,9 +507,9 @@ def _train(hp: HParams, *, seed, ckpt_dir, log_dir, max_steps, device, corpus,
                 done = max_steps is not None and state.step >= max_steps
                 if step_hook is not None:
                     for i in range(j):
-                        step_hook(state.step - j + 1 + i,
-                                  {key: v[i] for key, v in m.items()}
-                                  if multi is not None else m)
+                        _on_main(mesh, step_hook, state.step - j + 1 + i,
+                                 {key: v[i] for key, v in m.items()}
+                                 if multi is not None else m)
                 if verbose and (done or (state.step % log_every == 0
                                          if multi is None
                                          else n_items % log_blocks == 0)):
@@ -478,13 +519,13 @@ def _train(hp: HParams, *, seed, ckpt_dir, log_dir, max_steps, device, corpus,
                     break
             skip = 0
             if (epoch + 1) % val_every == 0 or done:
-                out = run_validation(spec, hp, state.model, val_ds, device,
-                                     state.step, seed, logger=logger,
-                                     render_client=render_client,
-                                     dev_batcher=val_batcher)
+                out = _on_main(mesh, lambda: run_validation(
+                    spec, hp, state.model, val_ds, device, state.step, seed,
+                    logger=logger, render_client=render_client,
+                    dev_batcher=val_batcher))
                 best_val = min(best_val, out["val_loss"])
                 if val_hook is not None:
-                    val_hook(state.step, out)
+                    _on_main(mesh, val_hook, state.step, out)
                 if ckpt is not None:
                     ckpt.save(state, hp, epoch=epoch, epoch_step=epoch_step,
                               actnorm_inited=actnorm_inited,

@@ -29,6 +29,13 @@ draws of the k steps are taken ahead from the same generator in the order
 k single steps take them. On the card the k steps are one CUDA graph,
 captured once and replayed for every full block; elsewhere, and for a
 block shorter than k, they run step by step.
+
+Across GPUs (``parallel/mesh.py``, ``TrainState.mesh``), each rank steps on
+its rows of the global batch: the draws are those of the global batch,
+taken the same on every rank and sliced (the deranged rows gathered from
+the ranks that hold them), the NLL that the metrics and the trick read is
+the global mean, the gradients are averaged by one all-reduce, and ActNorm
+is initialised from the global batch's first frame.
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ from lets_face_it_tpu_torch.model.encoders import (dropout_mask_shapes,
 from lets_face_it_tpu_torch.ops import flow_kernels, train_kernels
 from lets_face_it_tpu_torch.model.seqglow import SeqGlow
 from lets_face_it_tpu_torch.model.spec import FlowSpec
+from lets_face_it_tpu_torch.parallel.mesh import Mesh, replicate
 from lets_face_it_tpu_torch.train import derange
 from lets_face_it_tpu_torch.train.optim import (LRSchedule, OptaxRMSprop,
                                                 build_optimizer,
@@ -70,29 +78,40 @@ class TrainState:
     step: int = 0
     last_mismatched_nll: float = math.inf
     trained: list = field(default_factory=list)
+    mesh: Mesh | None = None
 
     @classmethod
     def create(cls, model: SeqGlow, hp, steps_per_epoch: int,
-               seed: int) -> "TrainState":
+               seed: int, mesh: Mesh | None = None) -> "TrainState":
         """Optimizer over the model's trained parameters, the schedule, and
-        the step generator seeded with ``seed``."""
+        the step generator seeded with ``seed``; with a ``mesh``, rank 0's
+        model on every rank."""
+        if mesh is not None:
+            replicate(mesh, model)
         trained = [p for p in model.parameters() if p.requires_grad]
         return cls(model=model, optimizer=build_optimizer(hp, trained),
                    schedule=LRSchedule(hp, steps_per_epoch),
                    generator=torch.Generator().manual_seed(seed),
-                   trained=trained)
+                   trained=trained, mesh=mesh)
+
+    def global_batch(self, local: int) -> int:
+        """The global batch of ``local`` rows a rank."""
+        return local * (self.mesh.size if self.mesh is not None else 1)
 
 
 @torch.no_grad()
 def run_actnorm_init(spec: FlowSpec, state: TrainState, batch) -> None:
     """Data-dependent actnorm init from the batch's first conditioned frame
-    (no dropout), written into the model in place."""
+    (no dropout), written into the model in place; with a mesh, from the
+    global batch's (gathered from every rank)."""
     x = batch["p1_face"]
     start = spec.cond.longest_history
     times = torch.arange(start, start + 1, device=x.device)
     cond = encode_conditioning(spec.cond, state.model.encoder, batch, x, times)
-    an = flow.actnorm_sequential_init(spec, state.model.flow, x[:, start],
-                                      cond[:, 0])
+    x0, cond0 = x[:, start], cond[:, 0]
+    if state.mesh is not None:
+        x0, cond0 = state.mesh.all_gather(x0), state.mesh.all_gather(cond0)
+    an = flow.actnorm_sequential_init(spec, state.model.flow, x0, cond0)
     for name, value in an.items():
         state.model.flow["actnorm"][name].copy_(value)
 
@@ -117,22 +136,39 @@ def apply_step(spec: FlowSpec, hp, state: TrainState, batch, coin, perm,
     learning rate ``lr`` (a number or a device scalar) and
     ``last_mismatched_nll`` as a device scalar ``last``: no host sync and no
     host branch on a device value, so that a CUDA graph can hold it.
-    -> (the step's metrics, the next ``last``), as device tensors."""
+    With ``state.mesh``, ``batch`` is this rank's rows and the draws the
+    global batch's. -> (the step's metrics, the next ``last``), as device
+    tensors."""
+    mesh = state.mesh
+    if mesh is not None:
+        masks = {name: mesh.local(m) for name, m in masks.items()}
     use = torch.zeros((), dtype=torch.bool, device=last.device)
     neg_modalities, _ = derange.mismatched_modalities(hp.Conditioning)
     if hp.Train.get("use_negative_nll_loss", False) and neg_modalities:
         use = (coin < 0.1) & (last > 0)
-        batch = {name: (torch.where(use, x[perm], x)
+
+        def deranged(x):
+            if mesh is None:
+                return x[perm]
+            return mesh.local(mesh.all_gather(x)[perm])
+
+        batch = {name: (torch.where(use, deranged(x), x)
                         if name in neg_modalities else x)
                  for name, x in batch.items()}
     _, nll, _ = seqglow.sequence_nll(spec, state.model, batch, training=True,
                                      dropout_masks=masks)
-    loss = torch.where(use, -0.1, 1.0) * nll
+    factor = torch.where(use, -0.1, 1.0)
     for p in state.trained:
         if p.grad is not None:
             p.grad.zero_()
-    loss.backward()
+    (factor * nll).backward()
     grads = [p.grad for p in state.trained if p.grad is not None]
+    nll = nll.detach()
+    if mesh is not None:
+        # the global batch's mean (the shards are equal) and its gradient
+        nll = mesh.all_reduce_mean(nll.clone())
+        mesh.average_gradients(grads)
+    loss = factor * nll
     clip = float(getattr(hp, "gradient_clip_val", 0.0) or 0.0)
     grad_norm = clip_by_global_norm(grads, clip)
     for group in state.optimizer.param_groups:
@@ -141,8 +177,7 @@ def apply_step(spec: FlowSpec, hp, state: TrainState, batch, coin, perm,
         else:
             group["lr"] = float(lr)
     state.optimizer.step()
-    nll = nll.detach()
-    metrics = {"loss": loss.detach(), "nll": nll, "deranged": use.float(),
+    metrics = {"loss": loss, "nll": nll, "deranged": use.float(),
                "grad_norm": grad_norm}
     return metrics, torch.where(use, -nll, last)
 
@@ -165,7 +200,7 @@ def train_step(spec: FlowSpec, hp, state: TrainState, batch, *,
     x = batch["p1_face"]
     dev = x.device
     if draws is None:
-        draws = draw_step(spec, state, x.shape[0],
+        draws = draw_step(spec, state, state.global_batch(x.shape[0]),
                           x.shape[1] - spec.cond.longest_history)
     last = state.last_mismatched_nll
     if not torch.is_tensor(last):
@@ -187,11 +222,14 @@ _KERNELS = (train_kernels.cond_gates, train_kernels.seq_fwd,
             flow_kernels.sample_chain)
 
 
-def graph_supported(optimizer: torch.optim.Optimizer) -> bool:
+def graph_supported(optimizer: torch.optim.Optimizer,
+                    mesh: Mesh | None = None) -> bool:
     """Whether ``optimizer`` can step inside a CUDA graph with its learning
     rate in a device tensor: Adam (``capturable``) and the optax-form
-    RMSprop; torch's SGD reads its rate on the host."""
-    return isinstance(optimizer, (torch.optim.Adam, OptaxRMSprop))
+    RMSprop; torch's SGD reads its rate on the host. Across GPUs the
+    collectives must be NCCL's (gloo's cannot be captured)."""
+    return (isinstance(optimizer, (torch.optim.Adam, OptaxRMSprop))
+            and (mesh is None or mesh.backend == "nccl"))
 
 
 class MultiStep:
@@ -200,7 +238,8 @@ class MultiStep:
     ``{modality: [T, D]}``), each step ``apply_step``.
 
     Per call, the host takes the k steps' draws (coin, permutation,
-    frame-dropout masks) from ``state.generator`` in the order k calls of
+    frame-dropout masks; the global batch's under a mesh, whose ``arrays``
+    gather this rank's rows) from ``state.generator`` in the order k calls of
     ``train_step`` take them, and the k learning rates, and copies them into
     fixed device buffers. On the card the first full block runs eagerly on
     a side stream (the warm-up a capture needs), the second is captured as
@@ -221,7 +260,8 @@ class MultiStep:
         self.n_frames = self.seq_len - spec.cond.longest_history
         mask_shapes = dropout_mask_shapes(spec.cond, self.b, self.n_frames)
         dev, k = self.device, self.k
-        self.starts = torch.zeros((k, self.b), dtype=torch.int32, device=dev)
+        local = self.b // (state.mesh.size if state.mesh is not None else 1)
+        self.starts = torch.zeros((k, local), dtype=torch.int32, device=dev)
         self.coins = torch.zeros(k, device=dev)
         self.perms = torch.zeros((k, self.b), dtype=torch.int64, device=dev)
         self.masks = {name: torch.zeros((k,) + shape, device=dev)
@@ -232,9 +272,9 @@ class MultiStep:
                     for key in ("loss", "nll", "deranged", "grad_norm")}
         self.on_card = dev.type == "cuda"
         if self.on_card:
-            if not graph_supported(state.optimizer):
+            if not graph_supported(state.optimizer, state.mesh):
                 raise ValueError(f"{type(state.optimizer).__name__} cannot step "
-                                 "inside a CUDA graph")
+                                 "inside a CUDA graph here")
             lr = torch.zeros((), device=dev)
             for group in state.optimizer.param_groups:
                 group["lr"] = lr

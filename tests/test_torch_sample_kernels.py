@@ -197,11 +197,15 @@ def test_envelope_holds_the_configs(config, tmp_path):
 def test_envelope_refuses_chain_weights_that_overflow_a_cluster(tmp_path):
     """The chain's resident weights depend on C, Z1, H and Cout, not on the
     conditioning width: at H = 1024 one step's (586 KB) already overflows a
-    block, so the spec samples on the eager path."""
+    block, so a cluster refuses to hold them; the chain then reads them from
+    global memory, and the spec (inside the JAX kernels' envelope) still
+    samples on the kernels."""
     hp = load_hparams(HPARAMS / "final_model.yaml",
                       dataset_root=tmp_path)
     hp.Glow["hidden_channels"] = 1024
     spec = PortFlowSpec.build(hp)
     assert fk.chain_step_bytes(spec) > fk.MAX_SMEM_BYTES
-    assert not fk.fused_supported(spec) and not fk.sampling_seq_supported(spec)
-    assert seqglow.sampling_path(spec) == "plain"
+    assert not fk.chain_resident(spec)
+    assert fk.chain_smem_bytes(spec, resident=False) <= fk.MAX_SMEM_BYTES
+    assert fk.fused_supported(spec) and fk.sampling_seq_supported(spec)
+    assert seqglow.sampling_path(spec) == "sequence"
