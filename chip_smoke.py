@@ -15,21 +15,28 @@ sources in this checkout:
    ``frame_rev`` and ``seq_rev`` as their wrappers run them, and the two
    kernels each frame of them runs, ``sample_gates`` and ``sample_chain``,
    alone, at the main paths' batches and at odd ones (partial tiles and
-   clusters), with and without the own-face history;
+   clusters), with and without the own-face history, the gates on each of
+   their two plans forced ("vector", the launcher's below 64 rows at
+   "highest", and "tile" on the tensor cores), the tile plan's 3xTF32 at
+   B=128 no farther from the float64 product than the plain float32
+   version, and ``sequence_sample``'s B=128 on the gates' tile plan;
 4. saves the weights in the reference's names, loads them through
    ``Generator.from_checkpoint``, generates a sequence and streams frames
    (``StreamingGenerator``), and checks the outputs against the plain path on
    the CPU with the same latents;
 5. checks that each sampling kernel's launch counter rose during step 4
    (``sample_gates`` and ``sample_chain`` count the launches that
-   ``frame_rev`` and ``seq_rev`` make of them);
+   ``frame_rev`` and ``seq_rev`` make of them), the gates' counters by plan
+   too (B=1 on the vector plan, the B=64 pushes on the tile plan);
 6. times the serving path and each sampling kernel beside its plain version,
-   a library yardstick and its bound;
+   a library yardstick and its bound, the gates on the launcher's plan
+   beside the other plan;
 7. traces a push at B=1 and B=64 and a generate at B=1 with
    ``torch.profiler``: device time, device idle share and the largest device
    operations of each call;
 8. holds the training kernels against their plain versions at B=256, N=56
-   (the conditioning gates ``cond_gates``, the forward's outputs, and the
+   (the conditioning gates ``cond_gates`` on both plans, "tc" also against
+   the float64 product, the forward's outputs, and the
    backward's outputs on seeded cotangents), and the autograd Function's
    gradients against eager autograd through the ``flow.frame_fwd`` loop, on
    two weight seeds;
@@ -42,8 +49,10 @@ sources in this checkout:
     path (same weights, batch and draws);
 11. times the training step and each training kernel beside its plain
     version, a library yardstick and its bound (``seq_fwd`` as the whole
-    route and as its two launches, ``cond_gates`` beside one cuBLAS call for
-    the same product), and traces a training step with ``torch.profiler``;
+    route and as its two launches, ``cond_gates`` beside its simt plan and
+    one cuBLAS call for the same product), and traces a training step with
+    ``torch.profiler``; steps 9, 12 and 13 require the gates' new plans
+    among their launches ("tc" for training, "tile" for evaluation);
 12. inverts latents at B=128, T=100 with ``sequence_invert`` (one
     ``frame_rev`` call a frame) against its plain route on the card and
     against the frames ``sequence_nll`` encoded, on two weight seeds, with
@@ -88,10 +97,14 @@ sources in this checkout:
     the launch counters of each call, each kernel's first step (one product
     deep) held tighter and the same kernel launched at each other mode
     required to fail that limit, and ``seq_rev`` and ``frame_rev`` bit for
-    bit as their gates and chain kernels launched one by one; each kernel's time at each mode beside
-    its plain twin, the library call at torch's same setting and its bound
-    at the mode's tensor-core rate; each mode's path (two training steps, a
-    validation, three pushes) with its launches; the B=256 step at precision
+    bit as their gates and chain kernels launched one by one (the gates
+    alone at B=1, 64, 128 and 512); each kernel's time at each mode beside
+    its plain twin, the library call at torch's same setting (for
+    ``seq_bwd`` the eager loop's autograd backward) and its bound
+    at the mode's tensor-core rate, the gates at B=128 too, each gate kernel
+    beside its other plan; each mode's path (two training steps, a
+    validation, three pushes) with its launches and gate plans ("tc" and
+    "tile" required); the B=256 step at precision
     32 and 16 and a trace of it at 16; a short A/B (100 steps a arm, a
     validation every 100) with the val-NLL deltas held; the trainer with
     ``steps_per_dispatch`` 5 (one CUDA graph a block, replays counted)
@@ -108,7 +121,8 @@ sources in this checkout:
     weights read from global memory): each spec's path (2 steps, a
     validation, 3 pushes) with its launches, then every kernel against its
     plain twin at the final_model limits, timed beside the library call and
-    its bound; the chain at C = 54, H = 128 also forced to global memory,
+    its bound (``cond_gates`` at every mode, as step 17 holds it, and against
+    the float64 product); the chain at C = 54, H = 128 also forced to global memory,
     for its time beside the resident one's; one ``{"widened": ...}`` line
     and a record per kernel and spec in the kernels' line.
 19. the hyperparameter search (``train/tuning.py``): ``Study.optimize`` on
@@ -274,10 +288,25 @@ def kernel_wrappers() -> dict:
 def reset_launches() -> None:
     for fn in kernel_wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "plans"):
+            fn.plans = dict.fromkeys(fn.plans, 0)
 
 
 def read_launches() -> dict:
     return {name: fn.launches for name, fn in kernel_wrappers().items()}
+
+
+def read_plans() -> dict:
+    """The gate kernels' launches by plan since the last reset_launches:
+    cond_gates' "tc" and "simt", sample_gates' "vector" and "tile"."""
+    return {name: dict(fn.plans) for name, fn in kernel_wrappers().items()
+            if hasattr(fn, "plans")}
+
+
+def require_plan(path: str, plans: dict, name: str, plan: str) -> None:
+    if plans[name][plan] == 0:
+        fail(f"{name}'s {plan} plan was never launched on the {path} path "
+             f"(plans {plans[name]})")
 
 
 def require_launches(path: str, counts: dict, names) -> None:
@@ -345,6 +374,45 @@ def drift(got, ref) -> dict:
     d = (got.double() - ref.double()).abs().amax(dim=(1, 2))
     return {"frame0": d[0].item(), f"first{SEQ_TIGHT}": d[:SEQ_TIGHT].max().item(),
             "all": d.max().item()}
+
+
+def cond_plans_ms(spec, tw, cs, prec, reps) -> dict:
+    """``cond_gates`` on each plan at ``prec`` beside the launcher's, by
+    CUDA-graph replay: "simt_original" (the register-staged SIMT tile that
+    ran before the gates' redesign), "simt" (the launcher's SIMT tile, the
+    staged ring), "tc" (the tensor cores' default tile)."""
+    from lets_face_it_tpu_torch.ops import train_kernels as tk
+
+    kws = {"simt_original": {"plan": "simt", "tile": 0},
+           "simt": {"plan": "simt", "tile": tk.cond_gates_plan(0)[1]},
+           "tc": {"plan": "tc", "tile": tk.cond_gates_plan(1)[1]}}
+    return {name: time_ms(graphed(lambda kw=kw: tk.cond_gates(spec, tw, cs, precision=prec,
+                                                              **kw)), reps)
+            for name, kw in kws.items()}
+
+
+def f64_rms_check(name, got, ref, ref64) -> dict:
+    """A product at "highest" on the tensor cores (3xTF32) against the
+    float64 product: its rms from ``ref64`` no larger than the plain float32
+    version's (``ref``), over every output of ``got`` and ``ref`` (tuples
+    or tensors) -> {"kernel": rms, "plain": rms}."""
+    import torch
+
+    if torch.is_tensor(got):
+        got, ref, ref64 = (got,), (ref,), (ref64,)
+
+    def rms(xs):
+        return math.sqrt(sum((x.double() - r).pow(2).sum().item()
+                             for x, r in zip(xs, ref64))
+                         / sum(r.numel() for r in ref64))
+
+    read = {"kernel": rms(got), "plain": rms(ref)}
+    if not read["kernel"] <= read["plain"]:
+        fail(f"{name}: rms from the float64 product {read['kernel']:.4e} exceeds "
+             f"the plain float32 version's {read['plain']:.4e}")
+    print(f"check {name} at highest against the float64 product: rms "
+          f"{read['kernel']:.4e}, plain float32 {read['plain']:.4e}  ok")
+    return read
 
 
 def _device_us(evt) -> float:
@@ -1556,7 +1624,7 @@ def kernels_at_modes(spec, hp, model, dev, out) -> tuple:
                 if not torch.equal(xc[0], x):
                     fail(f"frame_rev B={b} at {prec}: not bit for bit its gates and chain "
                          f"launched one by one (max|d| {(xc[0] - x).abs().max().item():.3e})")
-            for b, own in ((1, True), (64, False), (128, True)):
+            for b, own in ((1, True), (64, False), (128, True), (512, True)):
                 z, pr, st = randn(b, c), randn(k_steps, b, cond), randn(k_steps, b, h, scale=0.5)
                 p1_b = p1 if own else 0
                 hist = randn(b, p1_b)
@@ -1731,26 +1799,75 @@ def kernels_at_modes(spec, hp, model, dev, out) -> tuple:
                 k_steps, -1, cond).contiguous()
             lib_w = tw.w_ih_t[:, spec.z1_dim:].contiguous()
             lib_b = tw.b_ih[:, None, :].contiguous()
-            for name, (call, plain, lib, (bound, by), shape, reps) in cases.items():
+            # the gates at sequence_sample's B=128 (own face): the tile plan
+            b_s = 128
+            pr_s, st_s, hist_s = randn(k_steps, b_s, cond), randn(k_steps, b_s, h, scale=0.5), \
+                randn(b_s, p1)
+            cases["sample_gates B=128"] = (
+                lambda: fk.sample_gates(spec, wm, w_p1, pr_s, hist_s, st_s, precision=prec),
+                lambda: fk.sample_gates_ref(spec, wm, w_p1, pr_s, hist_s, st_s, m),
+                lambda: library_gates(spec, w, w_p1, pr_s, hist_s, st_s),
+                gates_bound_ms(spec, b_s, p1, peak, wb), f"B={b_s}, own face", 20)
+            # the other plan of each gate kernel, forced: the plan it replaced
+            other_plans = {
+                "cond_gates": ("simt_original", lambda: tk.cond_gates(
+                    spec, tw, cs_t, precision=prec, plan="simt", tile=0)),
+                "sample_gates B=128": ("vector", lambda: fk.sample_gates(
+                    spec, wm, w_p1, pr_s, hist_s, st_s, precision=prec, plan="vector"))}
+            for key, (call, plain, lib, (bound, by), shape, reps) in cases.items():
+                name = key.split()[0]
                 if name == "cond_gates":
                     lib = lambda: torch.baddbmm(lib_b, lib_a, lib_w)  # noqa: E731
                 row = {"ms": time_ms(graphed(call), reps), "wrapper_ms": time_ms(call, reps),
                        "plain_ms": time_ms(plain, 1, warmup=1)}
-                if lib is None:      # seq_bwd: its library yardstick is step 11's
-                    row["library_ms"] = None
+                if lib is None:      # seq_bwd: the eager loop's autograd backward
+                    row["library_ms"] = library_backward_ms(
+                        spec, model.flow, (xs_t, cs_t, st_t), cot, prec, reps)
                 else:
                     with matmul_precision(prec):
                         row["library_ms"] = time_ms(graphed(lib), reps)
+                other = ""
+                if key in other_plans:
+                    plan, fn = other_plans[key]
+                    row["plan"] = (tk.cond_gates_plan(m)[0] if name == "cond_gates"
+                                   else fk.gates_plan(b_s, mode=m))
+                    row[f"{plan}_plan_ms"] = time_ms(graphed(fn), reps)
+                    other = f" on the {row['plan']} plan ({plan} plan {row[f'{plan}_plan_ms']:.4f} ms)"
                 row.update(bound_ms=bound, bound_by=by, shape=shape)
-                rows[name, prec] = row
-                print(f"{name} at {prec} ({shape}): kernel {row['ms']:.4f} ms (graph "
+                if key == name:
+                    rows[name, prec] = row
+                else:
+                    rows[name, prec].setdefault("by_batch", []).append(row)
+                print(f"{name} at {prec} ({shape}): kernel {row['ms']:.4f} ms{other} (graph "
                       f"replay; {row['wrapper_ms']:.4f} ms through the wrapper), plain "
                       f"{row['plain_ms']:.4f} ms, library at torch's {prec} "
-                      + (f"{row['library_ms']:.4f} ms" if row["library_ms"] is not None
-                         else "not timed")
-                      + f", bound {bound:.4f} ms ({by}, {peak / 1e12:.0f} TFLOP/s)")
+                      f"{row['library_ms']:.4f} ms, bound {bound:.4f} ms ({by}, "
+                      f"{peak / 1e12:.0f} TFLOP/s)")
             del lib_a
     return errs, rows, controls
+
+def library_backward_ms(spec, flow, inputs, cot, prec, reps) -> float:
+    """The library yardstick of ``seq_bwd``: the eager ``frame_fwd`` loop's
+    autograd backward (inputs and flow weights) under torch's ``prec``,
+    timed as a graphed forward + backward less the graphed forward with
+    autograd recording (as step 11 times it at "highest")."""
+    import torch
+
+    from lets_face_it_tpu_torch.utils.precision import matmul_precision
+
+    with torch.enable_grad(), matmul_precision(prec):
+        lib_in = [x.clone().requires_grad_() for x in inputs]
+        lib_w = [p for n, p in flow.named_parameters()
+                 if p.requires_grad and not n.startswith("cond_proj")]
+
+        def lib_forward():
+            z, _, ns, sc = eager_flow_sequence(spec, flow, *lib_in)
+            return z, sc, ns
+
+        return (time_ms(graphed(lambda: torch.autograd.grad(
+                    lib_forward(), lib_in + lib_w, cot)), reps)
+                - time_ms(graphed(lib_forward), reps))
+
 
 def shallow_check(name, prec, got, ref, others) -> tuple:
     """A kernel's first-step output ``got`` at ``prec`` against its plain
@@ -1830,7 +1947,7 @@ def precision_step(tmp, dev, card, records) -> dict:
     # generation) and three pushes of a stream, under torch's setting -------
     train_ds, val_ds = train_loop.load_datasets(
         hp, train_loop.synthetic_corpus(hp, SEED, n_train_chunks=TRAIN_CHUNKS))
-    mode_launches = {}
+    mode_launches, mode_plans = {}, {}
     for prec in MODES_CHECKED:
         st_m = train_state.TrainState.create(seeded_random_model(spec, SEED).to(dev), hp,
                                              3, SEED)
@@ -1847,13 +1964,17 @@ def precision_step(tmp, dev, card, records) -> dict:
                 s.push(**frame)
         torch.cuda.synchronize()
         mode_launches[prec] = read_launches()
+        mode_plans[prec] = read_plans()
         require_launches(f"the path at {prec}", mode_launches[prec],
                          ("cond_gates", "seq_fwd", "seq_bwd", "seq_rev", "frame_rev",
                           "sample_gates", "sample_chain"))
+        require_plan(f"training at {prec}", mode_plans[prec], "cond_gates",
+                     tk.cond_gates_plan(fk.MODES[prec])[0])
+        require_plan(f"the validation at {prec}", mode_plans[prec], "sample_gates", "tile")
         if not (math.isfinite(float(mets["loss"])) and math.isfinite(val["val_loss"])):
             fail(f"the path at {prec}: loss {float(mets['loss'])}, val {val['val_loss']}")
         print(f"path at {prec}: 2 steps, a validation (val NLL {val['val_loss']:.3f}) and "
-              f"3 pushes; launches {mode_launches[prec]}")
+              f"3 pushes; launches {mode_launches[prec]}; gate plans {mode_plans[prec]}")
     for (name, prec), row in rows.items():
         src = {"frame_rev": ("csrc/frame_rev.cu", "pallas_flow.py:130"),
                "seq_rev": ("csrc/seq_rev.cu", "pallas_flow.py:346"),
@@ -2032,6 +2153,7 @@ def precision_step(tmp, dev, card, records) -> dict:
     out["step_s"] = time.perf_counter() - t17
     out["launches"] = {"high": mode_launches["high"], "medium": mode_launches["medium"],
                        "ab": ab_launches}
+    out["plans"] = mode_plans
     return out
 
 
@@ -2258,6 +2380,39 @@ def widened_step(tmp, dev, card, records) -> dict:
             gates_err = check_close(f"{label} cond_gates", tk.cond_gates(ks, tw, cs),
                                     tk.cond_gates_ref(ks, tw, cs),
                                     TRAIN_VAL_ATOL, TRAIN_VAL_RTOL)
+            # cond_gates at every mode on its launcher's plan: at "highest"
+            # against the float64 product, at the reduced modes against its
+            # plain twin at the mode, one product deep (the controls too)
+            tw64 = tk.TrainWeights(*(t.double() for t in tw))
+            gates_rms = f64_rms_check(f"{label} cond_gates", tk.cond_gates(ks, tw, cs),
+                                      tk.cond_gates_ref(ks, tw, cs),
+                                      tk.cond_gates_ref(ks, tw64, cs.double()))
+            gates_modes = {}
+            for prec in MODES_CHECKED:
+                m = fk.MODES[prec]
+                got_m = tk.cond_gates(ks, tw, cs, precision=prec)
+                ref_m = tk.cond_gates_ref(ks, tw, cs, m)
+                reading = mode_check(f"{label} cond_gates", got_m, ref_m,
+                                     tk.cond_gates_ref(ks, tw64, cs.double(), m), prec)
+                real, ctrl = shallow_check(
+                    f"{label} cond_gates", prec, got_m, ref_m,
+                    {p_: tk.cond_gates(ks, tw, cs, precision=p_)
+                     for p_ in ("highest",) + MODES_CHECKED if p_ != prec})
+                gates_modes[prec] = {
+                    "plan": tk.cond_gates_plan(m)[0], "max_abs_err_grid_steps": reading[0],
+                    "rms_err_grid_steps": reading[1], "first_step_rms_grid_steps": real,
+                    "control_least_rms_grid_steps": min(ctrl.values()),
+                    "ms": time_ms(graphed(lambda: tk.cond_gates(ks, tw, cs,
+                                                                precision=prec)), 3)}
+                del got_m, ref_m
+            del tw64
+            print(f"check {label} cond_gates at the reduced modes (largest |diff|, rms "
+                  "and first-step rms in grid steps; the least control): "
+                  + ", ".join(f"{p_} {v['max_abs_err_grid_steps']:.3f}/"
+                              f"{v['rms_err_grid_steps']:.4f}/"
+                              f"{v['first_step_rms_grid_steps']:.4f}/"
+                              f"{v['control_least_rms_grid_steps']:.4f} {v['ms']:.4f} ms"
+                              for p_, v in gates_modes.items()) + "  ok")
             got = tk.seq_fwd(ks, tw, xs_t, cs, st_t)
             ref, fwd_plain = timed(lambda: tk.seq_fwd_ref(ks, tw, xs_t, cs, st_t))
             fwd_err = max(check_close(f"{label} seq_fwd {nm}", a_, r_,
@@ -2287,7 +2442,9 @@ def widened_step(tmp, dev, card, records) -> dict:
             lib_b = tw.b_ih[:, None, :].contiguous()
             xs_l = unpad(xs_t)
             rows["cond_gates"] = dict(
-                batch=b, frames=n_tr, max_abs_err=gates_err,
+                batch=b, frames=n_tr, max_abs_err=gates_err, plan=tk.cond_gates_plan(0)[0],
+                rms_from_float64=gates_rms, at_modes=gates_modes,
+                plans_ms=cond_plans_ms(ks, tw, cs, "highest", 3),
                 ms=time_ms(graphed(gates_call), 3), wrapper_ms=time_ms(gates_call, 3),
                 plain_ms=time_ms(lambda: tk.cond_gates_ref(ks, tw, cs), 3),
                 library_ms=time_ms(graphed(lambda: torch.baddbmm(lib_b, lib_a, lib_w)), 3),
@@ -2641,7 +2798,13 @@ def main() -> int:
                 w_s, w_p1_s = (w, w_p1_t) if seed == SEED else sampling_weights(model_s)
                 for b in (1, 128) if seed == SEED else (128,):
                     zs, fixed, hist0, st0 = seq_inputs(b, n_seq)
+                    reset_launches()
                     xs = fk.sequence_rev_fused(spec, w_s, w_p1_s, zs, fixed, hist0, st0)
+                    if seed == SEED and b == 128:
+                        # sequence_sample's shape: the gates' many-row plan
+                        seq_plans = read_plans()
+                        require_plan("sequence_sample B=128", seq_plans,
+                                     "sample_gates", "tile")
                     xs_ref = fk.sequence_rev_fused_ref(spec, w_s, w_p1_s, zs, fixed,
                                                        hist0, st0)
                     torch.cuda.synchronize()
@@ -2689,11 +2852,27 @@ def main() -> int:
                 for label, hist_b, w_p1_b in (("own face", hist, w_p1_t),
                                               ("cond_projs", hist[:, :0],
                                                w_p1_t[:, :0])):
-                    got = fk.sample_gates(spec, w, w_p1_b, projs, hist_b, st)
                     ref = fk.sample_gates_ref(spec, w, w_p1_b, projs, hist_b, st)
-                    torch.cuda.synchronize()
-                    e_g = max(check_close(f"sample_gates {label} B={b} {nm}", a_, r_)
-                              for nm, a_, r_ in zip(("proj", "gc", "gh"), got, ref))
+                    # each plan forced (the launcher's is one of them)
+                    e_g = 0.0
+                    for plan in ("vector", "tile"):
+                        got = fk.sample_gates(spec, w, w_p1_b, projs, hist_b, st,
+                                              plan=plan)
+                        torch.cuda.synchronize()
+                        e_g = max([e_g] + [
+                            check_close(f"sample_gates {label} B={b} {plan} plan {nm}",
+                                        a_, r_)
+                            for nm, a_, r_ in zip(("proj", "gc", "gh"), got, ref)])
+                    if b == 128 and label == "own face":
+                        # the tile plan's 3xTF32 at "highest" is no farther from
+                        # the float64 product than the plain float32 version
+                        ref64 = fk.sample_gates_ref(spec, weights64(w), w_p1_b.double(),
+                                                    projs.double(), hist_b.double(),
+                                                    st.double())
+                        gates_rms = f64_rms_check(
+                            "sample_gates B=128 tile plan",
+                            fk.sample_gates(spec, w, w_p1_b, projs, hist_b, st,
+                                            plan="tile"), ref, ref64)
                     _, gc, gh = ref
                     hist_c = hist_b if hist_b.shape[-1] else None
                     got = fk.sample_chain(spec, w, z, gc, gh, st, hist_c)
@@ -2705,8 +2884,9 @@ def main() -> int:
                     frame_gates_err[b] = max(frame_gates_err.get(b, 0.0), e_g)
                     frame_chain_err[b] = max(frame_chain_err.get(b, 0.0), e_c)
                 print(f"check sample_gates / sample_chain B={b} (own face and given "
-                      f"cond_projs): max|d| {frame_gates_err[b]:.3e} / "
-                      f"{frame_chain_err[b]:.3e}  ok")
+                      f"cond_projs; the gates on both plans, the launcher's "
+                      f"{fk.gates_plan(b)}): max|d| "
+                      f"{frame_gates_err[b]:.3e} / {frame_chain_err[b]:.3e}  ok")
             for b in (5, 33):
                 z, projs, st = frame_inputs(b)
                 x, st_new = fk.frame_rev_fused(spec, w, z, projs, st)
@@ -2771,9 +2951,7 @@ def main() -> int:
             outs.append(s.push_many(**many, z=z[50:].transpose(0, 1)))
             return torch.cat([o.reshape(-1, c) for o in outs]).cpu()
 
-        fk.frame_rev_fused.launches = 0
-        fk.sequence_rev_fused.launches = 0
-        fk.sample_gates.launches = fk.sample_chain.launches = 0
+        reset_launches()
         t0 = time.perf_counter()
         out = gen.generate(frames, seed=SEED, z=z_gen)
         s1_out = run_stream(gen.model, "cuda", s1_z)
@@ -2786,8 +2964,12 @@ def main() -> int:
                     "seq_rev": fk.sequence_rev_fused.launches,
                     "sample_gates": fk.sample_gates.launches,
                     "sample_chain": fk.sample_chain.launches}
+        serving_plans = read_plans()
         print(f"main path: {t_main:.3f} s (includes first-use costs); "
-              f"launches {launches}")
+              f"launches {launches}; gates plans {serving_plans['sample_gates']} "
+              "(B=1 vector, the B=64 pushes tile)")
+        require_plan("serving (B=64 pushes)", serving_plans, "sample_gates", "tile")
+        require_plan("serving (B=1)", serving_plans, "sample_gates", "vector")
 
         # -- 5. the path went through the kernels, and its outputs are right
         for name, count in launches.items():
@@ -2922,9 +3104,19 @@ def main() -> int:
                            "plain_ms": time_ms(plain_fn, 5),
                            "library_ms": time_ms(graphed(lib_fn), 20),
                            "bound_ms": bound, "bound_by": by}
+                    other = ""
+                    if name == "sample_gates":
+                        # the launcher's plan, beside the other plan forced
+                        row["plan"] = fk.gates_plan(b)
+                        other_plan = "vector" if row["plan"] == "tile" else "tile"
+                        row[f"{other_plan}_plan_ms"] = time_ms(graphed(
+                            lambda: fk.sample_gates(spec, w, w_p1_b, projs, hist, st,
+                                                    plan=other_plan)), 20)
+                        other = (f" on the {row['plan']} plan ({other_plan} plan "
+                                 f"{row[f'{other_plan}_plan_ms']:.4f} ms)")
                     rows_.append(row)
                     print(f"{name} B={b} ({'own face' if own else 'cond_projs given'}): "
-                          f"kernel {row['ms']:.4f} ms (graph replay; "
+                          f"kernel {row['ms']:.4f} ms{other} (graph replay; "
                           f"{row['wrapper_ms']:.4f} ms through the wrapper), plain "
                           f"{row['plain_ms']:.4f} ms, library (graphed ATen) "
                           f"{row['library_ms']:.4f} ms, bound {bound:.4f} ms ({by})")
@@ -2984,16 +3176,34 @@ def main() -> int:
             keys = [f"{gn}.{ln}" for gn, ln in names] + ["xs", "cond_seq", "states0"]
             return loss.item(), dict(zip(keys, grads))
 
-        gates_err, fwd_err, bwd_err, grad_ratio = {}, {}, {}, {}
+        gates_err, fwd_err, bwd_err, grad_ratio, gates_rms = {}, {}, {}, {}, {}
         for seed in TRAIN_SEEDS:
             model_t = (model_gpu if seed == SEED
                        else seeded_random_model(spec, seed).to(dev))
             xs, cs, st0 = train_inputs(b_tr, n_tr)
             with torch.no_grad():
                 tw = tk.prepare_train_weights(spec, model_t.flow)
-                gates_err[seed] = check_close(
-                    f"cond_gates seed {seed}", tk.cond_gates(spec, tw, cs),
-                    tk.cond_gates_ref(spec, tw, cs), TRAIN_VAL_ATOL, TRAIN_VAL_RTOL)
+                gc_ref = tk.cond_gates_ref(spec, tw, cs)
+                gc_tc = tk.cond_gates(spec, tw, cs)
+                gates_err[seed] = max(check_close(
+                    f"cond_gates seed {seed} {plan} plan",
+                    tk.cond_gates(spec, tw, cs, plan=plan), gc_ref,
+                    TRAIN_VAL_ATOL, TRAIN_VAL_RTOL) for plan in tk.COND_GATES_PLANS)
+                gates_err[seed] = max(gates_err[seed], check_close(
+                    f"cond_gates seed {seed} launcher's plan", gc_tc, gc_ref,
+                    TRAIN_VAL_ATOL, TRAIN_VAL_RTOL))
+                # the launcher's plan against the float64 product (the simt
+                # plan gives the plain version's bits; the tc plan's 3xTF32,
+                # not taken at "highest", is read beside it)
+                gc_64 = tk.cond_gates_ref(spec, tk.TrainWeights(*(t.double() for t in tw)),
+                                          cs.double())
+                gates_rms[seed] = f64_rms_check(
+                    f"cond_gates seed {seed} {tk.cond_gates_plan(0)[0]} plan", gc_tc, gc_ref,
+                    gc_64)
+                gates_rms[seed]["tc_plan_3xtf32"] = f64_rms_check(
+                    f"cond_gates seed {seed} tc plan (3xTF32, not the launcher's)",
+                    tk.cond_gates(spec, tw, cs, plan="tc"), gc_ref, gc_64)["kernel"]
+                del gc_ref, gc_tc, gc_64
                 got = tk.seq_fwd(spec, tw, xs, cs, st0)
                 ref = tk.seq_fwd_ref(spec, tw, xs, cs, st0)
                 torch.cuda.synchronize()
@@ -3051,8 +3261,7 @@ def main() -> int:
         corpus = train_loop.synthetic_corpus(hp, SEED, n_train_chunks=TRAIN_CHUNKS)
         ckpt_dir = Path(tmp) / "train_ckpt"
         step_log, val_log = [], []
-        tk.cond_gates.launches = tk.seq_fwd.launches = tk.seq_bwd.launches = 0
-        fk.sequence_rev_fused.launches = fk.frame_rev_fused.launches = 0
+        reset_launches()
         t0 = time.perf_counter()
         state, best_val = train_loop.train(
             hp, seed=SEED, ckpt_dir=ckpt_dir, max_steps=TRAIN_STEPS, device="cuda",
@@ -3065,9 +3274,13 @@ def main() -> int:
                           "seq_fwd": tk.seq_fwd.launches,
                           "seq_bwd": tk.seq_bwd.launches,
                           "seq_rev": fk.sequence_rev_fused.launches}
+        train_plans = read_plans()
         print(f"training main path: {TRAIN_STEPS} steps at B={b_tr} and one "
               f"validation in {t_train:.3f} s (includes first-use costs); "
-              f"launches {train_launches}")
+              f"launches {train_launches}; gate plans {train_plans}")
+        require_plan("training", train_plans, "cond_gates", tk.cond_gates_plan(0)[0])
+        require_plan("training (the validation's generation)", train_plans,
+                     "sample_gates", "tile")
         for name, count in train_launches.items():
             if count == 0:
                 fail(f"{name} kernel was never launched on the training path")
@@ -3154,6 +3367,7 @@ def main() -> int:
             bwd_plain = time_ms(lambda: tk.seq_bwd_ref(spec, tw, gc, zs_res, hprev,
                                                        *cot), 1, warmup=1)
             gates_plain = time_ms(lambda: tk.cond_gates_ref(spec, tw, cs), 3)
+            plans_ms = cond_plans_ms(spec, tw, cs, "highest", 3)
             # the library GEMM: one cuBLAS call, on operands laid out for it
             lib_a = torch.nn.functional.leaky_relu(cs, 0.01).permute(1, 0, 2, 3).reshape(
                 k_steps, -1, cond).contiguous()
@@ -3186,7 +3400,10 @@ def main() -> int:
               f"the serial kernel's bound {serial_bound:.4f} ms, {serial_by}); "
               f"pair fwd + bwd {fwd_ms + bwd_ms:.4f} ms against bounds "
               f"{fwd_bound + bwd_bound:.4f} ms")
-        print(f"cond_gates B={b_tr} N={n_tr}: kernel {gemm_ms:.4f} ms (graph replay; "
+        print(f"cond_gates B={b_tr} N={n_tr}: kernel {gemm_ms:.4f} ms on the "
+              f"{tk.cond_gates_plan(0)[0]} plan (plans: "
+              + ", ".join(f"{k_} {v:.4f} ms" for k_, v in plans_ms.items())
+              + f"; graph replay; "
               f"{gates_wrap:.4f} ms through the wrapper), plain {gates_plain:.4f} ms, "
               f"library (graphed cuBLAS baddbmm) {lib_gates:.4f} ms, bound "
               f"{gates_bound:.4f} ms ({gates_by})")
@@ -3216,6 +3433,8 @@ def main() -> int:
             source="lets_face_it_tpu_torch/csrc/cond_gates.cu",
             replaces="lets_face_it_tpu/ops/pallas_train.py:241",
             launches=train_launches["cond_gates"], max_abs_err=gates_err[SEED],
+            plan=tk.cond_gates_plan(0)[0], plans_ms=plans_ms,
+            rms_from_float64=gates_rms[SEED],
             ms=gemm_ms, wrapper_ms=gates_wrap, plain_ms=gates_plain,
             bound_ms=gates_bound, bound_by=gates_by, library_ms=lib_gates,
             batch=b_tr, frames=n_tr))
@@ -3250,6 +3469,9 @@ def main() -> int:
             counts = read_launches()
             if seed == SEED:
                 invert_launches = counts
+                invert_plans = read_plans()
+                require_plan(f"sequence_invert B={INVERT_BATCH}", invert_plans,
+                             "sample_gates", "tile")
             for name in ("frame_rev", "sample_gates", "sample_chain"):
                 if counts[name] != n_inv:
                     fail(f"sequence_invert launched {name} {counts[name]} times, "
@@ -3313,9 +3535,12 @@ def main() -> int:
         torch.cuda.synchronize()
         t_rt = time.perf_counter() - t0
         rt_launches = read_launches()
+        rt_plans = read_plans()
         n_rt = len(results)
         print(f"run_test: {n_rt} batches in {t_rt:.3f} s (includes loading and "
-              f"writing); launches {rt_launches}; printed:")
+              f"writing); launches {rt_launches}; gate plans {rt_plans}; printed:")
+        require_plan("run_test (evaluation)", rt_plans, "sample_gates", "tile")
+        require_plan("run_test (evaluation)", rt_plans, "cond_gates", tk.cond_gates_plan(0)[0])
         print("  " + printed.getvalue().strip().replace("\n", "\n  "))
         if "test_loss:" not in printed.getvalue():
             fail("run_test printed no summary")
@@ -3588,6 +3813,13 @@ def main() -> int:
                 by_path = paths
             rec["launches_by_path"] = {p: cnt[rec["name"]] for p, cnt in by_path.items()
                                        if rec["name"] in cnt}
+            if rec["name"] in ("cond_gates", "sample_gates") and "widened" not in rec:
+                plan_paths = {"serving": serving_plans, "sequence_sample_b128": seq_plans,
+                              "training": train_plans, "invert": invert_plans,
+                              "run_test": rt_plans,
+                              **{f"path_{p}": v
+                                 for p, v in modes["plans"].items()}}
+                rec["plans_by_path"] = {p: v[rec["name"]] for p, v in plan_paths.items()}
 
     print(f"total: {time.perf_counter() - t_all:.1f} s")
     print(f"card: {card}")

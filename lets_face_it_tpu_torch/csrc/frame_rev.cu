@@ -7,7 +7,8 @@
 //   1. sample_gates.cuh: gc[k] = leaky_relu(cond_projs[k]) @ w_ih_t[k][Z1:]
 //      + b_ih[k] and gh[k] = states[k] @ w_hh_t[k] + b_hh[k] for all k at
 //      once: 15.7 of the frame's 17.1 MB of weights (final_model), which do
-//      not depend on the chain, read by the whole card;
+//      not depend on the chain, read by the whole card (matrix-vector
+//      products at few rows, tensor-core tiles from 16 or 64 rows on);
 //   2. sample_chain.cuh: the serial chain of the K steps on a thread-block
 //      cluster whose shared memory holds the chain's weights (1.36 MB; where
 //      they do not fit, it reads them from global memory), launched to
@@ -23,8 +24,9 @@
 // (flow_step.cuh::FlowPrecision). The wrapper
 // (ops/flow_kernels.py::frame_rev_fused) allocates the outputs
 // and the gates' scratch; this file allocates nothing. It adds the gates
-// and chain launches it makes to launches[0] and launches[1], which the
-// wrapper adds to their counters.
+// and chain launches it makes to launches[0] and launches[1], and the gates
+// launches of the many-row plan to launches[2] too, which the wrapper adds
+// to their counters.
 
 #include "sample_chain.cuh"
 #include "sample_gates.cuh"
@@ -48,7 +50,8 @@ extern "C" int frame_rev_launch(
   cudaStream_t st = (cudaStream_t)stream;
   err = sample_gates_enqueue(cond_projs, nullptr, nullptr, states, w_ih_t,
                              w_hh_t, b_ih, b_hh, nullptr, gc, gh, B, 0, K, Z1,
-                             COND, H, 0, 0, mode, d, st, &launches[0]);
+                             COND, H, 0, 0, GATES_PLAN_AUTO, mode, d, st,
+                             &launches[0], &launches[2]);
   if (err != cudaSuccess) return (int)err;
   return (int)chain_enqueue(a, plan, d, st, &launches[1], true);
 }

@@ -10,24 +10,27 @@
 //
 // What bounds it on an H100: at B = 1 the bytes (24.9 MB of weights a frame
 // for final_model, 7.5 us at 3.35 TB/s), from B = 64 on the operations.
-// Design (sample_gates.cuh): K x column tiles x row tiles of blocks over the
-// whole card, each weight element read once per launch and row tile, the
-// rows' sums in registers.
+// Design (sample_gates.cuh): two plans by rows. Few rows: K x column tiles
+// x row tiles of blocks over the whole card, each weight element read once
+// per launch and row tile, the rows' sums in registers. Many rows: the
+// tensor-core tile product of gates_mma.cuh, 64-128 rows a block.
 
 #include "sample_gates.cuh"
 
 // fixed [K, B, COND], hist [B, P1], w_p1_t [K, P1, COND], states [K, B, H]
-// -> proj [K, B, COND] (P1 > 0), gc, gh [K, B, 3H]. bt: rows per block, gr:
-// column groups of four per block (8 or 32), 0 for the plan's; mode: the
-// matmul precision (flow_step.cuh::FlowPrecision). The launches
-// made are added to launches[0] (launches[1] counts chains, as in the other
-// launchers).
+// -> proj [K, B, COND] (P1 > 0), gc, gh [K, B, 3H]. plan: GATES_PLAN_AUTO
+// (the launcher's by rows), GATES_PLAN_VECTOR, or GATES_PLAN_TILE + a tile
+// index; bt: rows per block, gr: column groups of four per block (8 or 32)
+// of the vector plan, 0 for its defaults; mode: the matmul precision
+// (flow_step.cuh::FlowPrecision). The launches made are added to
+// launches[0], those of the tile plan to launches[2] too (launches[1]
+// counts chains, as in the other launchers).
 extern "C" int sample_gates_launch(
     const float* fixed, const float* hist, const float* w_p1_t,
     const float* states, const float* w_ih_t, const float* w_hh_t,
     const float* b_ih, const float* b_hh, float* proj, float* gc, float* gh,
-    int B, int P1, int K, int Z1, int COND, int H, int bt, int gr, int mode,
-    void* stream, int* launches) {
+    int B, int P1, int K, int Z1, int COND, int H, int bt, int gr, int plan,
+    int mode, void* stream, int* launches) {
   if (B < 1 || K < 1 || COND % 4 != 0 || H % 4 != 0 || P1 % 4 != 0)
     return FLOW_ERR_ARGS;
   FlowDevice d;
@@ -35,6 +38,7 @@ extern "C" int sample_gates_launch(
   if (err != cudaSuccess) return (int)err;
   return (int)sample_gates_enqueue(fixed, hist, w_p1_t, states, w_ih_t, w_hh_t,
                                    b_ih, b_hh, proj, gc, gh, B, P1, K, Z1,
-                                   COND, H, bt, gr, mode, d,
-                                   (cudaStream_t)stream, &launches[0]);
+                                   COND, H, bt, gr, plan, mode, d,
+                                   (cudaStream_t)stream, &launches[0],
+                                   &launches[2]);
 }

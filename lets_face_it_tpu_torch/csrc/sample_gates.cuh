@@ -6,9 +6,13 @@
 // gc needs the whole of proj[k], so a frame takes two launches when P1 > 0
 // (proj with gh, then gc) and one otherwise (gh with gc).
 //
-// Every product is a matrix-vector product over few batch rows
-// out[k, b, :] = act(X[k, b, :]) @ W[k] (+ bias[k]) (+ addend[k, b, :]),
-// and at B = 1 the launch reads 24.9 MB of weights (final_model) for 0.8
+// Every product is out[k, b, :] = act(X[k, b, :]) @ W[k] (+ bias[k])
+// (+ addend[k, b, :]) over B batch rows, and the launcher takes one of two
+// plans by B (gates_enqueue; ops/flow_kernels.py::gates_plan mirrors it):
+//
+// "vector", few rows (below GATES_TILE_FROM_ROWS_F32 = 64 at "highest",
+// GATES_TILE_FROM_ROWS = 16 at the reduced modes): matrix-vector products.
+// At B = 1 the launch reads 24.9 MB of weights (final_model) for 0.8
 // MFLOP: it is bound by the bytes it moves from L2. The grid splits K x
 // column tiles (x row tiles) over many blocks, so that every SM reads
 // weights at once and each weight element is read once per launch and row
@@ -17,13 +21,25 @@
 // of an interleaved slice of the input rows, four rows at a time, and keeps
 // the BT rows' sums in registers; the slices meet by warp shuffles and a
 // shared-memory sum. Few rows take narrow tiles (GR = 8 column groups, 32
-// columns, 32 slices: many blocks for few bytes each); many rows take wide
-// ones (GR = 32, 128 columns, 8 slices: more work a thread between the
-// sums), as probe_sampling_kernels.py measured (PERF.md). At a reduced
-// matmul precision (GateLaunch::mode) the staged rows of X are rounded once
-// and each weight as it is loaded (flow_step.cuh::round_operand), so the
-// weights may come rounded (the prepared set) or not (the own-face slice
-// w_p1_t, which the caller hands as it is).
+// columns, 32 slices: many blocks for few bytes each); more take wide
+// ones (GR = 32, 128 columns, 8 slices). At a reduced matmul precision
+// (GateLaunch::mode) the staged rows of X are rounded once and each weight
+// as it is loaded (flow_step.cuh::round_operand), so the weights may come
+// rounded (the prepared set) or not (the own-face slice w_p1_t, which the
+// caller hands as it is).
+//
+// "tile", many rows: at B = 128 the vector plan caps its rows a block at 8,
+// so it reads every weight 16 times a launch and ran at 4x its bound, behind
+// cuBLAS. This plan is gates_mma.cuh's tile product: a block holds 64 rows
+// of X and a column tile of W 64 (or 32) columns wide, so that the gc
+// launch at B = 128 still spreads over 192 blocks of the 132 SMs, with no
+// split of the depth and its atomics; four warps, three stages deep. It
+// multiplies on the tensor cores: TF32 or bf16 operands rounded as their
+// fragments are read (the own-face slice's weights too, which the caller
+// hands unrounded), a 3xTF32 split at "highest". The tile and the
+// thresholds are probe_sampling_kernels.py --gates's measurements
+// (PERF.md): a ring six deep (tile 1) and 64 x 32 tiles (tile 2) read no
+// faster.
 //
 // Included by the launchers (frame_rev.cu, seq_rev.cu, sample_gates.cu).
 
@@ -32,6 +48,7 @@
 #include <cuda_runtime.h>
 
 #include "flow_step.cuh"
+#include "gates_mma.cuh"
 
 // Internal linkage: each launcher library (frame_rev, seq_rev, sample_*)
 // keeps its own kernels and its own once-per-device flags; the static
@@ -47,6 +64,15 @@ constexpr int GATES_DEFAULT_MAX_BT = 8;
 // Rows per block from which the wide tile is the default.
 constexpr int GATES_WIDE_FROM_BT = 8;
 constexpr int GATES_MAX_PRODUCTS = 2;
+// Rows from which the launcher takes the many-row plan: at "highest" its
+// 3xTF32 split makes three products of each, so it wins from 64 rows; at
+// "high" and "medium" from 16 (probe_sampling_kernels.py --gates, PERF.md).
+constexpr int GATES_TILE_FROM_ROWS_F32 = 64, GATES_TILE_FROM_ROWS = 16;
+// The plans (`plan` of gates_enqueue): the launcher's by rows, the vector
+// plan, or the tile plan with tile GATES_PLAN_TILE + i of gates_tile_launch.
+constexpr int GATES_PLAN_AUTO = 0, GATES_PLAN_VECTOR = 1, GATES_PLAN_TILE = 2;
+constexpr int GATES_TILES = 3;          // gates_tile_launch's
+constexpr int GATES_TILE_DEFAULT = 0;
 
 // out[k*out_k + b*NC + c] = act(X[k*x_k + b*ldx + i]) * W[k*w_k + i*NC + c]
 // summed over i < IN, plus bias[k*NC + c] and addend[k*add_k + b*NC + c]
@@ -65,6 +91,7 @@ struct GateProduct {
   float* out;
   long long out_k;
   int leaky;
+  int w_rounded;   // W already rounded for the launch's mode (the prepared set)
   int col_tiles;   // ceil(NC / (4 * GR))
 };
 
@@ -233,20 +260,68 @@ inline GateProduct gate_product(const float* X, long long x_k, int ldx,
                                 const float* W, long long w_k, int IN, int NC,
                                 const float* bias, const float* addend,
                                 long long add_k, float* out, long long out_k,
-                                bool leaky) {
+                                bool leaky, bool w_rounded) {
   GateProduct p{X, x_k, ldx, W, w_k, IN, NC, bias, addend, add_k, out, out_k,
-                leaky ? 1 : 0, 0};
+                leaky ? 1 : 0, w_rounded ? 1 : 0, 0};
   return p;
 }
 
+// The many-row plan: one gates_mma.cuh launch of the products, tile `tile`
+// (0 .. GATES_TILES - 1: BM x BN, warp tiles, stages; ops/flow_kernels.py::
+// GATES_TILES mirrors them).
+inline cudaError_t gates_tile_launch(const GateProduct* prods, int n, int K,
+                                     int B, int tile, int mode,
+                                     const FlowDevice& d, cudaStream_t stream) {
+  MmaLaunch L = {};
+  L.n = n;
+  L.M = B;
+  L.inner = B;
+  bool round_w = false;
+  for (int i = 0; i < n; ++i) {
+    const GateProduct& g = prods[i];
+    MmaProduct& p = L.p[i];
+    p.X = g.X;
+    p.x_k = g.x_k;
+    p.ldx = g.ldx;
+    p.W = g.W;
+    p.w_k = g.w_k;
+    p.IN = g.IN;
+    p.NC = g.NC;
+    p.bias = g.bias;
+    p.addend = g.addend;
+    p.add_k = g.add_k;
+    p.out = g.out;
+    p.out_k = g.out_k;
+    p.leaky = g.leaky;
+    round_w = round_w || !g.w_rounded;
+  }
+  switch (tile) {
+    case 0: return mma_enqueue<64, 64, 32, 32, 3>(L, K, mode, round_w, d, stream);
+    case 1: return mma_enqueue<64, 64, 32, 32, 6>(L, K, mode, round_w, d, stream);
+    case 2: return mma_enqueue<64, 32, 32, 16, 6>(L, K, mode, round_w, d, stream);
+    default: return (cudaError_t)FLOW_ERR_PLAN;
+  }
+}
+
+// The launcher's plan for B rows at matmul precision `mode`: the tile plan
+// from GATES_TILE_FROM_ROWS(_F32) rows on, unless a vector tile (bt_req,
+// gr_req) is asked for.
+inline int gates_plan(int B, int bt_req, int gr_req, int mode) {
+  const int from = mode == FLOW_F32 ? GATES_TILE_FROM_ROWS_F32 : GATES_TILE_FROM_ROWS;
+  if (bt_req != 0 || gr_req != 0 || B < from) return GATES_PLAN_VECTOR;
+  return GATES_PLAN_TILE + GATES_TILE_DEFAULT;
+}
+
 // One launch of up to two products over K steps and B rows at matmul
-// precision `mode`, added to *launches; bt_req and gr_req (8 or 32 column
-// groups a block) 0 for the defaults.
+// precision `mode`, added to *launches (and to *tile_launches on the tile
+// plan); `plan` GATES_PLAN_AUTO for gates_plan's; bt_req and gr_req (8 or
+// 32 column groups a block) 0 for the vector plan's defaults.
 inline cudaError_t gates_enqueue(const GateProduct* prods, int n, int K, int B,
-                                 int bt_req, int gr_req, int mode,
+                                 int bt_req, int gr_req, int plan, int mode,
                                  const FlowDevice& d, cudaStream_t stream,
-                                 int* launches) {
-  if ((gr_req != 0 && gr_req != 8 && gr_req != 32) || !precision_valid(mode))
+                                 int* launches, int* tile_launches) {
+  if ((gr_req != 0 && gr_req != 8 && gr_req != 32) || !precision_valid(mode)
+      || plan < GATES_PLAN_AUTO || plan >= GATES_PLAN_TILE + GATES_TILES)
     return (cudaError_t)FLOW_ERR_ARGS;
   int max_in = 0;
   for (int i = 0; i < n; ++i) {
@@ -254,6 +329,16 @@ inline cudaError_t gates_enqueue(const GateProduct* prods, int n, int K, int B,
     if (p.IN % 4 != 0 || p.NC % 4 != 0 || p.IN < 4)
       return (cudaError_t)FLOW_ERR_ARGS;
     max_in = p.IN > max_in ? p.IN : max_in;
+  }
+  if (plan == GATES_PLAN_AUTO) plan = gates_plan(B, bt_req, gr_req, mode);
+  if (plan >= GATES_PLAN_TILE) {
+    const cudaError_t err = gates_tile_launch(prods, n, K, B, plan - GATES_PLAN_TILE,
+                                              mode, d, stream);
+    if (err == cudaSuccess) {
+      ++*launches;
+      ++*tile_launches;
+    }
+    return err;
   }
   int bt = gates_pick_bt(B, gr_req ? gr_req : 32, max_in, bt_req, d);
   const int gr = gr_req ? gr_req : bt >= GATES_WIDE_FROM_BT ? 32 : 8;
@@ -283,40 +368,44 @@ inline cudaError_t gates_enqueue(const GateProduct* prods, int n, int K, int B,
 // The gates of one frame. fixed [K, B, COND] (the frame's slice of
 // fixed_projs, or the given cond_projs when P1 == 0), hist [B, P1],
 // w_p1_t [K, P1, COND], states [K, B, H]; writes proj [K, B, COND] (P1 > 0
-// only), gc and gh [K, B, 3H], at matmul precision `mode`. Two launches
-// when P1 > 0, else one; each is added to *launches.
+// only), gc and gh [K, B, 3H], at matmul precision `mode`, on plan `plan`
+// (gates_enqueue's). Two launches when P1 > 0, else one; each is added to
+// *launches, and those of the tile plan to *tile_launches too.
 inline cudaError_t sample_gates_enqueue(
     const float* fixed, const float* hist, const float* w_p1_t,
     const float* states, const float* w_ih_t, const float* w_hh_t,
     const float* b_ih, const float* b_hh, float* proj, float* gc, float* gh,
     int B, int P1, int K, int Z1, int COND, int H, int bt_req, int gr_req,
-    int mode, const FlowDevice& d, cudaStream_t stream, int* launches) {
+    int plan, int mode, const FlowDevice& d, cudaStream_t stream,
+    int* launches, int* tile_launches) {
   const int G = 3 * H, IN = Z1 + COND;
   const GateProduct p_gh = gate_product(states, (long long)B * H, H, w_hh_t,
                                         (long long)H * G, H, G, b_hh, nullptr,
-                                        0, gh, (long long)B * G, false);
+                                        0, gh, (long long)B * G, false, true);
   const float* cond = fixed;
   cudaError_t err;
   if (P1 > 0) {
     const GateProduct first[2] = {
         gate_product(hist, 0, P1, w_p1_t, (long long)P1 * COND, P1, COND,
                      nullptr, fixed, (long long)B * COND, proj,
-                     (long long)B * COND, false),
+                     (long long)B * COND, false, false),
         p_gh};
-    err = gates_enqueue(first, 2, K, B, bt_req, gr_req, mode, d, stream,
-                        launches);
+    err = gates_enqueue(first, 2, K, B, bt_req, gr_req, plan, mode, d, stream,
+                        launches, tile_launches);
     if (err != cudaSuccess) return err;
     cond = proj;
   }
   const GateProduct p_gc = gate_product(cond, (long long)B * COND, COND,
                                         w_ih_t + (size_t)Z1 * G,
                                         (long long)IN * G, COND, G, b_ih,
-                                        nullptr, 0, gc, (long long)B * G, true);
+                                        nullptr, 0, gc, (long long)B * G, true,
+                                        true);
   if (P1 > 0)
-    return gates_enqueue(&p_gc, 1, K, B, bt_req, gr_req, mode, d, stream,
-                         launches);
+    return gates_enqueue(&p_gc, 1, K, B, bt_req, gr_req, plan, mode, d, stream,
+                         launches, tile_launches);
   const GateProduct both[2] = {p_gc, p_gh};
-  return gates_enqueue(both, 2, K, B, bt_req, gr_req, mode, d, stream, launches);
+  return gates_enqueue(both, 2, K, B, bt_req, gr_req, plan, mode, d, stream,
+                       launches, tile_launches);
 }
 
 }  // namespace

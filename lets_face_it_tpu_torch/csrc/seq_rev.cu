@@ -35,8 +35,9 @@
 // (ops/flow_kernels.py::sequence_rev_fused) allocates the
 // output and every scratch buffer (proj, gc, gh, the two histories, the
 // running states); this file allocates nothing. It adds the gates and chain
-// launches it makes to launches[0] and launches[1], which the wrapper adds
-// to their counters.
+// launches it makes to launches[0] and launches[1], and the gates launches
+// of the many-row plan to launches[2] too, which the wrapper adds to their
+// counters.
 
 #include "sample_chain.cuh"
 #include "sample_gates.cuh"
@@ -72,7 +73,8 @@ extern "C" int seq_rev_launch(
     const float* fixed = fixed_projs + (size_t)t * K * B * COND;
     err = sample_gates_enqueue(fixed, hist, w_p1_t, states, w_ih_t, w_hh_t,
                                b_ih, b_hh, proj, gc, gh, B, P1, K, Z1, COND,
-                               H, 0, 0, mode, d, st, &launches[0]);
+                               H, 0, 0, GATES_PLAN_AUTO, mode, d, st,
+                               &launches[0], &launches[2]);
     if (err != cudaSuccess) return (int)err;
     a.z_in = zs + (size_t)t * B * C;
     a.x_out = xs + (size_t)t * B * C;

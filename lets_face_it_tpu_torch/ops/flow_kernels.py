@@ -15,7 +15,10 @@ Both run each frame as two kinds of hand-written kernel:
   projection ``proj[k] = fixed[k] + hist @ w_p1_t[k]``, the conditioning
   rows of the GRU input product ``gc[k] = leaky_relu(proj[k]) @
   w_ih_t[k][Z1:] + b_ih[k]`` and the hidden gates ``gh[k] = h[k] @
-  w_hh_t[k] + b_hh[k]``;
+  w_hh_t[k] + b_hh[k]``; on two plans by rows (``gates_plan``): matrix-vector
+  products below ``GATES_TILE_FROM_ROWS`` rows ("vector"), tensor-core tiles
+  (``csrc/gates_mma.cuh``) from there ("tile", a 3xTF32 split at
+  "highest");
 * ``sample_chain`` (``csrc/sample_chain.cuh``): the K reversed steps given
   those gates, on a thread-block cluster whose shared memory holds the
   chain's weights.
@@ -28,9 +31,11 @@ tensors; given CUDA tensors it launches its kernels or raises. Each wrapper
 counts its calls into a launcher in its ``launches`` attribute; the
 launchers report the gates and chain kernels they launch (an ``int *`` out
 parameter, counted where each launch is enqueued), which the wrappers add to
-``sample_gates.launches`` and ``sample_chain.launches``.
+``sample_gates.launches`` and ``sample_chain.launches``, and the gates
+launches by plan to ``sample_gates.plans``.
 
-The kernels compute in float32 with fused multiply-adds. Each wrapper takes
+The kernels compute in float32 with fused multiply-adds, the gates' tile
+plan on the tensor cores (float32 as a 3xTF32 split). Each wrapper takes
 a matmul ``precision`` (``MODES``; None, the default, follows the ambient
 torch setting, ``ambient_matmul_precision``, as the JAX kernels follow
 JAX's): "highest" multiplies float32 operands, "high" rounds the operands of
@@ -416,6 +421,35 @@ def gates_smem_bytes(spec: FlowSpec) -> int:
     return 4 * (widest + _GATES_RED_FLOATS)
 
 
+# csrc/sample_gates.cuh: rows from which the launcher takes the tile plan,
+# by mode (at "highest" its 3xTF32 split triples the products), the tiles
+# (rows x columns a block, warp tile rows x columns, stages of the ring:
+# gates_tile_launch) and the default one.
+GATES_TILE_FROM_ROWS = {0: 64, 1: 16, 2: 16}
+GATES_TILES = ((64, 64, 32, 32, 3), (64, 64, 32, 32, 6), (64, 32, 32, 16, 6))
+GATES_TILE_DEFAULT = 0
+
+
+def mma_smem_bytes(tile, mode: int) -> int:
+    """Shared memory of a gates_mma.cuh tile (BM, BN, WM, WN, stages) at
+    matmul precision ``mode``: the stages of the X and W tiles of depth 32,
+    their rows padded per mode (csrc/gates_mma.cuh::mma_smem_bytes)."""
+    bm, bn, _, _, stages = tile
+    apad, bpad = (8, 4) if mode == 2 else (4, 8)
+    return stages * (bm * (32 + apad) + 32 * (bn + bpad)) * 4
+
+
+def gates_plan(b: int, rows: int = 0, groups: int = 0, mode: int = 0) -> str:
+    """The gates launcher's plan for B=b rows at matmul precision ``mode``
+    (csrc/sample_gates.cuh::gates_plan): "tile" from
+    ``GATES_TILE_FROM_ROWS[mode]`` rows on, else, or when a vector tile
+    (``rows``, ``groups``) is asked for, "vector". Both take every width of
+    ``fused_supported`` (the tile plan zero-fills its edges)."""
+    if rows or groups or b < GATES_TILE_FROM_ROWS[mode]:
+        return "vector"
+    return "tile"
+
+
 def fused_supported(spec: FlowSpec) -> bool:
     """The per-frame kernels' envelope: GRU + affine + invconv flows whose
     product widths in the kernel spec's lanes are multiples of 4 (16-byte
@@ -582,7 +616,7 @@ def _seq_fn():
 @functools.cache
 def _gates_fn():
     fn = cuda_build.load("sample_gates").sample_gates_launch
-    fn.argtypes = [_P] * 11 + [_I] * 9 + [_P, _P]
+    fn.argtypes = [_P] * 11 + [_I] * 10 + [_P, _P]
     fn.restype = _I
     return fn
 
@@ -648,12 +682,15 @@ def _launcher_weight_ptrs(w: SamplingWeights):
 
 
 def _count_launches(call):
-    """Run ``call(launches)`` with a fresh int[2] to which the launcher
-    adds the gates and the chain launches it enqueued; add them to the
-    counters -> the launcher's return code."""
-    launches = (ctypes.c_int * 2)()
+    """Run ``call(launches)`` with a fresh int[3] to which the launcher
+    adds the gates and the chain launches it enqueued, and the gates
+    launches of the tile plan; add them to the counters -> the launcher's
+    return code."""
+    launches = (ctypes.c_int * 3)()
     err = call(ctypes.addressof(launches))
     sample_gates.launches += launches[0]
+    sample_gates.plans["vector"] += launches[0] - launches[2]
+    sample_gates.plans["tile"] += launches[2]
     sample_chain.launches += launches[1]
     return err
 
@@ -762,18 +799,37 @@ def sequence_rev_fused(spec: FlowSpec, weights: SamplingWeights, w_p1_t, zs,
 sequence_rev_fused.launches = 0
 
 
+def _gates_plan_arg(plan: str | None, tile: int | None, rows: int,
+                    groups: int) -> int:
+    """csrc/sample_gates.cuh's ``plan`` for a wrapper's request."""
+    if plan is None and tile is None:
+        return 0
+    if plan == "vector" and tile is None:
+        return 1
+    if plan in ("tile", None) and not (rows or groups):
+        tile = GATES_TILE_DEFAULT if tile is None else tile
+        if 0 <= tile < len(GATES_TILES):
+            return 2 + tile
+    raise ValueError(f"sample_gates: no plan {plan!r} with tile {tile!r}, "
+                     f"rows {rows}, groups {groups}")
+
+
 def sample_gates(spec: FlowSpec, weights: SamplingWeights, w_p1_t, fixed,
                  hist, states, *, precision: str | None = None, rows: int = 0,
-                 groups: int = 0):
+                 groups: int = 0, plan: str | None = None,
+                 tile: int | None = None):
     """The products of one frame that do not depend on the chain: fixed
     [K, B, cond] (the frame's non-autoregressive projections, or its whole
     cond_projs when P1 = 0), hist [B, P1], w_p1_t [K, P1, cond], states
     [K, B, H] -> (proj [K, B, cond], gc [K, B, 3H], gh [K, B, 3H]); proj is
-    ``fixed`` itself when P1 = 0. ``rows``: batch rows per block, ``groups``:
-    column groups of four per block (8 or 32), 0 for the launcher's choice.
-    ``precision`` as in ``frame_rev_fused``; all in the kernel spec's
+    ``fixed`` itself when P1 = 0. ``plan``: "vector" or "tile", None for the
+    launcher's (``gates_plan``); ``rows`` (batch rows per block) and
+    ``groups`` (column groups of four per block, 8 or 32) tile the vector
+    plan, 0 for its defaults; ``tile`` indexes ``GATES_TILES`` for the tile
+    plan. ``precision`` as in ``frame_rev_fused``; all in the kernel spec's
     lanes."""
     mode = precision_mode(precision)
+    plan_arg = _gates_plan_arg(plan, tile, rows, groups)
     if not fused_supported(spec):
         raise ValueError("spec is outside the per-frame kernel's envelope")
     spec = kernel_spec(spec)
@@ -800,12 +856,13 @@ def sample_gates(spec: FlowSpec, weights: SamplingWeights, w_p1_t, fixed,
         weights.w_ih_t.data_ptr(), weights.w_hh_t.data_ptr(),
         weights.b_ih.data_ptr(), weights.b_hh.data_ptr(), proj.data_ptr(),
         gc.data_ptr(), gh.data_ptr(), b, p1, k, z1, cond, h, rows, groups,
-        mode, stream, launches))
+        plan_arg, mode, stream, launches))
     _raise_on(err, "sample_gates")
     return proj, gc, gh
 
 
 sample_gates.launches = 0
+sample_gates.plans = {"vector": 0, "tile": 0}
 
 
 def sample_chain(spec: FlowSpec, weights: SamplingWeights, z, gc, gh, states,

@@ -4,8 +4,12 @@ wired as one ``torch.autograd.Function``.
 * ``cond_gates``: the conditioning half of every step's GRU input product,
   ``gc[t, k] = leaky_relu(cond[t, k]) @ w_ih_t[k][Z1:] + b_ih[k]`` for all
   frames and steps at once (it does not depend on the serial chain). CUDA
-  source ``csrc/cond_gates.cu``, a register-tiled SIMT GEMM; replaces that
-  product inside ``lets_face_it_tpu/ops/pallas_train.py`` ``_fwd_kernel``.
+  source ``csrc/cond_gates.cu`` with two plans (``cond_gates_plan``): "tc",
+  the tensor-core tile product of ``csrc/gates_mma.cuh`` (TF32 or bf16
+  operands; the launcher's at "high" and "medium"), and "simt", a
+  register-tiled SIMT GEMM in float32 (the launcher's at "highest");
+  replaces that product inside ``lets_face_it_tpu/ops/pallas_train.py``
+  ``_fwd_kernel``.
 * ``seq_fwd``: the teacher-forced forward of a whole sequence (N frames x K
   steps, the K GRU states kept on chip across frames). It runs
   ``cond_gates`` and then the serial chain, which adds ``gc`` to the Z1 rows
@@ -38,7 +42,8 @@ sigmoid(2), and its cotangents are zero.
 
 A wrapper runs its plain version (``*_ref``) only when it is given CPU
 tensors; given CUDA tensors it launches its kernel or raises. Each wrapper
-counts its kernel launches in its ``launches`` attribute. The kernels
+counts its kernel launches in its ``launches`` attribute (``cond_gates``
+also by plan, in ``cond_gates.plans``). The kernels
 compute in float32 with fused multiply-adds at a matmul ``precision``
 (``flow_kernels.MODES``; None, the default, follows the ambient torch
 setting): the operands of the products the JAX kernels mark with
@@ -299,9 +304,42 @@ _I = ctypes.c_int
 @functools.cache
 def _gates_fn():
     fn = cuda_build.load("cond_gates").cond_gates_launch
-    fn.argtypes = [_P] * 4 + [_I] * 7 + [_P]
+    fn.argtypes = [_P] * 4 + [_I] * 9 + [_P] * 2
     fn.restype = _I
     return fn
+
+
+# csrc/cond_gates.cu: the plans and their tiles. "simt": the register-tiled
+# GEMM, (depth of a staged tile, stages; the first the original, depth 8
+# through registers, two buffers); "tc": the tensor-core tile product of
+# csrc/gates_mma.cuh, (rows, columns, warp tile rows, columns, stages).
+COND_GATES_TILES = {
+    "simt": ((8, 2), (16, 3), (16, 4)),
+    "tc": ((128, 128, 32, 64, 3), (128, 128, 64, 32, 3), (128, 128, 32, 64, 4),
+           (256, 128, 64, 64, 3)),
+}
+COND_GATES_PLANS = tuple(COND_GATES_TILES)
+_COND_PLAN_CODES = {"simt": 1, "tc": 2}
+
+
+def cond_gates_plan(mode: int) -> tuple[str, int]:
+    """The plan and tile ``cond_gates``' launcher takes at matmul precision
+    ``mode`` (csrc/cond_gates.cu::cond_gates_plan): at "highest" the SIMT
+    GEMM, whose float32 FMA chains give the plain version's bits, at "high"
+    and "medium" the tensor cores (TF32 or bf16 operands). Either takes
+    every width of ``train_supported`` (the tiles zero-fill their edges)."""
+    return ("simt", 2) if mode == 0 else ("tc", 0)
+
+
+def _cond_plan_arg(plan: str | None, tile: int | None) -> tuple[int, int]:
+    """csrc/cond_gates.cu's (``plan``, ``tile``) for a wrapper's request."""
+    if plan is None and tile is None:
+        return 0, -1
+    if plan in COND_GATES_TILES and (tile is None
+                                     or 0 <= tile < len(COND_GATES_TILES[plan])):
+        return _COND_PLAN_CODES[plan], -1 if tile is None else tile
+    raise ValueError(f"cond_gates: no plan {plan!r} with tile {tile!r}; "
+                     f"plans {', '.join(COND_GATES_PLANS)}")
 
 
 @functools.cache
@@ -365,11 +403,15 @@ def _dispatch(spec: FlowSpec, precision, device) -> tuple[bool, int]:
 
 
 def cond_gates(spec: FlowSpec, tw: TrainWeights, cond_seq, *,
-               precision: str | None = None):
+               precision: str | None = None, plan: str | None = None,
+               tile: int | None = None):
     """Conditioning gates of every frame and step: cond_seq [N, K, B, cond]
     (pre-activation projections) -> gc [N, K, B, 3H]. ``precision``: a name
-    of ``flow_kernels.MODES``, or None for the ambient one."""
+    of ``flow_kernels.MODES``, or None for the ambient one; ``plan``: "tc"
+    or "simt", None for the launcher's (``cond_gates_plan``); ``tile``
+    indexes the plan's ``COND_GATES_TILES``, None for its first."""
     launch, mode = _dispatch(spec, precision, cond_seq.device)
+    plan_arg = _cond_plan_arg(plan, tile)
     spec = kernel_spec(spec)
     if not launch:
         return cond_gates_ref(spec, tw, cond_seq, mode)
@@ -380,15 +422,19 @@ def cond_gates(spec: FlowSpec, tw: TrainWeights, cond_seq, *,
     tw = round_train_weights(tw, mode)
     gc = cond_seq.new_empty((n, k, b, 3 * spec.hidden_channels))
     stream = torch.cuda.current_stream(dev).cuda_stream
+    launched = ctypes.c_int(0)
     err = _gates_fn()(cond_seq.data_ptr(), tw.w_ih_t.data_ptr(),
                       tw.b_ih.data_ptr(), gc.data_ptr(), b, n, k, spec.z1_dim,
-                      cond, spec.hidden_channels, mode, stream)
+                      cond, spec.hidden_channels, mode, *plan_arg, stream,
+                      ctypes.addressof(launched))
     _raise_on(err, "cond_gates")
     cond_gates.launches += 1
+    cond_gates.plans["tc" if launched.value == _COND_PLAN_CODES["tc"] else "simt"] += 1
     return gc
 
 
 cond_gates.launches = 0
+cond_gates.plans = dict.fromkeys(COND_GATES_PLANS, 0)
 
 
 def seq_fwd(spec: FlowSpec, tw: TrainWeights, xs, cond_seq, states0, *,

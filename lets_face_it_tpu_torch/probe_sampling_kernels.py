@@ -2,6 +2,7 @@
 
     python -m lets_face_it_tpu_torch.probe_sampling_kernels [--quick]
         [--precision highest|high|medium]
+    python -m lets_face_it_tpu_torch.probe_sampling_kernels --gates
 
 For ``hparams/final_model.yaml`` (and ``no_face.yaml`` for P1 = 0) on
 seeded random weights, from the sources in this checkout:
@@ -21,6 +22,16 @@ seeded random weights, from the sources in this checkout:
    ``sample_gates`` over rows per block and tile widths at B = 1, 64, 128
    and 512, beside ``cond_gates`` (the training GEMM) on the same
    conditioning product at N = 1.
+
+``--gates`` runs only the gates' plans, at every matmul precision: at B =
+1, 8, 16, 32, 64, 128 and 512, with the own face (two launches) and with
+the projections given (one), the vector plan and each tile of the tile plan
+(``flow_kernels.GATES_TILES``) held against the plain version at the
+mode's limits and timed by CUDA-graph replay, beside the library call (the
+three products as cuBLAS ``baddbmm`` at torch's same setting). The
+launcher's threshold (``GATES_TILE_FROM_ROWS``) and default tile are read
+from these rows: the least B from which a tile beats the vector plan at
+every mode, and the tile that is fastest there.
 
 ``--precision`` runs everything at that matmul precision (torch's ambient
 setting, which the wrappers follow; the plain versions at the same mode;
@@ -63,6 +74,7 @@ TILES_PER_CLUSTER = (0, 1, 2, 4)   # 0: the plan's
 GATE_BATCHES = (1, 64, 128, 512)
 GATE_ROWS = (0, 1, 2, 4, 8, 16)    # 0: the launcher's
 GATE_GROUPS = (0, 8, 32)           # 0: the launcher's
+PLAN_BATCHES = (1, 8, 16, 32, 64, 128, 512)
 
 
 def _time_ms(fn, reps=20):
@@ -137,12 +149,73 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--quick", action="store_true")
     parser.add_argument("--precision", default="highest", choices=tuple(fk.MODES))
+    parser.add_argument("--gates", action="store_true",
+                        help="only the gates' plans, at every precision")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("this probe needs a CUDA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.gates:
+        return _probe_gates()
     with matmul_precision(args.precision):
         return _probe(args.quick)
+
+
+def _library_gates(spec, w, w_p1_t, fixed, hist, states):
+    """The gates as three cuBLAS products (chip_smoke.py's yardstick)."""
+    proj = fixed
+    if hist.shape[-1]:
+        proj = torch.baddbmm(fixed, hist.expand(spec.n_steps, -1, -1), w_p1_t)
+    gc = torch.baddbmm(w.b_ih[:, None], torch.nn.functional.leaky_relu(proj, 0.01),
+                       w.w_ih_t[:, spec.z1_dim:])
+    return proj, gc, torch.baddbmm(w.b_hh[:, None], states, w.w_hh_t)
+
+
+def _probe_gates() -> int:
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.splitlines()[0]
+    print(json.dumps({"card": card.strip(), "torch": torch.__version__}))
+    paths = cuda_build.build(("sample_gates",))
+    log = paths["sample_gates"].with_suffix(".log")
+    for line in log.read_text().splitlines() if log.exists() else ():
+        if "Compiling entry" in line or "registers" in line or "spill" in line:
+            print(json.dumps({"ptxas": "sample_gates", "line": line.strip()}), flush=True)
+    dev = torch.device("cuda")
+    failed = []
+    plans = [("vector", {"plan": "vector"})] + [
+        (f"tile{i}_{bm}x{bn}_w{wm}x{wn}_s{st}", {"plan": "tile", "tile": i})
+        for i, (bm, bn, wm, wn, st) in enumerate(fk.GATES_TILES)]
+    with tempfile.TemporaryDirectory() as tmp, torch.no_grad():
+        case = _Case("final_model", dev, tmp)
+        spec = case.spec
+        for prec in fk.MODES:
+            with matmul_precision(prec):
+                mode = fk.precision_mode()
+                w = fk.round_sampling_weights(spec, case.w32, mode)
+                for b in PLAN_BATCHES:
+                    z, fixed, hist, st = case.frame(b)
+                    for own in (True, False):
+                        p1 = case.p1 if own else 0
+                        args = (spec, w, case.w_p1_t[:, :p1], fixed, hist[:, :p1], st)
+                        ref = fk.sample_gates_ref(*args, mode)
+                        row = {"precision": prec, "batch": b, "own_face": own,
+                               "launcher": fk.gates_plan(b, mode=mode)}
+                        for label, kw in plans:
+                            try:
+                                row[f"{label}_err"] = _max_err(
+                                    label, fk.sample_gates(*args, **kw), ref)
+                                row[f"{label}_ms"] = _time_ms(
+                                    lambda kw=kw: fk.sample_gates(*args, **kw))
+                            except (RuntimeError, SystemExit) as e:
+                                failed.append(f"{prec} B={b} own={own} {label}: {e}")
+                                row[f"{label}_err"] = str(e)
+                        row["library_ms"] = _time_ms(lambda: _library_gates(
+                            spec, case.w32, case.w_p1_t[:, :p1], fixed, hist[:, :p1], st))
+                        print(json.dumps(row), flush=True)
+    if failed:
+        raise SystemExit("failed: " + "; ".join(failed))
+    return 0
 
 
 def _probe(quick: bool) -> int:

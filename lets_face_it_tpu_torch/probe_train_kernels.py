@@ -1,6 +1,7 @@
 """Probe of the training kernels' launch plan on one NVIDIA GPU.
 
     python -m lets_face_it_tpu_torch.probe_train_kernels [--precision highest|high|medium]
+    python -m lets_face_it_tpu_torch.probe_train_kernels --gates
 
 For ``hparams/final_model.yaml`` on seeded random weights at B=256, N=56
 (the training path's shape), from the sources in this checkout:
@@ -17,6 +18,15 @@ For ``hparams/final_model.yaml`` on seeded random weights at B=256, N=56
    ``cudaOccupancyMaxActiveClusters``), holds both serial kernels against
    the plain versions again and times them by CUDA-graph replay; then times
    ``cond_gates`` beside one cuBLAS call for the same product.
+
+``--gates`` runs only ``cond_gates``' two plans ("simt" and "tc", each on
+each of its tiles, ``train_kernels.COND_GATES_TILES``), at every
+matmul precision, at B=256 and B=64 (N=56): each held against the plain
+version (forward limits at "highest", 4 grid steps at the reduced modes)
+and, at "highest", its root mean square from the float64 product beside
+the plain version's; each timed by CUDA-graph replay beside one cuBLAS
+``baddbmm`` at torch's same setting. The launcher's plan and default tile
+at each mode are read from these rows.
 
 ``--precision`` runs every kernel and plain version at that matmul
 precision (``ops/flow_kernels.py::MODES``); at "high" and "medium" the
@@ -95,11 +105,16 @@ def _max_err(name, got, ref, tol, precision="highest"):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--precision", default="highest", choices=tuple(fk.MODES))
-    prec = parser.parse_args(argv).precision
+    parser.add_argument("--gates", action="store_true",
+                        help="only cond_gates' plans, at every precision")
+    args = parser.parse_args(argv)
+    prec = args.precision
     mode = fk.MODES[prec]
     if not torch.cuda.is_available():
         raise SystemExit("this probe needs a CUDA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.gates:
+        return _probe_gates()
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.splitlines()[0]
@@ -196,6 +211,71 @@ def main(argv=None) -> int:
         print(json.dumps({
             "cond_gates_ms": _time_ms(lambda: tk.cond_gates(spec, tw, cs, precision=prec)),
             "cublas_baddbmm_ms": lib_ms, "precision": prec, "batch": b, "frames": n}))
+    return 0
+
+
+def _rms(a, b) -> float:
+    return (a.double() - b.double()).pow(2).mean().sqrt().item()
+
+
+def _probe_gates() -> int:
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.splitlines()[0]
+    print(json.dumps({"card": card.strip(), "torch": torch.__version__}))
+    paths = cuda_build.build(("cond_gates",))
+    log = paths["cond_gates"].with_suffix(".log")
+    for line in log.read_text().splitlines() if log.exists() else ():
+        if "Compiling entry" in line or "registers" in line or "spill" in line:
+            print(json.dumps({"ptxas": "cond_gates", "line": line.strip()}), flush=True)
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        hp = load_hparams(REPO / "hparams" / "final_model.yaml", dataset_root=tmp)
+    spec = FlowSpec.build(hp)
+    n = hp.Train["seq_len"] - spec.cond.longest_history
+    model = seeded_random_model(spec, SEED).to(dev)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    failed = []
+    with torch.no_grad():
+        tw32 = tk.prepare_train_weights(spec, model.flow)
+        tw64 = tk.TrainWeights(*(t.double() for t in tw32))
+        for b in (hp.batch_size, 64):
+            cs = torch.randn(n, spec.n_steps, b, spec.cond.cond_dim, generator=g,
+                             device=dev)
+            a = torch.nn.functional.leaky_relu(cs, 0.01).permute(1, 0, 2, 3).reshape(
+                spec.n_steps, -1, spec.cond.cond_dim).contiguous()
+            for prec in fk.MODES:
+                mode = fk.MODES[prec]
+                tw = tk.round_train_weights(tw32, mode)
+                ref = tk.cond_gates_ref(spec, tw, cs, mode)
+                row = {"precision": prec, "batch": b, "frames": n,
+                       "launcher": tk.cond_gates_plan(mode)}
+                if prec == "highest":
+                    ref64 = tk.cond_gates_ref(spec, tw64, cs.double(), mode)
+                    row["plain_rms_from_f64"] = _rms(ref, ref64)
+                plans = [(f"simt{i}_k{bk}_s{st}", {"plan": "simt", "tile": i})
+                         for i, (bk, st) in enumerate(tk.COND_GATES_TILES["simt"])]
+                plans += [(f"tc{i}_{bm}x{bn}_w{wm}x{wn}_s{st}", {"plan": "tc", "tile": i})
+                          for i, (bm, bn, wm, wn, st) in enumerate(tk.COND_GATES_TILES["tc"])]
+                for plan, kw in plans:
+                    def call(kw=kw):
+                        return tk.cond_gates(spec, tw, cs, precision=prec, **kw)
+                    try:
+                        got = call()
+                        row[f"{plan}_err"] = _max_err(plan, [got], [ref], FWD_TOL, prec)
+                        if prec == "highest":
+                            row[f"{plan}_rms_from_f64"] = _rms(got, ref64)
+                        row[f"{plan}_ms"] = _time_ms(call)
+                    except (RuntimeError, SystemExit) as e:
+                        failed.append(f"{prec} B={b} {plan}: {e}")
+                        row[f"{plan}_err"] = str(e)
+                w_c = tw.w_ih_t[:, spec.z1_dim:].contiguous()
+                bias = tw.b_ih[:, None, :].contiguous()
+                with matmul_precision(prec):
+                    row["cublas_baddbmm_ms"] = _time_ms(lambda: torch.baddbmm(bias, a, w_c))
+                print(json.dumps(row), flush=True)
+    if failed:
+        raise SystemExit("failed: " + "; ".join(failed))
     return 0
 
 

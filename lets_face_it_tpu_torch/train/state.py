@@ -222,6 +222,20 @@ _KERNELS = (train_kernels.cond_gates, train_kernels.seq_fwd,
             flow_kernels.sample_chain)
 
 
+def _counters(f) -> dict:
+    """A kernel wrapper's launch counters: the total (key None) and, where
+    it counts them, its launches by plan."""
+    return {None: f.launches, **getattr(f, "plans", {})}
+
+
+def _add_counters(f, counts: dict) -> None:
+    for key, n in counts.items():
+        if key is None:
+            f.launches += n
+        else:
+            f.plans[key] += n
+
+
 def graph_supported(optimizer: torch.optim.Optimizer,
                     mesh: Mesh | None = None) -> bool:
     """Whether ``optimizer`` can step inside a CUDA graph with its learning
@@ -328,14 +342,16 @@ class MultiStep:
             self._body(i)
 
     def _capture(self) -> None:
-        before = {f: f.launches for f in _KERNELS}
+        before = {f: _counters(f) for f in _KERNELS}
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph, stream=self.stream,
                               capture_error_mode="thread_local"):
             self._eager(self.k)
-        self.graph_launches = {f: f.launches - before[f] for f in _KERNELS}
+        self.graph_launches = {f: {key: n - before[f][key]
+                                   for key, n in _counters(f).items()}
+                               for f in _KERNELS}
         for f in _KERNELS:   # a capture runs nothing
-            f.launches = before[f]
+            _add_counters(f, {key: -n for key, n in self.graph_launches[f].items()})
 
     def __call__(self, starts) -> dict:
         """Run the steps of ``starts`` [j, B] (int32, on the device, j <= k)."""
@@ -367,5 +383,5 @@ class MultiStep:
 
     def _count_replay(self) -> None:
         MultiStep.replays += 1
-        for f, n in self.graph_launches.items():
-            f.launches += n
+        for f, counts in self.graph_launches.items():
+            _add_counters(f, counts)
