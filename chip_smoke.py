@@ -134,6 +134,20 @@ sources in this checkout:
 20. data parallelism (``parallel/mesh.py``): 5 steps at B=256 on world size
     1 over NCCL and world size 2 over gloo on the one card, against one
     process (step 10's limits); one ``{"ddp": ...}`` line.
+21. the benchmark (``lets_face_it_tpu_torch/bench.py``, which
+    ``python -m lets_face_it_tpu_torch.bench`` runs in full) in process at a
+    cut of its sizes: sampling B=1 and 128, pushes, a paced session, the
+    whole capacity ladder to B=8192 with each rung's first push held against
+    ``frame_rev``'s plain twin, the B=256 and B=1024 steps, the loop at k=1
+    and k=8, the precision-16 rows, the NLL against the float64 plain path
+    (step 8's limit); the root bench's keys all present, every number
+    finite, k=8 not null, every kernel launched. Then the bench's shapes
+    no earlier step holds: ``sequence_nll`` at B=512 and B=1024 (loss,
+    per-frame losses, every gradient leaf) against the plain route at
+    step 8's limits, seq_rev at B=128 over 100 frames against its plain
+    twin, and a ``torch.profiler`` window over the 124-frame
+    ``sequence_sample`` B=128 call (seq_rev's kernels and the rest); one
+    ``{"bench": ...}`` line, and the bench's launches in the kernels' line.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
@@ -154,6 +168,16 @@ import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
+if not (REPO / "lets_face_it_tpu_torch" / "csrc").is_dir():
+    sys.exit("chip_smoke: FAILED: run from a checkout: lets_face_it_tpu_torch/ "
+             "is not beside this script")
+sys.path.insert(0, str(REPO))
+# each kernel's wrapper by its name in the JSON record
+from lets_face_it_tpu_torch.bench import kernel_wrappers  # noqa: E402
+# mean ms a call by CUDA events; a function captured once in a CUDA graph
+from lets_face_it_tpu_torch.utils.timing import cuda_time_ms as time_ms  # noqa: E402
+from lets_face_it_tpu_torch.utils.timing import graphed  # noqa: E402
+
 SEED = 20240
 # H100 SXM peaks at its 700 W limit (NVIDIA data sheet): HBM3 bytes/s and
 # float32 FLOP/s without tensor cores.
@@ -274,17 +298,6 @@ PITCH_GRID_STEP, PITCH_OFF_GRID_FRAMES = 1.0 / 16, 4
 FIT_GRAD_RTOL, FIT_GRAD_ATOL, FIT_QUALITY_RTOL = 1e-5, 1e-5, 0.15
 
 
-def kernel_wrappers() -> dict:
-    """Each kernel's wrapper (whose ``launches`` counts its launches) by the
-    kernel's name in the JSON record."""
-    from lets_face_it_tpu_torch.ops import flow_kernels as fk
-    from lets_face_it_tpu_torch.ops import train_kernels as tk
-
-    return {"frame_rev": fk.frame_rev_fused, "seq_rev": fk.sequence_rev_fused,
-            "sample_gates": fk.sample_gates, "sample_chain": fk.sample_chain,
-            "cond_gates": tk.cond_gates, "seq_fwd": tk.seq_fwd, "seq_bwd": tk.seq_bwd}
-
-
 def reset_launches() -> None:
     for fn in kernel_wrappers().values():
         fn.launches = 0
@@ -334,23 +347,6 @@ def check_close(name, got, ref, atol=ATOL, rtol=RTOL):
         fail(f"{name}: max |diff| {err.max().item():.3e} exceeds "
              f"atol {atol} + rtol {rtol}*|ref|")
     return err.max().item()
-
-
-def time_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean ms per call, by CUDA events around ``reps`` calls."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def timed(fn):
@@ -424,29 +420,40 @@ def _device_us(evt) -> float:
                          getattr(evt, "self_cuda_time_total", 0.0)))
 
 
-def profile_summary(name: str, prof, calls: int, wall_ms: float) -> dict:
+def profile_summary(name: str, prof, calls: int, wall_ms: float,
+                    groups: dict | None = None) -> dict:
     """Device time per call of a ``torch.profiler`` window of ``calls``
     calls (device kernels and copies), the device's idle share against
     ``wall_ms`` per call (1 - device / wall), device operations per call and
-    the five largest."""
+    the five largest; with ``groups`` ({group: names}) also the device ms
+    per call of the operations whose names hold one of a group's names, and
+    of the rest."""
     on_device = [e for e in prof.key_averages() if _device_us(e) > 0]
     if not on_device:
         fail(f"profile {name}: the trace shows no device time")
     device_ms = sum(_device_us(e) for e in on_device) / 1e3 / calls
     top = sorted(on_device, key=_device_us, reverse=True)[:5]
-    return {
+    out = {
         "window": name, "calls": calls, "wall_ms_per_call": wall_ms,
         "device_ms_per_call": device_ms, "idle_share": 1.0 - device_ms / wall_ms,
         "device_ops_per_call": sum(e.count for e in on_device) / calls,
         "top": [{"op": e.key[:60], "ms_per_call": _device_us(e) / 1e3 / calls,
                  "count_per_call": e.count / calls} for e in top],
     }
+    if groups:
+        ms = dict.fromkeys([*groups, "rest"], 0.0)
+        for e in on_device:
+            group = next((g for g, names in groups.items()
+                          if any(n in e.key for n in names)), "rest")
+            ms[group] += _device_us(e) / 1e3 / calls
+        out["groups_ms_per_call"] = ms
+    return out
 
 
-def trace_window(name: str, fn, calls: int) -> dict:
+def trace_window(name: str, fn, calls: int, groups: dict | None = None) -> dict:
     """Host wall time per call of ``calls`` synchronised calls of ``fn`` (no
     profiler: its own cost per operation is large), then as many again under
-    ``torch.profiler``, summarised by ``profile_summary``."""
+    ``torch.profiler``, summarised by ``profile_summary`` (with ``groups``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -462,7 +469,7 @@ def trace_window(name: str, fn, calls: int) -> dict:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    return profile_summary(name, prof, calls, wall_ms)
+    return profile_summary(name, prof, calls, wall_ms, groups)
 
 
 class LoopTrace:
@@ -517,22 +524,6 @@ def plain_paths(seqglow):
         yield
     finally:
         seqglow.training_path, seqglow.sampling_path = saved
-
-
-def graphed(fn):
-    """``fn`` captured once in a CUDA graph; returns the replay."""
-    import torch
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(2):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
-    return graph.replay
 
 
 # ---------------------------------------------------------------------------
@@ -1818,8 +1809,9 @@ def kernels_at_modes(spec, hp, model, dev, out) -> tuple:
                 name = key.split()[0]
                 if name == "cond_gates":
                     lib = lambda: torch.baddbmm(lib_b, lib_a, lib_w)  # noqa: E731
+                # the checks above ran each plain twin at this mode and shape
                 row = {"ms": time_ms(graphed(call), reps), "wrapper_ms": time_ms(call, reps),
-                       "plain_ms": time_ms(plain, 1, warmup=1)}
+                       "plain_ms": time_ms(plain, 1, warmup=0)}
                 if lib is None:      # seq_bwd: the eager loop's autograd backward
                     row["library_ms"] = library_backward_ms(
                         spec, model.flow, (xs_t, cs_t, st_t), cot, prec, reps)
@@ -2684,16 +2676,227 @@ def ddp_step(tmp, dev, card) -> dict:
     return out
 
 
+# Step 21: the benchmark (``python -m lets_face_it_tpu_torch.bench``) in
+# process at a cut of its sizes: its every section, the full capacity
+# ladder (each rung's first push against frame_rev's plain twin, then 16
+# chained pushes a rung where the bench times 64), the B=1024 step at its
+# 2 iterations.
+BENCH_SIZES = dict(sampling_iters=3, pushes=50, session_frames=100, sessions=1,
+                   train_iters=2, train_repeats=1, e2e_steps=10, e2e_warm=16,
+                   ladder_iters=16)
+# The keys the root bench.py prints (bench.py:617-681, with its ladder and
+# without --scaling), then the two the port's adds (its `device` is the
+# card's name).
+BENCH_KEYS = (
+    "metric", "value", "unit", "vs_baseline", "sampling_batch",
+    "sampling_fps_batch1", "realtime_factor_batch1",
+    "streaming_frame_latency_ms_p50", "streaming_frame_latency_ms_p99",
+    "streaming_frame_device_ms_chained", "streaming_session_lateness_ms_p50",
+    "streaming_session_lateness_ms_p99", "streaming_session_lateness_ms_max",
+    "streaming_session_max_catchup_dispatch",
+    "streaming_session_underruns_at_depth2", "streaming_session_min_buffer_depth",
+    "streaming_sessions_per_chip_within_frame_budget",
+    "streaming_realtime_headroom", "train_steps_per_sec_b256_T80",
+    "train_steps_per_sec_b256_e2e", "train_steps_per_sec_b256_e2e_k8",
+    "train_steps_per_sec_b256_T80_bf16matmul", "sampling_fps_batch1_bf16matmul",
+    "sampling_fps_batched_bf16matmul", "train_windows_per_sec",
+    "train_windows_per_sec_b1024", "nll_parity_rel_err_vs_torch_f64", "device",
+    "bands", "streaming_capacity_ladder")
+BENCH_PORT_KEYS = ("power_limit_w", "host")
+# NLL against the float64 plain path: the training forward's limit (step 8)
+BENCH_NLL_RTOL = 1e-5
+# The bench's shapes no earlier step holds: the training kernels at its
+# B=512 and B=1024 rows (4 and 8 rows a block; step 8 holds B=256), and
+# seq_rev at its sampling call (B=128, 100 generated frames; step 3 holds
+# 76). Held against the plain routes at step 8's limits, the sequence at
+# step 18's (its plain twin drifts 2.6e-02 from itself in float64 over the
+# 100 frames on the CPU, more than SEQ_LOOSE_ATOL).
+BENCH_TRAIN_CHECK = (512, 1024)
+BENCH_SAMPLE_BATCH, BENCH_GEN_FRAMES = 128, 100
+
+
+def _numbers(x):
+    """Every number in a nested JSON value."""
+    if isinstance(x, dict):
+        for v in x.values():
+            yield from _numbers(v)
+    elif isinstance(x, list):
+        for v in x:
+            yield from _numbers(v)
+    elif isinstance(x, (int, float)) and not isinstance(x, bool):
+        yield x
+
+
+def bench_train_check(spec, hp, params, b: int, dev) -> dict:
+    """The training kernels at B=``b`` on the bench's model and batch:
+    ``sequence_nll``'s loss, its per-frame losses and the gradient on every
+    leaf, the encoders' dropout drawn alike, against the plain route
+    (``plain_paths``): losses at the training forward's limit, each leaf at
+    GRAD_ATOL + GRAD_LEAF_RTOL * its largest |entry|."""
+    import torch
+
+    from lets_face_it_tpu_torch import bench
+    from lets_face_it_tpu_torch.model import seqglow
+
+    batch = bench.on_device(bench.example_batch(hp, b, hp.Train["seq_len"]), dev)
+    names, leaves = zip(*[(n, p) for n, p in params.named_parameters()
+                          if p.requires_grad])
+
+    def nll_and_grads():
+        reset_launches()
+        _, loss, losses = seqglow.sequence_nll(
+            spec, params, batch, training=True,
+            generator=torch.Generator(device=dev).manual_seed(SEED))
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        torch.cuda.synchronize()
+        return loss.detach(), losses.detach(), grads, read_launches()
+
+    loss, losses, grads, launches = nll_and_grads()
+    require_launches(f"sequence_nll B={b}", launches, ("cond_gates", "seq_fwd", "seq_bwd"))
+    with plain_paths(seqglow):
+        loss_r, losses_r, grads_r, plain_launches = nll_and_grads()
+    if any(plain_launches.values()):
+        fail(f"sequence_nll B={b} on the plain route launched {plain_launches}")
+    what = f"sequence_nll B={b} T={hp.Train['seq_len']} vs the plain route"
+    err = {"nll": check_close(f"{what}: NLL", loss, loss_r, TRAIN_VAL_ATOL, TRAIN_VAL_RTOL),
+           "losses": check_close(f"{what}: per-frame losses", losses, losses_r,
+                                 TRAIN_VAL_ATOL, TRAIN_VAL_RTOL)}
+    ratio = 0.0
+    for name, g, g_r in zip(names, grads, grads_r):
+        if g is None or g_r is None:
+            if (g is None) != (g_r is None):
+                fail(f"{what}: gradient {name} on one route only")
+            continue
+        scale = g_r.abs().max().item()
+        diff = (g.double() - g_r.double()).abs().max().item()
+        limit = GRAD_ATOL + GRAD_LEAF_RTOL * scale
+        if not torch.isfinite(g).all() or diff > limit:
+            fail(f"{what}: gradient {name} max|diff| {diff:.3e} > {limit:.3e} "
+                 f"(max|ref| {scale:.3e})")
+        ratio = max(ratio, diff / limit)
+    err["largest_grad_diff_over_limit"] = ratio
+    print(f"check {what} (dropout alike; losses atol {TRAIN_VAL_ATOL} rtol "
+          f"{TRAIN_VAL_RTOL}, gradients {GRAD_ATOL} + {GRAD_LEAF_RTOL} * max|leaf|): "
+          f"NLL {loss.item():.6f} vs {loss_r.item():.6f}, {json.dumps(err)}; "
+          f"launches {launches}  ok")
+    return err
+
+
+def bench_sample_check(spec, params, dev) -> dict:
+    """seq_rev at the bench's sampling shape (B=BENCH_SAMPLE_BATCH,
+    BENCH_GEN_FRAMES frames) on the bench's weights against its plain twin:
+    the first SEQ_TIGHT frames at the one-frame limits, all frames at
+    max(SEQ_LOOSE_ATOL, WIDE_SEQ_RATIO x the twin's own float32 - float64
+    drift)."""
+    import torch
+
+    from lets_face_it_tpu_torch.ops import flow_kernels as fk
+
+    b, n = BENCH_SAMPLE_BATCH, BENCH_GEN_FRAMES
+    p1 = spec.cond.p1_face.out_dim
+    w = fk.prepare_sampling_weights(spec, params.flow)
+    w_p1_t = params.flow["cond_proj"]["w"][:, :, :p1].transpose(1, 2).contiguous().detach()
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    args = (torch.randn(n, b, spec.channels, generator=g, device=dev),
+            torch.randn(n, spec.n_steps, b, spec.cond.cond_dim, generator=g, device=dev),
+            torch.randn(b, p1, generator=g, device=dev),
+            torch.zeros(spec.n_steps, b, spec.hidden_channels, device=dev))
+    with torch.no_grad():
+        reset_launches()
+        xs = fk.sequence_rev_fused(spec, w, w_p1_t, *args)
+        require_launches(f"seq_rev B={b} N={n}", read_launches(), ("seq_rev",))
+        xs_r = fk.sequence_rev_fused_ref(spec, w, w_p1_t, *args)
+        xs_64 = fk.sequence_rev_fused_ref(spec, weights64(w), w_p1_t.double(),
+                                          *(a.double() for a in args))
+        torch.cuda.synchronize()
+    what = f"seq_rev B={b} N={n} (the bench's sampling call)"
+    check_close(f"{what} first {SEQ_TIGHT} frames", xs[:SEQ_TIGHT], xs_r[:SEQ_TIGHT])
+    own = (xs_r.double() - xs_64).abs().max().item()
+    limit = max(SEQ_LOOSE_ATOL, WIDE_SEQ_RATIO * own)
+    check_close(f"{what} all frames", xs, xs_r, atol=limit, rtol=0.0)
+    out = {"kernel_vs_plain": drift(xs, xs_r), "plain32_vs_plain64": drift(xs_r, xs_64),
+           "kernel_vs_plain64": drift(xs, xs_64), "all_frames_limit": limit}
+    print(f"check {what} against its plain twin: {json.dumps(out)}; max|x| "
+          f"{xs_64.abs().max().item():.2f}  ok")
+    return out
+
+
+def bench_step(dev, card) -> dict:
+    """Step 21: the benchmark's sections through ``bench.run`` at
+    BENCH_SIZES, on the bench's model and seeded weights; launches and plans
+    of the run, the line's keys and numbers held; then the bench's shapes
+    no other step holds (``bench_train_check``, ``bench_sample_check``) and
+    a profile of its B=128 sampling call."""
+    import torch
+
+    from lets_face_it_tpu_torch import bench
+    from lets_face_it_tpu_torch.model import seqglow
+    from lets_face_it_tpu_torch.ops import flow_kernels as fk
+
+    t21 = time.perf_counter()
+    hp, spec, params = bench.build_full_model(dev)
+    reset_launches()
+    line = bench.run(hp, spec, params, device=dev, sizes=bench.Sizes(**BENCH_SIZES),
+                     machine=bench.machine(dev))
+    launches, plans = read_launches(), read_plans()
+    require_launches("bench", launches, kernel_wrappers())
+    wrong = set(BENCH_KEYS + BENCH_PORT_KEYS) ^ set(line)
+    if wrong:
+        fail(f"bench: keys missing or extra against the root bench's: {sorted(wrong)}")
+    # only an out-of-memory B=1024 step may read null
+    nulls = [k for k, v in line.items() if v is None and k != "train_windows_per_sec_b1024"]
+    if nulls:
+        fail(f"bench: {nulls} read null on the card")
+    bad = [x for x in _numbers(line) if not math.isfinite(x)]
+    if bad:
+        fail(f"bench: non-finite numbers {bad}")
+    if line["nll_parity_rel_err_vs_torch_f64"] > BENCH_NLL_RTOL:
+        fail(f"bench: NLL {line['nll_parity_rel_err_vs_torch_f64']:.3e} from the "
+             f"float64 plain path (limit {BENCH_NLL_RTOL})")
+    ladder = line["streaming_capacity_ladder"]
+    checked = [b for b, row in ladder.items() if "max_abs_err_vs_plain" in row]
+    if [b for b in ladder if "error" not in ladder[b]] != checked:
+        fail(f"bench: a ladder rung went unchecked: {ladder}")
+    if not any(int(b) > 512 for b in checked):
+        fail(f"bench: no ladder rung above B=512 ran: {ladder}")
+    train_checks = {b: bench_train_check(spec, hp, params, b, dev)
+                    for b in BENCH_TRAIN_CHECK}
+    sample_check = bench_sample_check(spec, params, dev)
+    # where a sampling call's device time goes: seq_rev's kernels and the rest
+    data = bench.on_device(bench.example_batch(
+        hp, BENCH_SAMPLE_BATCH, spec.cond.longest_history + BENCH_GEN_FRAMES), dev)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    sample_trace = trace_window(
+        f"sequence_sample_b{BENCH_SAMPLE_BATCH}_{BENCH_GEN_FRAMES}_generated",
+        lambda: seqglow.sequence_sample(
+            spec, params, data, spec.cond.longest_history + BENCH_GEN_FRAMES,
+            eps_std=float(hp.Infer["eps"]), generator=g),
+        calls=5, groups={"seq_rev": ("gates_mma_kernel", "sample_gates_kernel",
+                                     "sample_chain_kernel")})
+    print(json.dumps(sample_trace))
+    step_s = time.perf_counter() - t21
+    rows = fk.frame_max_rows(spec, torch.cuda.current_device())
+    print(f"step 21, the bench at a cut ({BENCH_SIZES}) on {card}: sampling B=128 "
+          f"{line['value']} frames/s, push p50/p99 "
+          f"{line['streaming_frame_latency_ms_p50']}/"
+          f"{line['streaming_frame_latency_ms_p99']} ms, {line['streaming_sessions_per_chip_within_frame_budget']} "
+          f"sessions within 40 ms (rungs {checked} held against frame_rev's plain "
+          f"twin; one frame_rev launch plans for {rows} rows), B=256 {line['train_steps_per_sec_b256_T80']} steps/s, k=8 "
+          f"{line['train_steps_per_sec_b256_e2e_k8']}; NLL "
+          f"{line['nll_parity_rel_err_vs_torch_f64']:.3e} from float64; launches "
+          f"{launches}; {step_s:.1f} s  ok")
+    return {"line": line, "launches": launches, "plans": plans,
+            "frame_rev_max_rows": rows, "train_checks": train_checks,
+            "sample_check": sample_check, "sample_trace": sample_trace,
+            "step_s": step_s}
+
+
 def main() -> int:
-    if not (REPO / "lets_face_it_tpu_torch" / "csrc").is_dir():
-        fail("run from a checkout: lets_face_it_tpu_torch/ is not beside "
-             "this script")
     import numpy as np
     import torch
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False; this script needs a GPU")
-    sys.path.insert(0, str(REPO))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -3791,6 +3994,10 @@ def main() -> int:
         print(json.dumps({"ddp": ddp}))
         print(f"step 20 (data parallel): {ddp['step_s']:.1f} s on {card}")
 
+        # -- 21. the benchmark --------------------------------------------------
+        benched = bench_step(dev, card)
+        print(json.dumps({"bench": benched}))
+
         paths = {"serving": launches, "training": train_launches,
                  "invert": invert_launches, "run_test": rt_launches,
                  "train_cache_off": loop_runs[0]["launches"],
@@ -3800,7 +4007,8 @@ def main() -> int:
                  **{f"tune_trial_{t['number']}": t["launches"] or {}
                     for t in tuning["trials"]},
                  **{f"ddp_{k}": v["launches"] for k, v in ddp.items()
-                    if k.startswith("world")}}
+                    if k.startswith("world")},
+                 "bench": benched["launches"]}
         for rec in records:
             if "widened" in rec:
                 by_path = {f"widened {rec['widened']}":
@@ -3816,7 +4024,7 @@ def main() -> int:
             if rec["name"] in ("cond_gates", "sample_gates") and "widened" not in rec:
                 plan_paths = {"serving": serving_plans, "sequence_sample_b128": seq_plans,
                               "training": train_plans, "invert": invert_plans,
-                              "run_test": rt_plans,
+                              "run_test": rt_plans, "bench": benched["plans"],
                               **{f"path_{p}": v
                                  for p, v in modes["plans"].items()}}
                 rec["plans_by_path"] = {p: v[rec["name"]] for p, v in plan_paths.items()}

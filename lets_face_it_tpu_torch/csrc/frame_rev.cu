@@ -26,7 +26,10 @@
 // and the gates' scratch; this file allocates nothing. It adds the gates
 // and chain launches it makes to launches[0] and launches[1], and the gates
 // launches of the many-row plan to launches[2] too, which the wrapper adds
-// to their counters.
+// to their counters. The chain's plan holds a bounded number of rows
+// (frame_rev_max_rows); the wrapper cuts a larger batch into launches of at
+// most that many, as the JAX package's frame_rev_fused_chunked cuts its
+// batch into 512-row kernel calls.
 
 #include "sample_chain.cuh"
 #include "sample_gates.cuh"
@@ -54,4 +57,33 @@ extern "C" int frame_rev_launch(
                              &launches[0], &launches[2]);
   if (err != cudaSuccess) return (int)err;
   return (int)chain_enqueue(a, plan, d, st, &launches[1], true);
+}
+
+// The most rows one frame_rev_launch plans for on the current device with
+// these widths: the largest B for which the chain's plan (sample_chain.cuh::
+// chain_plan) fits, found by doubling and then bisecting (the plan's shared
+// memory grows with B). *rows = 0 where not even one row fits.
+extern "C" int frame_rev_max_rows(int K, int C, int Z1, int H, int COUT,
+                                  int* rows) {
+  FlowDevice d;
+  cudaError_t err = flow_device(&d);
+  if (err != cudaSuccess) return (int)err;
+  const auto plans = [&](int b) {
+    ChainPlan plan;
+    return chain_plan(b, K, C, Z1, H, COUT, 0, 0, 0, CHAIN_WEIGHTS_AUTO, d,
+                      [&](const ChainPlan& p) { return chain_resident_bt(p, d); },
+                      &plan);
+  };
+  int lo = 0, hi = 1;
+  while (hi < (1 << 24) && plans(hi)) {
+    lo = hi;
+    hi *= 2;
+  }
+  while (hi - lo > 1) {
+    const int mid = lo + (hi - lo) / 2;
+    if (plans(mid)) lo = mid;
+    else hi = mid;
+  }
+  *rows = lo;
+  return 0;
 }

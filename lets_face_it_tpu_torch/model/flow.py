@@ -70,13 +70,15 @@ def init_flow(generator: torch.Generator, spec: FlowSpec) -> dict:
                          for _ in range(spec.n_steps)])
 
 
-def init_flow_states(spec: FlowSpec, batch_size: int, device=None):
+def init_flow_states(spec: FlowSpec, batch_size: int, device=None,
+                     dtype=torch.float32):
     """Fresh (zero) coupling-RNN states for a sequence start: [K, B, H]
     (a pair of them for LSTM couplings)."""
     shape = (spec.n_steps, batch_size, spec.hidden_channels)
     if spec.rnn_type == "gru":
-        return torch.zeros(shape, device=device)
-    return (torch.zeros(shape, device=device), torch.zeros(shape, device=device))
+        return torch.zeros(shape, device=device, dtype=dtype)
+    return (torch.zeros(shape, device=device, dtype=dtype),
+            torch.zeros(shape, device=device, dtype=dtype))
 
 
 def _state_at(states, k):

@@ -126,7 +126,8 @@ def sequence_nll(spec: FlowSpec, params, batch, *, training: bool = False,
     """Teacher-forced NLL over [B, T, C] sequences (models.py:534-565).
 
     ``params`` is a ``SeqGlow``; ``batch`` holds the modalities as tensors on
-    one device. ``training`` turns on frame dropout in the encoders, with
+    one device, in float32 (or float64 on the CPU, for a reference).
+    ``training`` turns on frame dropout in the encoders, with
     masks from ``dropout_masks`` or drawn from ``generator``
     (``encoders.encode_conditioning``). Returns (z_seq [N, B, C], loss
     scalar, per-frame per-sample losses [N, B]), N = T - longest_history;
@@ -142,7 +143,7 @@ def sequence_nll(spec: FlowSpec, params, batch, *, training: bool = False,
         training=training, generator=generator, dropout_masks=dropout_masks)
     xs = x[:, start:].transpose(0, 1).contiguous()                 # [N, B, C]
     cond_projs = flow.project_cond_frames(params.flow, cond_all)   # [N, K, B, c]
-    states = flow.init_flow_states(spec, b, x.device)
+    states = flow.init_flow_states(spec, b, x.device, x.dtype)
 
     if training_path(spec) == "kernels":
         z_seq, logdet, _, _ = train_kernels.flow_sequence_fused(

@@ -606,6 +606,27 @@ def _frame_fn():
 
 
 @functools.cache
+def _frame_rows_fn():
+    fn = cuda_build.load("frame_rev").frame_rev_max_rows
+    fn.argtypes = [_I] * 5 + [_P]
+    fn.restype = _I
+    return fn
+
+
+@functools.cache
+def frame_max_rows(spec: FlowSpec, device_index: int) -> int:
+    """The most rows one ``frame_rev`` launch plans for on the CUDA device
+    ``device_index`` (``csrc/frame_rev.cu::frame_rev_max_rows``: the
+    chain's plan)."""
+    rows = ctypes.c_int(0)
+    k, c, z1, _, h, cout = _spec_ints(spec)
+    with torch.cuda.device(device_index):
+        err = _frame_rows_fn()(k, c, z1, h, cout, ctypes.addressof(rows))
+    _raise_on(err, "frame_rev's plan")
+    return rows.value
+
+
+@functools.cache
 def _seq_fn():
     fn = cuda_build.load("seq_rev").seq_rev_launch
     fn.argtypes = [_P] * 17 + [_I] * 9 + [ctypes.c_float, _I, _P, _P]
@@ -700,9 +721,10 @@ def frame_rev_fused(spec: FlowSpec, weights: SamplingWeights, z, cond_projs,
     """Inverse of one frame through all K steps: z [B, C], cond_projs
     [K, B, cond] (pre-activation), states [K, B, H] -> (x [B, C],
     new_states [K, B, H]). On the card: one ``sample_gates`` launch (gc, gh)
-    and one ``sample_chain`` launch. ``precision``: a name of ``MODES``, or
-    None for the ambient one. ``weights`` in the kernel spec's lanes, z and
-    x in the logical ones."""
+    and one ``sample_chain`` launch, in equal segments of the batch where it
+    has more rows than one launch plans for (``frame_max_rows``), a launch
+    each. ``precision``: a name of ``MODES``, or None for the ambient one.
+    ``weights`` in the kernel spec's lanes, z and x in the logical ones."""
     mode = precision_mode(precision)
     if not fused_supported(spec):
         raise ValueError("spec is outside the per-frame kernel's envelope")
@@ -721,6 +743,18 @@ def frame_rev_fused(spec: FlowSpec, weights: SamplingWeights, z, cond_projs,
     _check("cond_projs", cond_projs, (k, b, cond), z.device)
     _check("states", states, (k, b, h), z.device)
     _check_weights(spec, weights, z.device)
+    rows = frame_max_rows(spec, z.device.index)
+    if b > rows > 0:
+        # the rows of z, cond_projs and states are independent
+        segments = -(-b // rows)
+        seg = -(-b // segments)
+        outs = [frame_rev_fused(spec, weights, z[i:i + seg],
+                                cond_projs[:, i:i + seg].contiguous(),
+                                states[:, i:i + seg].contiguous(),
+                                precision=precision)
+                for i in range(0, b, seg)]
+        return (torch.cat([x for x, _ in outs]),
+                torch.cat([st for _, st in outs], dim=1))
     weights = round_sampling_weights(spec, weights, mode)
     x = torch.empty_like(z)
     new_states = torch.empty_like(states)

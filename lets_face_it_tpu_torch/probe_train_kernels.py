@@ -54,6 +54,7 @@ from lets_face_it_tpu_torch.ops import flow_kernels as fk
 from lets_face_it_tpu_torch.ops import train_kernels as tk
 from lets_face_it_tpu_torch.sample.weights import seeded_random_model
 from lets_face_it_tpu_torch.utils.precision import matmul_precision
+from lets_face_it_tpu_torch.utils.timing import cuda_time_ms, graphed
 
 REPO = Path(__file__).resolve().parent.parent
 SEED = 20240
@@ -66,25 +67,9 @@ MODE_GRID, MODE_STEPS = {"high": 2.0 ** -10, "medium": 2.0 ** -7}, 4.0
 
 
 def _time_ms(fn, reps=5):
-    """Mean ms per replay of ``fn`` captured in a CUDA graph (CUDA events)."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    """Mean ms per replay of ``fn`` captured in a CUDA graph (CUDA events;
+    one call before the capture, one replay before the timed ones)."""
+    return cuda_time_ms(graphed(fn, warmup=1), reps, warmup=1)
 
 
 def _max_err(name, got, ref, tol, precision="highest"):

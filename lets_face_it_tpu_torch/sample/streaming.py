@@ -41,6 +41,9 @@ class StreamingGenerator:
         # a push has run at, by mode
         self._weights = ({0: flow_kernels.prepare_sampling_weights(spec, params.flow)}
                          if flow_kernels.fused_supported(spec) else None)
+        # the per-frame kernel's wrapper; a caller may wrap it to see what
+        # each push hands the kernel (the benchmark checks pushes so)
+        self.frame_kernel = flow_kernels.frame_rev_fused
         b, c, cond = batch_size, spec.channels, spec.cond
 
         def zeros(h, d):
@@ -98,8 +101,8 @@ class StreamingGenerator:
                 self._weights[mode] = flow_kernels.round_sampling_weights(
                     spec, self._weights[0], mode)
             proj = flow.project_cond(params.flow, cond_t).contiguous()
-            x_t, self.states = flow_kernels.frame_rev_fused(
-                spec, self._weights[mode], z, proj, self.states)
+            x_t, self.states = self.frame_kernel(spec, self._weights[mode], z,
+                                                 proj, self.states)
         else:
             x_t, _, self.states = flow.frame_rev(spec, params.flow, z, cond_t,
                                                  self.states)
