@@ -148,6 +148,17 @@ sources in this checkout:
     twin, and a ``torch.profiler`` window over the 124-frame
     ``sequence_sample`` B=128 call (seq_rev's kernels and the rest); one
     ``{"bench": ...}`` line, and the bench's launches in the kernels' line.
+22. the paper's Table-1 path at a cut (``ablation_table1.py``,
+    ``trick_gate_probe.py``, ``device_cache_scale_probe.py``):
+    ``final_model`` and ``no_nll_trick`` 40 steps each at B=64, precision
+    16, validating at steps 20 and 40 with the wrong-context probes; 40
+    steps of the gate probe's loop; the scale probe on 290 train chunks of
+    1,000 frames (B=256 k=8, then B=1024). ``cond_gates``, ``seq_fwd`` and
+    ``seq_bwd`` launched on the path (``table1``); the first val batch's
+    NLL and each deranged NLL on the trained weights against the plain
+    route at the training forward's limit; every fired step's gate
+    variable -nll and loss -0.1 nll; both cut splits cached by ``auto``;
+    every loss finite. One ``{"table1": ...}`` line.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
@@ -2891,6 +2902,264 @@ def bench_step(dev, card) -> dict:
             "step_s": step_s}
 
 
+# Step 22: the Table-1 path (``ablation_table1.py``, ``trick_gate_probe.py``,
+# ``device_cache_scale_probe.py``) at a cut: final_model and no_nll_trick for
+# TABLE1_STEPS steps each, validating every TABLE1_VAL_EVERY epochs (5 steps
+# an epoch: steps 20 and 40), the gate probe's loop for GATE_STEPS steps (seed
+# 1234's coins fall below 0.1 at steps 0, 2, 3, 14, 22, 25 and 28), the scale
+# probe on SCALE_CUT (a tenth of the corpus). The wrong-context probes on the
+# trained weights against the plain route at the training forward's limit
+# (step 8's); a fired step of train_step on them (the coin handed in) against
+# the plain route, its NLL at that limit and every gradient leaf at step 8's
+# GRAD_ATOL + GRAD_LEAF_RTOL * max|leaf|; the gate variable and the loss of a
+# fired step at GATE_RTOL.
+TABLE1_STEPS, TABLE1_VAL_EVERY, GATE_STEPS = 40, 4, 40
+SCALE_CUT = dict(n_train_chunks=290, steps=10, big_steps=2)
+GATE_RTOL = 1e-6
+
+
+def table1_probe_check(hp, model, corpus, dev) -> dict:
+    """The first val batch's NLL and each configured deranged NLL on
+    ``model`` through the kernels and through ``plain_paths``, at
+    "highest", the same permutations both ways: each NLL at the training
+    forward's limit, each gap (matched - deranged) at the sum of its two
+    NLLs' limits."""
+    import torch
+
+    from lets_face_it_tpu_torch.model import seqglow
+    from lets_face_it_tpu_torch.model.spec import FlowSpec
+    from lets_face_it_tpu_torch.train.loop import load_datasets, to_device
+    from lets_face_it_tpu_torch.train.metrics import wrong_context_probes
+
+    spec = FlowSpec.build(hp)
+    _, val_ds = load_datasets(hp, corpus)
+    batch = to_device(next(val_ds.epoch_batches(hp.batch_size, shuffle=False)), dev)
+
+    @torch.no_grad()
+    def nlls():
+        _, loss, _ = seqglow.sequence_nll(spec, model, batch)
+        gaps = wrong_context_probes(spec, model, batch, loss, hp.Mismatch,
+                                    torch.Generator().manual_seed(SEED))
+        return loss, gaps
+
+    reset_launches()
+    loss, gaps = nlls()
+    require_launches("the wrong-context probes", read_launches(), ("cond_gates", "seq_fwd"))
+    with plain_paths(seqglow):
+        reset_launches()
+        loss_r, gaps_r = nlls()
+        plain_launches = read_launches()
+    if any(plain_launches.values()):
+        fail(f"step 22: the plain route launched {plain_launches}")
+    err = {"val_nll": check_close("step 22: first val batch NLL vs the plain route",
+                                  loss, loss_r, TRAIN_VAL_ATOL, TRAIN_VAL_RTOL)}
+    ratio = 0.0
+    for key in gaps:
+        mis, mis_r = loss - gaps[key], loss_r - gaps_r[key]
+        err[key] = check_close(f"step 22: {key} deranged NLL vs the plain route",
+                               mis, mis_r, TRAIN_VAL_ATOL, TRAIN_VAL_RTOL)
+        limit = (2 * TRAIN_VAL_ATOL
+                 + TRAIN_VAL_RTOL * (abs(float(loss_r)) + abs(float(mis_r))))
+        diff = abs(float(gaps[key]) - float(gaps_r[key]))
+        if diff > limit:
+            fail(f"step 22: {key} gap {float(gaps[key]):+.6f} vs the plain route's "
+                 f"{float(gaps_r[key]):+.6f}: |diff| {diff:.3e} > {limit:.3e}")
+        ratio = max(ratio, diff / limit)
+    err["largest_gap_diff_over_limit"] = ratio
+    return err
+
+
+def table1_fired_step_check(hp, model, corpus, dev) -> dict:
+    """One fired step of ``train_step`` (coin 0, the gate open) from
+    ``model``'s weights on the first training batch, through the kernels and
+    through ``plain_paths`` at "highest", the same draws both ways: the
+    deranged NLL at the training forward's limit, the loss -0.1 nll and the
+    gate variable -nll (GATE_RTOL), the gradient norm at GRAD_LEAF_RTOL and
+    every gradient leaf the optimizer took (clipped) at GRAD_ATOL +
+    GRAD_LEAF_RTOL * max|leaf|. Read beside it, with no limit: the kernels'
+    fired and unfired (coin 1) steps at precision 16 against the plain
+    route's at "highest", as the largest leaf's max|diff| / max|leaf|."""
+    import copy
+
+    import torch
+
+    from lets_face_it_tpu_torch.ablation_table1 import SEED as TABLE1_SEED
+    from lets_face_it_tpu_torch.model import seqglow
+    from lets_face_it_tpu_torch.model.spec import FlowSpec
+    from lets_face_it_tpu_torch.train import state as train_state
+    from lets_face_it_tpu_torch.train.loop import load_datasets, to_device
+    from lets_face_it_tpu_torch.utils.precision import matmul_precision
+
+    spec = FlowSpec.build(hp)
+    train_ds, _ = load_datasets(hp, corpus)
+    spe = train_ds.num_batches(hp.batch_size, drop_last=True)
+    sel = next(train_ds.epoch_index_batches(hp.batch_size, shuffle=False))
+    batch = to_device(train_ds.get_batch(sel), dev)
+    fresh = lambda: train_state.TrainState.create(copy.deepcopy(model), hp, spe,
+                                                  TABLE1_SEED)
+    d = train_state.draw_step(spec, fresh(), hp.batch_size,
+                              batch["p1_face"].shape[1] - spec.cond.longest_history)
+
+    def step(coin, precision):
+        st = fresh()
+        st.last_mismatched_nll = 1.0
+        reset_launches()
+        with matmul_precision(precision):
+            m = train_state.train_step(spec, hp, st, batch, draws=train_state.StepDraws(
+                coin, d.perm, d.dropout_masks))
+        torch.cuda.synchronize()
+        m = {k: float(v) for k, v in m.items()}
+        grads = [None if p.grad is None else p.grad.detach().clone() for p in st.trained]
+        return m, float(st.last_mismatched_nll), grads, read_launches()
+
+    def leaf_diffs(grads, grads_r):
+        for g, g_r in zip(grads, grads_r):
+            if (g is None) != (g_r is None):
+                fail("step 22: a fired step's gradient leaf on one route only")
+            if g is not None:
+                yield (g.double() - g_r.double()).abs().max().item(), \
+                    g_r.abs().max().item(), bool(torch.isfinite(g).all())
+
+    m, last, grads, launches = step(0.0, "highest")
+    require_launches("a fired step", launches, ("cond_gates", "seq_fwd", "seq_bwd"))
+    with plain_paths(seqglow):
+        refs = {coin: step(coin, "highest") for coin in (0.0, 1.0)}
+    m_r, last_r, grads_r, plain_launches = refs[0.0]
+    if any(n for *_, l in refs.values() for n in l.values()):
+        fail(f"step 22: the plain route's steps launched {plain_launches}")
+    what = "step 22: a fired step vs the plain route"
+    if m["deranged"] != 1.0 or m_r["deranged"] != 1.0:
+        fail(f"{what}: deranged {m['deranged']} / {m_r['deranged']} with coin 0 "
+             "and the gate open")
+    err = {"nll": check_close(f"{what}: NLL", torch.tensor(m["nll"]),
+                              torch.tensor(m_r["nll"]), TRAIN_VAL_ATOL, TRAIN_VAL_RTOL)}
+    for got, gate in ((m, last), (m_r, last_r)):
+        nll = got["nll"]
+        if (abs(got["loss"] + 0.1 * nll) > GATE_RTOL * abs(0.1 * nll)
+                or abs(gate + nll) > GATE_RTOL * abs(nll)):
+            fail(f"{what}: loss {got['loss']}, nll {nll}, gate variable {gate}")
+    norm_diff = abs(m["grad_norm"] - m_r["grad_norm"])
+    if norm_diff > GRAD_LEAF_RTOL * abs(m_r["grad_norm"]):
+        fail(f"{what}: gradient norm {m['grad_norm']} vs {m_r['grad_norm']}")
+    ratio = 0.0
+    for diff, scale, finite in leaf_diffs(grads, grads_r):
+        limit = GRAD_ATOL + GRAD_LEAF_RTOL * scale
+        if not finite or diff > limit:
+            fail(f"{what}: a gradient leaf max|diff| {diff:.3e} > {limit:.3e} "
+                 f"(max|ref| {scale:.3e})")
+        ratio = max(ratio, diff / limit)
+    err["grad_norm"] = norm_diff
+    err["largest_grad_diff_over_limit"] = ratio
+    # precision 16 beside the plain route at "highest": a reading
+    for coin, key in ((0.0, "fired"), (1.0, "unfired")):
+        m16, _, grads16, _ = step(coin, "medium")
+        ref_m, _, ref_grads, _ = refs[coin]
+        if m16["deranged"] != ref_m["deranged"]:
+            fail(f"step 22: the {key} step at precision 16 deranged {m16['deranged']}")
+        err[f"p16_{key}_nll_rel"] = abs(m16["nll"] - ref_m["nll"]) / abs(ref_m["nll"])
+        err[f"p16_{key}_grad_rel"] = max(diff / scale for diff, scale, _
+                                         in leaf_diffs(grads16, ref_grads) if scale > 0)
+    return err
+
+
+def table1_step(dev, card) -> dict:
+    """Step 22: the Table-1 path at a cut, with its launches (path
+    ``table1``): (a) ``cond_gates``, ``seq_fwd`` and ``seq_bwd`` launched by
+    each run; (b) ``table1_probe_check`` on final_model's trained weights;
+    (c) every fired step of the gate probe set ``last_mismatched_nll`` to
+    -nll and its loss to -0.1 nll (GATE_RTOL), every other step left both
+    alone, and a step fired iff its coin was below 0.1 with the gate read
+    open before it; ``table1_fired_step_check`` on final_model's trained
+    weights; (d) ``auto`` cached both splits of the cut corpus, and every
+    loss is finite."""
+    from lets_face_it_tpu_torch import ablation_table1 as table1
+    from lets_face_it_tpu_torch import device_cache_scale_probe as scale
+    from lets_face_it_tpu_torch import trick_gate_probe as gate
+    from lets_face_it_tpu_torch.hparams import load_hparams
+    from lets_face_it_tpu_torch.train.loop import synthetic_corpus
+
+    t22 = time.perf_counter()
+    final_yaml = REPO / "hparams" / "final_model.yaml"
+    corpus = synthetic_corpus(load_hparams(final_yaml), table1.SEED)
+    scale_corpus = scale.scale_corpus(SCALE_CUT["n_train_chunks"],
+                                      SCALE_CUT["n_train_chunks"] // 10)
+    corpus_s = time.perf_counter() - t22
+    reset_launches()
+    runs, states = {}, {}
+    for name in table1.PAIR:
+        runs[name], states[name] = table1.run_config(
+            name, max_steps=TABLE1_STEPS, device=dev, corpus=corpus,
+            val_every=TABLE1_VAL_EVERY)
+    per_step, validations, _ = gate.gate_steps(max_steps=GATE_STEPS, device=dev,
+                                               corpus=corpus, val_every=GATE_STEPS // 2)
+    scaled = scale.run(load_hparams(final_yaml), scale_corpus, device=dev,
+                       steps=SCALE_CUT["steps"], big_steps=SCALE_CUT["big_steps"])
+    launches = read_launches()
+    # (a) the training kernels on the path, and in each run
+    require_launches("table1", launches, table1.TRAINED_KERNELS)
+    for what, counts in [*((n, r["launches"]) for n, r in runs.items()),
+                         ("scale probe", scaled["launches"])]:
+        missing = [k for k, n in counts.items() if n == 0]
+        if missing:
+            fail(f"step 22: {what} never launched {missing}")
+    steps = {n: [row["step"] for row in r["curve"]] for n, r in runs.items()}
+    want = list(range(5 * TABLE1_VAL_EVERY, TABLE1_STEPS + 1, 5 * TABLE1_VAL_EVERY))
+    if any(s != want for s in steps.values()):
+        fail(f"step 22: validations at {steps}, expected {want} for every config")
+    # (b) the probes on the trained weights against the plain route
+    hp = table1.table1_hparams(load_hparams(final_yaml), TABLE1_VAL_EVERY)
+    probe_err = table1_probe_check(hp, states["final_model"].model, corpus, dev)
+    fired_err = table1_fired_step_check(hp, states["final_model"].model, corpus, dev)
+    # (c) the gate
+    fired, last = 0, math.inf
+    for i, row in enumerate(per_step):
+        nll = row["nll"]
+        if row["deranged"] == 1.0:
+            fired += 1
+            if (abs(row["last"] + nll) > GATE_RTOL * abs(nll)
+                    or abs(row["loss"] + 0.1 * nll) > GATE_RTOL * abs(0.1 * nll)):
+                fail(f"step 22: fired step {i}: nll {nll}, last_mismatched_nll "
+                     f"{row['last']}, loss {row['loss']}")
+        elif row["last"] != last or row["loss"] != nll:
+            fail(f"step 22: step {i} did not fire but moved last_mismatched_nll "
+                 f"({last} -> {row['last']}) or scaled its loss ({row['loss']} vs {nll})")
+        if (row["deranged"] == 1.0) != (row["coin"] < 0.1 and row["gate_open"]):
+            fail(f"step 22: step {i} deranged {row['deranged']} with coin "
+                 f"{row['coin']} and the gate {'open' if row['gate_open'] else 'closed'}")
+        last = row["last"]
+    if fired == 0:
+        fail(f"step 22: no step of the gate probe fired in {GATE_STEPS}")
+    # (d) the cut corpus cached by auto (scale.run raises otherwise), losses finite
+    losses = ([r["val_loss"] for run in runs.values() for r in run["curve"]]
+              + [r["gap_p2"] for run in runs.values() for r in run["curve"]]
+              + [r["nll"] for r in per_step] + [v["val_loss"] for v in validations]
+              + [scaled[k] for k in ("b256_nll_final", "b1024_nll_final", "val_nll")])
+    if not all(math.isfinite(x) for x in losses):
+        fail("step 22: a non-finite loss on the Table-1 path")
+    step_s = time.perf_counter() - t22
+    out = {"launches": launches, "corpus_s": corpus_s,
+           "configs": {n: {k: r[k] for k in ("wall_s", "curve", "launches")}
+                       for n, r in runs.items()},
+           "gate": {"fired_steps": fired, "steps": len(per_step),
+                    "validations": validations},
+           "probe_check": probe_err, "fired_step_check": fired_err,
+           "scale": {k: v for k, v in scaled.items() if not k.startswith("mem_")},
+           "step_s": step_s}
+    print(f"step 22, the Table-1 path at a cut on {card}: {TABLE1_STEPS} steps of "
+          f"final_model {runs['final_model']['wall_s']} s, no_nll_trick "
+          f"{runs['no_nll_trick']['wall_s']} s (validations at {want}); the gate "
+          f"fired {fired} of {GATE_STEPS} steps, each setting last_mismatched_nll "
+          f"= -nll and its loss -0.1 nll (rtol {GATE_RTOL}); the probes on the "
+          f"trained weights within the forward's limit of the plain route "
+          f"({json.dumps(probe_err)}); a fired step within step 8's limits of the "
+          f"plain route ({json.dumps(fired_err)}); the scale cut ({SCALE_CUT}) cached "
+          f"{scaled['train_split_gb']:.3f} + {scaled['val_split_gb']:.3f} GB by auto, "
+          f"B=256 k=8 {scaled['b256_k8_steps_per_sec']:.3f} steps/s, peak reserved "
+          f"{scaled['peak_gb']:.3f} GB of {scaled['hbm_limit_gb']:.3f}; launches {launches}; "
+          f"corpora {corpus_s:.1f} s; {step_s:.1f} s  ok")
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3998,6 +4267,10 @@ def main() -> int:
         benched = bench_step(dev, card)
         print(json.dumps({"bench": benched}))
 
+        # -- 22. the Table-1 path -----------------------------------------------
+        table1 = table1_step(dev, card)
+        print(json.dumps({"table1": table1}))
+
         paths = {"serving": launches, "training": train_launches,
                  "invert": invert_launches, "run_test": rt_launches,
                  "train_cache_off": loop_runs[0]["launches"],
@@ -4008,7 +4281,7 @@ def main() -> int:
                     for t in tuning["trials"]},
                  **{f"ddp_{k}": v["launches"] for k, v in ddp.items()
                     if k.startswith("world")},
-                 "bench": benched["launches"]}
+                 "bench": benched["launches"], "table1": table1["launches"]}
         for rec in records:
             if "widened" in rec:
                 by_path = {f"widened {rec['widened']}":

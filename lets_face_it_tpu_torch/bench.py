@@ -692,9 +692,13 @@ def host_cpu() -> str:
 
 def machine(device) -> dict:
     """{"device": the card's name, "power_limit_w": its power limit in W
-    (both by nvidia-smi), "host": ``host_cpu()``}."""
+    (both by nvidia-smi), "host": ``host_cpu()``}; off the card the device
+    type and no power limit."""
     from lets_face_it_tpu_torch.precision_ab import card_name
 
+    if torch.device(device).type != "cuda":
+        return {"device": torch.device(device).type, "power_limit_w": None,
+                "host": host_cpu()}
     name, limit = card_name(device).rsplit(", ", 1)
     return {"device": name, "power_limit_w": float(limit.split()[0]),
             "host": host_cpu()}

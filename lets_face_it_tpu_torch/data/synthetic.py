@@ -6,7 +6,8 @@ sum of low-frequency sinusoids plus noise, the interlocutor's face lags and
 mirrors the agent's, and speech features are band-limited noise correlated
 with jaw motion. The signals are drawn in the same order from
 ``np.random.default_rng(seed)`` as the JAX package draws them, so the arrays
-equal the ones its ``write_synthetic_dataset`` stores. Face kinds are
+equal the ones its ``write_synthetic_dataset`` stores; the sines of a block
+of chunks are computed on a thread pool once the block's draws are taken. Face kinds are
 standardized with the train-agent statistics, audio kinds are raw, as the
 combiner stores them. ``write_synthetic_dataset`` writes the same corpus as
 HDF5 where ``h5py`` imports.
@@ -14,6 +15,8 @@ HDF5 where ``h5py`` imports.
 
 from __future__ import annotations
 
+import os
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -26,22 +29,35 @@ DIMS = {"flame_expression": 50, "flame_jaw": 3, "flame_neck": 3,
 AUDIO_KINDS = ("mfcc", "prosody")
 
 
-def _smooth_signal(rng, n_frames, dim, n_waves=4, noise=0.05):
-    t = np.arange(n_frames)[:, None]
+def _draw_signal(rng, n_frames, dim, n_waves=4, noise=0.05):
+    """The draws of one signal, in the order the JAX package takes them."""
     freqs = rng.uniform(0.002, 0.08, (n_waves, dim))
     phases = rng.uniform(0, 2 * np.pi, (n_waves, dim))
     amps = rng.uniform(0.2, 1.0, (n_waves, dim))
+    return freqs, phases, amps, noise * rng.standard_normal((n_frames, dim))
+
+
+def _signal(draws):
+    freqs, phases, amps, noise = draws
+    t = np.arange(len(noise))[:, None]
     sig = sum(a * np.sin(2 * np.pi * f * t + p) for a, f, p in zip(amps, freqs, phases))
-    return (sig + noise * rng.standard_normal((n_frames, dim))).astype(np.float32)
+    return (sig + noise).astype(np.float32)
 
 
-def _make_chunk(rng, n_frames, dims):
-    agent = {k: _smooth_signal(rng, n_frames, d) for k, d in dims.items()}
+def _draw_chunk(rng, n_frames, dims):
+    """A chunk's draws: every agent signal, then every interlocutor one."""
+    return ({k: _draw_signal(rng, n_frames, d) for k, d in dims.items()},
+            {k: _draw_signal(rng, n_frames, d) for k, d in dims.items()})
+
+
+def _make_chunk(draws):
+    agent_draws, inter_draws = draws
+    agent = {k: _signal(v) for k, v in agent_draws.items()}
     inter = {}
     lag = 8
-    for k, d in dims.items():
+    for k, v in inter_draws.items():
         mirrored = np.roll(agent[k], lag, axis=0) * 0.6
-        inter[k] = (mirrored + 0.4 * _smooth_signal(rng, n_frames, d)).astype(np.float32)
+        inter[k] = (mirrored + 0.4 * _signal(v)).astype(np.float32)
     # crude audio/jaw correlation
     agent["mfcc"][:, 0] += 0.5 * agent["flame_jaw"][:, 0]
     inter["mfcc"][:, 0] += 0.5 * inter["flame_jaw"][:, 0]
@@ -69,8 +85,16 @@ def make_synthetic_corpus(*, n_train_chunks=4, n_val_chunks=2, n_test_chunks=2,
     dims = dims or DIMS
     rng = np.random.default_rng(seed)
     counts = {"train": n_train_chunks, "val": n_val_chunks, "test": n_test_chunks}
-    chunks = {s: [_make_chunk(rng, frames_per_chunk, dims) for _ in range(n)]
-              for s, n in counts.items()}
+    chunks = {s: [] for s in counts}
+    workers = min(8, os.cpu_count() or 1)
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        for split, n in counts.items():
+            # the draws in order on this thread, a block of chunks at a time;
+            # the sines (numpy releases the GIL) on the pool
+            for i in range(0, n, 4 * workers):
+                draws = [_draw_chunk(rng, frames_per_chunk, dims)
+                         for _ in range(min(4 * workers, n - i))]
+                chunks[split].extend(pool.map(_make_chunk, draws))
     # train-agent statistics, as the combiner computes them
     # (combine_features.py:197-204)
     means, stds = {}, {}
