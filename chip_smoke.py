@@ -82,9 +82,9 @@ sources in this checkout:
     landmark fit at B=256, 30 + 60 steps, on the synthetic head at V=5023
     (frames/s, landmark RMS, line-search trials a step), at B=64 the
     objective's value and gradient and then whole fits held against the
-    CPU; RingNet-lite and a fit seeded by it; 20 s of lipsync meshes
+    CPU; RingNet-lite and a fit seeded by it; 5 s of lipsync meshes
     through the mesh fit; then the extraction CLI's audio and voca stages
-    on two sessions of 20 s with the synthetic head, the participants'
+    on two sessions of 6 s with the synthetic head, the participants'
     landmark fits and the combiner in memory (the stages that write HDF5
     run in the CPU tests), ``final_model`` trained 3 steps from that corpus
     and a sequence generated from its checkpoint (``cond_gates``,
@@ -159,6 +159,17 @@ sources in this checkout:
     route at the training forward's limit; every fired step's gate
     variable -nll and loss -0.1 nll; both cut splits cached by ``auto``;
     every loss finite. One ``{"table1": ...}`` line.
+23. kill and resume on the card at a cut (``long_run.py``,
+    ``supervise_train.py``, ``extract_val_curve.py``): ``final_model`` at
+    full width, B=256, precision 32, 8 steps a CUDA graph, the device data
+    cache on, 3 epochs of 10 steps; one worker uninterrupted and, beside
+    it, one SIGTERMed by its parent after epoch 1's checkpoint and resumed
+    under ``supervise_train``: the final weights, Adam's state, the step
+    generator and the meta equal bit for bit, the validation rows after the
+    kill equal, the curve's segments as expected, and ``cond_gates``,
+    ``seq_fwd``, ``seq_bwd`` and ``seq_rev`` launched in the resumed
+    segment (``resume``). The two runs start before step 19 and run beside
+    its trials; their check follows step 19. One ``{"resume": ...}`` line.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
@@ -172,11 +183,15 @@ import importlib.util
 import io
 import json
 import math
+import os
+import signal
 import subprocess
 import sys
 import tempfile
 import time
 from pathlib import Path
+
+T_START = time.perf_counter()   # before torch and the port are imported
 
 REPO = Path(__file__).resolve().parent
 if not (REPO / "lets_face_it_tpu_torch" / "csrc").is_dir():
@@ -282,8 +297,10 @@ RASTER_LEVEL_SHARE, RASTER_EDGE_SHARE = 5e-2, 1e-4
 # stages on two sessions of CLI_SECONDS and the trainer on their corpus.
 EXTRACT_FS, EXTRACT_MINUTES, EXTRACT_FPS = 44100, 5, 25
 FIT_BATCH, FIT_CPU_BATCH = 256, 64
-LIPSYNC_SECONDS, LIPSYNC_FPS, LIPSYNC_STEPS = 20, 60, 40
-CLI_SECONDS, CLI_FS = 20, 16000
+# CLI_SECONDS of 6 is the least that keeps final_model's B=256: the train
+# split's four chunks of 148 frames give 4 x 69 = 276 windows of 80.
+LIPSYNC_SECONDS, LIPSYNC_FPS, LIPSYNC_STEPS = 5, 60, 40
+CLI_SECONDS, CLI_FS = 6, 16000
 # The card against the CPU path of the same port functions. The energy
 # features and the VAD tracks at the CPU tests' limits against the JAX
 # package (tests/test_torch_features_audio.py): atol 1e-5. The pitch track
@@ -1367,7 +1384,9 @@ def extract_cli_checks(tmp, dev, card, head, emb, frames) -> dict:
     hp = load_hparams(REPO / "hparams" / "final_model.yaml", dataset_root=str(root))
     n_windows = len(WindowDataset.from_chunks(corpus, "train", hp.Data, hp.Conditioning,
                                               hp.Train["seq_len"]))
-    hp.batch_size = min(hp.batch_size, n_windows)
+    if n_windows < hp.batch_size:
+        fail(f"extract_train: {n_windows} train windows in the extracted corpus, "
+             f"fewer than final_model's B={hp.batch_size}")
     ckpt_dir = root / "ckpt"
     step_log = []
     reset_launches()
@@ -1489,7 +1508,7 @@ MODE_WEIGHT_BYTES = {"high": 4, "medium": 2}
 # the captured one, then three replays on fresh blocks, the last in the next
 # epoch at the next rate (the check's schedule steps the rate every epoch),
 # with a deranged step in a replay after the first required; then K_WARM
-# steps, K_WINDOW timed and K_WINDOW traced, each way twice in turns.
+# steps, K_WINDOW timed and K_WINDOW traced, each way once.
 K_DISPATCH, K_CHUNKS, K_CHECK, K_WARM, K_WINDOW = 5, 64, 25, 10, 10
 
 
@@ -2085,7 +2104,7 @@ def precision_step(tmp, dev, card, records) -> dict:
                             "nll_max_rel_diff": max(abs(a_ - b_) / abs(b_)
                                                     for a_, b_ in zip(nll_k, nll_1))}
     k_runs = []
-    for k in (1, K_DISPATCH, K_DISPATCH, 1):
+    for k in (1, K_DISPATCH):
         hp_k.steps_per_dispatch = k
         trace = LoopTrace(K_WARM, K_WINDOW)
         replays0 = train_state.MultiStep.replays
@@ -3157,6 +3176,136 @@ def table1_step(dev, card) -> dict:
           f"B=256 k=8 {scaled['b256_k8_steps_per_sec']:.3f} steps/s, peak reserved "
           f"{scaled['peak_gb']:.3f} GB of {scaled['hbm_limit_gb']:.3f}; launches {launches}; "
           f"corpora {corpus_s:.1f} s; {step_s:.1f} s  ok")
+    return out
+
+
+# Step 23: the kill and resume on the card at a cut (``long_run.py`` under
+# ``supervise_train.py``, ``extract_val_curve.py``): final_model at full
+# width, B=256, precision 32, k=8, the device data cache on, on
+# RESUME_CHUNKS train chunks of 400 frames (2,568 windows of 80: 10 steps an
+# epoch) and RESUME_VAL_CHUNKS val chunks, for RESUME_EPOCHS epochs. One
+# parent runs its worker uninterrupted; beside it, another SIGTERMs its
+# worker at the first logged step past RESUME_KILL_AT (a block's end in
+# epoch 2, after epoch 1's checkpoint) and resumes it under supervise_train.
+# Every block is logged (log_every 1). The two runs start before step 19
+# and run beside its trials (their own processes on the one card; the
+# step's seconds count from their start to their check).
+RESUME_CHUNKS, RESUME_VAL_CHUNKS, RESUME_EPOCHS, RESUME_KILL_AT = 8, 2, 3, 12
+RESUME_RUNS = {"whole": [], "killed": ["--kill_at_step", str(RESUME_KILL_AT)]}
+
+
+def start_resume_runs(tmp) -> dict:
+    """Step 23's two runs of the cut rehearsal, started at once in the
+    background (they run beside step 19's trials; ``resume_step`` waits
+    for them) -> {"procs": {name: (run_dir, log, parent process)}, "t0":
+    their start, "held": what this process reserved on the card then}."""
+    import gc
+
+    import torch
+
+    # the two workers take about 21 GiB each: hand back what the earlier
+    # steps left in this process's allocator cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    held, t0 = torch.cuda.memory_reserved(), time.perf_counter()
+    common = ["--n_train_chunks", str(RESUME_CHUNKS), "--n_val_chunks",
+              str(RESUME_VAL_CHUNKS), "--max_epochs", str(RESUME_EPOCHS),
+              "--log_every", "1"]
+    procs = {}
+    for name, extra in RESUME_RUNS.items():
+        run_dir = Path(tmp) / f"resume_{name}"
+        log = open(Path(tmp) / f"resume_{name}.log", "w")
+        procs[name] = (run_dir, log, subprocess.Popen(
+            [sys.executable, "-m", "lets_face_it_tpu_torch.long_run", "--run_dir",
+             str(run_dir), "--ckpt_dir", str(run_dir / "ckpt"), "--out",
+             str(run_dir / "curve.json"), *common, *extra],
+            stdout=log, stderr=subprocess.STDOUT, cwd=REPO, start_new_session=True))
+    return {"procs": procs, "t0": t0, "held": held}
+
+
+def stop_resume_runs(runs) -> None:
+    """Kill what is left of step 23's runs (a parent and its worker)."""
+    for _, log, proc in runs["procs"].values():
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+        log.close()
+
+
+def resume_step(tmp, card, runs) -> dict:
+    """Step 23: waits for the two runs ``start_resume_runs`` started, then
+    (a) both parents exit 0, the killed run's first segment was killed in
+    the middle of epoch 2 and its second resumed from epoch 1's checkpoint;
+    (b) the two final checkpoints equal bit for bit (the model, Adam's
+    state and rates, the step generator, the meta); (c) the resumed
+    segment's validation rows equal the uninterrupted run's at the same
+    steps; (d) ``extract_val_curve`` gives the segments expected; (e)
+    ``cond_gates``, ``seq_fwd``, ``seq_bwd`` and (the validations'
+    generation) ``seq_rev`` launched in the resumed segment (its worker's
+    counters, path ``resume``)."""
+    from lets_face_it_tpu_torch import long_run
+
+    procs = runs["procs"]
+    try:
+        for _, _, proc in procs.values():
+            proc.wait(timeout=600)
+    finally:
+        stop_resume_runs(runs)
+    curves, summaries = {}, {}
+    for name, (run_dir, log, proc) in procs.items():
+        if proc.returncode != 0:
+            tail = Path(log.name).read_text()[-3000:]
+            fail(f"step 23: the {name} run exited {proc.returncode}:\n{tail}")
+        curves[name] = json.loads((run_dir / "curve.json").read_text())
+        summaries[name] = curves[name]["segments_summary"]
+    whole, killed = summaries["whole"], summaries["killed"]
+    spe = whole[0]["steps_per_epoch"]
+    last = RESUME_EPOCHS * spe
+    # (a) one segment uninterrupted; the kill in epoch 2, the resume from epoch 1
+    if len(whole) != 1 or whole[0]["last_step"] != last or len(killed) != 2:
+        fail(f"step 23: segments {whole} and {killed}")
+    kill_at, resumed_from = killed[0]["killed_at_step"], killed[1]["resume_from_step"]
+    if (kill_at is None or kill_at // spe != 1 or kill_at % spe == 0
+            or resumed_from != spe or killed[1]["last_step"] != last):
+        fail(f"step 23: killed at step {kill_at}, resumed from step {resumed_from} "
+             f"({spe} steps an epoch), ended at {killed[1]['last_step']}")
+    # (b) the final checkpoints
+    ckpts = [Path(tmp) / f"resume_{name}" / "ckpt" / str(last) / "checkpoint.pt"
+             for name in RESUME_RUNS]
+    diffs = long_run.checkpoint_differences(*ckpts)
+    if diffs:
+        fail(f"step 23: the resumed run's final checkpoint differs from the "
+             f"uninterrupted run's in {diffs[:10]} ({len(diffs)} entries)")
+    # (c) the validation rows after the kill; (d) the segments
+    rows_whole = curves["whole"]["segments"][0]["rows"]
+    segs = curves["killed"]["segments"]
+    after = segs[1]["rows"]
+    if [r for r in rows_whole if r["step"] > resumed_from] != after:
+        fail("step 23: the resumed segment's validation rows differ from the "
+             "uninterrupted run's")
+    want = [("segment_1.log", [spe]), ("segment_2.log", [2 * spe, last])]
+    got = [(sg["log"], [r["step"] for r in sg["rows"]]) for sg in segs]
+    if got != want or [r["step"] for r in rows_whole] != list(range(spe, last + 1, spe)):
+        fail(f"step 23: extract_val_curve gave segments {got}, expected {want}")
+    notes = " ".join(curves["killed"]["notes"]).lower()
+    if "kill" not in notes or "resume" not in notes:
+        fail(f"step 23: the curve's notes say nothing of the kill: {notes}")
+    # (e) the resumed segment's launches
+    events = long_run.read_events(Path(tmp) / "resume_killed" / "segment_2.log")
+    launches = next(e["launches"] for e in events if e["long_run"] == "done")
+    require_launches("resume", launches, ("cond_gates", "seq_fwd", "seq_bwd", "seq_rev"))
+    step_s = time.perf_counter() - runs["t0"]
+    out = {"steps_per_epoch": spe, "steps": last, "killed_at_step": kill_at,
+           "resumed_from_step": resumed_from, "launches": launches,
+           "segments": {name: summaries[name] for name in RESUME_RUNS},
+           "val_after_kill": [{k: r[k] for k in ("step", "val_loss")} for r in after],
+           "reserved_by_this_process_gib": runs["held"] / 1024**3, "step_s": step_s}
+    print(f"step 23, kill and resume at a cut on {card}: final_model B=256, precision "
+          f"32, k=8, {spe} steps an epoch, {RESUME_EPOCHS} epochs; SIGTERM at step "
+          f"{kill_at}, resumed under supervise_train from step {resumed_from}; the final "
+          f"checkpoint (weights, Adam's state, generator, meta) equal bit for bit to the "
+          f"uninterrupted run's, validations after the kill equal; curve segments {got}; "
+          f"resumed segment's launches {launches}; {step_s:.1f} s  ok")
     return out
 
 
@@ -4252,11 +4401,22 @@ def main() -> int:
         print(json.dumps({"widened": wide}))
         print(f"step 18 (widened kernels): {wide['step_s']:.1f} s on {card}")
 
+        # -- 23's two runs start here and go on beside 19 ----------------------
+        resume_runs = start_resume_runs(tmp)
+
         # -- 19. tuning ---------------------------------------------------------
-        tuning = tuning_step(tmp, dev, card)
+        try:
+            tuning = tuning_step(tmp, dev, card)
+        except BaseException:
+            stop_resume_runs(resume_runs)
+            raise
         print(json.dumps({"tuning": tuning}))
         print(f"step 19 (tuning, {TUNE_TRIALS} trials): {tuning['step_s']:.1f} s "
               f"on {card}")
+
+        # -- 23. kill and resume: the runs started before 19 -------------------
+        resumed = resume_step(tmp, card, resume_runs)
+        print(json.dumps({"resume": resumed}))
 
         # -- 20. data parallelism -----------------------------------------------
         ddp = ddp_step(tmp, dev, card)
@@ -4281,7 +4441,8 @@ def main() -> int:
                     for t in tuning["trials"]},
                  **{f"ddp_{k}": v["launches"] for k, v in ddp.items()
                     if k.startswith("world")},
-                 "bench": benched["launches"], "table1": table1["launches"]}
+                 "bench": benched["launches"], "table1": table1["launches"],
+                 "resume": resumed["launches"]}
         for rec in records:
             if "widened" in rec:
                 by_path = {f"widened {rec['widened']}":
@@ -4302,7 +4463,8 @@ def main() -> int:
                                  for p, v in modes["plans"].items()}}
                 rec["plans_by_path"] = {p: v[rec["name"]] for p, v in plan_paths.items()}
 
-    print(f"total: {time.perf_counter() - t_all:.1f} s")
+    print(f"total: {time.perf_counter() - t_all:.1f} s "
+          f"({time.perf_counter() - T_START:.1f} s since the script's imports)")
     print(f"card: {card}")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

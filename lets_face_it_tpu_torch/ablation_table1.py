@@ -4,7 +4,7 @@
     python -m lets_face_it_tpu_torch.ablation_table1 [--device cuda]
         [--max_steps 900] [--configs final_model,no_speech,no_face,no_nll_trick]
         [--seed 1234] [--seeds_extra 1235,1236] [--precision 16]
-        [--out runs/ablation_table1_torch.json]
+        [--permutations 1] [--out runs/ablation_table1_torch.json]
 
 With the negative-NLL trick, deranging the interlocutor collapses the
 likelihood; without it the model trains as well but the gap nearly vanishes
@@ -28,6 +28,11 @@ more for each seed given, on the same corpus, and reports each run's curve,
 best validation and extreme gap: these runs show the spread; the claims
 read the ``--seed`` run. ``--precision 32`` trains at "highest" instead (no
 bf16 operands, no TF32), to tell rounding from the trajectory's own course.
+``--permutations P`` > 1 also reads, at each validation, the p2 gap on the
+same first val batch under P more permutations, the i-th seeded from
+(step, i) (``Validation.gap_permutations``), into the row's
+``gap_p2_perms``: whether one probe's sign is the permutation's or the
+model's. The training is the same as with P = 1.
 ``tests/test_torch_ablation_table1.py`` pins the claims.
 """
 
@@ -51,9 +56,11 @@ MATMUL = {16: ("precision 16: the kernels' product operands bf16 with float32 su
 TRAINED_KERNELS = ("cond_gates", "seq_fwd", "seq_bwd")
 
 
-def table1_hparams(hp, val_every: int = 20, precision: int = 16):
+def table1_hparams(hp, val_every: int = 20, precision: int = 16,
+                   permutations: int = 1):
     """The tool's settings on ``hp``, in place (tools/ablation_table1.py:56-66),
-    with the wrong-context probes computed by the loop's validation."""
+    with the wrong-context probes computed by the loop's validation (the p2
+    gap under ``permutations`` more permutations when above 1)."""
     hp.batch_size = 64
     hp.precision = precision
     hp.max_epochs = 100000            # bounded by max_steps
@@ -61,6 +68,8 @@ def table1_hparams(hp, val_every: int = 20, precision: int = 16):
     hp.Optim["Schedule"]["args"]["step"]["step_size"] = 300
     hp.Validation.update(inference=False, check_invertion=False,
                          wrong_context_test=True)
+    if permutations > 1:
+        hp.Validation["gap_permutations"] = permutations
     hp.logger = False
     return hp
 
@@ -100,11 +109,14 @@ def extreme_gap(curve: list) -> float:
 
 
 def run_config(name: str, *, max_steps: int = 900, device="cuda", seed: int = SEED,
-               corpus=None, val_every: int = 20, hp=None, precision: int = 16):
+               corpus=None, val_every: int = 20, hp=None, precision: int = 16,
+               permutations: int = 1):
     """Train ``hparams/<name>.yaml`` (or ``hp``) with the tool's settings for
     ``max_steps`` steps on ``corpus`` (default: the seed-1234 fixture) ->
     (the config's record, the final TrainState). The record holds the
-    curve of (step, val_loss, gap_p2), its best validation, its extreme gap,
+    curve of (step, val_loss, gap_p2, and with ``permutations`` > 1 the
+    p2 gaps of the other permutations, gap_p2_perms), its best validation,
+    its extreme gap,
     the training kernels' launches of the run and its steps per second: the
     steps between validations over the time from the first step's hook to
     the last one's, the device synchronised at both (the step's own hook
@@ -113,12 +125,12 @@ def run_config(name: str, *, max_steps: int = 900, device="cuda", seed: int = SE
 
     from lets_face_it_tpu_torch.hparams import load_hparams
     from lets_face_it_tpu_torch.model.spec import FlowSpec
-    from lets_face_it_tpu_torch.train.loop import (load_datasets, synthetic_corpus,
-                                                   train)
+    from lets_face_it_tpu_torch.train.loop import (PERM_GAP_KEY, load_datasets,
+                                                   synthetic_corpus, train)
 
     if hp is None:
         hp = load_hparams(REPO / "hparams" / f"{name}.yaml")
-    hp = table1_hparams(hp, val_every, precision)
+    hp = table1_hparams(hp, val_every, precision, permutations)
     require_kernels(FlowSpec.build(hp))
     if corpus is None:
         corpus = synthetic_corpus(hp, SEED)
@@ -144,6 +156,9 @@ def run_config(name: str, *, max_steps: int = 900, device="cuda", seed: int = SE
         nonlocal start
         row = {"step": int(step), "val_loss": float(metrics["val_loss"]),
                "gap_p2": float(metrics[GAP_KEY])}
+        if permutations > 1:
+            row["gap_p2_perms"] = [float(metrics[f"{PERM_GAP_KEY}{i}"])
+                                   for i in range(permutations)]
         curve.append(row)
         start = None
         print(f"[{name} seed {seed}] step {step}: val_loss {row['val_loss']:.2f} "
@@ -189,6 +204,8 @@ def main(argv=None) -> None:
     p.add_argument("--seeds_extra", default="",
                    help="comma-separated seeds for the final_model/no_nll_trick pair")
     p.add_argument("--precision", type=int, choices=sorted(MATMUL), default=16)
+    p.add_argument("--permutations", type=int, default=1,
+                   help="p2 gaps under this many more permutations a validation")
     p.add_argument("--out", default=str(REPO / "runs" / "ablation_table1_torch.json"))
     args = p.parse_args(argv)
 
@@ -199,6 +216,9 @@ def main(argv=None) -> None:
     results = {**machine(device), "precision": args.precision,
                "matmul": MATMUL[args.precision],
                "seed": args.seed, "fixture": FIXTURE, "gap_key": GAP_KEY,
+               **({"permutations": args.permutations,
+                   "permutation_seeds": "torch.Generator seeded step * 1000003 + i"}
+                  if args.permutations > 1 else {}),
                "deviations": [
                    "the probes come from the loop's validation "
                    "(Validation.wrong_context_test on), not from a hook",
@@ -217,13 +237,14 @@ def main(argv=None) -> None:
         print(f"=== {name} ===", flush=True)
         results["configs"][name], _ = run_config(
             name, max_steps=args.max_steps, device=device, seed=args.seed,
-            precision=args.precision)
+            precision=args.precision, permutations=args.permutations)
         save()
     for seed in [int(s) for s in args.seeds_extra.split(",") if s]:
         for name in PAIR:
             print(f"=== {name}, seed {seed} ===", flush=True)
             record, _ = run_config(name, max_steps=args.max_steps, device=device,
-                                   seed=seed, precision=args.precision)
+                                   seed=seed, precision=args.precision,
+                                   permutations=args.permutations)
             results["extra_seeds"].setdefault(str(seed), {})[name] = spread_row(record)
             save()
     print(f"wrote {out_path}")

@@ -16,8 +16,9 @@ memory from ``--seed`` (``data/synthetic.py``) instead of the HDF5 store
 checkpoints (``<step>/checkpoint.pt``, loadable by ``Generator.from_checkpoint``) to
 ``--ckpt_dir``; TensorBoard event files to ``--log_dir`` when given.
 ``--stall_timeout_s`` exits with code 17 when no step completes for that long
-(``utils/watchdog.py``), so that ``tools/supervise_train.py`` can relaunch the
-command with ``--resume_from``. ``--render_url`` posts the validation's
+(``utils/watchdog.py``), so that ``python -m
+lets_face_it_tpu_torch.supervise_train`` can relaunch the command with
+``--resume_from``. ``--render_url`` posts the validation's
 generated sequence to a render service when ``Validation.render`` is on.
 ``--device_data_cache`` keeps the splits on the device and gathers batches
 there (default ``auto``: on the card when they fit). ``--precision 16``

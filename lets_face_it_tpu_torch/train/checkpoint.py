@@ -69,8 +69,8 @@ def restore_checkpoint(path, state: TrainState) -> dict:
 
 class CheckpointManager:
     """One directory per save, ``<directory>/<step>/checkpoint.pt`` (numbered
-    directories, as ``tools/supervise_train.py`` looks for them), the newest
-    ``max_to_keep`` kept."""
+    directories; ``supervise_train.py`` counts a step as committed when its
+    file is there), the newest ``max_to_keep`` kept."""
 
     def __init__(self, directory, max_to_keep: int = 3):
         self.directory = Path(directory)

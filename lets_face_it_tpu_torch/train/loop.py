@@ -16,7 +16,8 @@ free-run generation of the first val batch with the jerk triplet
 (``sequence_sample``, the ``seq_rev`` kernel) and a rendered video of it
 (``render_client``), the invertibility error (``sequence_invert``, the
 ``frame_rev`` kernel), the wrong-context probes (``sequence_nll`` on
-deranged batches, the ``seq_fwd`` kernel), and the parameter histograms
+deranged batches, the ``seq_fwd`` kernel; with ``gap_permutations`` P > 1
+the p2 gap under P more permutations too), and the parameter histograms
 (``scale_logging``). Then a checkpoint is written. Validation draws from
 generators of its own, seeded from (seed, step), so it never moves the
 training trajectory.
@@ -81,6 +82,10 @@ from lets_face_it_tpu_torch.utils.precision import (matmul_precision,
 
 # Steps a ``profile_dir`` trace records.
 PROFILE_STEPS = 5
+# With ``Validation.gap_permutations`` P > 1, the validation's p2 gap under
+# each of P more permutations (the i-th seeded from (step, i)), as keys
+# ``PERM_GAP_KEY + str(i)``.
+PERM_GAP_KEY = "mismatched_nll/shuffled_batch/p2/perm_"
 
 
 class MetricLogger:
@@ -307,6 +312,13 @@ def run_validation(spec: FlowSpec, hp: HParams, model: SeqGlow,
             probes = train_metrics.wrong_context_probes(
                 spec, model, jb, loss, hp.Mismatch, _seeded(seed, step + 1, "cpu"))
             out.update({k: float(v) for k, v in probes.items()})
+            n_perms = int(val_cfg.get("gap_permutations", 1) or 1)
+            if n_perms > 1:
+                p2_only = {"shuffle_batch": {"p2": hp.Mismatch["shuffle_batch"]["p2"]}}
+                for i in range(n_perms):
+                    gap = train_metrics.wrong_context_probes(
+                        spec, model, jb, loss, p2_only, _seeded(step, i, "cpu"))
+                    out[f"{PERM_GAP_KEY}{i}"] = float(gap["mismatched_nll/shuffled_batch/p2"])
         if val_cfg.get("scale_logging", False) and logger is not None:
             for name, values in scale_histograms(model).items():
                 logger.histogram(step, name, values)

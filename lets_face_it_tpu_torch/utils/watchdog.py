@@ -8,7 +8,7 @@ ever happens. ``ProgressWatchdog`` is a daemon thread that fires
 ``on_stall`` when no heartbeat arrives for ``timeout_s`` seconds. The
 default callback hard-exits the process (``os._exit``: a thread blocked in
 native code cannot be interrupted from Python) with ``STALL_EXIT_CODE``, so
-that a supervisor (``tools/supervise_train.py``) can tell a stall from a
+that a supervisor (``supervise_train.py``) can tell a stall from a
 crash and relaunch with ``--resume_from``.
 
 The watchdog arms on the first beat, so that the first step's one-off costs

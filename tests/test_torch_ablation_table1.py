@@ -334,3 +334,82 @@ def test_modules_refuse_the_plain_training_path():
     hp.Glow["rnn_type"] = "lstm"
     with pytest.raises(RuntimeError, match="plain path"):
         ablation_table1.run_config("final_model", max_steps=1, device="cpu", hp=hp)
+
+
+# ---------------------------------------------------------------------------
+# The two checks of the open gap claim
+# ---------------------------------------------------------------------------
+
+def test_permutations_read_seeded_gaps_beside_the_probe(monkeypatch):
+    """``permutations`` P > 1 keeps each validation's gap_p2 (the loop's
+    probe, its permutation seeded from the step) and adds P gaps, the i-th
+    the p2 probe on the first val batch under the permutation seeded from
+    (step, i). That the training is untouched is the card's run's to show
+    (``test_permutations_artifact``: its curve equals the committed one)."""
+    recomputed = {}
+    validate = ploop.run_validation
+
+    def recording(spec, hp, model, val_ds, device, step, seed, **kw):
+        out = validate(spec, hp, model, val_ds, device, step, seed, **kw)
+        sel = next(val_ds.epoch_index_batches(hp.batch_size, shuffle=False))
+        batch = ploop.to_device(val_ds.get_batch(sel), device)
+        with torch.no_grad():
+            _, loss, _ = pseqglow.sequence_nll(spec, model, batch)
+            probe = pmetrics.wrong_context_probes(
+                spec, model, batch, loss, hp.Mismatch,
+                ploop._seeded(seed, step + 1, "cpu"))[GAP_KEY]
+            p2_only = {"shuffle_batch": {"p2": hp.Mismatch["shuffle_batch"]["p2"]}}
+            gaps = [pmetrics.wrong_context_probes(
+                spec, model, batch, loss, p2_only, ploop._seeded(step, i, "cpu"))[GAP_KEY]
+                for i in range(3)]
+        recomputed[step] = (float(probe), [float(g) for g in gaps])
+        return out
+
+    monkeypatch.setattr(ploop, "run_validation", recording)
+    corpus = ploop.synthetic_corpus(_tiny("final_model"), ablation_table1.SEED)
+    record, _ = ablation_table1.run_config("final_model", max_steps=9, device="cpu",
+                                           corpus=corpus, val_every=1,
+                                           hp=_tiny("final_model"), permutations=3)
+    assert {r["step"]: (r["gap_p2"], r["gap_p2_perms"]) for r in record["curve"]} \
+        == recomputed
+    assert list(recomputed) == [9]
+    assert all(len(set(g)) == 3 for _, g in recomputed.values())
+
+
+def test_permutations_artifact(results):
+    """``runs/ablation_perms_torch.json``: final_model on seed 1234 rerun on
+    the card with eight more permutations a validation; its val_loss and
+    gap_p2 curve is the committed run's, bit for bit."""
+    path = REPO / "runs" / "ablation_perms_torch.json"
+    assert path.exists(), "runs/ablation_perms_torch.json missing"
+    d = json.loads(path.read_text())
+    assert "NVIDIA" in d["device"] and d["power_limit_w"] > 0
+    assert d["permutations"] == 8 and d["seed"] == 1234 and d["precision"] == 16
+    curve = d["configs"]["final_model"]["curve"]
+    committed = _cfg(results, "final_model")["curve"]
+    assert [(r["step"], r["val_loss"], r["gap_p2"]) for r in curve] == \
+        [(r["step"], r["val_loss"], r["gap_p2"]) for r in committed]
+    for row in curve:
+        assert len(row["gap_p2_perms"]) == 8
+        assert all(math.isfinite(g) for g in row["gap_p2_perms"])
+
+
+def test_jax_tool_cpu_artifact():
+    """``runs/ablation_table1_jax_cpu.json``: the JAX package's unchanged
+    tool (``tools/ablation_table1.py``, which trains seed 1234) on the CPU,
+    in its own schema, final_model at least, validated at its steps."""
+    path = REPO / "runs" / "ablation_table1_jax_cpu.json"
+    assert path.exists(), "runs/ablation_table1_jax_cpu.json missing"
+    d = json.loads(path.read_text())
+    record = json.loads((REPO / "runs" / "ablation_table1.json").read_text())
+    assert set(d) == set(record) and d["device"] == "cpu"
+    assert d["fixture"] == record["fixture"] and d["gap_key"] == GAP_KEY
+    assert "seed=1234" in (REPO / "tools" / "ablation_table1.py").read_text()
+    assert "final_model" in d["configs"]
+    for name, cfg in d["configs"].items():
+        assert set(cfg) == set(record["configs"][name])
+        assert cfg["config"] == name and cfg["max_steps"] == 900
+        assert cfg["use_negative_nll_loss"] is _yaml_flag(name)
+        assert [r["step"] for r in cfg["curve"]] == list(range(100, 901, 100))
+        assert cfg["best_val"] == min(cfg["curve"], key=lambda r: r["val_loss"])
+        assert all(math.isfinite(r["val_loss"]) for r in cfg["curve"])
