@@ -39,7 +39,8 @@ sources in this checkout:
    the float64 product, the forward's outputs, and the
    backward's outputs on seeded cotangents), and the autograd Function's
    gradients against eager autograd through the ``flow.frame_fwd`` loop, on
-   two weight seeds;
+   two weight seeds (these checks time nothing: they run after step 22's
+   training, beside step 19's trials and step 23's runs);
 9. trains ``final_model`` at B=256 for 3 steps and one validation on the
    synthetic corpus (``train.loop.train``), checks that ``cond_gates``,
    ``seq_fwd``, ``seq_bwd`` and ``seq_rev`` were launched, that loss and gradient norm
@@ -62,7 +63,7 @@ sources in this checkout:
     finite values, the summary, launches and ms per batch);
 14. trains at B=256 with the device data cache off and on (3 steps and a
     validation with ``check_invertion`` and ``scale_logging`` on, each way
-    twice, in turns): the batches of both data paths bit for bit, the
+    once): the batches of both data paths bit for bit, the
     per-step NLL of both runs, and the loop's steps and windows per second.
 15. renders a study segment on the synthetic head at the FLAME 2019 sizes
     (V=5023): ``stimulus.render_segment`` with the step 4 ``Generator``
@@ -70,13 +71,13 @@ sources in this checkout:
     swapped for a stand-in that keeps the vertices; the same faces, and one
     face of 1,500 frames, through ``RenderService.get_vertices`` from the
     byte protocol's blobs; the vertices held against the float64 CPU path,
-    4 frames of the pair through the raster stage
+    2 frames of the pair through the raster stage
     (``render/video.py::render_double_face_frames``, 2048x1024) against the
     frames of the float64 vertices, and, where OpenCV is installed, written
     as an mp4 and read back; the mesh stage's times, a profile window, the
     raster time and the peak device memory.
 16. extracts features on the card (``lets_face_it_tpu_torch/features``): a
-    5-minute stereo session at 44.1 kHz through the prosody (traced), MFCC
+    2-minute stereo session at 44.1 kHz through the prosody (traced), MFCC
     and VAD functions, held against the same functions on the CPU, with
     seconds per minute of audio and Viterbi's share; the batched FLAME
     landmark fit at B=256, 30 + 60 steps, on the synthetic head at V=5023
@@ -105,8 +106,8 @@ sources in this checkout:
     beside its other plan; each mode's path (two training steps, a
     validation, three pushes) with its launches and gate plans ("tc" and
     "tile" required); the B=256 step at precision
-    32 and 16 and a trace of it at 16; a short A/B (100 steps a arm, a
-    validation every 100) with the val-NLL deltas held; the trainer with
+    32 and 16 and a trace of it at 16; a short A/B (50 steps a arm, a
+    validation at the end) with the val-NLL deltas held; the trainer with
     ``steps_per_dispatch`` 5 (one CUDA graph a block, replays counted)
     against 1 over 25 steps (replays on fresh blocks, a deranged step and
     a new epoch's rate among them), with the loop's ms a step and idle
@@ -127,13 +128,13 @@ sources in this checkout:
     and a record per kernel and spec in the kernels' line.
 19. the hyperparameter search (``train/tuning.py``): ``Study.optimize`` on
     final_model over ``hparam_tuning_configs/large_hparam_search.py``, 3
-    trials of 25 steps from a pinned seed, each in a spawned subprocess on
+    trials of 10 steps from a pinned seed, each in a spawned subprocess on
     the card; each trial's spec, state, seconds and launches, none failed,
     and each inside the JAX kernels' envelope on the training and sampling
     kernels; one ``{"tuning": ...}`` line.
 20. data parallelism (``parallel/mesh.py``): 5 steps at B=256 on world size
-    1 over NCCL and world size 2 over gloo on the one card, against one
-    process (step 10's limits); one ``{"ddp": ...}`` line.
+    1 over NCCL and world size 2 over gloo on the one card, both at once,
+    against one process (step 10's limits); one ``{"ddp": ...}`` line.
 21. the benchmark (``lets_face_it_tpu_torch/bench.py``, which
     ``python -m lets_face_it_tpu_torch.bench`` runs in full) in process at a
     cut of its sizes: sampling B=1 and 128, pushes, a paced session, the
@@ -158,7 +159,9 @@ sources in this checkout:
     NLL and each deranged NLL on the trained weights against the plain
     route at the training forward's limit; every fired step's gate
     variable -nll and loss -0.1 nll; both cut splits cached by ``auto``;
-    every loss finite. One ``{"table1": ...}`` line.
+    every loss finite. One ``{"table1": ...}`` line. It runs after step 18;
+    its checks against the plain route time nothing and run beside step
+    19's trials, after step 8's.
 23. kill and resume on the card at a cut (``long_run.py``,
     ``supervise_train.py``, ``extract_val_curve.py``): ``final_model`` at
     full width, B=256, precision 32, 8 steps a CUDA graph, the device data
@@ -169,9 +172,21 @@ sources in this checkout:
     kill equal, the curve's segments as expected, and ``cond_gates``,
     ``seq_fwd``, ``seq_bwd`` and ``seq_rev`` launched in the resumed
     segment (``resume``). The two runs start before step 19 and run beside
-    its trials; their check follows step 19. One ``{"resume": ...}`` line.
+    its trials and steps 8 and 22's checks; their check follows step 19.
+    One ``{"resume": ...}`` line.
+24. the JAX package's start replayed (``train/replay.py``): the small
+    fixture ``tests/fixtures/torch_table1_replay_small.npz`` (the JAX
+    seed-1234 weights at a small width, 24 steps' draws with two fired
+    steps, two validations' probe permutations, the JAX package's per-step
+    NLL and gradient norm) through ``train(replay=)`` on the card, where
+    ``cond_gates``, ``seq_fwd`` and ``seq_bwd`` launch (``replay``), and
+    on the CPU: every step's branch, NLL and gradient norm against the JAX
+    record and against the CPU replay, each validation against the CPU's.
+    One ``{"replay": ...}`` line.
 
-The line before the last is the kernels' JSON record; the last line is
+Each step's wall time is printed as it ends (``wall: step ...``) and all of
+them as one ``{"step_wall_s": ...}`` line before the total. The line before
+the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
 It needs no network, imports nothing of JAX and nothing of the JAX package.
 """
@@ -198,6 +213,48 @@ if not (REPO / "lets_face_it_tpu_torch" / "csrc").is_dir():
     sys.exit("chip_smoke: FAILED: run from a checkout: lets_face_it_tpu_torch/ "
              "is not beside this script")
 sys.path.insert(0, str(REPO))
+
+
+def in_thread(fn, *args):
+    """Start ``fn(*args)`` in a thread -> a join that returns its result or
+    raises what it raised (fail()'s SystemExit too) in the caller."""
+    import threading
+
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fn(*args)
+        except BaseException as exc:  # noqa: BLE001 -- handed to the caller
+            box["exc"] = exc
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+
+    def join():
+        thread.join()
+        if "exc" in box:
+            raise box["exc"]
+        return box["out"]
+
+    return join
+
+
+def timed_build():
+    """Build every kernel library (``ops/cuda_build.py``, nvcc in parallel)
+    -> (paths, seconds)."""
+    from lets_face_it_tpu_torch.ops import cuda_build
+
+    t0 = time.perf_counter()
+    paths = cuda_build.build()
+    return paths, time.perf_counter() - t0
+
+
+# Run as a script, the build starts here, before torch and the port are
+# imported: the imports take seconds that the nvcc processes overlap
+# (main() waits for them).
+BUILD = in_thread(timed_build) if __name__ == "__main__" else None
+
 # each kernel's wrapper by its name in the JSON record
 from lets_face_it_tpu_torch.bench import kernel_wrappers  # noqa: E402
 # mean ms a call by CUDA events; a function captured once in a CUDA graph
@@ -225,8 +282,9 @@ SEQ_LOOSE_ATOL = 2e-2
 # Weight seeds the sequence kernel is held against its plain version on at
 # B=128 (the first also at B=1 and on the main path).
 SEQ_SEEDS = (SEED, SEED + 1, SEED + 2)
-# Calls per traced window of step 7.
-PROFILE_CALLS = 20
+# Calls per traced window of step 7 (20 until the script's time limit needed
+# the time: the profiler's own cost grows with the operations it records).
+PROFILE_CALLS = 6
 # Training kernels against their plain versions (step 8), float32 in another
 # summation order: forward values atol 1e-5 / rtol 1e-5, backward outputs
 # atol 2e-5 / rtol 1e-4 (the JAX kernel tests', tests/test_pallas_train.py).
@@ -249,11 +307,13 @@ TRAIN_STEPS, TRAIN_CHUNKS = 3, 10
 # * 100; it is held to that within INVERT_ERR_RTOL (relative).
 INVERT_SEEDS, INVERT_BATCH = (SEED, SEED + 1), 128
 INVERT_ERR_RTOL = 1e-4
-# Step 14: the trainer with the device data cache off and on, in turns, on a
-# corpus of 40 train chunks (3240 windows of 80, 12 steps of 256 an epoch):
-# LOOP_WARM steps, LOOP_WINDOW steps timed, LOOP_WINDOW steps traced.
-CACHE_RUNS = ("off", "on", "on", "off")
-LOOP_CHUNKS, LOOP_WARM, LOOP_WINDOW = 40, 3, 8
+# Step 14: the trainer with the device data cache off and on on a corpus of
+# 20 train chunks (1620 windows of 80, 6 steps of 256 an epoch, so a run
+# crosses an epoch): LOOP_WARM steps, LOOP_WINDOW steps timed, LOOP_WINDOW
+# steps traced (off, on, on, off until step 24 needed the time; 40 chunks and
+# windows of 8 until the script's time limit did).
+CACHE_RUNS = ("off", "on")
+LOOP_CHUNKS, LOOP_WARM, LOOP_WINDOW = 20, 3, 4
 # Step 10: the GPU's steps against the CPU plain path's at B=32. The first
 # step starts from the same weights (NLL rtol 1e-5, the JAX trajectory
 # test's); Adam moves every entry by about the learning rate (1e-5) per step
@@ -267,8 +327,10 @@ CPU_NLL_RTOL1, CPU_NLL_RTOL, CPU_PARAM_ATOL = 1e-5, 1e-4, 4e-5
 # real model is not redistributable): V=5023, 300 shape + 100 expression
 # components, 36 pose correctives, 5 joints; 2048x1024 frames. A segment of
 # 100 packed frames (N=76 generated), one face of RENDER_LONG frames (a
-# minute at 25 fps), RENDER_FRAMES frames rasterized.
-RENDER_VERTICES, RENDER_LONG, RENDER_FRAMES = 5023, 1500, 4
+# minute at 25 fps), RENDER_FRAMES frames rasterized (4 until step 24 needed
+# the time). The host's raster takes one thread a frame (7-17 s a frame on
+# the 8-core hosts of the H100 machines measured), so the rasters that time nothing run at once.
+RENDER_VERTICES, RENDER_LONG, RENDER_FRAMES = 5023, 1500, 2
 # The card's vertices against the CPU path in float64 from the same float32
 # inputs: float32 products over 400 components, then a chain of 4x4
 # transforms per vertex. The generated side's coefficients (random weights)
@@ -286,8 +348,10 @@ RENDER_VERT_ATOL = 2e-5
 # triangle edge (its 3x3 neighbourhood in a face-id render holds another face
 # or the background).
 RASTER_LEVEL_SHARE, RASTER_EDGE_SHARE = 5e-2, 1e-4
-# Step 16: the extraction path. The audio of a 5-minute stereo session at
-# 44.1 kHz (10 minutes until steps 18-20 needed the time), to EXTRACT_FPS
+# Step 16: the extraction path. The audio of a 2-minute stereo session at
+# 44.1 kHz (10 minutes until steps 18-20 needed the time, 5 until the
+# script's time limit did: the traced prosody call records about 9,000
+# device operations a minute), to EXTRACT_FPS
 # frames; the landmark fit at B=FIT_BATCH on the
 # synthetic head at the FLAME 2019 sizes (the real model and its landmark
 # embedding are not redistributable), 30 + 60 steps, with targets projected
@@ -295,12 +359,15 @@ RASTER_LEVEL_SHARE, RASTER_EDGE_SHARE = 5e-2, 1e-4
 # them (seed 3, scale 512, offset 512); LIPSYNC_SECONDS of lipsync meshes at
 # LIPSYNC_FPS through the mesh fit with LIPSYNC_STEPS steps; then the CLI's
 # stages on two sessions of CLI_SECONDS and the trainer on their corpus.
-EXTRACT_FS, EXTRACT_MINUTES, EXTRACT_FPS = 44100, 5, 25
+EXTRACT_FS, EXTRACT_MINUTES, EXTRACT_FPS = 44100, 2, 25
 FIT_BATCH, FIT_CPU_BATCH = 256, 64
 # CLI_SECONDS of 6 is the least that keeps final_model's B=256: the train
 # split's four chunks of 148 frames give 4 x 69 = 276 windows of 80.
 LIPSYNC_SECONDS, LIPSYNC_FPS, LIPSYNC_STEPS = 5, 60, 40
 CLI_SECONDS, CLI_FS = 6, 16000
+# The four participants' landmark fits of the CLI leg at 10 + 20 steps (the
+# CLI's 30 + 60 until step 24 needed the time: 34.4 s of step 16).
+CLI_FIT_STEPS = (10, 20)
 # The card against the CPU path of the same port functions. The energy
 # features and the VAD tracks at the CPU tests' limits against the JAX
 # package (tests/test_torch_features_audio.py): atol 1e-5. The pitch track
@@ -375,6 +442,20 @@ def check_close(name, got, ref, atol=ATOL, rtol=RTOL):
         fail(f"{name}: max |diff| {err.max().item():.3e} exceeds "
              f"atol {atol} + rtol {rtol}*|ref|")
     return err.max().item()
+
+
+# Wall seconds of each step, closed by lap() and printed as one line before
+# the total: where the script's time limit goes.
+STEP_WALL: dict = {}
+_LAP = [time.perf_counter()]
+
+
+def lap(label: str) -> None:
+    """Close step ``label``: record and print its wall since the last lap."""
+    now = time.perf_counter()
+    STEP_WALL[label] = round(now - _LAP[0], 1)
+    _LAP[0] = now
+    print(f"wall: step {label} {STEP_WALL[label]:.1f} s")
 
 
 def timed(fn):
@@ -807,6 +888,7 @@ def render_checks(gen, tmp, dev) -> dict:
     from lets_face_it_tpu_torch import stimulus
     from lets_face_it_tpu_torch.render import flame, video
     from lets_face_it_tpu_torch.render.server import RenderService, byteify, debyteify
+    from lets_face_it_tpu_torch.utils.native import load_library
 
     rng = np.random.default_rng(SEED + 15)
     head = flame.synthetic_flame_model(RENDER_VERTICES, seed=SEED, device=dev)
@@ -907,11 +989,27 @@ def render_checks(gen, tmp, dev) -> dict:
     # the raster stage: the card's vertices against the float64 vertices
     k = RENDER_FRAMES
     ref_l, ref_r = (r[:k].float().numpy() for r in refs)
-    ids = face_id_frames(ref_l, ref_r, head.faces, 2048, 1024)
-    ref_imgs = video.render_double_face_frames(ref_l, ref_r, head.faces, **kwargs)
+    load_library("rasterizer")      # built at first use: not in the raster's time
     t0 = time.perf_counter()
     imgs = video.render_double_face_frames(v_left[:k], v_right[:k], head.faces, **kwargs)
     raster_ms = (time.perf_counter() - t0) * 1e3 / k
+    # the host's other rasters time nothing but the mp4 write's wall: the
+    # face ids, the float64 vertices' frames and the mp4 write run at once,
+    # each in a thread (one raster thread a frame; the native call releases
+    # the GIL)
+    has_cv2 = importlib.util.find_spec("cv2") is not None
+    mp4_path = Path(tmp) / "segment.mp4"
+
+    def write_mp4():
+        t0 = time.perf_counter()
+        video.render_double_face_video(mp4_path, v_left[:k], v_right[:k], head.faces,
+                                       fps=25, **kwargs)
+        return time.perf_counter() - t0
+
+    mp4_done = in_thread(write_mp4) if has_cv2 else None
+    ids_done = in_thread(face_id_frames, ref_l, ref_r, head.faces, 2048, 1024)
+    ref_imgs = video.render_double_face_frames(ref_l, ref_r, head.faces, **kwargs)
+    ids = ids_done()
     if imgs.shape != (k, 1024, 2048, 3):
         fail(f"raster stage: images {imgs.shape}")
     diff = (imgs != ref_imgs).any(-1)
@@ -930,17 +1028,14 @@ def render_checks(gen, tmp, dev) -> dict:
           f"{coverage:.4f} of a frame  ok")
     # the mp4 write where OpenCV is installed (GPU hosts may lack it)
     mp4 = None
-    if importlib.util.find_spec("cv2") is None:
+    if not has_cv2:
         print("render: the mp4 write (cv2.VideoWriter) is left out: cv2 is not "
               "installed here; the CPU tests cover it (tests/test_torch_render.py)")
     else:
         import cv2
 
-        path = Path(tmp) / "segment.mp4"
-        t0 = time.perf_counter()
-        video.render_double_face_video(path, v_left[:k], v_right[:k], head.faces,
-                                       fps=25, **kwargs)
-        mp4_s = time.perf_counter() - t0
+        path = mp4_path
+        mp4_s = mp4_done()
         cap = cv2.VideoCapture(str(path))
         try:
             count = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
@@ -951,7 +1046,8 @@ def render_checks(gen, tmp, dev) -> dict:
             fail(f"render_double_face_video: {count} frames, first read {read}")
         mp4 = {"frames": count, "bytes": path.stat().st_size, "wall_s": mp4_s}
         print(f"check render_double_face_video: {k} frames rasterized and written "
-              f"as mp4 in {mp4_s:.3f} s ({mp4['bytes']} bytes), read back with "
+              f"as mp4 in {mp4_s:.3f} s beside the two reference rasters "
+              f"({mp4['bytes']} bytes), read back with "
               f"{count} frames of 2048x1024  ok")
     return {"service": service, "head": head, "faces_pair": faces_pair,
             "face_long": face_long, "kwargs": kwargs, "v_pair": (v_left, v_right),
@@ -1008,7 +1104,7 @@ def session_audio(rng, fs: int, seconds: float, f_base: float, turn_s: float,
 
 
 def extract_audio_checks(dev, card) -> dict:
-    """Step 16's audio: a 5-minute stereo session through
+    """Step 16's audio: a 2-minute stereo session through
     ``extract_prosodic_features`` (traced), ``extract_mfcc_to_frames`` and
     ``crosstalk_vad`` on the card, each held against the same function on
     the CPU; seconds per minute of audio and Viterbi's share of prosody."""
@@ -1278,7 +1374,8 @@ def extract_fit_checks(dev, card) -> dict:
 def extract_cli_checks(tmp, dev, card, head, emb, frames) -> dict:
     """Step 16's CLI leg: two sessions of CLI_SECONDS through the CLI's
     audio and voca stages with the synthetic head passed as ``assets``; the
-    participants' landmark fits (``fit_participant``, one chunk each) and
+    participants' landmark fits (``fit_participant``, one chunk each,
+    CLI_FIT_STEPS) and
     the combiner (``combine_corpus``) in memory; ``final_model`` trains 3
     steps from that corpus, and its checkpoint generates (the
     ``extract_train`` path's launches)."""
@@ -1359,8 +1456,11 @@ def extract_cli_checks(tmp, dev, card, head, emb, frames) -> dict:
             if n_params != n_frames:
                 fail(f"extract CLI: {n_params} voca flame_params files for {d}")
             # the fit is host-bound: one chunk of all the frames takes about
-            # the time of a chunk of 256
-            tf = flame_fit.fit_participant(d, EXTRACT_FPS, head, emb, batch_frames=n_frames)
+            # the time of a chunk of 256; CLI_FIT_STEPS (the fit's quality is
+            # the B=256 fit's above, at the CLI's 30 + 60)
+            tf = flame_fit.fit_participant(d, EXTRACT_FPS, head, emb, batch_frames=n_frames,
+                                           stage1_steps=CLI_FIT_STEPS[0],
+                                           stage2_steps=CLI_FIT_STEPS[1])
             fitted.setdefault(sess.name, {})[part] = tf
             params = {k[3:]: torch.as_tensor(v, device=dev) for k, v in tf.items()}
             targets = flame_fit.read_openface_targets(d, EXTRACT_FPS)
@@ -1479,12 +1579,12 @@ MODE_MAX_STEPS, MODE_RMS_STEPS = 4.0, 0.25
 # mean square of kernel - plain over the whole sequence is held to
 # SEQ_MODE_RATIO times the plain version's own float32 - float64.
 SEQ_MODE_RATIO = 3.0
-# The short A/B: 100 steps an epoch at B=256 (80 chunks of 400 frames give
-# 25,680 windows), a validation at the end of each; the bf16 arm's val NLL
+# The short A/B: 50 steps an epoch at B=256 (40 chunks of 400 frames give
+# 12,840 windows), a validation at the end of each; the bf16 arm's val NLL
 # within AB_REL of the f32 arm's at every shared validation. One epoch a
-# arm (three until steps 18-20 needed the time; the 5,000-step A/B is
-# precision_ab.py's).
-AB_STEPS, AB_CHUNKS, AB_REL = 100, 80, 0.02
+# arm (three until steps 18-20 needed the time, 100 steps until step 24
+# did; the 5,000-step A/B is precision_ab.py's).
+AB_STEPS, AB_CHUNKS, AB_REL = 50, 40, 0.02
 # The limits above bound a kernel's whole outputs but do not tell the modes
 # apart: after a few products a flip has spread as far as the other mode's
 # rounding would. A kernel's first step is one product deep (seq_bwd's
@@ -1508,8 +1608,10 @@ MODE_WEIGHT_BYTES = {"high": 4, "medium": 2}
 # the captured one, then three replays on fresh blocks, the last in the next
 # epoch at the next rate (the check's schedule steps the rate every epoch),
 # with a deranged step in a replay after the first required; then K_WARM
-# steps, K_WINDOW timed and K_WINDOW traced, each way once.
-K_DISPATCH, K_CHUNKS, K_CHECK, K_WARM, K_WINDOW = 5, 64, 25, 10, 10
+# steps (the eager block and the capture), K_WINDOW timed and K_WINDOW
+# traced, each way once (windows of 10 until the script's time limit needed
+# the time; a window is whole blocks of k).
+K_DISPATCH, K_CHUNKS, K_CHECK, K_WARM, K_WINDOW = 5, 64, 25, 10, 5
 
 
 def mode_check(name, got, ref, ref64, precision) -> tuple:
@@ -1844,10 +1946,13 @@ def kernels_at_modes(spec, hp, model, dev, out) -> tuple:
                        "plain_ms": time_ms(plain, 1, warmup=0)}
                 if lib is None:      # seq_bwd: the eager loop's autograd backward
                     row["library_ms"] = library_backward_ms(
-                        spec, model.flow, (xs_t, cs_t, st_t), cot, prec, reps)
+                        spec, model.flow, (xs_t, cs_t, st_t), cot, prec, reps,
+                        EAGER_RECAPTURE_WARMUP)
                 else:
                     with matmul_precision(prec):
-                        row["library_ms"] = time_ms(graphed(lib), reps)
+                        row["library_ms"] = time_ms(graphed(
+                            lib, EAGER_RECAPTURE_WARMUP if name == "seq_fwd" else 2),
+                            reps)
                 other = ""
                 if key in other_plans:
                     plan, fn = other_plans[key]
@@ -1868,11 +1973,23 @@ def kernels_at_modes(spec, hp, model, dev, out) -> tuple:
             del lib_a
     return errs, rows, controls
 
-def library_backward_ms(spec, flow, inputs, cot, prec, reps) -> float:
+# Warm-up calls before a CUDA graph captures the eager frame_fwd loop of a
+# library yardstick. Each costs seconds of host time at B=256, N=56 (an
+# eager forward and backward 8-15 s on the H100 machines' hosts). Step 11's
+# first capture takes one, which makes the lazy state a capture needs; the
+# later captures of the same loop (steps 17 and 18, other modes and shapes)
+# take none. (graphed's default 2 until the script's time limit needed the
+# time.)
+EAGER_WARMUP, EAGER_RECAPTURE_WARMUP = 1, 0
+
+
+def library_backward_ms(spec, flow, inputs, cot, prec, reps,
+                        warmup=EAGER_WARMUP) -> float:
     """The library yardstick of ``seq_bwd``: the eager ``frame_fwd`` loop's
     autograd backward (inputs and flow weights) under torch's ``prec``,
-    timed as a graphed forward + backward less the graphed forward with
-    autograd recording (as step 11 times it at "highest")."""
+    timed as a graphed forward + backward (``warmup`` eager calls before its
+    capture) less the graphed forward with autograd recording (its ops warm
+    by then)."""
     import torch
 
     from lets_face_it_tpu_torch.utils.precision import matmul_precision
@@ -1887,8 +2004,8 @@ def library_backward_ms(spec, flow, inputs, cot, prec, reps) -> float:
             return z, sc, ns
 
         return (time_ms(graphed(lambda: torch.autograd.grad(
-                    lib_forward(), lib_in + lib_w, cot)), reps)
-                - time_ms(graphed(lib_forward), reps))
+                    lib_forward(), lib_in + lib_w, cot), warmup), reps)
+                - time_ms(graphed(lib_forward, 0), reps))
 
 
 def shallow_check(name, prec, got, ref, others) -> tuple:
@@ -2043,7 +2160,7 @@ def precision_step(tmp, dev, card, records) -> dict:
                      ("cond_gates", "seq_fwd", "seq_bwd", "seq_rev", "sample_gates",
                       "sample_chain"))
     rel = ab["summary"]["delta_relative_by_step"]
-    if ab["summary"]["shared_val_steps"] != AB_STEPS // 100 or any(
+    if ab["summary"]["shared_val_steps"] != 1 or any(
             not math.isfinite(v) or abs(v) > AB_REL for v in rel.values()):
         fail(f"A/B: bf16 against f32 val NLL relative {rel} (limit {AB_REL})")
     out["ab"] = {k: ab[k] for k in ("summary", "arms", "fixture")}
@@ -2142,7 +2259,7 @@ def precision_step(tmp, dev, card, records) -> dict:
             ref = v.to(torch.bfloat16).float()
             if not torch.equal(got[kk].cpu().view(torch.int32), ref.view(torch.int32)):
                 fail(f"bf16 wire: batch {kk} differs from the bf16-rounded host batch")
-    trace = LoopTrace(3, 8)
+    trace = LoopTrace(3, 4)
     train_loop.train(hp_k, seed=SEED, max_steps=trace.max_steps, device="cuda",
                      corpus=corpus_k, verbose=False, step_hook=trace)
     window = trace.summary("train_loop_wire_bf16")
@@ -2207,12 +2324,14 @@ WIDE_SEQ_RATIO = 3.0
 # from global memory, the sequence kernel) and C = 54 at H = 512, K = 4
 # with an mlp own face (padded lanes, global memory, the per-frame kernel).
 # (Seed 1's three took 149 s, one plain trial at K x N = 1,024 83 s of it.)
-# 25 steps each on a
-# corpus of TUNE_CHUNKS train chunks of TUNE_FRAMES frames (at least 25
-# steps of 256 an epoch at every suggested seq_len, so each trial validates
-# once, at its end).
-TUNE_SEED, TUNE_TRIALS, TUNE_STEPS = 35, 3, 25
-TUNE_CHUNKS, TUNE_FRAMES = 40, 250
+# TUNE_STEPS steps each (25 on 40 chunks until the script's time limit
+# needed the time; the sampler's first 8 proposals are uniform, so the
+# trials' specs do not depend on their values) on a corpus of TUNE_CHUNKS
+# train chunks of TUNE_FRAMES frames (at least TUNE_STEPS steps of 256 an
+# epoch at every suggested seq_len, 30-90: 16 x 161 windows at 90, so each
+# trial validates once, at its end).
+TUNE_SEED, TUNE_TRIALS, TUNE_STEPS = 35, 3, 10
+TUNE_CHUNKS, TUNE_FRAMES = 16, 250
 # Step 20: data-parallel steps at final_model's B=256 against one process:
 # world size 1 over NCCL, world size 2 over gloo on the one card (NCCL
 # refuses two ranks on one device); step 10's limits.
@@ -2476,23 +2595,13 @@ def widened_step(tmp, dev, card, records) -> dict:
                 ms=time_ms(graphed(fwd_call), 3), wrapper_ms=time_ms(fwd_call, 3),
                 plain_ms=fwd_plain,
                 library_ms=time_ms(graphed(lambda: eager_flow_sequence(
-                    spec, model.flow, xs_l, cs, st_t)), 3),
+                    spec, model.flow, xs_l, cs, st_t), EAGER_RECAPTURE_WARMUP), 3),
                 **dict(zip(("bound_ms", "bound_by"), train_fwd_bound_ms(ks, tw, n_tr, b))))
             bwd_ms, bwd_wrap = time_ms(graphed(bwd_call), 3), time_ms(bwd_call, 3)
-        # the library backward: the eager loop's autograd backward, graphed
-        # forward + backward less the graphed forward
-        lib_in = [x.clone().requires_grad_() for x in (xs_l, cs, st_t)]
-        lib_wts = [p for n_, p in model.flow.named_parameters()
-                   if p.requires_grad and not n_.startswith("cond_proj")]
+        # the library backward: the eager loop's autograd backward
         cot_l = (unpad(cot[0]), cot[1][..., :c // 2], cot[2])
-
-        def lib_forward():
-            z_, _, ns, sc = eager_flow_sequence(spec, model.flow, *lib_in)
-            return z_, sc, ns
-
-        lib_bwd = (time_ms(graphed(lambda: torch.autograd.grad(
-            lib_forward(), lib_in + lib_wts, cot_l)), 3)
-                   - time_ms(graphed(lib_forward), 3))
+        lib_bwd = library_backward_ms(spec, model.flow, (xs_l, cs, st_t), cot_l,
+                                      "highest", 3, EAGER_RECAPTURE_WARMUP)
         rows["seq_bwd"] = dict(
             batch=b, frames=n_tr, max_abs_err=bwd_err, ms=bwd_ms, wrapper_ms=bwd_wrap,
             plain_ms=bwd_plain, library_ms=lib_bwd,
@@ -2629,8 +2738,10 @@ def _ddp_rank(rank, world, backend, port, inputs_path, out_path):
     torch.distributed.destroy_process_group()
 
 
-def ddp_step(tmp, dev, card) -> dict:
-    """Step 20: DDP_STEPS data-parallel steps at B=256 against one process."""
+def ddp_start(tmp, dev) -> dict:
+    """Step 20: DDP_STEPS data-parallel steps at B=256 against one process:
+    the process's own steps here, then both worlds' ranks started (they run
+    beside step 19's last trials; ``ddp_finish`` waits for them)."""
     import socket
 
     import numpy as np
@@ -2664,21 +2775,37 @@ def ddp_step(tmp, dev, card) -> dict:
     torch.save({"spec": spec, "hp": hp, "batches": batches}, inputs)
     out = {"reference_nll": want}
     ctx = mp.get_context("spawn")
+    # both worlds at once (one after the other until the script's time limit
+    # needed the time), each on a port of its own
+    worlds, spawned_at = {}, time.time()
     for world, backend in ((1, "nccl"), (2, "gloo")):
         with socket.socket() as s_:
             s_.bind(("localhost", 0))
             port = s_.getsockname()[1]
         result = Path(tmp) / f"ddp_{world}_{backend}.pt"
-        t0 = time.perf_counter()
         procs = [ctx.Process(target=_ddp_rank,
                              args=(r, world, backend, port, str(inputs), str(result)))
                  for r in range(world)]
         for p in procs:
             p.start()
-        for p in procs:
-            p.join(timeout=600)
-            if p.is_alive():
-                p.kill()
+        worlds[world, backend] = (procs, result)
+    return {"t20": t20, "worlds": worlds, "want": want, "want_params": want_params,
+            "out": out, "b": b, "spawned_at": spawned_at}
+
+
+def ddp_finish(runs, dev, card) -> dict:
+    """Step 20's check: each world's NLL and weights against one process's."""
+    import torch
+
+    worlds, want, want_params = runs["worlds"], runs["want"], runs["want_params"]
+    out, b = runs["out"], runs["b"]
+    deadline = runs["spawned_at"] + 600
+    for p in (p for procs, _ in worlds.values() for p in procs):
+        p.join(timeout=max(0.0, deadline - time.time()))
+        if p.is_alive():
+            p.kill()
+            p.join()
+    for (world, backend), (procs, result) in worlds.items():
         if any(p.exitcode != 0 for p in procs):
             fail(f"data parallel, world size {world} over {backend}: a rank exited "
                  f"{[p.exitcode for p in procs]}")
@@ -2697,12 +2824,14 @@ def ddp_step(tmp, dev, card) -> dict:
                  f"process's after {DDP_STEPS} steps (atol {CPU_PARAM_ATOL})")
         out[f"world{world}_{backend}"] = {
             "nll": got["nll"], "max_weight_diff": worst,
-            "launches": got["launches"], "seconds": time.perf_counter() - t0}
+            "launches": got["launches"],
+            # from the spawn to the result's write (the ranks' clock)
+            "seconds": result.stat().st_mtime - runs["spawned_at"]}
         print(f"step 20, world size {world} over {backend}: {DDP_STEPS} steps of "
               f"B={b} ({b // world} a rank) on {card}; NLL {got['nll']} against one "
               f"process's {want}; weights within {worst:.3e}; launches "
               f"{got['launches']}  ok")
-    out["step_s"] = time.perf_counter() - t20
+    out["step_s"] = time.perf_counter() - runs["t20"]
     return out
 
 
@@ -3081,7 +3210,7 @@ def table1_fired_step_check(hp, model, corpus, dev) -> dict:
     return err
 
 
-def table1_step(dev, card) -> dict:
+def table1_step(dev, card) -> tuple:
     """Step 22: the Table-1 path at a cut, with its launches (path
     ``table1``): (a) ``cond_gates``, ``seq_fwd`` and ``seq_bwd`` launched by
     each run; (b) ``table1_probe_check`` on final_model's trained weights;
@@ -3090,7 +3219,9 @@ def table1_step(dev, card) -> dict:
     alone, and a step fired iff its coin was below 0.1 with the gate read
     open before it; ``table1_fired_step_check`` on final_model's trained
     weights; (d) ``auto`` cached both splits of the cut corpus, and every
-    loss is finite."""
+    loss is finite. -> (the readings, the checks against the plain route:
+    (b) and the fired step of (c), which time nothing and so run later,
+    beside step 19's trials; they complete the readings)."""
     from lets_face_it_tpu_torch import ablation_table1 as table1
     from lets_face_it_tpu_torch import device_cache_scale_probe as scale
     from lets_face_it_tpu_torch import trick_gate_probe as gate
@@ -3125,10 +3256,6 @@ def table1_step(dev, card) -> dict:
     want = list(range(5 * TABLE1_VAL_EVERY, TABLE1_STEPS + 1, 5 * TABLE1_VAL_EVERY))
     if any(s != want for s in steps.values()):
         fail(f"step 22: validations at {steps}, expected {want} for every config")
-    # (b) the probes on the trained weights against the plain route
-    hp = table1.table1_hparams(load_hparams(final_yaml), TABLE1_VAL_EVERY)
-    probe_err = table1_probe_check(hp, states["final_model"].model, corpus, dev)
-    fired_err = table1_fired_step_check(hp, states["final_model"].model, corpus, dev)
     # (c) the gate
     fired, last = 0, math.inf
     for i, row in enumerate(per_step):
@@ -3161,9 +3288,24 @@ def table1_step(dev, card) -> dict:
                        for n, r in runs.items()},
            "gate": {"fired_steps": fired, "steps": len(per_step),
                     "validations": validations},
-           "probe_check": probe_err, "fired_step_check": fired_err,
            "scale": {k: v for k, v in scaled.items() if not k.startswith("mem_")},
            "step_s": step_s}
+    hp = table1.table1_hparams(load_hparams(final_yaml), TABLE1_VAL_EVERY)
+    trained = states["final_model"].model
+    del states, scaled
+    return out, lambda: table1_checks(out, hp, trained, corpus, dev, card, runs, want,
+                                      fired, launches)
+
+
+def table1_checks(out, hp, model, corpus, dev, card, runs, want, fired, launches):
+    """Step 22's checks against the plain route on final_model's trained
+    weights: (b) the probes, (c) a fired step; added to ``out``."""
+    t0 = time.perf_counter()
+    probe_err = table1_probe_check(hp, model, corpus, dev)
+    fired_err = table1_fired_step_check(hp, model, corpus, dev)
+    out.update(probe_check=probe_err, fired_step_check=fired_err,
+               checks_s=time.perf_counter() - t0)
+    scaled, corpus_s, step_s = out["scale"], out["corpus_s"], out["step_s"]
     print(f"step 22, the Table-1 path at a cut on {card}: {TABLE1_STEPS} steps of "
           f"final_model {runs['final_model']['wall_s']} s, no_nll_trick "
           f"{runs['no_nll_trick']['wall_s']} s (validations at {want}); the gate "
@@ -3175,7 +3317,135 @@ def table1_step(dev, card) -> dict:
           f"{scaled['train_split_gb']:.3f} + {scaled['val_split_gb']:.3f} GB by auto, "
           f"B=256 k=8 {scaled['b256_k8_steps_per_sec']:.3f} steps/s, peak reserved "
           f"{scaled['peak_gb']:.3f} GB of {scaled['hbm_limit_gb']:.3f}; launches {launches}; "
-          f"corpora {corpus_s:.1f} s; {step_s:.1f} s  ok")
+          f"corpora {corpus_s:.1f} s; {step_s:.1f} s and the checks "
+          f"{out['checks_s']:.1f} s  ok")
+
+
+# Step 24: the small replay fixture (tests/fixtures/torch_table1_replay_small.npz,
+# written by tests/test_torch_table1_replay.py --fixture): the JAX package's
+# seed-1234 start at a small width (C=16, K=3, H=16, cond 32; the tool's
+# settings, B=64), its draws for 24 steps (two fired: 21 and 22, 0-based),
+# its probe permutations at the validations of steps 18 and 24, and the JAX
+# package's own per-step NLL and gradient norm on the CPU, replayed through
+# ``train(replay=)`` on the card and on the CPU. Against the JAX record: the
+# branch of every step equal; the first step, which starts from the same
+# weights, at the three-step trajectory test's limits (NLL rtol 1e-5,
+# gradient norm rtol 1e-4); every later step at those limits or at
+# REPLAY_DRIFT times the port's own CPU replay's distance from the record
+# at that step, whichever is larger: the NLL here (about -60 bits) is a
+# small difference of terms of thousands of bits, so float32 rounding
+# carried through Adam (learning rate 1e-3 at this width) moves it by about
+# 2e-6 relative a step (4.9e-5 at step 24 on the CPU). Against the CPU
+# replay: step 10's limits (NLL rtol 1e-5 at the first step, then 1e-4;
+# gradient norm rtol 1e-4), each validation's val_loss at rtol 1e-4 and
+# each probe's gap at the sum of its two NLLs' limits.
+REPLAY_FIXTURE = REPO / "tests" / "fixtures" / "torch_table1_replay_small.npz"
+REPLAY_NLL_RTOL, REPLAY_GRAD_RTOL, REPLAY_DRIFT = 1e-5, 1e-4, 3.0
+
+
+def replay_step(dev, card) -> dict:
+    """Step 24 (path ``replay``): the fixture through ``train(replay=)`` on
+    the card (``cond_gates``, ``seq_fwd``, ``seq_bwd`` launched) and on the
+    CPU (one thread: small products), each step and validation held as the
+    comment above says."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from lets_face_it_tpu_torch import ablation_table1 as table1
+    from lets_face_it_tpu_torch.hparams import HParams
+    from lets_face_it_tpu_torch.train.loop import synthetic_corpus, train
+    from lets_face_it_tpu_torch.train.replay import Replay
+
+    t24 = time.perf_counter()
+    rep = Replay(REPLAY_FIXTURE)
+    ref = rep.reference()
+    if ref is None:
+        fail("step 24: the replay fixture holds no JAX record")
+    corpus = synthetic_corpus(HParams(**rep.meta["hparams"]), rep.seed)
+
+    def run(device):
+        rows, vals = [], {}
+        hp = HParams(**copy.deepcopy(rep.meta["hparams"]))
+        train(hp, seed=rep.seed, max_steps=rep.steps, device=device, corpus=corpus,
+              verbose=False, replay=rep,
+              step_hook=lambda s, m: rows.append([float(m[k]) for k in
+                                                  ("nll", "grad_norm", "deranged")]),
+              val_hook=lambda s, m: vals.setdefault(int(s), dict(m)))
+        return np.asarray(rows, np.float64), vals
+
+    reset_launches()
+    t_card = time.perf_counter()
+    gpu, gpu_vals = run(dev)
+    card_s = time.perf_counter() - t_card
+    launches = read_launches()
+    require_launches("replay", launches, table1.TRAINED_KERNELS)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        t_cpu = time.perf_counter()
+        cpu, cpu_vals = run(torch.device("cpu"))
+        cpu_s = time.perf_counter() - t_cpu
+    finally:
+        torch.set_num_threads(threads)
+    if gpu.shape != (rep.steps, 3) or not np.isfinite(gpu).all():
+        fail(f"step 24: {gpu.shape[0]} steps of {rep.steps}, or a non-finite metric")
+    fired = np.flatnonzero(ref["deranged"]).tolist()
+    if (not fired or gpu[:, 2].tolist() != ref["deranged"].tolist()
+            or cpu[:, 2].tolist() != ref["deranged"].tolist()):
+        fail(f"step 24: branches card {np.flatnonzero(gpu[:, 2]).tolist()}, CPU "
+             f"{np.flatnonzero(cpu[:, 2]).tolist()}, the JAX record {fired}")
+    err = {}
+    for col, key, rtol in ((0, "nll", REPLAY_NLL_RTOL), (1, "grad_norm", REPLAY_GRAD_RTOL)):
+        want = ref[key]
+        d_gpu = np.abs(gpu[:, col] - want) / np.abs(want)
+        d_cpu = np.abs(cpu[:, col] - want) / np.abs(want)
+        limit = np.maximum(rtol, REPLAY_DRIFT * d_cpu)
+        limit[0] = rtol
+        bad = np.flatnonzero(d_gpu > limit)
+        if bad.size:
+            i = int(bad[0])
+            fail(f"step 24: step {i + 1} {key} {gpu[i, col]} against the JAX "
+                 f"record's {want[i]}: {d_gpu[i]:.3e} relative, limit {limit[i]:.3e}")
+        step10 = np.full(rep.steps, CPU_NLL_RTOL if key == "nll" else REPLAY_GRAD_RTOL)
+        step10[0] = CPU_NLL_RTOL1 if key == "nll" else REPLAY_GRAD_RTOL
+        d_card_cpu = np.abs(gpu[:, col] - cpu[:, col]) / np.abs(cpu[:, col])
+        bad = np.flatnonzero(d_card_cpu > step10)
+        if bad.size:
+            i = int(bad[0])
+            fail(f"step 24: step {i + 1} {key} {gpu[i, col]} on the card against "
+                 f"{cpu[i, col]} on the CPU ({d_card_cpu[i]:.3e}, rtol {step10[i]})")
+        err[key] = {"jax_max_rel": float(d_gpu.max()), "jax_first_rel": float(d_gpu[0]),
+                    "cpu_jax_max_rel": float(d_cpu.max()),
+                    "card_cpu_max_rel": float(d_card_cpu.max())}
+    if sorted(gpu_vals) != sorted(cpu_vals) or sorted(gpu_vals) != rep.val_steps:
+        fail(f"step 24: validations {sorted(gpu_vals)} on the card, "
+             f"{sorted(cpu_vals)} on the CPU, the file's {rep.val_steps}")
+    val_err = 0.0
+    for step, want in cpu_vals.items():
+        got = gpu_vals[step]
+        scale = abs(want["val_loss"])
+        val_err = max(val_err, check_close(f"step 24: val_loss at {step}",
+                                           torch.tensor(got["val_loss"]),
+                                           torch.tensor(want["val_loss"]),
+                                           atol=0.0, rtol=CPU_NLL_RTOL))
+        for key in rep.meta["probes"]:
+            if abs(got[key] - want[key]) > 2 * CPU_NLL_RTOL * scale:
+                fail(f"step 24: {key} at {step}: {got[key]} on the card, "
+                     f"{want[key]} on the CPU (limit {2 * CPU_NLL_RTOL * scale})")
+    step_s = time.perf_counter() - t24
+    out = {"launches": launches, "fired": fired, "err": err, "val_err": val_err,
+           "validations": {s: {k: gpu_vals[s][k] for k in ["val_loss", table1.GAP_KEY]}
+                           for s in sorted(gpu_vals)},
+           "card_s": card_s, "cpu_s": cpu_s, "step_s": step_s}
+    print(f"step 24, the JAX start replayed ({rep.steps} steps at B={rep.batch_size}, "
+          f"fired {fired}, validations {rep.val_steps}) on {card}: the card against "
+          f"the JAX record {json.dumps(err)} (first step at NLL rtol {REPLAY_NLL_RTOL}, "
+          f"gradient norm {REPLAY_GRAD_RTOL}; later steps at {REPLAY_DRIFT} x the CPU "
+          f"replay's distance where larger); the card against the CPU replay at step "
+          f"10's limits, val_loss {val_err:.3e}; launches {launches}; card {card_s:.1f} s, "
+          f"CPU {cpu_s:.1f} s; {step_s:.1f} s  ok")
     return out
 
 
@@ -3313,7 +3583,10 @@ def main() -> int:
     import numpy as np
     import torch
 
+    build = BUILD or in_thread(timed_build)
     if not torch.cuda.is_available():
+        with contextlib.suppress(BaseException):
+            build()         # lets the nvcc processes it started end first
         fail("torch.cuda.is_available() is False; this script needs a GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3325,7 +3598,6 @@ def main() -> int:
     from lets_face_it_tpu_torch.hparams import load_hparams
     from lets_face_it_tpu_torch.model import seqglow
     from lets_face_it_tpu_torch.model.spec import FlowSpec
-    from lets_face_it_tpu_torch.ops import cuda_build
     from lets_face_it_tpu_torch.model.encoders import (MODALITY_ORDER,
                                                        frame_dropout_mask)
     from lets_face_it_tpu_torch.ops import flow_kernels as fk
@@ -3352,15 +3624,17 @@ def main() -> int:
           f"python {sys.version.split()[0]}")
 
     # -- 2. build ---------------------------------------------------------
-    t0 = time.perf_counter()
-    paths = cuda_build.build()
-    print(f"build: {time.perf_counter() - t0:.2f} s for {len(paths)} libraries")
+    paths, build_s = build()
+    print(f"build: {build_s:.2f} s for {len(paths)} libraries (started before the "
+          "imports)")
     for name, path in paths.items():
         log = path.with_suffix(".log")
         if log.exists():
             for line in log.read_text().splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"  {name}: {line.strip()}")
+
+    lap("1-2")
 
     with tempfile.TemporaryDirectory() as tmp:
         hp = load_hparams(REPO / "hparams" / "final_model.yaml", dataset_root=tmp)
@@ -3541,6 +3815,8 @@ def main() -> int:
             print(f"check seq_rev no_face P1=0 B=4 N={n_seq}: max|dx| {e_nf:.3e}  ok")
             del model_nf, w_nf
 
+        lap("3")
+
         # -- 4. the main path ---------------------------------------------
         ckpt = Path(tmp) / "final_model_random.pt"
         torch.save(state_dict_reference(model_gpu), ckpt)
@@ -3619,6 +3895,8 @@ def main() -> int:
                            s1_out[:SEQ_TIGHT], s1_ref[:SEQ_TIGHT])
         print(f"check streaming B=1 58 frames vs CPU plain path: max|d| first "
               f"{SEQ_TIGHT} {e_s8:.3e}, all {e_s:.3e}  ok")
+
+        lap("4-5")
 
         # -- 6. timings -----------------------------------------------------
         print(f"timings on {card} (CUDA events / host clock around "
@@ -3753,6 +4031,8 @@ def main() -> int:
                        if k not in ("batch", "own_face")},
                     by_batch=rows_))
 
+        lap("6")
+
         # -- 7. where the time goes ------------------------------------------
         print(f"profile on {card}: host wall per call without the profiler, "
               "device time from a torch.profiler trace of as many calls")
@@ -3763,120 +4043,127 @@ def main() -> int:
                                           PROFILE_CALLS)))
         print(json.dumps(trace_window(
             "generate_b1", lambda: gen.generate(frames, seed=SEED),
-            PROFILE_CALLS // 10)))
+            PROFILE_CALLS // 3)))
+
+        lap("7")
 
         # -- 8. training kernels against their plain versions; gradients --
+        # (checks only: they run beside steps 19 and 23, training_kernel_checks)
         if seqglow.training_path(spec) != "kernels":
             fail("final_model is outside the training kernels' envelope")
         b_tr = hp.batch_size
         n_tr = hp.Train["seq_len"] - spec.cond.longest_history
-        print(f"training tolerances: seq_fwd vs plain atol {TRAIN_VAL_ATOL} rtol "
-              f"{TRAIN_VAL_RTOL}; seq_bwd vs plain atol {TRAIN_BWD_ATOL} rtol "
-              f"{TRAIN_BWD_RTOL}; Function gradients vs eager autograd |diff| <= "
-              f"{GRAD_ATOL} + {GRAD_LEAF_RTOL} * max|leaf| (sums over N*B rows "
-              "in another order)")
 
         def train_inputs(b, n):
             return (torch.randn(n, b, c, generator=g, device=dev),
                     torch.randn(n, k_steps, b, cond, generator=g, device=dev),
                     0.3 * torch.randn(k_steps, b, h, generator=g, device=dev))
 
-        def flow_gradients(run, model_t, dtype, inputs):
-            """Loss and gradients on every trained flow leaf (but the unused
-            cond_proj) and on the three inputs, of ``run`` in ``dtype``."""
-            tree = {gn: {ln: p.detach().to(dtype).requires_grad_(p.requires_grad)
-                         for ln, p in grp.items()}
-                    for gn, grp in model_t.flow.items()}
-            names = [(gn, ln) for gn, grp in tree.items() for ln, p in grp.items()
-                     if p.requires_grad and gn != "cond_proj"]
-            xs_, cs_, st_ = (x.detach().to(dtype).requires_grad_() for x in inputs)
-            z, ld, ns, _ = run(spec, tree, xs_, cs_, st_)
-            loss = sequence_objective(z, ld, ns)
-            grads = torch.autograd.grad(loss, [tree[gn][ln] for gn, ln in names]
-                                        + [xs_, cs_, st_])
-            keys = [f"{gn}.{ln}" for gn, ln in names] + ["xs", "cond_seq", "states0"]
-            return loss.item(), dict(zip(keys, grads))
+        def training_kernel_checks():
+            """Step 8 -> (gates_err, fwd_err, bwd_err, gates_rms) by weight seed."""
+            print(f"training tolerances: seq_fwd vs plain atol {TRAIN_VAL_ATOL} rtol "
+                  f"{TRAIN_VAL_RTOL}; seq_bwd vs plain atol {TRAIN_BWD_ATOL} rtol "
+                  f"{TRAIN_BWD_RTOL}; Function gradients vs eager autograd |diff| <= "
+                  f"{GRAD_ATOL} + {GRAD_LEAF_RTOL} * max|leaf| (sums over N*B rows "
+                  "in another order)")
 
-        gates_err, fwd_err, bwd_err, grad_ratio, gates_rms = {}, {}, {}, {}, {}
-        for seed in TRAIN_SEEDS:
-            model_t = (model_gpu if seed == SEED
-                       else seeded_random_model(spec, seed).to(dev))
-            xs, cs, st0 = train_inputs(b_tr, n_tr)
-            with torch.no_grad():
-                tw = tk.prepare_train_weights(spec, model_t.flow)
-                gc_ref = tk.cond_gates_ref(spec, tw, cs)
-                gc_tc = tk.cond_gates(spec, tw, cs)
-                gates_err[seed] = max(check_close(
-                    f"cond_gates seed {seed} {plan} plan",
-                    tk.cond_gates(spec, tw, cs, plan=plan), gc_ref,
-                    TRAIN_VAL_ATOL, TRAIN_VAL_RTOL) for plan in tk.COND_GATES_PLANS)
-                gates_err[seed] = max(gates_err[seed], check_close(
-                    f"cond_gates seed {seed} launcher's plan", gc_tc, gc_ref,
-                    TRAIN_VAL_ATOL, TRAIN_VAL_RTOL))
-                # the launcher's plan against the float64 product (the simt
-                # plan gives the plain version's bits; the tc plan's 3xTF32,
-                # not taken at "highest", is read beside it)
-                gc_64 = tk.cond_gates_ref(spec, tk.TrainWeights(*(t.double() for t in tw)),
-                                          cs.double())
-                gates_rms[seed] = f64_rms_check(
-                    f"cond_gates seed {seed} {tk.cond_gates_plan(0)[0]} plan", gc_tc, gc_ref,
-                    gc_64)
-                gates_rms[seed]["tc_plan_3xtf32"] = f64_rms_check(
-                    f"cond_gates seed {seed} tc plan (3xTF32, not the launcher's)",
-                    tk.cond_gates(spec, tw, cs, plan="tc"), gc_ref, gc_64)["kernel"]
-                del gc_ref, gc_tc, gc_64
-                got = tk.seq_fwd(spec, tw, xs, cs, st0)
-                ref = tk.seq_fwd_ref(spec, tw, xs, cs, st0)
-                torch.cuda.synchronize()
-                fwd_err[seed] = max(
-                    check_close(f"seq_fwd seed {seed} {nm}", a, r,
-                                TRAIN_VAL_ATOL, TRAIN_VAL_RTOL)
-                    for nm, a, r in zip(("z", "scales", "zs_res", "states_res",
-                                         "gc"), got, ref))
-                _, scales_r, zs_res, st_res, gc = ref
-                hprev = torch.cat([st0[None], st_res[:-1]])
-                cot = (torch.randn(xs.shape, generator=g, device=dev),
-                       torch.randn(scales_r.shape, generator=g, device=dev),
-                       torch.randn(st0.shape, generator=g, device=dev))
-                got = tk.seq_bwd(spec, tw, gc, zs_res, hprev, *cot)
-                ref = tk.seq_bwd_ref(spec, tw, gc, zs_res, hprev, *cot)
-                torch.cuda.synchronize()
-                bwd_err[seed] = max(
-                    check_close(f"seq_bwd seed {seed} {nm}", a, r,
-                                TRAIN_BWD_ATOL, TRAIN_BWD_RTOL)
-                    for nm, a, r in zip(("dx", "dstates0", "dgi", "dghn", "dhout",
-                                         "dzb"), got, ref))
-            print(f"check cond_gates / seq_fwd / seq_bwd weights seed {seed} B={b_tr} "
-                  f"N={n_tr}: max|d| {gates_err[seed]:.3e} / {fwd_err[seed]:.3e} / "
-                  f"{bwd_err[seed]:.3e}  ok")
-            l_k, g_k = flow_gradients(tk.flow_sequence_fused, model_t,
-                                      torch.float32, (xs, cs, st0))
-            l_e, g_e = flow_gradients(eager_flow_sequence, model_t,
-                                      torch.float32, (xs, cs, st0))
-            l_64, g_64 = flow_gradients(eager_flow_sequence, model_t,
-                                        torch.float64, (xs, cs, st0))
-            grad_drift = {}
-            for name, ref in g_e.items():
-                scale = ref.abs().max().item()
-                err = (g_k[name].double() - ref.double()).abs().max().item()
-                limit = GRAD_ATOL + GRAD_LEAF_RTOL * scale
-                if not torch.isfinite(g_k[name]).all() or err > limit:
-                    fail(f"Function gradient {name} (weights seed {seed}): max|diff| "
-                         f"{err:.3e} > {limit:.3e} (max|ref| {scale:.3e})")
-                grad_ratio[seed, name] = err / limit
-                truth = g_64[name]
-                grad_drift[name] = [
-                    round((g_k[name].double() - truth).abs().max().item()
-                          / truth.abs().max().item(), 9),
-                    round((ref.double() - truth).abs().max().item()
-                          / truth.abs().max().item(), 9)]
-            print(f"check Function gradients vs eager autograd, weights seed {seed} "
-                  f"B={b_tr} N={n_tr}: loss {l_k:.6f} vs {l_e:.6f} (float64 "
-                  f"{l_64:.6f}); largest max|diff| / limit "
-                  f"{max(v for (s_, _), v in grad_ratio.items() if s_ == seed):.3f}  ok")
-            print("drift, not held (max|diff| / max|grad| against eager float64; "
-                  f"[kernels, eager float32]) seed {seed}: {json.dumps(grad_drift)}")
-            del model_t
+            def flow_gradients(run, model_t, dtype, inputs):
+                """Loss and gradients on every trained flow leaf (but the unused
+                cond_proj) and on the three inputs, of ``run`` in ``dtype``."""
+                tree = {gn: {ln: p.detach().to(dtype).requires_grad_(p.requires_grad)
+                             for ln, p in grp.items()}
+                        for gn, grp in model_t.flow.items()}
+                names = [(gn, ln) for gn, grp in tree.items() for ln, p in grp.items()
+                         if p.requires_grad and gn != "cond_proj"]
+                xs_, cs_, st_ = (x.detach().to(dtype).requires_grad_() for x in inputs)
+                z, ld, ns, _ = run(spec, tree, xs_, cs_, st_)
+                loss = sequence_objective(z, ld, ns)
+                grads = torch.autograd.grad(loss, [tree[gn][ln] for gn, ln in names]
+                                            + [xs_, cs_, st_])
+                keys = [f"{gn}.{ln}" for gn, ln in names] + ["xs", "cond_seq", "states0"]
+                return loss.item(), dict(zip(keys, grads))
+
+            gates_err, fwd_err, bwd_err, grad_ratio, gates_rms = {}, {}, {}, {}, {}
+            for seed in TRAIN_SEEDS:
+                model_t = (model_gpu if seed == SEED
+                           else seeded_random_model(spec, seed).to(dev))
+                xs, cs, st0 = train_inputs(b_tr, n_tr)
+                with torch.no_grad():
+                    tw = tk.prepare_train_weights(spec, model_t.flow)
+                    gc_ref = tk.cond_gates_ref(spec, tw, cs)
+                    gc_tc = tk.cond_gates(spec, tw, cs)
+                    gates_err[seed] = max(check_close(
+                        f"cond_gates seed {seed} {plan} plan",
+                        tk.cond_gates(spec, tw, cs, plan=plan), gc_ref,
+                        TRAIN_VAL_ATOL, TRAIN_VAL_RTOL) for plan in tk.COND_GATES_PLANS)
+                    gates_err[seed] = max(gates_err[seed], check_close(
+                        f"cond_gates seed {seed} launcher's plan", gc_tc, gc_ref,
+                        TRAIN_VAL_ATOL, TRAIN_VAL_RTOL))
+                    # the launcher's plan against the float64 product (the simt
+                    # plan gives the plain version's bits; the tc plan's 3xTF32,
+                    # not taken at "highest", is read beside it)
+                    gc_64 = tk.cond_gates_ref(spec, tk.TrainWeights(*(t.double() for t in tw)),
+                                              cs.double())
+                    gates_rms[seed] = f64_rms_check(
+                        f"cond_gates seed {seed} {tk.cond_gates_plan(0)[0]} plan", gc_tc, gc_ref,
+                        gc_64)
+                    gates_rms[seed]["tc_plan_3xtf32"] = f64_rms_check(
+                        f"cond_gates seed {seed} tc plan (3xTF32, not the launcher's)",
+                        tk.cond_gates(spec, tw, cs, plan="tc"), gc_ref, gc_64)["kernel"]
+                    del gc_ref, gc_tc, gc_64
+                    got = tk.seq_fwd(spec, tw, xs, cs, st0)
+                    ref = tk.seq_fwd_ref(spec, tw, xs, cs, st0)
+                    torch.cuda.synchronize()
+                    fwd_err[seed] = max(
+                        check_close(f"seq_fwd seed {seed} {nm}", a, r,
+                                    TRAIN_VAL_ATOL, TRAIN_VAL_RTOL)
+                        for nm, a, r in zip(("z", "scales", "zs_res", "states_res",
+                                             "gc"), got, ref))
+                    _, scales_r, zs_res, st_res, gc = ref
+                    hprev = torch.cat([st0[None], st_res[:-1]])
+                    cot = (torch.randn(xs.shape, generator=g, device=dev),
+                           torch.randn(scales_r.shape, generator=g, device=dev),
+                           torch.randn(st0.shape, generator=g, device=dev))
+                    got = tk.seq_bwd(spec, tw, gc, zs_res, hprev, *cot)
+                    ref = tk.seq_bwd_ref(spec, tw, gc, zs_res, hprev, *cot)
+                    torch.cuda.synchronize()
+                    bwd_err[seed] = max(
+                        check_close(f"seq_bwd seed {seed} {nm}", a, r,
+                                    TRAIN_BWD_ATOL, TRAIN_BWD_RTOL)
+                        for nm, a, r in zip(("dx", "dstates0", "dgi", "dghn", "dhout",
+                                             "dzb"), got, ref))
+                print(f"check cond_gates / seq_fwd / seq_bwd weights seed {seed} B={b_tr} "
+                      f"N={n_tr}: max|d| {gates_err[seed]:.3e} / {fwd_err[seed]:.3e} / "
+                      f"{bwd_err[seed]:.3e}  ok")
+                l_k, g_k = flow_gradients(tk.flow_sequence_fused, model_t,
+                                          torch.float32, (xs, cs, st0))
+                l_e, g_e = flow_gradients(eager_flow_sequence, model_t,
+                                          torch.float32, (xs, cs, st0))
+                l_64, g_64 = flow_gradients(eager_flow_sequence, model_t,
+                                            torch.float64, (xs, cs, st0))
+                grad_drift = {}
+                for name, ref in g_e.items():
+                    scale = ref.abs().max().item()
+                    err = (g_k[name].double() - ref.double()).abs().max().item()
+                    limit = GRAD_ATOL + GRAD_LEAF_RTOL * scale
+                    if not torch.isfinite(g_k[name]).all() or err > limit:
+                        fail(f"Function gradient {name} (weights seed {seed}): max|diff| "
+                             f"{err:.3e} > {limit:.3e} (max|ref| {scale:.3e})")
+                    grad_ratio[seed, name] = err / limit
+                    truth = g_64[name]
+                    grad_drift[name] = [
+                        round((g_k[name].double() - truth).abs().max().item()
+                              / truth.abs().max().item(), 9),
+                        round((ref.double() - truth).abs().max().item()
+                              / truth.abs().max().item(), 9)]
+                print(f"check Function gradients vs eager autograd, weights seed {seed} "
+                      f"B={b_tr} N={n_tr}: loss {l_k:.6f} vs {l_e:.6f} (float64 "
+                      f"{l_64:.6f}); largest max|diff| / limit "
+                      f"{max(v for (s_, _), v in grad_ratio.items() if s_ == seed):.3f}  ok")
+                print("drift, not held (max|diff| / max|grad| against eager float64; "
+                      f"[kernels, eager float32]) seed {seed}: {json.dumps(grad_drift)}")
+                del model_t
+            return gates_err, fwd_err, bwd_err, gates_rms
 
         # -- 9. the training main path --------------------------------------
         corpus = train_loop.synthetic_corpus(hp, SEED, n_train_chunks=TRAIN_CHUNKS)
@@ -3920,6 +4207,8 @@ def main() -> int:
         print(f"check training checkpoint -> Generator.from_checkpoint -> generate "
               f"{out_t.shape}  ok")
 
+        lap("9")
+
         # -- 10. GPU steps against the CPU plain path ------------------------
         train_ds, _ = train_loop.load_datasets(hp, corpus)
         batch_np = train_ds.get_batch(np.arange(CPU_BATCH))
@@ -3959,6 +4248,8 @@ def main() -> int:
         print(f"check GPU vs CPU plain path: nll rtol {CPU_NLL_RTOL1} (step 1) / "
               f"{CPU_NLL_RTOL}, weights max|d| {e_p:.3e} <= {CPU_PARAM_ATOL}  ok")
 
+        lap("10")
+
         # -- 11. training timings and profile ---------------------------------
         jb = train_loop.to_device(train_ds.get_batch(np.arange(b_tr)), dev)
         t_step = time_ms(lambda: train_state.train_step(spec, hp, state, jb), reps=3,
@@ -3997,21 +4288,10 @@ def main() -> int:
             lib_gates = time_ms(graphed(lambda: torch.baddbmm(lib_b, lib_a, lib_w)), 3)
             del lib_a
             lib_fwd = time_ms(graphed(lambda: eager_flow_sequence(
-                spec, flow_t, xs, cs, st0)), 3)
+                spec, flow_t, xs, cs, st0), EAGER_WARMUP), 3)
         # the library backward: the eager loop's autograd backward (inputs and
-        # flow weights), timed as graphed forward + backward less the graphed
-        # forward with autograd recording
-        lib_in = [x.clone().requires_grad_() for x in (xs, cs, st0)]
-        lib_w = [p for n, p in flow_t.named_parameters()
-                 if p.requires_grad and not n.startswith("cond_proj")]
-
-        def lib_forward():
-            z, _, ns, sc = eager_flow_sequence(spec, flow_t, *lib_in)
-            return z, sc, ns
-
-        lib_bwd = (time_ms(graphed(lambda: torch.autograd.grad(
-                       lib_forward(), lib_in + lib_w, cot)), 3)
-                   - time_ms(graphed(lib_forward), 3))
+        # flow weights)
+        lib_bwd = library_backward_ms(spec, flow_t, (xs, cs, st0), cot, "highest", 3)
         fwd_bound, fwd_by = train_fwd_bound_ms(spec, tw, n_tr, b_tr)
         bwd_bound, bwd_by = train_bwd_bound_ms(spec, tw, n_tr, b_tr)
         gates_bound, gates_by = cond_gates_bound_ms(spec, n_tr, b_tr)
@@ -4036,32 +4316,37 @@ def main() -> int:
                   f"{wrap:.4f} ms through the wrapper), plain {plain:.4f} ms, "
                   f"library (graphed frame_fwd loop, {lib_what}) {lib:.4f} ms, "
                   f"bound {bound:.4f} ms ({by})")
-        records.append(dict(
-            name="seq_fwd", route="cuda", source="lets_face_it_tpu_torch/csrc/seq_fwd.cu",
-            replaces="lets_face_it_tpu/ops/pallas_train.py:182",
-            launches=train_launches["seq_fwd"], max_abs_err=fwd_err[SEED], ms=fwd_ms,
-            gemm_ms=gemm_ms, serial_ms=serial_ms, serial_bound_ms=serial_bound,
-            wrapper_ms=fwd_wrap, plain_ms=fwd_plain, bound_ms=fwd_bound,
-            bound_by=fwd_by, library_ms=lib_fwd, batch=b_tr, frames=n_tr))
-        records.append(dict(
-            name="seq_bwd", route="cuda", source="lets_face_it_tpu_torch/csrc/seq_bwd.cu",
-            replaces="lets_face_it_tpu/ops/pallas_train.py:330",
-            launches=train_launches["seq_bwd"], max_abs_err=bwd_err[SEED], ms=bwd_ms,
-            wrapper_ms=bwd_wrap, plain_ms=bwd_plain, bound_ms=bwd_bound,
-            bound_by=bwd_by, library_ms=lib_bwd, batch=b_tr, frames=n_tr))
-        records.append(dict(
-            name="cond_gates", route="cuda",
-            source="lets_face_it_tpu_torch/csrc/cond_gates.cu",
-            replaces="lets_face_it_tpu/ops/pallas_train.py:241",
-            launches=train_launches["cond_gates"], max_abs_err=gates_err[SEED],
-            plan=tk.cond_gates_plan(0)[0], plans_ms=plans_ms,
-            rms_from_float64=gates_rms[SEED],
-            ms=gemm_ms, wrapper_ms=gates_wrap, plain_ms=gates_plain,
-            bound_ms=gates_bound, bound_by=gates_by, library_ms=lib_gates,
-            batch=b_tr, frames=n_tr))
+        # their max_abs_err (and the gates' rms_from_float64) come from step 8,
+        # which runs beside step 19
+        train_records = {
+            "seq_fwd": dict(
+                name="seq_fwd", route="cuda", source="lets_face_it_tpu_torch/csrc/seq_fwd.cu",
+                replaces="lets_face_it_tpu/ops/pallas_train.py:182",
+                launches=train_launches["seq_fwd"], max_abs_err=None, ms=fwd_ms,
+                gemm_ms=gemm_ms, serial_ms=serial_ms, serial_bound_ms=serial_bound,
+                wrapper_ms=fwd_wrap, plain_ms=fwd_plain, bound_ms=fwd_bound,
+                bound_by=fwd_by, library_ms=lib_fwd, batch=b_tr, frames=n_tr),
+            "seq_bwd": dict(
+                name="seq_bwd", route="cuda", source="lets_face_it_tpu_torch/csrc/seq_bwd.cu",
+                replaces="lets_face_it_tpu/ops/pallas_train.py:330",
+                launches=train_launches["seq_bwd"], max_abs_err=None, ms=bwd_ms,
+                wrapper_ms=bwd_wrap, plain_ms=bwd_plain, bound_ms=bwd_bound,
+                bound_by=bwd_by, library_ms=lib_bwd, batch=b_tr, frames=n_tr),
+            "cond_gates": dict(
+                name="cond_gates", route="cuda",
+                source="lets_face_it_tpu_torch/csrc/cond_gates.cu",
+                replaces="lets_face_it_tpu/ops/pallas_train.py:241",
+                launches=train_launches["cond_gates"], max_abs_err=None,
+                plan=tk.cond_gates_plan(0)[0], plans_ms=plans_ms, rms_from_float64=None,
+                ms=gemm_ms, wrapper_ms=gates_wrap, plain_ms=gates_plain,
+                bound_ms=gates_bound, bound_by=gates_by, library_ms=lib_gates,
+                batch=b_tr, frames=n_tr)}
+        records.extend(train_records.values())
         print(json.dumps(trace_window(
             f"train_step_b{b_tr}", lambda: train_state.train_step(spec, hp, state, jb),
             3)))
+
+        lap("11")
 
         # -- 12. sequence_invert ---------------------------------------------
         t_inv = hp.Validation["seq_len"]
@@ -4142,6 +4427,8 @@ def main() -> int:
             f"sequence_invert_b{INVERT_BATCH}", lambda: seqglow.sequence_invert(
                 spec, model_gpu, z_i, data_i, route="kernel"), 3)))
         del data_i, z_i
+
+        lap("12")
 
         # -- 13. run_test on the training checkpoint ---------------------------
         ckpt_t = CheckpointManager(ckpt_dir).latest()
@@ -4243,6 +4530,8 @@ def main() -> int:
         print(f"check run_test: {len(npz.files)} .npz keys as the JAX package names "
               f"them, all finite; per batch {per_batch}; evaluate_batch B="
               f"{rt_summary['batch']} {rt_ms:.3f} ms/batch on {card}  ok")
+
+        lap("13")
 
         # -- 14. the trainer with the device data cache off and on -------------
         hp_c = load_hparams(REPO / "hparams" / "final_model.yaml", dataset_root=tmp)
@@ -4357,6 +4646,8 @@ def main() -> int:
                                      "auto_budget_bytes": budget,
                                      "total_memory": total_mem}}))
 
+        lap("14")
+
         # -- 15. the render service and the study-stimulus path ----------------
         checked = render_checks(gen, tmp, dev)
         render_launches = checked["launches"]
@@ -4377,6 +4668,8 @@ def main() -> int:
         print(json.dumps({"render": {**readings, **render_times(checked, card)}}))
         del checked
 
+        lap("15")
+
         # -- 16. the extraction path, then training on what it wrote ----------
         t16 = time.perf_counter()
         extract = {"audio": extract_audio_checks(dev, card)}
@@ -4389,6 +4682,8 @@ def main() -> int:
         print(f"step 16 (extraction, CLI, training on its corpus): "
               f"{extract['step_s']:.1f} s on {card}")
 
+        lap("16")
+
         # -- 17. the precision modes, k steps a dispatch, the wire, the profiler
         modes = precision_step(tmp, dev, card, records)
         print(json.dumps({"precision": {k: v for k, v in modes.items()
@@ -4396,40 +4691,69 @@ def main() -> int:
         print(f"step 17 (precision modes, k-step graph, bf16 wire, profiler): "
               f"{modes['step_s']:.1f} s on {card}")
 
+        lap("17")
+
         # -- 18. the kernels at the widened specs -----------------------------
         wide = widened_step(tmp, dev, card, records)
         print(json.dumps({"widened": wide}))
         print(f"step 18 (widened kernels): {wide['step_s']:.1f} s on {card}")
 
-        # -- 23's two runs start here and go on beside 19 ----------------------
+        lap("18")
+
+        # -- 22. the Table-1 path; its checks against the plain route later ----
+        table1, table1_done = table1_step(dev, card)
+        lap("22")
+
+        # -- 23's two runs start here and go on beside 19, 8 and 22's checks --
         resume_runs = start_resume_runs(tmp)
 
-        # -- 19. tuning ---------------------------------------------------------
+        # -- 19. tuning, in a thread beside 8 -------------------------------------
         try:
-            tuning = tuning_step(tmp, dev, card)
+            tuning_done = in_thread(tuning_step, tmp, dev, card)
+            # -- 8. the training kernels' checks (no timings), beside 19 and 23
+            gates_err, fwd_err, bwd_err, gates_rms = training_kernel_checks()
+            lap("8")
+            table1_done()
+            print(json.dumps({"table1": table1}))
+            lap("22 checks")
+            # -- 23. kill and resume: the runs started before 19 ----------------
+            resumed = resume_step(tmp, card, resume_runs)
+            print(json.dumps({"resume": resumed}))
+            lap("23")
+            # -- 20's ranks start once 23's runs have handed back the card's
+            # memory, beside 19's last trials
+            ddp_runs = ddp_start(tmp, dev)
+            tuning = tuning_done()
         except BaseException:
             stop_resume_runs(resume_runs)
             raise
+        for name, err in (("seq_fwd", fwd_err), ("seq_bwd", bwd_err),
+                          ("cond_gates", gates_err)):
+            train_records[name]["max_abs_err"] = err[SEED]
+        train_records["cond_gates"]["rms_from_float64"] = gates_rms[SEED]
         print(json.dumps({"tuning": tuning}))
         print(f"step 19 (tuning, {TUNE_TRIALS} trials): {tuning['step_s']:.1f} s "
               f"on {card}")
 
-        # -- 23. kill and resume: the runs started before 19 -------------------
-        resumed = resume_step(tmp, card, resume_runs)
-        print(json.dumps({"resume": resumed}))
+        lap("19")
 
-        # -- 20. data parallelism -----------------------------------------------
-        ddp = ddp_step(tmp, dev, card)
+        # -- 20. data parallelism: its ranks' check ------------------------------
+        ddp = ddp_finish(ddp_runs, dev, card)
         print(json.dumps({"ddp": ddp}))
         print(f"step 20 (data parallel): {ddp['step_s']:.1f} s on {card}")
+
+        lap("20")
 
         # -- 21. the benchmark --------------------------------------------------
         benched = bench_step(dev, card)
         print(json.dumps({"bench": benched}))
 
-        # -- 22. the Table-1 path -----------------------------------------------
-        table1 = table1_step(dev, card)
-        print(json.dumps({"table1": table1}))
+        lap("21")
+
+        # -- 24. the JAX start replayed ---------------------------------------
+        replayed = replay_step(dev, card)
+        print(json.dumps({"replay": replayed}))
+        lap("24")
 
         paths = {"serving": launches, "training": train_launches,
                  "invert": invert_launches, "run_test": rt_launches,
@@ -4442,7 +4766,7 @@ def main() -> int:
                  **{f"ddp_{k}": v["launches"] for k, v in ddp.items()
                     if k.startswith("world")},
                  "bench": benched["launches"], "table1": table1["launches"],
-                 "resume": resumed["launches"]}
+                 "resume": resumed["launches"], "replay": replayed["launches"]}
         for rec in records:
             if "widened" in rec:
                 by_path = {f"widened {rec['widened']}":
@@ -4463,6 +4787,7 @@ def main() -> int:
                                  for p, v in modes["plans"].items()}}
                 rec["plans_by_path"] = {p: v[rec["name"]] for p, v in plan_paths.items()}
 
+    print(json.dumps({"step_wall_s": STEP_WALL}))
     print(f"total: {time.perf_counter() - t_all:.1f} s "
           f"({time.perf_counter() - T_START:.1f} s since the script's imports)")
     print(f"card: {card}")

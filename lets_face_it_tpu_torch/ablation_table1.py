@@ -4,7 +4,8 @@
     python -m lets_face_it_tpu_torch.ablation_table1 [--device cuda]
         [--max_steps 900] [--configs final_model,no_speech,no_face,no_nll_trick]
         [--seed 1234] [--seeds_extra 1235,1236] [--precision 16]
-        [--permutations 1] [--out runs/ablation_table1_torch.json]
+        [--permutations 1] [--replay PATH] [--reference PATH]
+        [--out runs/ablation_table1_torch.json]
 
 With the negative-NLL trick, deranging the interlocutor collapses the
 likelihood; without it the model trains as well but the gap nearly vanishes
@@ -33,6 +34,20 @@ same first val batch under P more permutations, the i-th seeded from
 (step, i) (``Validation.gap_permutations``), into the row's
 ``gap_p2_perms``: whether one probe's sign is the permutation's or the
 model's. The training is the same as with P = 1.
+
+``--replay PATH`` trains each config from a replay file
+(``train/replay.py``; ``{config}`` in PATH stands for the config's name,
+and without it only one config may be given): the initial weights, every
+step's draws and every validation's probe permutations are the file's
+(the JAX package's seed-1234 start, as
+``tests/test_torch_table1_replay.py --write`` exports it). Each record
+then also says ``"start": "jax"``, names the file and its seed, and keeps
+every step's ``deranged`` flag and NLL (``fired_steps``, numbered from 1
+as the step hook numbers them; ``step_nll``, ``step_grad_norm``: one host
+read a step). ``--reference PATH`` (a record
+of the JAX tool, ``runs/ablation_table1_jax_cpu.json``) puts that record's
+``val_loss`` and ``gap_p2`` beside each validation of the same step, with
+the differences (port - reference).
 ``tests/test_torch_ablation_table1.py`` pins the claims.
 """
 
@@ -110,7 +125,7 @@ def extreme_gap(curve: list) -> float:
 
 def run_config(name: str, *, max_steps: int = 900, device="cuda", seed: int = SEED,
                corpus=None, val_every: int = 20, hp=None, precision: int = 16,
-               permutations: int = 1):
+               permutations: int = 1, replay=None):
     """Train ``hparams/<name>.yaml`` (or ``hp``) with the tool's settings for
     ``max_steps`` steps on ``corpus`` (default: the seed-1234 fixture) ->
     (the config's record, the final TrainState). The record holds the
@@ -120,7 +135,10 @@ def run_config(name: str, *, max_steps: int = 900, device="cuda", seed: int = SE
     the training kernels' launches of the run and its steps per second: the
     steps between validations over the time from the first step's hook to
     the last one's, the device synchronised at both (the step's own hook
-    does not wait for the card)."""
+    does not wait for the card). With ``replay`` (a path), the run starts
+    from the file's weights and takes its draws (``train(replay=)``), and
+    the record also keeps each step's NLL, gradient norm and the steps that
+    trained on the deranged batch."""
     import torch
 
     from lets_face_it_tpu_torch.hparams import load_hparams
@@ -139,9 +157,19 @@ def run_config(name: str, *, max_steps: int = 900, device="cuda", seed: int = SE
     on_card = torch.device(device).type == "cuda"
     curve, windows = [], []
     start = None
+    per_step = {"step_nll": [], "step_grad_norm": [], "fired_steps": []}
+    if replay is not None:
+        from lets_face_it_tpu_torch.train.replay import open_replay
 
-    def on_step(step, _metrics):
+        replay = open_replay(replay)
+
+    def on_step(step, metrics):
         nonlocal start
+        if replay is not None:
+            per_step["step_nll"].append(float(metrics["nll"]))
+            per_step["step_grad_norm"].append(float(metrics["grad_norm"]))
+            if float(metrics["deranged"]) == 1.0:
+                per_step["fired_steps"].append(int(step))
         if start is None or step % period == 0:
             if on_card:
                 torch.cuda.synchronize()
@@ -168,7 +196,7 @@ def run_config(name: str, *, max_steps: int = 900, device="cuda", seed: int = SE
     t0 = time.perf_counter()
     state, _ = train(hp, seed=seed, max_steps=max_steps, device=device,
                      corpus=corpus, verbose=False, step_hook=on_step,
-                     val_hook=on_validation)
+                     val_hook=on_validation, replay=replay)
     wall = time.perf_counter() - t0
     record = {
         "config": name,
@@ -184,7 +212,23 @@ def run_config(name: str, *, max_steps: int = 900, device="cuda", seed: int = SE
         "extreme_gap_p2": extreme_gap(curve) if curve else None,
         "launches": {k: n - before[k] for k, n in kernel_launches().items()},
     }
+    if replay is not None:
+        record.update({"start": "jax", "replay": replay.path.name,
+                       "replay_seed": replay.seed, **per_step})
     return record, state
+
+
+def beside_reference(record: dict, reference: dict) -> None:
+    """Each validation of ``record`` with the reference record's
+    ``val_loss`` and ``gap_p2`` at the same step and the differences
+    (record - reference), in place; a step the reference lacks gets none."""
+    ref = {r["step"]: r for r in reference["curve"]}
+    for row in record["curve"]:
+        if row["step"] in ref:
+            want = ref[row["step"]]
+            row.update({"ref_val_loss": want["val_loss"], "ref_gap_p2": want["gap_p2"],
+                        "d_val_loss": row["val_loss"] - want["val_loss"],
+                        "d_gap_p2": row["gap_p2"] - want["gap_p2"]})
 
 
 def spread_row(record: dict) -> dict:
@@ -206,8 +250,19 @@ def main(argv=None) -> None:
     p.add_argument("--precision", type=int, choices=sorted(MATMUL), default=16)
     p.add_argument("--permutations", type=int, default=1,
                    help="p2 gaps under this many more permutations a validation")
+    p.add_argument("--replay", default=None,
+                   help="train from this replay file ({config} for the config's name)")
+    p.add_argument("--reference", default=None,
+                   help="a JAX tool record to put beside each validation")
     p.add_argument("--out", default=str(REPO / "runs" / "ablation_table1_torch.json"))
     args = p.parse_args(argv)
+    configs = args.configs.split(",")
+    if args.replay and (args.seeds_extra or ("{config}" not in args.replay
+                                             and len(configs) > 1)):
+        raise SystemExit("--replay takes one file a config ({config} in the path) "
+                         "and no --seeds_extra")
+    reference = (json.loads(Path(args.reference).read_text())
+                 if args.reference else None)
 
     from lets_face_it_tpu_torch.bench import machine
     from lets_face_it_tpu_torch.utils.device import resolve_device
@@ -227,17 +282,31 @@ def main(argv=None) -> None:
     if args.precision == 16:
         results["deviations"].append(
             "precision 16's eager products run at TF32 on the card")
+    if args.replay:
+        results.update(start="jax", replay=Path(args.replay).name)
+        results["deviations"].append(
+            "the initial weights, the step draws and the probe permutations are "
+            "the replay file's (the JAX package's), not the port's seeded "
+            "generators")
+    if reference is not None:
+        results["reference"] = {"file": Path(args.reference).name,
+                                "device": reference.get("device")}
     out_path = Path(args.out)
     out_path.parent.mkdir(parents=True, exist_ok=True)
 
     def save():   # partial results survive an interrupted later run
         out_path.write_text(json.dumps(results, indent=1) + "\n")
 
-    for name in args.configs.split(","):
+    for name in configs:
         print(f"=== {name} ===", flush=True)
-        results["configs"][name], _ = run_config(
+        replay = args.replay.format(config=name) if args.replay else None
+        record, _ = run_config(
             name, max_steps=args.max_steps, device=device, seed=args.seed,
-            precision=args.precision, permutations=args.permutations)
+            precision=args.precision, permutations=args.permutations,
+            replay=replay)
+        if reference is not None and name in reference["configs"]:
+            beside_reference(record, reference["configs"][name])
+        results["configs"][name] = record
         save()
     for seed in [int(s) for s in args.seeds_extra.split(",") if s]:
         for name in PAIR:

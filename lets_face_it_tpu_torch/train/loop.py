@@ -22,6 +22,11 @@ the p2 gap under P more permutations too), and the parameter histograms
 generators of its own, seeded from (seed, step), so it never moves the
 training trajectory.
 
+``replay`` (``train/replay.py``) runs from another run's start and draws:
+the initial weights come from the file, each step takes its draws from it,
+and each validation's wrong-context probes take its permutations; one step
+a call, and anything the file does not hold raises.
+
 Metrics go to stdout as JSON lines, and to TensorBoard (``tensorboardX``) and
 Comet where those import. ``hp.stall_timeout_s`` arms a watchdog that exits
 the process with code 17 when steps stop (``utils/watchdog.py``).
@@ -73,6 +78,7 @@ from lets_face_it_tpu_torch.model.seqglow import SeqGlow
 from lets_face_it_tpu_torch.model.spec import FlowSpec
 from lets_face_it_tpu_torch.parallel.mesh import replicate
 from lets_face_it_tpu_torch.train import metrics as train_metrics
+from lets_face_it_tpu_torch.train import replay as train_replay
 from lets_face_it_tpu_torch.train import state as train_state
 from lets_face_it_tpu_torch.train.checkpoint import (CheckpointManager,
                                                      restore_checkpoint)
@@ -273,12 +279,13 @@ def _seeded(seed: int, step: int, device) -> torch.Generator:
 def run_validation(spec: FlowSpec, hp: HParams, model: SeqGlow,
                    val_ds: WindowDataset, device, step: int, seed: int, *,
                    logger: MetricLogger | None = None, render_client=None,
-                   dev_batcher=None) -> dict:
+                   dev_batcher=None, replay=None) -> dict:
     """Val NLL over the whole split (batches in order, the last one ragged),
     then on its first batch: generation, jerk and a rendered video, the
     invertibility error, the wrong-context probes and the parameter
-    histograms, as ``hp.Validation`` switches them on. Logs to ``logger``
-    and returns the metrics (floats)."""
+    histograms, as ``hp.Validation`` switches them on. The probes'
+    permutations come from ``replay`` (a ``train/replay.py::Replay``) when
+    given. Logs to ``logger`` and returns the metrics (floats)."""
     val_cfg = hp.Validation
     total, n_batches, first = 0.0, 0, None
     for sel in val_ds.epoch_index_batches(hp.batch_size, shuffle=False):
@@ -309,8 +316,15 @@ def run_validation(spec: FlowSpec, hp: HParams, model: SeqGlow,
             out["reconstruction/error_percentage"] = float(
                 train_metrics.invertibility_error(spec, model, jb, z_seq, loss))
         if val_cfg.get("wrong_context_test", False) and hasattr(hp, "Mismatch"):
-            probes = train_metrics.wrong_context_probes(
-                spec, model, jb, loss, hp.Mismatch, _seeded(seed, step + 1, "cpu"))
+            if replay is not None:
+                b, t = jb["p1_face"].shape[:2]
+                probes = train_metrics.wrong_context_probes(
+                    spec, model, jb, loss, hp.Mismatch,
+                    permutations=replay.probe_permutations(step, b, t))
+            else:
+                probes = train_metrics.wrong_context_probes(
+                    spec, model, jb, loss, hp.Mismatch,
+                    _seeded(seed, step + 1, "cpu"))
             out.update({k: float(v) for k, v in probes.items()})
             n_perms = int(val_cfg.get("gap_permutations", 1) or 1)
             if n_perms > 1:
@@ -331,7 +345,7 @@ def train(hp: HParams, *, seed: int = 1234, ckpt_dir=None, log_dir=None,
           max_steps: int | None = None, device="cuda", corpus=None,
           resume_from=None, render_client=None, log_every: int = 10,
           verbose: bool = True, step_hook=None, val_hook=None,
-          profile_dir=None, mesh=None):
+          profile_dir=None, mesh=None, replay=None):
     """Full training run on ``device``. The data come from ``corpus`` (in
     memory) when given, else from the HDF5 store under ``hp.dataset_root``.
     ``resume_from`` (or ``hp.resume_from_checkpoint``): a checkpoint file, or
@@ -349,15 +363,18 @@ def train(hp: HParams, *, seed: int = 1234, ckpt_dir=None, log_dir=None,
     whose loss or gradient norm is not finite. ``mesh``: a
     ``parallel.mesh.Mesh``, to train data-parallel with its other ranks
     (``hp.batch_size`` the global batch, a multiple of their number; the
-    ranks run on the mesh's devices). Returns (final TrainState, best val
-    loss), the same on every rank."""
+    ranks run on the mesh's devices). ``replay``: a replay file's path (or
+    a ``train/replay.py::Replay``) whose initial weights, step draws and
+    probe permutations the run takes (one process, one step a call; a
+    step, a validation or a shape the file does not hold raises). Returns
+    (final TrainState, best val loss), the same on every rank."""
     with matmul_precision(training_precision(hp)):
         return _train(hp, seed=seed, ckpt_dir=ckpt_dir, log_dir=log_dir,
                       max_steps=max_steps, device=device, corpus=corpus,
                       resume_from=resume_from, render_client=render_client,
                       log_every=log_every, verbose=verbose,
                       step_hook=step_hook, val_hook=val_hook,
-                      profile_dir=profile_dir, mesh=mesh)
+                      profile_dir=profile_dir, mesh=mesh, replay=replay)
 
 
 def _on_main(mesh, fn, *args):
@@ -401,13 +418,24 @@ def _steps_per_dispatch(hp: HParams, dev_batcher, state) -> int:
 
 def _train(hp: HParams, *, seed, ckpt_dir, log_dir, max_steps, device, corpus,
            resume_from, render_client, log_every, verbose, step_hook,
-           val_hook, profile_dir, mesh):
+           val_hook, profile_dir, mesh, replay):
     device = resolve_device(device if mesh is None else mesh.device)
     is_main = mesh is None or mesh.is_main
     train_ds, val_ds = load_datasets(hp, corpus)
     spec = FlowSpec.build(hp)
     steps_per_epoch = max(train_ds.num_batches(hp.batch_size, drop_last=True), 1)
-    model = SeqGlow.init(spec, torch.Generator().manual_seed(seed)).to(device)
+    if replay is not None:
+        replay = train_replay.open_replay(replay)
+        if mesh is not None:
+            raise ValueError("a replayed run trains in one process")
+        if int(getattr(hp, "steps_per_dispatch", 1) or 1) > 1:
+            raise ValueError("a replayed run takes one step a call: "
+                             "steps_per_dispatch must be 1")
+        replay.check(spec, hp, hp.batch_size,
+                     train_ds.seq_len - spec.cond.longest_history, seed)
+        model = replay.model(spec).to(device)
+    else:
+        model = SeqGlow.init(spec, torch.Generator().manual_seed(seed)).to(device)
     state = train_state.TrainState.create(model, hp, steps_per_epoch, seed,
                                           mesh=mesh)
     if mesh is not None:
@@ -507,7 +535,10 @@ def _train(hp: HParams, *, seed, ckpt_dir, log_dir, max_steps, device, corpus,
                     if not actnorm_inited:
                         train_state.run_actnorm_init(spec, state, jb)
                         actnorm_inited = True
-                    m = train_state.train_step(spec, hp, state, jb)
+                    m = train_state.train_step(
+                        spec, hp, state, jb,
+                        draws=(replay.draws(state.step) if replay is not None
+                               else None))
                     j = 1
                 if terminate_on_nan:
                     check_finite(state.step, m)
@@ -534,7 +565,7 @@ def _train(hp: HParams, *, seed, ckpt_dir, log_dir, max_steps, device, corpus,
                 out = _on_main(mesh, lambda: run_validation(
                     spec, hp, state.model, val_ds, device, state.step, seed,
                     logger=logger, render_client=render_client,
-                    dev_batcher=val_batcher))
+                    dev_batcher=val_batcher, replay=replay))
                 best_val = min(best_val, out["val_loss"])
                 if val_hook is not None:
                     _on_main(mesh, val_hook, state.step, out)

@@ -35,21 +35,39 @@ def invertibility_error(spec, model, batch, z_seq, loss):
     return torch.abs((backward_loss + loss) / loss) * 100.0
 
 
+def probe_groups(mismatch_cfg: dict) -> list:
+    """[(metric name, modalities, shuffle_time)] of the configured
+    derangement groups, in the order ``wrong_context_probes`` computes them
+    (the batch-shuffled groups, then the time-shuffled ones)."""
+    return [(f"mismatched_nll/{kind}/{group}", modalities, shuffle_time)
+            for key, kind, shuffle_time in (("shuffle_batch", "shuffled_batch", False),
+                                            ("shuffle_time", "shuffled_time", True))
+            for group, modalities in mismatch_cfg.get(key, {}).items()]
+
+
 @torch.no_grad()
 def wrong_context_probes(spec, model, batch, base_loss, mismatch_cfg,
-                         generator: torch.Generator) -> dict:
+                         generator: torch.Generator | None = None, *,
+                         permutations: dict | None = None) -> dict:
     """NLL deltas for each configured derangement group
     (mimicry_logger.py:199-238): positive => the model prefers matched
-    conditioning. The permutations come from ``generator``."""
+    conditioning. The permutations come from ``generator``, or from
+    ``permutations`` ({metric name: (perm, time_perm or None)}, a replayed
+    run's; a group it lacks raises)."""
+    if (generator is None) == (permutations is None):
+        raise ValueError("give the probes a generator or their permutations")
     out = {}
-    for shuffle_time, groups in (
-            (False, mismatch_cfg.get("shuffle_batch", {})),
-            (True, mismatch_cfg.get("shuffle_time", {}))):
-        for group_name, modalities in groups.items():
-            deranged = derange.derange_batch(batch, modalities,
-                                             generator=generator,
+    for key, modalities, shuffle_time in probe_groups(mismatch_cfg):
+        if permutations is None:
+            deranged = derange.derange_batch(batch, modalities, generator=generator,
                                              shuffle_time=shuffle_time)
-            _, mismatched_loss, _ = seqglow.sequence_nll(spec, model, deranged)
-            kind = "shuffled_time" if shuffle_time else "shuffled_batch"
-            out[f"mismatched_nll/{kind}/{group_name}"] = base_loss - mismatched_loss
+        elif key not in permutations:
+            raise ValueError(f"no permutation for the probe {key}")
+        else:
+            perm, time_perm = permutations[key]
+            deranged = derange.derange_batch(batch, modalities, perm=perm,
+                                             time_perm=time_perm,
+                                             shuffle_time=shuffle_time)
+        _, mismatched_loss, _ = seqglow.sequence_nll(spec, model, deranged)
+        out[key] = base_loss - mismatched_loss
     return out
