@@ -119,13 +119,18 @@ sources in this checkout:
 18. the kernels at two specs of the JAX kernels' envelope that the
     final_model checks do not reach: C = 54 (each half of the coupling
     split padded from 27 to 28 lanes) and C = 54 at H = 512 (the chain's
-    weights read from global memory): each spec's path (2 steps, a
-    validation, 3 pushes) with its launches, then every kernel against its
-    plain twin at the final_model limits, timed beside the library call and
-    its bound (``cond_gates`` at every mode, as step 17 holds it, and against
-    the float64 product); the chain at C = 54, H = 128 also forced to global memory,
-    for its time beside the resident one's; one ``{"widened": ...}`` line
-    and a record per kernel and spec in the kernels' line.
+    streaming variant in a cluster of 16; seq_bwd's split plan): each
+    spec's path (2 steps, a validation, 3 pushes) with its launches, then
+    every kernel against its plain twin at the final_model limits, timed
+    beside the library call and its bound (``cond_gates`` at every mode, as
+    step 17 holds it, and against the float64 product), with the chain's
+    and seq_bwd's plans printed; the chain at C = 54, H = 128 also forced
+    to its streaming variant, for its time beside the resident one's; then
+    final widths at H = 256 (the chain resident in a cluster of 16): a step,
+    a validation and 3 pushes, ``frame_rev`` B=1 and 64, ``seq_rev`` B=1
+    and ``seq_bwd`` B=64 (the walk plan timed beside it), the same way; one
+    ``{"widened": ...}`` line and a record per kernel and spec in the
+    kernels' line.
 19. the hyperparameter search (``train/tuning.py``): ``Study.optimize`` on
     final_model over ``hparam_tuning_configs/large_hparam_search.py``, 3
     trials of 10 steps from a pinned seed, each in a spawned subprocess on
@@ -2303,13 +2308,16 @@ def precision_step(tmp, dev, card, records) -> dict:
 # Step 18: final_model at the widths of the JAX kernels' envelope that the
 # kernels take on padded lanes (C = 54: expression 48, each half of the
 # coupling split 27 -> 28) and whose chain weights overflow a cluster's
-# shared memory (H = 512, K = 16: the chain reads them from global memory).
+# shared memory (H = 512, K = 16: the chain's streaming variant).
 # Each spec's path (2 steps at B=WIDE_BATCH, a validation, 3 pushes) with
 # its launches, then every kernel against its plain twin at the limits of
 # the final_model checks above.
 WIDE_SPECS = (("C=54", {"expression_dim": 48}),
               ("C=54, H=512", {"expression_dim": 48, "hidden_channels": 512}))
 WIDE_BATCH = 64
+# Step 18's final widths at H = 256 (C = 56, K = 16): the chain's weights
+# resident in a cluster of 16, seq_bwd's split plan; its kernel rows only.
+WIDE_H256 = ("C=56, H=256", {"hidden_channels": 256})
 # The whole generated sequence of a widened spec against its plain twin:
 # SEQ_LOOSE_ATOL, or WIDE_SEQ_RATIO times the plain twin's own float32 -
 # float64 drift where the random flow amplifies rounding more than
@@ -2321,8 +2329,9 @@ WIDE_SEQ_RATIO = 3.0
 # 35 proposes one spec outside the JAX kernels' envelope (H = 64, K = 4: the
 # plain path, cheap at K x N = 52) and two inside it that need the widened
 # kernels: C = 34 at K = 32, H = 128 (padded lanes, the chain's weights
-# from global memory, the sequence kernel) and C = 54 at H = 512, K = 4
-# with an mlp own face (padded lanes, global memory, the per-frame kernel).
+# resident in a cluster of 16, the sequence kernel) and C = 54 at H = 512,
+# K = 4 with an mlp own face (padded lanes, the chain's streaming variant,
+# the per-frame kernel).
 # (Seed 1's three took 149 s, one plain trial at K x N = 1,024 83 s of it.)
 # TUNE_STEPS steps each (25 on 40 chunks until the script's time limit
 # needed the time; the sampler's first 8 proposals are uniform, so the
@@ -2382,12 +2391,14 @@ def widened_step(tmp, dev, card, records) -> dict:
                 seqglow.sampling_path(spec) != "sequence":
             fail(f"{label}: outside the kernels' envelope")
         resident = fk.chain_resident(spec)
+        placement = fk.chain_placement(spec)
         print(f"step 18, {label}: C={spec.channels} on the kernels' {ks.channels} "
               f"lanes, K={spec.n_steps} H={spec.hidden_channels} "
               f"cond={spec.cond.cond_dim}; chain weights "
               f"{fk.chain_step_bytes(spec) * spec.n_steps / 1e6:.2f} MB, "
-              f"{'resident in' if resident else 'read from global memory, over'} "
-              f"a cluster's shared memory")
+              f"{'resident in' if resident else 'partly streamed through'} "
+              f"a cluster of {placement[1]}'s shared memory ({placement[0]}); seq_bwd's "
+              f"{tk.seq_bwd_plan_name(spec)} plan")
 
         # the spec's path: 2 steps, a validation, 3 pushes
         corpus = train_loop.synthetic_corpus(hp, SEED, n_train_chunks=4,
@@ -2409,6 +2420,7 @@ def widened_step(tmp, dev, card, records) -> dict:
         torch.cuda.synchronize()
         launches = read_launches()
         require_launches(f"{label} path", launches, kernel_wrappers())
+        require_plan(f"{label} path", read_plans(), "seq_bwd", tk.seq_bwd_plan_name(spec))
         if not (math.isfinite(float(mets["loss"])) and math.isfinite(val["val_loss"])):
             fail(f"{label} path: loss {float(mets['loss'])}, val {val['val_loss']}")
         print(f"{label} path: 2 steps B={WIDE_BATCH}, a validation (val NLL "
@@ -2438,7 +2450,8 @@ def widened_step(tmp, dev, card, records) -> dict:
                       check_close(f"{label} frame_rev states", st_new, st_r))
             call = lambda: fk.frame_rev_fused(spec, w, z, projs, st)  # noqa: E731
             rows["frame_rev"] = dict(
-                batch=1, max_abs_err=err, ms=time_ms(graphed(call), 20),
+                batch=1, max_abs_err=err, chain_plan=fk.chain_plan(spec, 1),
+                ms=time_ms(graphed(call), 20),
                 wrapper_ms=time_ms(call, 20),
                 plain_ms=time_ms(lambda: fk.frame_rev_fused_ref(ks, w, pad(z), projs, st), 3),
                 library_ms=time_ms(graphed(lambda: library_frame_rev(
@@ -2500,6 +2513,7 @@ def widened_step(tmp, dev, card, records) -> dict:
                           for nm, a_, r_ in zip(("x", "states", "hist"), got, ref_c))
                 chain[place] = (err, time_ms(graphed(call), 20), time_ms(call, 20))
             plan = fk.chain_plan(spec, 1)
+            print(f"{label} chain plan at B=1: {json.dumps(plan)}")
             chain_plain = time_ms(lambda: fk.sample_chain_ref(ks, w, z_k, gc, gh, st, hist), 5)
             rows["sample_chain"] = dict(
                 batch=1, resident=resident, max_abs_err=chain[resident][0],
@@ -2507,8 +2521,8 @@ def widened_step(tmp, dev, card, records) -> dict:
                 plain_ms=chain_plain, library_ms=time_ms(graphed(
                     lambda: fk.sample_chain_ref(ks, w, z_k, gc, gh, st, hist)), 20),
                 plan=plan,
-                **({"global_memory_ms": chain[False][1],
-                    "global_memory_max_abs_err": chain[False][0]} if resident else {}),
+                **({"streaming_ms": chain[False][1],
+                    "streaming_max_abs_err": chain[False][0]} if resident else {}),
                 **dict(zip(("bound_ms", "bound_by"),
                            chain_bound_ms(ks, w, 1, ks.cond.p1_face.out_dim))))
 
@@ -2598,12 +2612,15 @@ def widened_step(tmp, dev, card, records) -> dict:
                     spec, model.flow, xs_l, cs, st_t), EAGER_RECAPTURE_WARMUP), 3),
                 **dict(zip(("bound_ms", "bound_by"), train_fwd_bound_ms(ks, tw, n_tr, b))))
             bwd_ms, bwd_wrap = time_ms(graphed(bwd_call), 3), time_ms(bwd_call, 3)
+            bwd_plan = tk.serial_plan("seq_bwd", ks, b)
+            print(f"{label} seq_bwd plan at B={b}: {json.dumps(bwd_plan)}")
         # the library backward: the eager loop's autograd backward
         cot_l = (unpad(cot[0]), cot[1][..., :c // 2], cot[2])
         lib_bwd = library_backward_ms(spec, model.flow, (xs_l, cs, st_t), cot_l,
                                       "highest", 3, EAGER_RECAPTURE_WARMUP)
         rows["seq_bwd"] = dict(
-            batch=b, frames=n_tr, max_abs_err=bwd_err, ms=bwd_ms, wrapper_ms=bwd_wrap,
+            batch=b, frames=n_tr, max_abs_err=bwd_err, plan=bwd_plan, ms=bwd_ms,
+            wrapper_ms=bwd_wrap,
             plain_ms=bwd_plain, library_ms=lib_bwd,
             **dict(zip(("bound_ms", "bound_by"), train_bwd_bound_ms(ks, tw, n_tr, b))))
         for name, row in rows.items():
@@ -2612,19 +2629,171 @@ def widened_step(tmp, dev, card, records) -> dict:
                                 source=f"lets_face_it_tpu_torch/{src}",
                                 replaces=f"lets_face_it_tpu/ops/{rep_}",
                                 launches=launches[name], **row))
-            extra = (f", global memory {row['global_memory_ms']:.4f} ms"
-                     if "global_memory_ms" in row else "")
+            extra = (f", streaming variant {row['streaming_ms']:.4f} ms"
+                     if "streaming_ms" in row else "")
             print(f"{label} {name} B={row['batch']}: max|d| {row['max_abs_err']:.3e}; "
                   f"kernel {row['ms']:.4f} ms (graph replay; {row['wrapper_ms']:.4f} "
                   f"through the wrapper){extra}, plain {row['plain_ms']:.4f} ms, "
                   f"library {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
                   f"({row['bound_by']})  ok")
         out[label] = {"launches": launches, "val_loss": val["val_loss"],
-                      "chain_resident": resident, "kernel_channels": ks.channels}
+                      "chain_resident": resident, "chain_placement": list(placement),
+                      "kernel_channels": ks.channels}
         del model, w, tw
         torch.cuda.empty_cache()
+    out[WIDE_H256[0]] = wide_h256_rows(tmp, dev, records)
     out["step_s"] = time.perf_counter() - t18
     return out
+
+
+def wide_h256_rows(tmp, dev, records) -> dict:
+    """Step 18 at final widths and H = 256 (``WIDE_H256``): one training
+    step, a validation and 3 pushes at B=1 (the launches), then the chain's
+    wide plan (the weights resident in a cluster of 16) through
+    ``frame_rev`` B=1 and 64 and ``seq_rev`` B=1 over a validation's
+    frames, and ``seq_bwd``'s split plan at B=WIDE_BATCH: each against its
+    plain twin at step 18's limits, timed beside its library call and
+    bound."""
+    import numpy as np
+    import torch
+
+    from lets_face_it_tpu_torch.model.spec import FlowSpec
+    from lets_face_it_tpu_torch.ops import flow_kernels as fk
+    from lets_face_it_tpu_torch.ops import train_kernels as tk
+    from lets_face_it_tpu_torch.sample.streaming import StreamingGenerator
+    from lets_face_it_tpu_torch.sample.weights import seeded_random_model
+    from lets_face_it_tpu_torch.train import loop as train_loop
+    from lets_face_it_tpu_torch.train import state as train_state
+
+    label, overrides = WIDE_H256
+    hp = _wide_hp(tmp, overrides)
+    spec = FlowSpec.build(hp)
+    ks = fk.kernel_spec(spec)
+    place, cluster = fk.chain_placement(spec)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=g, device=dev)
+
+    corpus = train_loop.synthetic_corpus(hp, SEED, n_train_chunks=4, n_val_chunks=1)
+    train_ds, val_ds = train_loop.load_datasets(hp, corpus)
+    model = seeded_random_model(spec, SEED).to(dev)
+    state = train_state.TrainState.create(model, hp, 3, SEED)
+    jb = train_loop.to_device(train_ds.get_batch(np.arange(WIDE_BATCH)), dev)
+    frame = {kk: jb[kk][:1, 0].cpu().numpy()
+             for kk in ("p2_face", "p1_speech", "p2_speech") if kk in jb}
+    reset_launches()
+    train_state.run_actnorm_init(spec, state, jb)
+    mets = train_state.train_step(spec, hp, state, jb)
+    val = train_loop.run_validation(spec, hp, model, val_ds, dev, 1, SEED)
+    s = StreamingGenerator(spec, model, batch_size=1, seed=SEED, device=dev)
+    for _ in range(3):
+        s.push(**frame)
+    torch.cuda.synchronize()
+    launches, plans = read_launches(), read_plans()
+    require_launches(f"{label} path", launches, ("frame_rev", "seq_rev", "cond_gates",
+                                                 "seq_fwd", "seq_bwd"))
+    require_plan(f"{label} path", plans, "seq_bwd", "split")
+    if not (math.isfinite(float(mets["loss"])) and math.isfinite(val["val_loss"])):
+        fail(f"{label} path: loss {float(mets['loss'])}, val {val['val_loss']}")
+    print(f"step 18, {label}: K={spec.n_steps} H={spec.hidden_channels}; the chain "
+          f"{place} in a cluster of {cluster}, seq_bwd {tk.seq_bwd_plan_name(spec)}; "
+          f"path: a step B={WIDE_BATCH}, a validation (val NLL {val['val_loss']:.3f}), "
+          f"3 pushes; launches {launches}")
+    del s, state
+
+    k_steps, c, h = spec.n_steps, spec.channels, spec.hidden_channels
+    cond, p1 = spec.cond.cond_dim, spec.cond.p1_face.out_dim
+    n_seq = hp.Validation["seq_len"] - spec.cond.longest_history
+    n_tr = hp.Train["seq_len"] - spec.cond.longest_history
+    rows = {}
+    with torch.no_grad():
+        w = fk.prepare_sampling_weights(spec, model.flow)
+        w_p1_t = model.flow["cond_proj"]["w"][:, :, :p1].transpose(1, 2).contiguous()
+        gru = {"w_ih": w.w_ih_t.transpose(1, 2).contiguous(),
+               "w_hh": w.w_hh_t.transpose(1, 2).contiguous(),
+               "b_ih": w.b_ih, "b_hh": w.b_hh}
+        for b in (1, WIDE_BATCH):
+            z, projs = randn(b, c), randn(k_steps, b, cond)
+            st = randn(k_steps, b, h, scale=0.5)
+            x, st_new = fk.frame_rev_fused(spec, w, z, projs, st)
+            x_r, st_r = fk.frame_rev_fused_ref(ks, w, z, projs, st)
+            err = max(check_close(f"{label} frame_rev B={b} x", x, x_r),
+                      check_close(f"{label} frame_rev B={b} states", st_new, st_r))
+            call = lambda: fk.frame_rev_fused(spec, w, z, projs, st)  # noqa: E731
+            rows[f"frame_rev B={b}"] = ("frame_rev", dict(
+                batch=b, max_abs_err=err, chain_plan=fk.chain_plan(spec, b),
+                ms=time_ms(graphed(call), 20), wrapper_ms=time_ms(call, 20),
+                plain_ms=time_ms(lambda: fk.frame_rev_fused_ref(ks, w, z, projs, st), 3),
+                library_ms=time_ms(graphed(lambda: library_frame_rev(
+                    ks, w, gru, z, projs, st)), 20),
+                **dict(zip(("bound_ms", "bound_by"), frame_bound_ms(ks, w, b)))))
+
+        zs, fixed = randn(n_seq, 1, c), randn(n_seq, k_steps, 1, cond)
+        hist0, st0 = randn(1, p1), torch.zeros(k_steps, 1, h, device=dev)
+        xs = fk.sequence_rev_fused(spec, w, w_p1_t, zs, fixed, hist0, st0)
+        ref_args = (ks, w, w_p1_t, zs, fixed, hist0, st0)
+        xs_r, seq_plain = timed(lambda: fk.sequence_rev_fused_ref(*ref_args))
+        xs_64 = fk.sequence_rev_fused_ref(ks, weights64(w), *(t.double() for t in ref_args[2:]))
+        check_close(f"{label} seq_rev first {SEQ_TIGHT} frames", xs[:SEQ_TIGHT],
+                    xs_r[:SEQ_TIGHT])
+        own = (xs_r.double() - xs_64).abs().max().item()
+        print(f"{label} seq_rev all {n_seq} frames: kernel vs plain "
+              f"{json.dumps(drift(xs, xs_r))}; plain float32 vs float64 "
+              f"{json.dumps(drift(xs_r, xs_64))}")
+        err = check_close(f"{label} seq_rev all frames", xs, xs_r,
+                          atol=max(SEQ_LOOSE_ATOL, WIDE_SEQ_RATIO * own), rtol=0.0)
+        call = lambda: fk.sequence_rev_fused(  # noqa: E731
+            spec, w, w_p1_t, zs, fixed, hist0, st0)
+        rows["seq_rev"] = ("seq_rev", dict(
+            batch=1, frames=n_seq, max_abs_err=err, chain_plan=fk.chain_plan(spec, 1),
+            ms=time_ms(graphed(call), 3, warmup=1), wrapper_ms=time_ms(call, 3, warmup=1),
+            plain_ms=seq_plain,
+            library_ms=time_ms(graphed(lambda: library_seq_rev(
+                ks, w, gru, *ref_args[2:])), 3, warmup=1),
+            **dict(zip(("bound_ms", "bound_by"), seq_bound_ms(ks, w, n_seq, 1)))))
+
+        b = WIDE_BATCH
+        tw = tk.TrainWeights(*(t.detach() for t in tk.prepare_train_weights(
+            spec, model.flow)))
+        xs_t = randn(n_tr, b, c)
+        cs, st_t = randn(n_tr, k_steps, b, cond), randn(k_steps, b, h, scale=0.3)
+        _, _, zs_res, st_res, gc_t = tk.seq_fwd(ks, tw, xs_t, cs, st_t)
+        hprev = torch.cat([st_t[None], st_res[:-1]])
+        cot = (randn(n_tr, b, c), randn(n_tr, k_steps, b, c // 2), randn(k_steps, b, h))
+        got = tk.seq_bwd(ks, tw, gc_t, zs_res, hprev, *cot)
+        ref, bwd_plain = timed(lambda: tk.seq_bwd_ref(ks, tw, gc_t, zs_res, hprev, *cot))
+        bwd_err = max(check_close(f"{label} seq_bwd {nm}", a_, r_,
+                                  TRAIN_BWD_ATOL, TRAIN_BWD_RTOL)
+                      for nm, a_, r_ in zip(("dx", "dstates0", "dgi", "dghn", "dhout",
+                                             "dzb"), got, ref))
+        bwd_call = lambda: tk.seq_bwd(ks, tw, gc_t, zs_res, hprev, *cot)  # noqa: E731
+        bwd_ms, bwd_wrap = time_ms(graphed(bwd_call), 3), time_ms(bwd_call, 3)
+        walk_ms = time_ms(graphed(lambda: tk.seq_bwd(ks, tw, gc_t, zs_res, hprev, *cot,
+                                                     plan="walk")), 3)
+    lib_bwd = library_backward_ms(spec, model.flow, (xs_t, cs, st_t), cot, "highest", 3,
+                                  EAGER_RECAPTURE_WARMUP)
+    rows["seq_bwd"] = ("seq_bwd", dict(
+        batch=b, frames=n_tr, max_abs_err=bwd_err, plan=tk.serial_plan("seq_bwd", ks, b),
+        ms=bwd_ms, wrapper_ms=bwd_wrap, walk_plan_ms=walk_ms, plain_ms=bwd_plain,
+        library_ms=lib_bwd,
+        **dict(zip(("bound_ms", "bound_by"), train_bwd_bound_ms(ks, tw, n_tr, b)))))
+    for key, (name, row) in rows.items():
+        src, rep_ = KERNEL_SOURCES[name]
+        records.append(dict(name=name, widened=label, route="cuda",
+                            source=f"lets_face_it_tpu_torch/{src}",
+                            replaces=f"lets_face_it_tpu/ops/{rep_}",
+                            launches=launches[name], **row))
+        extra = (f", the walk plan {row['walk_plan_ms']:.4f} ms"
+                 if "walk_plan_ms" in row else "")
+        print(f"{label} {key}: max|d| {row['max_abs_err']:.3e}; kernel {row['ms']:.4f} ms "
+              f"(graph replay; {row['wrapper_ms']:.4f} through the wrapper){extra}, plain "
+              f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']})  ok")
+    del model, w, tw
+    torch.cuda.empty_cache()
+    return {"launches": launches, "plans": plans, "val_loss": val["val_loss"],
+            "chain_placement": [place, cluster]}
 
 
 # The kernels' sources and the TPU kernels they replace.

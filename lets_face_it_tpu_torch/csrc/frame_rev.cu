@@ -11,8 +11,9 @@
 //      products at few rows, tensor-core tiles from 16 or 64 rows on);
 //   2. sample_chain.cuh: the serial chain of the K steps on a thread-block
 //      cluster whose shared memory holds the chain's weights (1.36 MB; where
-//      they do not fit, it reads them from global memory), launched to
-//      overlap the end of the gates.
+//      they do not fit, a cluster of 16 holds part of them and streams the
+//      rest through a ring of slots), launched to overlap the end of the
+//      gates.
 //
 // What bounds it on an H100: the weights are read once per frame (about
 // 16.6 MB for final_model, 5 us at 3.35 TB/s); the arithmetic is about
@@ -48,7 +49,7 @@ extern "C" int frame_rev_launch(
   cudaError_t err = flow_device(&d);
   if (err != cudaSuccess) return (int)err;
   ChainPlan plan;
-  if (!chain_plan_for(B, a, 0, 0, 0, CHAIN_WEIGHTS_AUTO, d, &plan))
+  if (!chain_plan_for(B, a, 0, 0, 0, 0, CHAIN_WEIGHTS_AUTO, d, &plan))
     return FLOW_ERR_PLAN;
   cudaStream_t st = (cudaStream_t)stream;
   err = sample_gates_enqueue(cond_projs, nullptr, nullptr, states, w_ih_t,
@@ -70,7 +71,7 @@ extern "C" int frame_rev_max_rows(int K, int C, int Z1, int H, int COUT,
   if (err != cudaSuccess) return (int)err;
   const auto plans = [&](int b) {
     ChainPlan plan;
-    return chain_plan(b, K, C, Z1, H, COUT, 0, 0, 0, CHAIN_WEIGHTS_AUTO, d,
+    return chain_plan(b, K, C, Z1, H, COUT, 0, 0, 0, 0, CHAIN_WEIGHTS_AUTO, d,
                       [&](const ChainPlan& p) { return chain_resident_bt(p, d); },
                       &plan);
   };

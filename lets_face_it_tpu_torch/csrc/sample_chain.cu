@@ -10,20 +10,19 @@
 // What bounds it on an H100: latency, K dependent steps of three dependent
 // products each (21 kFLOP a row and step); its 1.36 MB of weights are read
 // once a launch. Design (sample_chain.cuh): the weights resident in a
-// cluster's shared memory (or, where they do not fit, read from global
-// memory), each step on the block that holds it, the rows handed from
-// block to block by st.async.
+// cluster's shared memory (or, where they do not fit, partly resident and
+// partly streamed through a ring of shared-memory slots), each step on the
+// block that holds it, the rows handed from block to block by st.async.
 
-// This library alone compiles the probe's traced kernel and its clusters
-// above 8 (sample_chain.cuh).
+// This library alone compiles the probe's traced kernel (sample_chain.cuh).
 #define SAMPLE_CHAIN_PROBE
 #include "sample_chain.cuh"
 
 // z [B, C], gc and gh [K, B, 3H], states_in [K, B, H] -> x [B, C],
 // states_out [K, B, H] (may be states_in) and, when P1 > 0, hist_out
 // [B, P1] from hist_in; weights [K, chain_step_floats] as ChainArgs says.
-// bt, cs, m: rows per tile, blocks per cluster, tiles per cluster, 0 for the
-// plan's; place: where the weights are read (sample_chain.cuh::ChainWeights,
+// bt, cs, m, slots: rows per tile, blocks per cluster, tiles per cluster,
+// the streaming variant's ring slots, 0 for the plan's; place: where the weights are held (sample_chain.cuh::ChainWeights,
 // 0 for the plan's choice). trace: null, or [blocks, CHAIN_TRACE_SLOTS] device times of the
 // first tile (sample_chain.cuh::ChainArgs; at mode FLOW_F32 only). mode:
 // the matmul precision (flow_step.cuh::FlowPrecision). The launch is added to
@@ -32,8 +31,8 @@ extern "C" int sample_chain_launch(
     const float* z, const float* gc, const float* gh, const float* states_in,
     float* states_out, float* x_out, const float* hist_in, float* hist_out,
     const float* weights, int B, int P1, int K, int C, int Z1, int H, int COUT,
-    float scale_eps, int bt, int cs, int m, int place, unsigned long long* trace,
-    int mode, void* stream, int* launches) {
+    float scale_eps, int bt, int cs, int m, int slots, int place,
+    unsigned long long* trace, int mode, void* stream, int* launches) {
   ChainArgs a{weights, K, C, Z1, H, COUT, scale_eps, B, P1, z, gc, gh,
               states_in, states_out, x_out, hist_in, hist_out, 0, 0, 0, trace,
               mode};
@@ -42,16 +41,18 @@ extern "C" int sample_chain_launch(
   cudaError_t err = flow_device(&d);
   if (err != cudaSuccess) return (int)err;
   ChainPlan plan;
-  if (!chain_plan_for(B, a, bt, cs, m, place, d, &plan)) return FLOW_ERR_PLAN;
+  if (!chain_plan_for(B, a, bt, cs, m, slots, place, d, &plan)) return FLOW_ERR_PLAN;
   return (int)chain_enqueue(a, plan, d, (cudaStream_t)stream, &launches[1]);
 }
 
 // The plan the launcher would use for B rows, as out = {bt, cs, m,
 // clusters, blocks, shared bytes a block, clusters the device holds at
-// once, whether the weights are in shared memory}; non-zero if there is
-// none.
+// once, whether the weights are all resident, the placement
+// (sample_chain.cuh::ChainPlace), the ring's slots and bytes a slot};
+// non-zero if there is none.
 extern "C" int sample_chain_plan(int B, int K, int C, int Z1, int H, int COUT,
-                                 int bt, int cs, int m, int place, int* out) {
+                                 int bt, int cs, int m, int slots, int place,
+                                 int* out) {
   ChainArgs a{};
   a.B = B; a.K = K; a.C = C; a.Z1 = Z1; a.H = H; a.COUT = COUT;
   if (!chain_valid(a)) return FLOW_ERR_ARGS;
@@ -59,10 +60,13 @@ extern "C" int sample_chain_plan(int B, int K, int C, int Z1, int H, int COUT,
   cudaError_t err = flow_device(&d);
   if (err != cudaSuccess) return (int)err;
   ChainPlan plan;
-  if (!chain_plan_for(B, a, bt, cs, m, place, d, &plan)) return FLOW_ERR_PLAN;
+  if (!chain_plan_for(B, a, bt, cs, m, slots, place, d, &plan)) return FLOW_ERR_PLAN;
   out[0] = plan.bt; out[1] = plan.cs; out[2] = plan.m; out[3] = plan.clusters;
   out[4] = plan.clusters * plan.cs; out[5] = plan.smem_bytes;
   out[6] = chain_resident_bt(plan, d);
   out[7] = plan.resident;
+  out[8] = plan.place;
+  out[9] = plan.nslots;
+  out[10] = plan.slot_floats * 4;
   return 0;
 }

@@ -47,21 +47,41 @@
 // traps after 10 s (stream_watchdog) rather than hang the card.
 //
 // Where the K steps' chain weights do not fit the shared memory of one
-// cluster (at the final widths from H = 256 at K = 16 on: 157 KB a step at
-// H = 256, 300 KB at H = 512), the kernel runs a second plan of the same
-// function (RESIDENT = false): each step's weights are read from global
-// memory, where they stay in L2 (9.6 MB at H = 512, K = 32, of the H100's
-// 50 MB), and the shared memory holds only the tiles, the z buffers and
-// the gates. Everything else (the split of the steps over the ranks, the
-// hand-offs, the pipeline of tiles) is the same. The plan takes the
-// resident variant whenever it fits (chain_plan).
+// cluster of 8 (at the final widths from H = 256 at K = 16 on: 157 KB a step
+// at H = 256, 300 KB at H = 512), the plan first takes a cluster of 16
+// (non-portable on an H100; at H = 256, K = 16 each block then holds its one
+// step resident). Where a block cannot hold its steps even so (H = 512, or
+// K = 32 from H = 256), the kernel runs its streaming variant (STREAM):
+// every block keeps resident the part of its steps' weights that fits
+// (out_w_t[k], out_b[k], W^-1[k] and the actnorm: 128 KB a step at H = 512;
+// where even out_w_t does not fit, as at H = 1024 or at H = 512, K = 32, only
+// the last three) and streams the rest, w_ih_t[k][:Z1] (172 KB a step at
+// H = 512) and, in the second case, out_w_t[k], through a ring of NS slots
+// of whole interleaved row groups in the block's remaining shared memory.
+// One thread issues the copies (cp.async.bulk, completing on the slot's
+// "full" barrier) in the order the block consumes them: the first NS at
+// launch, so that they arrive while the earlier ranks compute, and each
+// further one as soon as every warp has released the slot it reuses
+// ("empty" barrier, one arrival a warp). The product that reads a streamed
+// matrix walks its chunks in that order: w_ih's with one GRU unit (two
+// from H = 513 on) a thread over all Z1 rows, four rows a 16-byte read,
+// and out_w's as the resident lanes do. The ring's depth bounds the bytes
+// in flight a block: at H = 512, K = 16, three slots of one 24-KB row group
+// each, 72 of a step's 172 KB ahead of the step. The plan takes the resident
+// variant whenever a cluster of 8, else of 16, holds the weights
+// (chain_plan); a spec that no plan fits is refused. Its defaults, from
+// probe_sampling_kernels.py --hidden_channels 512 --expression_dim 48 on an
+// H100 (PERF.md): a cluster of 16 and as many slots as fit; at B = 1 the
+// chain read 0.126 ms (2 slots 0.130; out_w_t streamed too in a cluster of
+// 8, 2 slots, 0.116, the least: a cluster holds 15 such at once, 7 of 16),
+// and at B = 128 a cluster of 16 read 0.246-0.315 ms against 0.291-0.390
+// in clusters of 8.
 //
 // Included by the launchers (frame_rev.cu, seq_rev.cu, sample_chain.cu).
 // Only a library that defines SAMPLE_CHAIN_PROBE before the include
 // (sample_chain.cu, which the probe and the checks call) compiles the
-// probe's extras: the kernel's traced instantiation (ChainArgs::trace) and
-// clusters above the portable 8. The launchers of the main paths compile
-// neither.
+// probe's traced instantiation (ChainArgs::trace); the launchers of the main
+// paths do not.
 
 #pragma once
 
@@ -80,7 +100,11 @@ namespace {
 constexpr int CHAIN_THREADS = 512;
 constexpr int CHAIN_MAX_HELD = 16;       // steps one block may hold
 constexpr int CHAIN_MAX_TILES = 32;      // row tiles per cluster (M)
-constexpr int CHAIN_MAX_CLUSTER = 16;    // above 8 non-portable: the probe's
+constexpr int CHAIN_MAX_CLUSTER = 16;    // above 8 non-portable
+constexpr int CHAIN_WIDE_CLUSTER = 16;   // where a cluster of 8 cannot hold the weights
+constexpr int CHAIN_MAX_SLOTS = 8;       // slots of the streaming variant's ring
+// the ring's barriers (full and empty, 8 bytes each a slot), in floats
+constexpr int CHAIN_RING_BAR_FLOATS = 4 * CHAIN_MAX_SLOTS;
 constexpr int CHAIN_BAR_FLOATS = 2 * (CHAIN_MAX_HELD + CHAIN_MAX_TILES);
 constexpr int CHAIN_PARTS_GRU = 4;      // slices of z1 @ w_ih_t[k][:Z1]
 constexpr int CHAIN_SLICES_OUT = 16;     // slices of h @ out_w_t[k]
@@ -127,6 +151,9 @@ struct ChainArgs {
   // operands of the three products are rounded as they are read, the
   // weights come rounded; the traced instantiation takes FLOW_F32 only
   int mode;
+  // the streaming variant's plan: out_w_t streamed too, ring slots, floats
+  // a slot
+  int stream_out, nslots, slot_floats;
 };
 
 constexpr int CHAIN_TRACE_SLOTS = 32;
@@ -147,6 +174,22 @@ __host__ __device__ inline int chain_smem_floats(int held, int step_floats,
                                                  int bt, int m, int C, int H) {
   return CHAIN_BAR_FLOATS + held * step_floats + m * round4(bt * C)
          + 2 * round4(bt * C) + round4(bt * H) + held * bt * 7 * H;
+}
+
+// Where a step's resident weights start in the streaming variant: out_w_t
+// onwards, or, with out_w_t streamed too, out_b onwards (the block holds
+// [r0, chain_step_floats) of each of its steps).
+__host__ __device__ inline int chain_stream_r0(int Z1, int H, int COUT, bool stream_out) {
+  const int o_wo = round_up(Z1, CHAIN_PARTS_GRU) * 3 * H;
+  return stream_out ? o_wo + round_up(H, CHAIN_SLICES_OUT) * COUT : o_wo;
+}
+
+// Floats of one streamed chunk unit: a row group of w_ih_t[k][:Z1] (its
+// CHAIN_PARTS_GRU interleaved rows) and, with out_w_t streamed, the larger
+// of that and a row group of out_w_t; a slot holds whole units.
+__host__ __device__ inline int chain_stream_unit(int H, int COUT, bool stream_out) {
+  const int gru = CHAIN_PARTS_GRU * 3 * H, out = CHAIN_SLICES_OUT * COUT;
+  return stream_out && out > gru ? out : gru;
 }
 
 __device__ __forceinline__ void bulk_copy_g2s(uint32_t dst, const void* src,
@@ -206,9 +249,10 @@ __device__ __forceinline__ void cluster_wait() {
 
 // TRACE: the probe's instantiation, which records ChainArgs::trace; the
 // main paths launch TRACE = false, which compiles no timestamp. MODE:
-// ChainArgs::mode. RESIDENT: the held steps' weights are copied into shared
-// memory once a launch (true), or read from global memory at each use.
-template <int BT, bool TRACE, int MODE, bool RESIDENT>
+// ChainArgs::mode. STREAM: the streaming variant (the held steps' weights
+// partly resident, the rest through the ring); else all of them are copied
+// into shared memory once a launch.
+template <int BT, bool TRACE, int MODE, bool STREAM>
 __global__ void __launch_bounds__(CHAIN_THREADS, 1)
 sample_chain_kernel(ChainArgs a) {
   extern __shared__ __align__(128) float csm[];
@@ -228,39 +272,101 @@ sample_chain_kernel(ChainArgs a) {
                                   : nullptr;
   if (TRACE && trace) trace[0] = global_ns();
 
+  // offsets in a step's weights
+  const int o_wo = ZQ * CHAIN_PARTS_GRU * G, o_ob = o_wo + HQ * CHAIN_SLICES_OUT * COUT,
+            o_wi = o_ob + round4(COUT), o_ab = o_wi + CQ * CHAIN_SLICES_MIX * C,
+            o_am = o_ab + round4(C);
+  // the part of a step held in shared memory: [r0, SF)
+  const bool stream_out = STREAM && a.stream_out;
+  const int r0 = STREAM ? chain_stream_r0(Z1, H, COUT, stream_out) : 0;
+  const int RF = SF - r0;
+
   const uint32_t bars = smem_u32(csm);
   const uint32_t wbar = bars;                             // [held]
   const uint32_t zbar = bars + 8 * CHAIN_MAX_HELD;        // [M]
-  float* wts = csm + CHAIN_BAR_FLOATS;                    // [held, SF] resident
-  float* zin = wts + (RESIDENT ? (size_t)held * SF : 0);  // [M, BT*C]
+  float* wts = csm + CHAIN_BAR_FLOATS;                    // [held, RF]
+  float* zin = wts + (size_t)held * RF;                   // [M, BT*C]
   const int zstride = round4(BT * C);
   float* zw0 = zin + (size_t)M * zstride;                 // [BT, C]
   float* zw1 = zw0 + zstride;                             // [BT, C]
   float* hb = zw1 + zstride;                              // [BT, H]
   float* pre = hb + round4(BT * H);                       // [held, BT, 2G + H]
   const int PR = 2 * G + H;                               // gc | gh | h_prev
-  // offsets in a step's weights
-  const int o_wo = ZQ * CHAIN_PARTS_GRU * G, o_ob = o_wo + HQ * CHAIN_SLICES_OUT * COUT,
-            o_wi = o_ob + round4(COUT), o_ab = o_wi + CQ * CHAIN_SLICES_MIX * C,
-            o_am = o_ab + round4(C);
+  // the streaming variant's ring: its barriers, then NS slots
+  float* ring_bars = pre + (size_t)held * BT * PR;
+  float* ring = ring_bars + CHAIN_RING_BAR_FLOATS;        // [NS, SLOT]
+  const uint32_t full = smem_u32(ring_bars);              // [NS]
+  const uint32_t empty = full + 8 * CHAIN_MAX_SLOTS;      // [NS]
+  const int NS = a.nslots, SLOT = a.slot_floats;
+  // the chunks the block consumes, in order: for each tile, for each held
+  // step, w_ih_t's row groups rz at a time (nz chunks), then, streamed too,
+  // out_w_t's ro at a time (no chunks)
+  const int ZU = CHAIN_PARTS_GRU * G, OU = CHAIN_SLICES_OUT * COUT;
+  const int rz = STREAM ? SLOT / ZU : 1, ro = stream_out ? SLOT / OU : 1;
+  const int nz = (ZQ + rz - 1) / rz, no = stream_out ? (HQ + ro - 1) / ro : 0;
+  const int per_step = nz + no, per_tile = held * per_step;
+  const int tiles = min(M, (a.B - crow0 + BT - 1) / BT);
+  const int chunks = STREAM ? tiles * per_tile : 0;
+  // chunk n into its slot (one thread)
+  auto issue = [&](int n) {
+    const int rem = n % per_tile, s = rem / per_step, c = rem % per_step;
+    const int k = K - 1 - (i0 + s);
+    const float* src = a.weights + (size_t)k * SF;
+    int units;
+    if (c < nz) {
+      src += (size_t)c * rz * ZU;
+      units = min(rz, ZQ - c * rz) * ZU;
+    } else {
+      src += o_wo + (size_t)(c - nz) * ro * OU;
+      units = min(ro, HQ - (c - nz) * ro) * OU;
+    }
+    const int slot = n % NS;
+    mbar_arrive_expect_tx(full + 8 * slot, (uint32_t)units * 4u);
+    bulk_copy_g2s(smem_u32(ring + (size_t)slot * SLOT), src, (uint32_t)units * 4u,
+                  full + 8 * slot);
+  };
+  // the consumers' side of chunk n: wait for it (all threads) ...
+  auto take = [&](int n) -> const float* {
+    const int slot = n % NS;
+    mbar_wait(full + 8 * slot, (uint32_t)(n / NS) & 1u);
+    return ring + (size_t)slot * SLOT;
+  };
+  // ... and release it: one arrival a warp; the issuing thread refills the
+  // slot with chunk n + NS once every warp has released it
+  auto give = [&](int n) {
+    const int slot = n % NS;
+    __syncwarp();
+    if ((tid & 31) == 0) mbar_arrive(empty + 8 * slot);
+    if (tid == 0 && n + NS < chunks) {
+      mbar_wait(empty + 8 * slot, (uint32_t)(n / NS) & 1u);
+      issue(n + NS);
+    }
+  };
+  int q = 0;   // the next chunk
 
   if (tid == 0) {
-    if (RESIDENT)
-      for (int s = 0; s < held; ++s) mbar_init(wbar + 8 * s, 1);
+    for (int s = 0; s < held; ++s) mbar_init(wbar + 8 * s, 1);
     for (int j = 0; j < M; ++j) mbar_init(zbar + 8 * j, 1);
+    for (int s = 0; STREAM && s < NS; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, CHAIN_THREADS / 32);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     // the incoming tiles: each barrier's one arrival, and the bytes expected
     if (rank > 0)
       for (int j = 0; j < M; ++j)
         mbar_arrive_expect_tx(zbar + 8 * j, (uint32_t)(BT * C * 4));
-    // this block's steps, one bulk copy and one barrier each
-    for (int s = 0; RESIDENT && s < held; ++s) {
+    // this block's steps (their resident part), one bulk copy and one
+    // barrier each
+    for (int s = 0; s < held; ++s) {
       const int k = K - 1 - (i0 + s);
       const uint32_t bar = wbar + 8 * s;
-      mbar_arrive_expect_tx(bar, (uint32_t)SF * 4u);
-      bulk_copy_g2s(smem_u32(wts + (size_t)s * SF), a.weights + (size_t)k * SF,
-                    (uint32_t)SF * 4u, bar);
+      mbar_arrive_expect_tx(bar, (uint32_t)RF * 4u);
+      bulk_copy_g2s(smem_u32(wts + (size_t)s * RF), a.weights + (size_t)k * SF + r0,
+                    (uint32_t)RF * 4u, bar);
     }
+    // the ring's first chunks
+    for (int c = 0; c < NS && c < chunks; ++c) issue(c);
   }
   __syncthreads();
   // Every block's barriers must be armed before a peer's first st.async into
@@ -283,12 +389,12 @@ sample_chain_kernel(ChainArgs a) {
       const int k = K - 1 - (i0 + s);
       float* dst = pre + (size_t)s * BT * PR;
       for (int u = tid; u < BT * PR / 4; u += CHAIN_THREADS) {
-        const int r = u / (PR / 4), q = 4 * (u - r * (PR / 4));
+        const int r = u / (PR / 4), q4 = 4 * (u - r * (PR / 4));
         const size_t row = (size_t)k * a.B + row0 + min(r, rows - 1);
-        const float* src = q < G ? a.gc + row * G + q
-                         : q < 2 * G ? a.gh + row * G + q - G
-                         : a.states_in + row * H + q - 2 * G;
-        cp_async16(dst + r * PR + q, src, r < rows);
+        const float* src = q4 < G ? a.gc + row * G + q4
+                         : q4 < 2 * G ? a.gh + row * G + q4 - G
+                         : a.states_in + row * H + q4 - 2 * G;
+        cp_async16(dst + r * PR + q4, src, r < rows);
       }
     }
     cp_async_commit();
@@ -313,9 +419,66 @@ sample_chain_kernel(ChainArgs a) {
 
     for (int s = 0; s < held; ++s) {
       const int k = K - 1 - (i0 + s);
-      const float* ws = RESIDENT ? wts + (size_t)s * SF : a.weights + (size_t)k * SF;
-      if (RESIDENT && j == 0) mbar_wait(wbar + 8 * s, 0);
+      // the step's weights, at their offsets within a whole step
+      const float* ws = wts + (size_t)s * RF - r0;
+      if (j == 0) mbar_wait(wbar + 8 * s, 0);
 
+      if constexpr (STREAM) {
+        // h = GRU(gc + z1 @ Wz, gh, h_prev), Wz streamed: a thread holds
+        // unit u (and u + CHAIN_THREADS) for all BT rows and all Z1 rows,
+        // four rows (one interleaved row group) a 16-byte read
+        float acc[2][3][BT];
+#pragma unroll
+        for (int p = 0; p < 2; ++p)
+#pragma unroll
+          for (int r = 0; r < BT; ++r) acc[p][0][r] = acc[p][1][r] = acc[p][2][r] = 0.0f;
+        for (int c = 0; c < nz; ++c, ++q) {
+          const float* chunk = take(q);
+          const int m0 = c * rz, m1 = min(ZQ, m0 + rz);
+          for (int m = m0; m < m1; ++m) {
+            const float4* wm = reinterpret_cast<const float4*>(chunk) + (m - m0) * G;
+#pragma unroll
+            for (int p = 0; p < 2; ++p) {
+              const int u = tid + p * CHAIN_THREADS;
+              if (u >= H) continue;
+              const float4 w0 = wm[u], w1 = wm[H + u], w2 = wm[2 * H + u];
+#pragma unroll
+              for (int r = 0; r < BT; ++r) {
+                const float4 x = round_operand<MODE>(
+                    *reinterpret_cast<const float4*>(cur + r * C + CHAIN_PARTS_GRU * m));
+                acc[p][0][r] = fmaf(x.x, w0.x, acc[p][0][r]);
+                acc[p][0][r] = fmaf(x.y, w0.y, acc[p][0][r]);
+                acc[p][0][r] = fmaf(x.z, w0.z, acc[p][0][r]);
+                acc[p][0][r] = fmaf(x.w, w0.w, acc[p][0][r]);
+                acc[p][1][r] = fmaf(x.x, w1.x, acc[p][1][r]);
+                acc[p][1][r] = fmaf(x.y, w1.y, acc[p][1][r]);
+                acc[p][1][r] = fmaf(x.z, w1.z, acc[p][1][r]);
+                acc[p][1][r] = fmaf(x.w, w1.w, acc[p][1][r]);
+                acc[p][2][r] = fmaf(x.x, w2.x, acc[p][2][r]);
+                acc[p][2][r] = fmaf(x.y, w2.y, acc[p][2][r]);
+                acc[p][2][r] = fmaf(x.z, w2.z, acc[p][2][r]);
+                acc[p][2][r] = fmaf(x.w, w2.w, acc[p][2][r]);
+              }
+            }
+          }
+          give(q);
+        }
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          const int u = tid + p * CHAIN_THREADS;
+          if (u >= H) continue;
+#pragma unroll
+          for (int r = 0; r < BT; ++r) {
+            const float* pr = pre + ((size_t)s * BT + r) * PR + u;
+            const float rg = sigmoidf_(pr[0] + acc[p][0][r] + pr[G]);
+            const float ug = sigmoidf_(pr[H] + acc[p][1][r] + pr[G + H]);
+            const float ng = tanhf(pr[2 * H] + acc[p][2][r] + rg * pr[G + 2 * H]);
+            const float h = (1.0f - ug) * ng + ug * pr[2 * G];
+            hb[r * H + u] = h;
+            if (r < rows) a.states_out[((size_t)k * a.B + row0 + r) * H + u] = h;
+          }
+        }
+      } else {
       // h = GRU(gc + z1 @ Wz, gh, h_prev): CHAIN_PARTS_GRU lanes a unit, each
       // an interleaved quarter of the Z1 rows for all BT rows; after the
       // butterfly every lane holds the sums, and lane p finishes rows p, p+4..
@@ -366,13 +529,15 @@ sample_chain_kernel(ChainArgs a) {
           }
         }
       }
+      }
       __syncthreads();
       if (TRACE && trace && j == 0 && s == 0) trace[CHAIN_TRACE_SLOTS - 2] = global_ns();
 
       // hout = h @ out_w_t + out_b, then the coupling: CHAIN_SLICES_OUT lanes
       // a pair (shift jj, scale jj), each a slice of H for all BT rows; lane
-      // r finishes row r
-      const float* wo = ws + o_wo;
+      // r finishes row r. Streamed, out_w_t comes in chunks of ro row groups
+      // (the plan keeps the pairs to one pass: CHAIN_SLICES_OUT * COUT / 2 <=
+      // CHAIN_THREADS).
       const float* ob = ws + o_ob;
       for (int base = 0; base < half * CHAIN_SLICES_OUT; base += CHAIN_THREADS) {
         const int job = base + tid;
@@ -381,9 +546,31 @@ sample_chain_kernel(ChainArgs a) {
         float sh[BT], sc[BT];
 #pragma unroll
         for (int r = 0; r < BT; ++r) sh[r] = sc[r] = 0.0f;
-        if (act) {
+        if (stream_out) {
+          for (int c = 0; c < no; ++c, ++q) {
+            const float* chunk = take(q);
+            if (act) {
+              // rows 16m + sl of the chunk's row groups [m0, m1)
+              const float* wj = chunk + jj * CHAIN_SLICES_OUT + sl;
+              const int m0 = c * ro, m1 = min(HQ, m0 + ro);
+#pragma unroll 1
+              for (int m = m0; m < m1; ++m) {
+                const int i = CHAIN_SLICES_OUT * m + sl;
+                const float* wm = wj + (m - m0) * CHAIN_SLICES_OUT * COUT;
+                const float w0 = wm[0], w1 = wm[CHAIN_SLICES_OUT * half];
+#pragma unroll
+                for (int r = 0; r < BT; ++r) {
+                  const float hv = i < H ? round_operand<MODE>(hb[r * H + i]) : 0.0f;
+                  sh[r] = fmaf(hv, w0, sh[r]);
+                  sc[r] = fmaf(hv, w1, sc[r]);
+                }
+              }
+            }
+            give(q);
+          }
+        } else if (act) {
           // rows 16m + sl
-          const float* wj = wo + jj * CHAIN_SLICES_OUT + sl;
+          const float* wj = ws + o_wo + jj * CHAIN_SLICES_OUT + sl;
 #pragma unroll 1
           for (int m = 0; m < HQ; ++m) {
             const int i = CHAIN_SLICES_OUT * m + sl;
@@ -472,18 +659,18 @@ sample_chain_kernel(ChainArgs a) {
       // hand the tile to the next rank
       const uint32_t dst = map_rank(smem_u32(zin + (size_t)j * zstride), rank + 1);
       const uint32_t bar = map_rank(zbar + 8 * j, rank + 1);
-      for (int q = tid; q < BT * C / 4; q += CHAIN_THREADS)
-        st_async_v4(dst + 16 * q, reinterpret_cast<const float4*>(cur)[q], bar);
+      for (int q4 = tid; q4 < BT * C / 4; q4 += CHAIN_THREADS)
+        st_async_v4(dst + 16 * q4, reinterpret_cast<const float4*>(cur)[q4], bar);
       if (TRACE && trace && j == 0) trace[3 + held] = global_ns();
     } else {
       for (int idx = tid; idx < rows * C; idx += CHAIN_THREADS)
         a.x_out[(size_t)row0 * C + idx] = cur[idx];
       const int P1 = a.P1;
       for (int idx = tid; idx < rows * P1; idx += CHAIN_THREADS) {
-        const int r = idx / P1, q = idx - r * P1;
+        const int r = idx / P1, q1 = idx - r * P1;
         a.hist_out[(size_t)row0 * P1 + idx] =
-            q < P1 - C ? a.hist_in[(size_t)row0 * P1 + idx + C]
-                       : cur[r * C + q - (P1 - C)];
+            q1 < P1 - C ? a.hist_in[(size_t)row0 * P1 + idx + C]
+                        : cur[r * C + q1 - (P1 - C)];
       }
     }
     __syncthreads();   // cur and the work buffers are free for the next tile
@@ -496,6 +683,12 @@ sample_chain_kernel(ChainArgs a) {
 // Host side: the launch plan
 // ---------------------------------------------------------------------------
 
+// Where a plan keeps the steps' weights (ChainPlan::place): all of them
+// resident, or the streaming variant with w_ih_t streamed, or with w_ih_t
+// and out_w_t streamed.
+enum ChainPlace { CHAIN_PLACE_RESIDENT = 0, CHAIN_PLACE_STREAM = 1,
+                  CHAIN_PLACE_STREAM_OUT = 2 };
+
 struct ChainPlan {
   int bt;           // rows per tile
   int cs;           // blocks per cluster
@@ -503,75 +696,134 @@ struct ChainPlan {
   int clusters;
   int step_floats;
   int smem_bytes;
-  bool resident;    // the weights in shared memory (else read from global)
+  bool resident;    // place == CHAIN_PLACE_RESIDENT
+  int place;        // ChainPlace
+  int nslots;       // the streaming variant's ring: slots
+  int slot_floats;  // and floats a slot
 };
 
-inline int chain_smem_bytes(int K, int C, int Z1, int H, int COUT, int bt,
-                            int cs, int m, bool resident) {
+// The shared memory (bytes) of a block of `place` holding its steps for
+// BT-row tiles, M of them, in a cluster of cs; the streaming variant's ring
+// takes the rest of max_smem, *nslots slots of *slot floats (slots_req, or
+// 0 for as many as fit, at most CHAIN_MAX_SLOTS; each of whole chunk
+// units). False if the block does not fit (the ring: fewer than two slots)
+// or the variant does not take the shape: one or two GRU units a thread,
+// the coupling's pairs in one pass, at most 4 rows a tile.
+inline bool chain_block(int K, int C, int Z1, int H, int COUT, int bt, int cs,
+                        int m, int place, int slots_req, int max_smem, int* smem,
+                        int* nslots, int* slot) {
   const int held = (K + cs - 1) / cs;
-  return 4 * chain_smem_floats(held, resident ? chain_step_floats(C, Z1, H, COUT) : 0,
-                               bt, m, C, H);
+  const int SF = chain_step_floats(C, Z1, H, COUT);
+  *nslots = *slot = 0;
+  if (place == CHAIN_PLACE_RESIDENT) {
+    *smem = 4 * chain_smem_floats(held, SF, bt, m, C, H);
+    return *smem <= max_smem;
+  }
+  const bool out = place == CHAIN_PLACE_STREAM_OUT;
+  if (H > 2 * CHAIN_THREADS || CHAIN_SLICES_OUT * (COUT / 2) > CHAIN_THREADS || bt > 4)
+    return false;
+  const int fixed = chain_smem_floats(held, SF - chain_stream_r0(Z1, H, COUT, out),
+                                      bt, m, C, H) + CHAIN_RING_BAR_FLOATS;
+  const int unit = chain_stream_unit(H, COUT, out);
+  const int avail = max_smem / 4 - fixed;
+  int n = avail > 0 ? avail / unit : 0;
+  if (n > CHAIN_MAX_SLOTS) n = CHAIN_MAX_SLOTS;
+  if (slots_req) {
+    if (slots_req > n) return false;
+    n = slots_req;
+  }
+  if (n < 2) return false;
+  *nslots = n;
+  *slot = avail / n / 4 * 4;
+  *smem = 4 * (fixed + n * *slot);
+  return true;
 }
 
 // Where the weights go, as a launcher's caller asks: the plan's choice,
-// shared memory, or global memory.
+// all resident in shared memory, or the streaming variant.
 enum ChainWeights { CHAIN_WEIGHTS_AUTO = 0, CHAIN_WEIGHTS_SHARED = 1,
-                    CHAIN_WEIGHTS_GLOBAL = 2 };
+                    CHAIN_WEIGHTS_STREAMED = 2 };
 
-// Plans a launch for B rows: bt, cs and m as asked, 0 for the defaults
-// (cs: CHAIN_DEFAULT_CLUSTER, or K if that is less); the weights where
-// `place` (ChainWeights) asks, by default in shared memory where a block of
-// one row of the plan holds its steps' weights, else in global memory. A
-// default tile is
-// one row (a tile's steps take about as long for one row as for a few, and
-// a cluster pipelines its tiles), doubled while the rows would need more
-// than CHAIN_MAX_TILES tiles in each of the clusters the device holds at
-// once (`resident(plan)`); the default m is the least that lets every
-// cluster be resident at once. Returns false if the block does not fit or a
-// value is out of range.
+// Plans a launch for B rows: bt, cs, m and the streaming variant's ring
+// slots as asked, 0 for the defaults; the
+// weights where `place` (ChainWeights) asks, by default resident in a
+// cluster of CHAIN_DEFAULT_CLUSTER (or K if that is less) where a block of
+// one row of the plan holds its steps' weights, else resident in a cluster
+// of CHAIN_WIDE_CLUSTER (or K), else the streaming variant in such a
+// cluster, with w_ih_t streamed, else with out_w_t streamed too (a cs asked
+// for replaces both clusters). A default tile is one row (a tile's steps
+// take about as long for one row as for a few, and a cluster pipelines its
+// tiles), doubled (to 8 rows resident, 4 streaming) while the rows would
+// need more than CHAIN_MAX_TILES tiles in each of the clusters the device
+// holds at once (`resident(plan)`); the default m is the least that lets
+// every cluster be resident at once. Returns false if no block fits, a value
+// is out of range, or the device holds no cluster of the plan: there is no
+// other plan to fall back on.
 template <typename Resident>
 inline bool chain_plan(int B, int K, int C, int Z1, int H, int COUT,
-                       int bt_req, int cs_req, int m_req, int place,
+                       int bt_req, int cs_req, int m_req, int slots_req, int place,
                        const FlowDevice& d, Resident resident, ChainPlan* plan) {
-  int cs = cs_req ? cs_req : CHAIN_DEFAULT_CLUSTER;
-  if (cs > K) cs = K;
-  int bt = bt_req ? bt_req : 1;
-  if (cs < 1 || cs > CHAIN_MAX_CLUSTER || bt < 1 || bt > FLOW_MAX_BT
-      || (K + cs - 1) / cs > CHAIN_MAX_HELD || m_req < 0 || m_req > CHAIN_MAX_TILES
-      || place < CHAIN_WEIGHTS_AUTO || place > CHAIN_WEIGHTS_GLOBAL)
+  if (cs_req < 0 || cs_req > CHAIN_MAX_CLUSTER || bt_req < 0 || bt_req > FLOW_MAX_BT
+      || m_req < 0 || m_req > CHAIN_MAX_TILES || slots_req < 0
+      || slots_req > CHAIN_MAX_SLOTS
+      || place < CHAIN_WEIGHTS_AUTO || place > CHAIN_WEIGHTS_STREAMED)
     return false;
+  int narrow = cs_req ? cs_req : CHAIN_DEFAULT_CLUSTER;
+  int wide = cs_req ? cs_req : CHAIN_WIDE_CLUSTER;
+  if (narrow > K) narrow = K;
+  if (wide > K) wide = K;
+  struct Candidate { int cs, place; } cands[4];
+  int n_cands = 0;
+  if (place != CHAIN_WEIGHTS_STREAMED) {
+    cands[n_cands++] = {narrow, CHAIN_PLACE_RESIDENT};
+    if (wide != narrow) cands[n_cands++] = {wide, CHAIN_PLACE_RESIDENT};
+  }
+  if (place != CHAIN_WEIGHTS_SHARED) {
+    cands[n_cands++] = {wide, CHAIN_PLACE_STREAM};
+    cands[n_cands++] = {wide, CHAIN_PLACE_STREAM_OUT};
+  }
+  int bt = bt_req ? bt_req : 1;
+  const int m0 = m_req ? m_req : 1;
+  bool found = false;
+  for (int i = 0; i < n_cands && !found; ++i) {
+    const int cs = cands[i].cs;
+    if (cs < 1 || (K + cs - 1) / cs > CHAIN_MAX_HELD) continue;
+    if (chain_block(K, C, Z1, H, COUT, bt, cs, m0, cands[i].place, slots_req,
+                    d.max_smem, &plan->smem_bytes, &plan->nslots,
+                    &plan->slot_floats)) {
+      plan->cs = cs;
+      plan->place = cands[i].place;
+      found = true;
+    }
+  }
+  if (!found) return false;
+  plan->resident = plan->place == CHAIN_PLACE_RESIDENT;
   plan->bt = bt;
-  plan->cs = cs;
   plan->step_floats = chain_step_floats(C, Z1, H, COUT);
-  plan->m = m_req ? m_req : 1;
+  plan->m = m0;
   plan->clusters = ((B + bt - 1) / bt + plan->m - 1) / plan->m;
-  plan->resident = place == CHAIN_WEIGHTS_SHARED
-                   || (place == CHAIN_WEIGHTS_AUTO
-                       && chain_smem_bytes(K, C, Z1, H, COUT, bt, cs, plan->m, true)
-                              <= d.max_smem);
-  plan->smem_bytes = chain_smem_bytes(K, C, Z1, H, COUT, bt, cs, plan->m,
-                                      plan->resident);
-  if (plan->smem_bytes > d.max_smem) return false;
   if (m_req == 0) {
     const int n = resident(*plan);
     if (n <= 0) return false;
+    const int max_bt = plan->resident ? FLOW_MAX_BT : 4;
     if (bt_req == 0)
-      while (bt < FLOW_MAX_BT && (B + bt - 1) / bt > n * CHAIN_MAX_TILES) bt *= 2;
+      while (bt < max_bt && (B + bt - 1) / bt > n * CHAIN_MAX_TILES) bt *= 2;
     const int tiles = (B + bt - 1) / bt;
     int m = (tiles + n - 1) / n;
     if (m > CHAIN_MAX_TILES) m = CHAIN_MAX_TILES;
     plan->bt = bt;
     plan->m = m;
     plan->clusters = (tiles + m - 1) / m;
-    plan->smem_bytes = chain_smem_bytes(K, C, Z1, H, COUT, bt, cs, m,
-                                        plan->resident);
-    if (plan->smem_bytes > d.max_smem) return false;
+    if (!chain_block(K, C, Z1, H, COUT, bt, plan->cs, m, plan->place, slots_req,
+                     d.max_smem, &plan->smem_bytes, &plan->nslots,
+                     &plan->slot_floats))
+      return false;
   }
   return true;
 }
 
-// The kernel's shared-memory cap (and, in the probe's library, its
-// permission for clusters above 8), once per device.
+// The kernel's shared-memory cap and its permission for clusters above 8,
+// once per device.
 template <typename Kernel>
 inline cudaError_t chain_allow(Kernel kernel, const FlowDevice& d, bool* done) {
   int dev = 0;
@@ -580,11 +832,9 @@ inline cudaError_t chain_allow(Kernel kernel, const FlowDevice& d, bool* done) {
   if (dev < FLOW_MAX_DEVICES && done[dev]) return cudaSuccess;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              d.max_smem);
-#ifdef SAMPLE_CHAIN_PROBE
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-#endif
   if (err == cudaSuccess && dev < FLOW_MAX_DEVICES) done[dev] = true;
   return err;
 }
@@ -613,11 +863,11 @@ inline cudaLaunchConfig_t chain_config(const ChainPlan& p, cudaStream_t stream,
 
 // Clusters of the plan the device holds at once (cudaOccupancyMaxActiveClusters),
 // -1 on an error.
-template <int BT, bool RESIDENT>
+template <int BT, bool STREAM>
 inline int chain_resident(const ChainPlan& p, const FlowDevice& d) {
   static bool allowed[FLOW_MAX_DEVICES] = {};
   // the shape of a launch is the same at every mode
-  const auto kernel = sample_chain_kernel<BT, false, FLOW_F32, RESIDENT>;
+  const auto kernel = sample_chain_kernel<BT, false, FLOW_F32, STREAM>;
   if (chain_allow(kernel, d, allowed) != cudaSuccess) return -1;
   cudaLaunchAttribute attr[2];
   cudaLaunchConfig_t cfg = chain_config(p, nullptr, attr);
@@ -628,13 +878,15 @@ inline int chain_resident(const ChainPlan& p, const FlowDevice& d) {
 
 template <int BT>
 inline int chain_resident_place(const ChainPlan& p, const FlowDevice& d) {
-  return p.resident ? chain_resident<BT, true>(p, d) : chain_resident<BT, false>(p, d);
+  if (p.resident) return chain_resident<BT, false>(p, d);
+  if constexpr (BT > 4) return -1;   // the streaming variant takes at most 4 rows
+  else return chain_resident<BT, true>(p, d);
 }
 
 // The same, remembered per device and plan shape (the query costs a few
 // microseconds of host time, and a push plans every frame).
 inline int chain_resident_bt(const ChainPlan& p, const FlowDevice& d) {
-  struct Entry { int dev, bt, cs, smem; bool resident; int n; };
+  struct Entry { int dev, bt, cs, smem, place, n; };
   static Entry cache[32] = {};
   static int filled = 0;
   int dev = 0;
@@ -642,7 +894,7 @@ inline int chain_resident_bt(const ChainPlan& p, const FlowDevice& d) {
   for (int i = 0; i < filled; ++i) {
     const Entry& e = cache[i];
     if (e.dev == dev && e.bt == p.bt && e.cs == p.cs && e.smem == p.smem_bytes
-        && e.resident == p.resident)
+        && e.place == p.place)
       return e.n;
   }
   int n = -1;
@@ -654,13 +906,14 @@ inline int chain_resident_bt(const ChainPlan& p, const FlowDevice& d) {
     default: return -1;
   }
   if (n > 0 && filled < 32)
-    cache[filled++] = {dev, p.bt, p.cs, p.smem_bytes, p.resident, n};
+    cache[filled++] = {dev, p.bt, p.cs, p.smem_bytes, p.place, n};
   return n;
 }
 
 inline bool chain_plan_for(int B, const ChainArgs& a, int bt, int cs, int m,
-                           int place, const FlowDevice& d, ChainPlan* plan) {
-  return chain_plan(B, a.K, a.C, a.Z1, a.H, a.COUT, bt, cs, m, place, d,
+                           int slots, int place, const FlowDevice& d,
+                           ChainPlan* plan) {
+  return chain_plan(B, a.K, a.C, a.Z1, a.H, a.COUT, bt, cs, m, slots, place, d,
                     [&](const ChainPlan& p) { return chain_resident_bt(p, d); },
                     plan);
 }
@@ -673,11 +926,11 @@ inline bool chain_valid(const ChainArgs& a) {
          && precision_valid(a.mode);
 }
 
-template <int BT, bool TRACE, int MODE, bool RESIDENT>
+template <int BT, bool TRACE, int MODE, bool STREAM>
 inline cudaError_t chain_launch_bt(const cudaLaunchConfig_t& cfg, const ChainArgs& a,
                                    const FlowDevice& d) {
   static bool allowed[FLOW_MAX_DEVICES] = {};
-  const auto kernel = sample_chain_kernel<BT, TRACE, MODE, RESIDENT>;
+  const auto kernel = sample_chain_kernel<BT, TRACE, MODE, STREAM>;
   cudaError_t err = chain_allow(kernel, d, allowed);
   if (err != cudaSuccess) return err;
   return cudaLaunchKernelEx(&cfg, kernel, a);
@@ -687,10 +940,11 @@ template <int BT, bool TRACE, int MODE>
 inline cudaError_t chain_launch_place(const cudaLaunchConfig_t& cfg,
                                       const ChainArgs& a, const FlowDevice& d,
                                       bool resident) {
-  if (resident) return chain_launch_bt<BT, TRACE, MODE, true>(cfg, a, d);
-  // the traced kernel is the resident one's
-  if constexpr (TRACE) return (cudaError_t)FLOW_ERR_ARGS;
-  else return chain_launch_bt<BT, false, MODE, false>(cfg, a, d);
+  if (resident) return chain_launch_bt<BT, TRACE, MODE, false>(cfg, a, d);
+  // the traced kernel is the resident one's; the streaming one takes at
+  // most 4 rows a tile
+  if constexpr (TRACE || BT > 4) return (cudaError_t)FLOW_ERR_PLAN;
+  else return chain_launch_bt<BT, false, MODE, true>(cfg, a, d);
 }
 
 template <int BT, bool TRACE>
@@ -731,6 +985,9 @@ inline cudaError_t chain_enqueue(ChainArgs a, const ChainPlan& p,
   a.cs = p.cs;
   a.m = p.m;
   a.step_floats = p.step_floats;
+  a.stream_out = p.place == CHAIN_PLACE_STREAM_OUT;
+  a.nslots = p.nslots;
+  a.slot_floats = p.slot_floats;
   cudaLaunchAttribute attr[2];
   const cudaLaunchConfig_t cfg = chain_config(p, stream, attr, after_gates);
 #ifdef SAMPLE_CHAIN_PROBE

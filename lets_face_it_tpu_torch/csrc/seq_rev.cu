@@ -22,8 +22,8 @@
 //      for all k, from the history and the states of the previous frame;
 //   2. sample_gates.cuh: gc[k] = leaky_relu(proj[k]) @ w_ih_t[k][Z1:] + b_ih[k];
 //   3. sample_chain.cuh: the K serial steps on a thread-block cluster that
-//      holds the chain's weights in shared memory (or reads them from global
-//      memory where they do not fit); it writes x_t, the new
+//      holds the chain's weights in shared memory (or, where they do not
+//      fit, part of them, streaming the rest); it writes x_t, the new
 //      states (in place) and the next history into the other of two buffers.
 // Launches 1-2 read 24.9 of the frame's 26.3 MB of weights (final_model)
 // with the whole card; the chain reads only its resident 1.36 MB, and its
@@ -58,7 +58,7 @@ extern "C" int seq_rev_launch(
   cudaError_t err = flow_device(&d);
   if (err != cudaSuccess) return (int)err;
   ChainPlan plan;
-  if (!chain_plan_for(B, a, 0, 0, 0, CHAIN_WEIGHTS_AUTO, d, &plan))
+  if (!chain_plan_for(B, a, 0, 0, 0, 0, CHAIN_WEIGHTS_AUTO, d, &plan))
     return FLOW_ERR_PLAN;
   cudaStream_t st = (cudaStream_t)stream;
   const size_t state_bytes = (size_t)K * B * H * sizeof(float);

@@ -21,7 +21,8 @@ Both run each frame as two kinds of hand-written kernel:
   "highest");
 * ``sample_chain`` (``csrc/sample_chain.cuh``): the K reversed steps given
   those gates, on a thread-block cluster whose shared memory holds the
-  chain's weights.
+  chain's weights (where they do not fit, a cluster of 16 holds part of
+  them and streams the rest through a ring of slots: ``chain_placement``).
 
 Each is also callable alone (``csrc/sample_gates.cu``, ``csrc/sample_chain.cu``)
 for tests, timing and the probe.
@@ -360,9 +361,15 @@ def chain_weights(spec: FlowSpec, *, w_ih_t, out_w_t, out_b, w_inv, an_bias,
 # Envelopes (one cluster's shared memory; widths for 16-byte loads)
 # ---------------------------------------------------------------------------
 
-# csrc/sample_chain.cuh: the barrier area (floats), the largest portable
-# cluster the envelope counts on, and the most steps a block may hold.
-_CHAIN_BAR_FLOATS, _CHAIN_CLUSTER, _CHAIN_MAX_HELD = 96, 8, 16
+# csrc/sample_chain.cuh: the barrier area (floats), the clusters a plan tries
+# (the largest portable, then the largest an H100 takes), the most steps a
+# block may hold; the streaming variant's ring barriers (floats) and what
+# the variant takes (one or two GRU units a thread of
+# 512, the coupling's pairs in one pass).
+_CHAIN_BAR_FLOATS, _CHAIN_CLUSTER, _CHAIN_WIDE_CLUSTER, _CHAIN_MAX_HELD = 96, 8, 16, 16
+_CHAIN_RING_BAR_FLOATS, _CHAIN_THREADS = 32, 512
+# csrc/sample_chain.cuh::ChainPlace, by code
+CHAIN_PLACES = ("resident", "stream", "stream_out")
 # csrc/sample_gates.cuh: 8 warps' partial sums of a 32-column tile.
 _GATES_RED_FLOATS = 8 * 32
 
@@ -388,28 +395,78 @@ def chain_step_bytes(spec: FlowSpec) -> int:
                 + _round4(cout) + _round_up(c, s_mix) * c + 2 * _round4(c))
 
 
-def _chain_held(spec: FlowSpec) -> int:
-    """The most steps a block of a cluster of min(K, 8) holds."""
-    return -(-spec.n_steps // min(spec.n_steps, _CHAIN_CLUSTER))
+def _chain_block_bytes(spec: FlowSpec, cs: int, place: str) -> int | None:
+    """Least shared memory of a one-row sample_chain block of ``place`` in a
+    cluster of ``cs``, None where the variant does not take the shape
+    (csrc/sample_chain.cuh::chain_block): the resident
+    variant holds its steps' weights whole; the streaming variant holds
+    out_w_t onwards ("stream") or out_b onwards ("stream_out"), and its ring
+    two slots of one chunk unit at least (the launcher gives it the rest of
+    the block)."""
+    c, z1, h, cout = (spec.channels, spec.z1_dim, spec.hidden_channels,
+                      spec.coupling_out_dim)
+    held = -(-spec.n_steps // cs)
+    if held > _CHAIN_MAX_HELD:
+        return None
+    s_gru, s_out, s_mix = _CHAIN_SLICES
+    step = chain_step_bytes(spec) // 4
+    fixed = _CHAIN_BAR_FLOATS + 3 * _round4(c) + _round4(h) + held * 7 * h
+    if place == "resident":
+        return 4 * (fixed + held * step)
+    if h > 2 * _CHAIN_THREADS or s_out * (cout // 2) > _CHAIN_THREADS:
+        return None
+    r0 = _round_up(z1, s_gru) * 3 * h
+    gru_unit, out_unit = s_gru * 3 * h, s_out * cout
+    unit = gru_unit
+    if place == "stream_out":
+        r0 += _round_up(h, s_out) * cout
+        unit = max(gru_unit, out_unit)
+    return 4 * (fixed + held * (step - r0) + _CHAIN_RING_BAR_FLOATS + 2 * unit)
+
+
+def chain_placement(spec: FlowSpec) -> tuple[str, int] | None:
+    """(placement, cluster) of the chain's launch plan at one row
+    (csrc/sample_chain.cuh::chain_plan): all weights resident in a cluster
+    of min(K, 8) blocks, else of min(K, 16); else the streaming variant in
+    the latter, w_ih_t streamed ("stream"), else out_w_t too
+    ("stream_out"); None where no plan fits (the launcher then refuses the
+    spec)."""
+    spec = kernel_spec(spec)
+    k = spec.n_steps
+    narrow, wide = min(k, _CHAIN_CLUSTER), min(k, _CHAIN_WIDE_CLUSTER)
+    for cs, place in ((narrow, "resident"), (wide, "resident"), (wide, "stream"),
+                      (wide, "stream_out")):
+        need = _chain_block_bytes(spec, cs, place)
+        if need is not None and need <= MAX_SMEM_BYTES:
+            return place, cs
+    return None
 
 
 def chain_smem_bytes(spec: FlowSpec, resident: bool = True) -> int:
-    """Least shared memory of a one-row sample_chain block in a cluster of
-    min(K, 8): the barriers, the weights of the most steps a block holds
-    (with ``resident``; else they are read from global memory), the row's
-    buffers and its gates and states of those steps
-    (csrc/sample_chain.cuh::chain_smem_floats)."""
+    """Least shared memory of a one-row sample_chain block: with
+    ``resident``, of the resident variant in the least cluster of
+    min(K, 8) and min(K, 16) that holds the weights (the wide one's where
+    neither does: then above ``MAX_SMEM_BYTES``); else of the streaming
+    variant in a cluster of min(K, 16), with the fewest streamed matrices
+    that fit and a ring of two slots
+    (csrc/sample_chain.cuh::chain_smem_floats, ::chain_block)."""
     spec = kernel_spec(spec)
-    c, h, held = spec.channels, spec.hidden_channels, _chain_held(spec)
-    return (4 * (_CHAIN_BAR_FLOATS + 3 * _round4(c) + _round4(h) + held * 7 * h)
-            + (held * chain_step_bytes(spec) if resident else 0))
+    k = spec.n_steps
+    narrow, wide = min(k, _CHAIN_CLUSTER), min(k, _CHAIN_WIDE_CLUSTER)
+    if resident:
+        needs = [_chain_block_bytes(spec, cs, "resident") for cs in (narrow, wide)]
+    else:
+        needs = [_chain_block_bytes(spec, wide, p) for p in ("stream", "stream_out")]
+    needs = [n for n in needs if n is not None] or [MAX_SMEM_BYTES + 1]
+    return next((n for n in needs if n <= MAX_SMEM_BYTES), needs[-1])
 
 
 def chain_resident(spec: FlowSpec) -> bool:
-    """Whether the chain holds its weights in shared memory (the plan's
-    choice where they fit, csrc/sample_chain.cuh::chain_plan) or reads them
-    from global memory."""
-    return chain_smem_bytes(spec) <= MAX_SMEM_BYTES
+    """Whether the chain's plan holds all its weights in shared memory (the
+    plan's choice where a cluster of 8 or 16 holds them,
+    csrc/sample_chain.cuh::chain_plan) or runs the streaming variant."""
+    placement = chain_placement(spec)
+    return placement is not None and placement[0] == "resident"
 
 
 def gates_smem_bytes(spec: FlowSpec) -> int:
@@ -453,10 +510,9 @@ def gates_plan(b: int, rows: int = 0, groups: int = 0, mode: int = 0) -> str:
 def fused_supported(spec: FlowSpec) -> bool:
     """The per-frame kernels' envelope: GRU + affine + invconv flows whose
     product widths in the kernel spec's lanes are multiples of 4 (16-byte
-    loads), whose blocks hold at most 16 steps of a cluster of min(K, 8),
-    and whose gates and chain fit a block (the chain's weights read from
-    global memory where a cluster cannot hold them). It holds wherever
-    ``jax_envelope`` does."""
+    loads), for which the chain has a plan (``chain_placement``: the
+    weights resident in a cluster of 8 or 16, or partly streamed) and whose
+    gates fit a block. It holds wherever ``jax_envelope`` does."""
     ks = kernel_spec(spec)
     widths = (ks.hidden_channels, ks.cond.cond_dim, ks.coupling_out_dim,
               ks.channels)
@@ -464,8 +520,7 @@ def fused_supported(spec: FlowSpec) -> bool:
             and ks.permutation == "invconv"
             and all(n % 4 == 0 for n in widths)
             and _round_up(ks.z1_dim, _CHAIN_SLICES[0]) <= ks.channels
-            and _chain_held(ks) <= _CHAIN_MAX_HELD
-            and chain_smem_bytes(ks, resident=False) <= MAX_SMEM_BYTES
+            and chain_placement(ks) is not None
             and gates_smem_bytes(ks) <= MAX_SMEM_BYTES)
 
 
@@ -645,7 +700,7 @@ def _gates_fn():
 @functools.cache
 def _chain_fn():
     fn = cuda_build.load("sample_chain").sample_chain_launch
-    fn.argtypes = ([_P] * 9 + [_I] * 7 + [ctypes.c_float] + [_I] * 4 + [_P, _I]
+    fn.argtypes = ([_P] * 9 + [_I] * 7 + [ctypes.c_float] + [_I] * 5 + [_P, _I]
                    + [_P] * 2)
     fn.restype = _I
     return fn
@@ -905,10 +960,10 @@ def sample_chain(spec: FlowSpec, weights: SamplingWeights, z, gc, gh, states,
     """The K reversed steps of one frame given its gates: z [B, C], gc and
     gh [K, B, 3H], states [K, B, H], hist [B, P1] or None -> (x [B, C],
     new_states [K, B, H], the next history [B, P1] or None). ``tile`` =
-    (rows per tile, blocks per cluster, tiles per cluster), 0 for the
-    launcher's plan. ``resident``: the weights in shared memory (True) or
-    read from global memory (False), None for the plan's choice
-    (``chain_resident``). ``trace``: None, or an int64 CUDA tensor [blocks,
+    (rows per tile, blocks per cluster, tiles per cluster[, the streaming
+    variant's ring slots]), 0 for the launcher's plan. ``resident``: all the weights in shared memory (True)
+    or the streaming variant, part of them streamed through a ring of
+    slots (False), None for the plan's choice (``chain_placement``). ``trace``: None, or an int64 CUDA tensor [blocks,
     CHAIN_TRACE_SLOTS] that receives each block's device times (ns) of the
     first tile: start, cluster synchronised, z in hand, the end of each
     held step, the hand-off sent (``csrc/sample_chain.cuh``; "highest" and
@@ -943,7 +998,8 @@ def sample_chain(spec: FlowSpec, weights: SamplingWeights, z, gc, gh, states,
         new_states.data_ptr(), x.data_ptr(), hist.data_ptr() if p1 else None,
         new_hist.data_ptr() if p1 else None, weights.chain.data_ptr(), b, p1,
         k, c, spec.z1_dim, h, spec.coupling_out_dim, float(spec.scale_eps),
-        *tile, _place(resident), None if trace is None else trace.data_ptr(),
+        *_chain_tile(tile), _place(resident),
+        None if trace is None else trace.data_ptr(),
         mode, stream, launches))
     _raise_on(err, "sample_chain")
     return x, new_states, new_hist
@@ -953,7 +1009,19 @@ sample_chain.launches = 0
 
 CHAIN_TRACE_SLOTS = 32   # csrc/sample_chain.cuh
 CHAIN_PLAN_KEYS = ("rows_per_tile", "cluster", "tiles_per_cluster", "clusters",
-                   "blocks", "smem_bytes", "max_active_clusters", "resident")
+                   "blocks", "smem_bytes", "max_active_clusters", "resident",
+                   "place", "slots", "slot_bytes")
+
+
+def _chain_tile(tile) -> tuple:
+    """(rows per tile, blocks per cluster, tiles per cluster, ring slots)
+    of a ``tile`` of three or four, the slots 0 (as many as fit) when not
+    given."""
+    tile = tuple(tile)
+    if len(tile) not in (3, 4):
+        raise ValueError(f"sample_chain: tile {tile} is not (rows, cluster, "
+                         "tiles[, slots])")
+    return tile + (0,) * (4 - len(tile))
 
 
 def _place(resident: bool | None) -> int:
@@ -968,10 +1036,12 @@ def chain_plan(spec: FlowSpec, b: int, tile=(0, 0, 0),
     (``cudaOccupancyMaxActiveClusters``); ``tile`` and ``resident`` as in
     ``sample_chain``."""
     fn = cuda_build.load("sample_chain").sample_chain_plan
-    fn.argtypes = [_I] * 10 + [_P]
+    fn.argtypes = [_I] * 11 + [_P]
     fn.restype = _I
     k, c, z1, _, h, cout = _spec_ints(kernel_spec(spec))
     out = (ctypes.c_int * len(CHAIN_PLAN_KEYS))()
-    _raise_on(fn(b, k, c, z1, h, cout, *tile, _place(resident),
+    _raise_on(fn(b, k, c, z1, h, cout, *_chain_tile(tile), _place(resident),
                  ctypes.addressof(out)), "sample_chain plan")
-    return dict(zip(CHAIN_PLAN_KEYS, out))
+    plan = dict(zip(CHAIN_PLAN_KEYS, out))
+    plan["place"] = CHAIN_PLACES[plan["place"]]
+    return plan

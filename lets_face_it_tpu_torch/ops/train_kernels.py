@@ -20,7 +20,11 @@ wired as one ``torch.autograd.Function``.
   recomputes each step from the residuals, threads the serial cotangent
   chains (dz within a frame, the K state cotangents across frames) and
   writes each (frame, step)'s local cotangents. CUDA source
-  ``csrc/seq_bwd.cu``; replaces ``_bwd_kernel``.
+  ``csrc/seq_bwd.cu``; replaces ``_bwd_kernel``. Two plans
+  (``seq_bwd_plan_name``): "walk", every product of a step inside one
+  launch's walk over all frames, and, at wide H, "split", the two products
+  that read w_hh taken off the walk as tile products over the whole card
+  (``bwd_gh_ref``, ``bwd_dstate_ref``: their plain versions).
 
 The two serial kernels stream each step's weights through a ring of
 shared-memory slots shared across a thread-block cluster
@@ -150,20 +154,41 @@ _STREAM_BAR_FLOATS, _STREAM_SLOTS = 96, 3
 
 def train_smem_bytes(spec: FlowSpec) -> int:
     """Least shared memory of a one-row seq_bwd.cu block (the larger of the
-    two serial kernels): the ring's barriers and three slots of four rows of
-    the widest product, the K state cotangents, the backward's buffers, two
-    steps of prefetched inputs and one slice of partial sums
-    (csrc/seq_bwd.cu::bwd_other_floats, csrc/flow_stream.cuh::plan_stream),
-    in the kernel spec's lanes."""
+    two serial kernels) of the plan its launcher takes
+    (``seq_bwd_plan_name``): the ring's barriers and three slots of four
+    rows of the widest product, the K state cotangents, the backward's
+    buffers (the split plan's without gh and b_hh), two steps of prefetched
+    inputs (with the split plan's gh rows) and one slice of partial sums (csrc/seq_bwd.cu::bwd_other_floats,
+    csrc/flow_stream.cuh::plan_stream), in the kernel spec's lanes."""
     spec = kernel_spec(spec)
     c, h, cout = spec.channels, spec.hidden_channels, spec.coupling_out_dim
     g = 3 * h
     widest = max(g, c, cout, h, spec.z1_dim)
-    step = 2 * c + g + cout + (g + c + h + cout // 2 + c)
+    split = seq_bwd_plan_name(spec) == "split"
+    step = (2 * c + (0 if split else g) + cout
+            + (g + c + h + cout // 2 + c + (g if split else 0)))
     other = (_round4(spec.n_steps * h) + 2 * _round4(h) + 4 * _round4(c)
-             + 2 * _round4(cout) + 4 * _round4(g) + 2 * step)
+             + 2 * _round4(cout) + (3 if split else 4) * _round4(g) + 2 * step)
     ring = _STREAM_BAR_FLOATS + _STREAM_SLOTS * 4 * widest
     return 4 * (ring + other + _round4(widest))
+
+
+# csrc/seq_bwd.cu: the backward's plans, by the launcher's codes, and the H
+# from which it takes the split one (SPLIT_FROM_H).
+SEQ_BWD_PLANS = ("walk", "split")
+_BWD_PLAN_CODES = {"walk": 1, "split": 2}
+SEQ_BWD_SPLIT_FROM_H = 256
+
+
+def seq_bwd_plan_name(spec: FlowSpec) -> str:
+    """The plan ``seq_bwd``'s launcher takes (csrc/seq_bwd.cu::bwd_split):
+    "split" from H = ``SEQ_BWD_SPLIT_FROM_H`` on (the two products that read
+    w_hh taken off the serial walk: gh for every frame and step before it,
+    each frame's state cotangents of the frame before after it, as tile
+    products over the whole card), "walk" below (every product of a step
+    inside the walk). Both take every spec of ``train_supported``."""
+    return ("split" if kernel_spec(spec).hidden_channels >= SEQ_BWD_SPLIT_FROM_H
+            else "walk")
 
 
 def train_supported(spec: FlowSpec) -> bool:
@@ -202,16 +227,16 @@ def cond_gates_ref(spec: FlowSpec, tw: TrainWeights, cond_seq, mode: int = 0):
 
 
 def _recompute_step(spec: FlowSpec, tw: TrainWeights, k: int, z, gc_k, h_prev,
-                    mode: int = 0):
+                    mode: int = 0, gh_k=None):
     """One forward step on prepared weights (rounded for ``mode``), the
-    conditioning gates gc_k given -> (zb, gi, gh, r, u, n, h_new, hout, sig,
-    scale)."""
+    conditioning gates gc_k (and, where given, the hidden gates gh_k) given
+    -> (zb, gi, gh, r, u, n, h_new, hout, sig, scale)."""
     rnd = _rounded(mode)
     hd, z1d, half = spec.hidden_channels, spec.z1_dim, spec.coupling_out_dim // 2
     za = (z + tw.an_bias[k]) * tw.an_scale[k]
     zb = rnd(za) @ tw.w[k]
     gi = rnd(zb[:, :z1d]) @ tw.w_ih_t[k, :z1d] + gc_k
-    gh = rnd(h_prev) @ tw.w_hh_t[k] + tw.b_hh[k]
+    gh = rnd(h_prev) @ tw.w_hh_t[k] + tw.b_hh[k] if gh_k is None else gh_k
     r = torch.sigmoid(gi[:, :hd] + gh[:, :hd])
     u = torch.sigmoid(gi[:, hd:2 * hd] + gh[:, hd:2 * hd])
     n = torch.tanh(gi[:, 2 * hd:] + r * gh[:, 2 * hd:])
@@ -250,46 +275,106 @@ def seq_fwd_ref(spec: FlowSpec, tw: TrainWeights, xs, cond_seq, states0,
     return z_seq, scales, zs_res, states_res, gc
 
 
-def seq_bwd_ref(spec: FlowSpec, tw: TrainWeights, gc, zs_res, hprev_all,
-                dz_seq, dscales, dnew_states, mode: int = 0):
-    """Plain version of ``seq_bwd``: loops over t and k in reverse, at
-    matmul precision ``mode``."""
-    tw = round_train_weights(tw, mode)
+def _bwd_step(spec: FlowSpec, tw: TrainWeights, k: int, z, gc_k, h_prev, dz,
+              dscale_k, dstate_k, mode: int, gh_k=None):
+    """One step of the backward walk on prepared weights: the step
+    recomputed (``_recompute_step``), then its cotangents -> (dz of the
+    step's input, dgi, dgh, dghn, dhout, dzb, dh * u); the state cotangent
+    of the frame before is dh * u + dgh @ w_hh_t[k]^T."""
     rnd = _rounded(mode)
+    hd, z1d, half = spec.hidden_channels, spec.z1_dim, spec.coupling_out_dim // 2
+    zb, gi, gh, r, u, n, _, hout, sig, scale = _recompute_step(
+        spec, tw, k, z, gc_k, h_prev, mode, gh_k)
+    dz2p = dz[:, z1d:]
+    dscale = dz2p * (zb[:, z1d:] + hout[:, :half]) + dscale_k
+    dsraw = torch.where(sig > spec.scale_eps, dscale, 0.0) * sig * (1.0 - sig)
+    dhout = torch.cat([dz2p * scale, dsraw], dim=-1)
+    dh_new = rnd(dhout) @ tw.out_w_t[k].T + dstate_k
+    du = dh_new * (h_prev - n)
+    dgn = dh_new * (1.0 - u) * (1.0 - n * n)
+    dghn = dgn * r
+    dgr = dgn * gh[:, 2 * hd:] * r * (1.0 - r)
+    dgu = du * u * (1.0 - u)
+    dgi = torch.cat([dgr, dgu, dgn], dim=-1)
+    dgh = torch.cat([dgr, dgu, dghn], dim=-1)
+    dz1 = dz[:, :z1d] + rnd(dgi) @ tw.w_ih_t[k, :z1d].T
+    dzb = torch.cat([dz1, dz2p * scale], dim=-1)
+    dz_in = (rnd(dzb) @ tw.w[k].T) * tw.an_scale[k]
+    return dz_in, dgi, dgh, dghn, dhout, dzb, dh_new * u
+
+
+def _bwd_outputs(spec: FlowSpec, dz_seq):
     n_frames, b, c = dz_seq.shape
     k_steps, hd = spec.n_steps, spec.hidden_channels
-    z1d, half = spec.z1_dim, spec.coupling_out_dim // 2
-    dx = torch.empty_like(dz_seq)
-    dgi_all = dz_seq.new_empty((n_frames, k_steps, b, 3 * hd))
-    dghn_all = dz_seq.new_empty((n_frames, k_steps, b, hd))
-    dhout_all = dz_seq.new_empty((n_frames, k_steps, b, spec.coupling_out_dim))
-    dzb_all = dz_seq.new_empty((n_frames, k_steps, b, c))
+    return (torch.empty_like(dz_seq),
+            dz_seq.new_empty((n_frames, k_steps, b, 3 * hd)),
+            dz_seq.new_empty((n_frames, k_steps, b, hd)),
+            dz_seq.new_empty((n_frames, k_steps, b, spec.coupling_out_dim)),
+            dz_seq.new_empty((n_frames, k_steps, b, c)))
+
+
+def seq_bwd_ref(spec: FlowSpec, tw: TrainWeights, gc, zs_res, hprev_all,
+                dz_seq, dscales, dnew_states, mode: int = 0):
+    """Plain version of ``seq_bwd``'s walk plan: loops over t and k in
+    reverse, every product of a step inside the loop, at matmul precision
+    ``mode``."""
+    tw = round_train_weights(tw, mode)
+    rnd = _rounded(mode)
+    dx, dgi_all, dghn_all, dhout_all, dzb_all = _bwd_outputs(spec, dz_seq)
     dstates = dnew_states.clone()
-    for t in reversed(range(n_frames)):
+    for t in reversed(range(dz_seq.shape[0])):
         dz = dz_seq[t]
-        for k in reversed(range(k_steps)):
-            h_prev = hprev_all[t, k]
-            zb, gi, gh, r, u, n, _, hout, sig, scale = _recompute_step(
-                spec, tw, k, zs_res[t, k], gc[t, k], h_prev, mode)
-            dz2p = dz[:, z1d:]
-            dscale = dz2p * (zb[:, z1d:] + hout[:, :half]) + dscales[t, k]
-            dsraw = torch.where(sig > spec.scale_eps, dscale, 0.0) * sig * (1.0 - sig)
-            dhout = torch.cat([dz2p * scale, dsraw], dim=-1)
-            dh_new = rnd(dhout) @ tw.out_w_t[k].T + dstates[k]
-            du = dh_new * (h_prev - n)
-            dgn = dh_new * (1.0 - u) * (1.0 - n * n)
-            dghn = dgn * r
-            dgr = dgn * gh[:, 2 * hd:] * r * (1.0 - r)
-            dgu = du * u * (1.0 - u)
-            dgi = torch.cat([dgr, dgu, dgn], dim=-1)
-            dgh = torch.cat([dgr, dgu, dghn], dim=-1)
-            dstates[k] = dh_new * u + rnd(dgh) @ tw.w_hh_t[k].T
-            dz1 = dz[:, :z1d] + rnd(dgi) @ tw.w_ih_t[k, :z1d].T
-            dzb = torch.cat([dz1, dz2p * scale], dim=-1)
+        for k in reversed(range(spec.n_steps)):
+            dz, dgi, dgh, dghn, dhout, dzb, dhu = _bwd_step(
+                spec, tw, k, zs_res[t, k], gc[t, k], hprev_all[t, k], dz,
+                dscales[t, k], dstates[k], mode)
+            dstates[k] = dhu + rnd(dgh) @ tw.w_hh_t[k].T
             dgi_all[t, k], dghn_all[t, k] = dgi, dghn
             dhout_all[t, k], dzb_all[t, k] = dhout, dzb
-            dz = (rnd(dzb) @ tw.w[k].T) * tw.an_scale[k]
         dx[t] = dz
+    return dx, dstates, dgi_all, dghn_all, dhout_all, dzb_all
+
+
+def bwd_gh_ref(tw: TrainWeights, hprev_all, mode: int = 0):
+    """Plain version of the split plan's first product (csrc/seq_bwd.cu::
+    bwd_gh): the hidden gates of every frame and step, hprev_all [N, K, B,
+    H] -> gh [N, K, B, 3H] = hprev @ w_hh_t[k] + b_hh[k], on weights rounded
+    for ``mode``."""
+    gh = torch.einsum("nkbh,khg->nkbg", round_operand(hprev_all, mode), tw.w_hh_t)
+    return gh + tw.b_hh[None, :, None, :]
+
+
+def bwd_dstate_ref(tw: TrainWeights, dgh, dhu, mode: int = 0):
+    """Plain version of the split plan's per-frame product (csrc/seq_bwd.cu::
+    bwd_dstate): the state cotangents of the frame before, dgh [K, B, 3H],
+    dhu [K, B, H] -> dhu + dgh @ w_hh_t[k]^T, [K, B, H], on weights rounded
+    for ``mode``."""
+    return dhu + torch.einsum("kbg,khg->kbh", round_operand(dgh, mode), tw.w_hh_t)
+
+
+def seq_bwd_split_ref(spec: FlowSpec, tw: TrainWeights, gc, zs_res, hprev_all,
+                      dz_seq, dscales, dnew_states, mode: int = 0):
+    """Plain version of ``seq_bwd``'s split plan, the same function as
+    ``seq_bwd_ref``: the hidden gates of every (t, k) first
+    (``bwd_gh_ref``), then the walk over each frame's steps without the two
+    products that read w_hh, and after each frame its state cotangents for
+    the frame before (``bwd_dstate_ref``)."""
+    tw = round_train_weights(tw, mode)
+    dx, dgi_all, dghn_all, dhout_all, dzb_all = _bwd_outputs(spec, dz_seq)
+    gh_all = bwd_gh_ref(tw, hprev_all, mode)
+    dstates = dnew_states.clone()
+    dgh_t = torch.empty_like(gh_all[0])
+    dhu_t = torch.empty_like(dstates)
+    for t in reversed(range(dz_seq.shape[0])):
+        dz = dz_seq[t]
+        for k in reversed(range(spec.n_steps)):
+            dz, dgi, dgh_t[k], dghn, dhout, dzb, dhu_t[k] = _bwd_step(
+                spec, tw, k, zs_res[t, k], gc[t, k], hprev_all[t, k], dz,
+                dscales[t, k], dstates[k], mode, gh_all[t, k])
+            dgi_all[t, k], dghn_all[t, k] = dgi, dghn
+            dhout_all[t, k], dzb_all[t, k] = dhout, dzb
+        dx[t] = dz
+        dstates = bwd_dstate_ref(tw, dgh_t, dhu_t, mode)
     return dx, dstates, dgi_all, dghn_all, dhout_all, dzb_all
 
 
@@ -353,7 +438,7 @@ def _fwd_fn():
 @functools.cache
 def _bwd_fn():
     fn = cuda_build.load("seq_bwd").seq_bwd_launch
-    fn.argtypes = [_P] * 25 + [_I] * 8 + [ctypes.c_float] + [_I] * 4 + [_P]
+    fn.argtypes = [_P] * 29 + [_I] * 8 + [ctypes.c_float] + [_I] * 5 + [_P] * 2
     fn.restype = _I
     return fn
 
@@ -362,18 +447,36 @@ PLAN_KEYS = ("rows_per_block", "cluster", "blocks", "slots", "slot_bytes",
              "partial_bytes", "smem_bytes", "max_active_clusters")
 
 
-def serial_plan(which: str, spec: FlowSpec, b: int, tile=(0, 0, 0)) -> dict:
+def serial_plan(which: str, spec: FlowSpec, b: int, tile=(0, 0, 0),
+                plan: str | None = None) -> dict:
     """The launch plan of ``seq_fwd``'s or ``seq_bwd``'s serial kernel
     (``which``) for B=b rows on the current CUDA device, with the cluster
     occupancy the device allows (``cudaOccupancyMaxActiveClusters``);
-    ``tile`` as in ``seq_fwd``."""
+    ``tile`` as in ``seq_fwd``; for ``seq_bwd`` also ``plan`` as
+    ``seq_bwd`` takes it, and its "plan" key the one planned."""
+    bwd = which == "seq_bwd"
     fn = getattr(cuda_build.load(which), f"{which}_plan")
-    fn.argtypes = [_I] * 10 + [_P]
+    fn.argtypes = [_I] * (11 if bwd else 10) + [_P]
     fn.restype = _I
-    out = (ctypes.c_int * len(PLAN_KEYS))()
-    _raise_on(fn(b, *_spec_ints(kernel_spec(spec)), *tile, ctypes.addressof(out)),
-              f"{which} plan")
-    return dict(zip(PLAN_KEYS, out))
+    keys = PLAN_KEYS + (("plan",) if bwd else ())
+    out = (ctypes.c_int * len(keys))()
+    extra = (_bwd_plan_arg(plan),) if bwd else ()
+    _raise_on(fn(b, *_spec_ints(kernel_spec(spec)), *tile, *extra,
+                 ctypes.addressof(out)), f"{which} plan")
+    got = dict(zip(keys, out))
+    if bwd:
+        got["plan"] = SEQ_BWD_PLANS[got["plan"] - 1]
+    return got
+
+
+def _bwd_plan_arg(plan: str | None) -> int:
+    """csrc/seq_bwd.cu's ``plan`` for a wrapper's request (0: the
+    launcher's)."""
+    if plan is None:
+        return 0
+    if plan in _BWD_PLAN_CODES:
+        return _BWD_PLAN_CODES[plan]
+    raise ValueError(f"seq_bwd: no plan {plan!r}; plans {', '.join(SEQ_BWD_PLANS)}")
 
 
 def _check_weights(spec: FlowSpec, tw: TrainWeights, device):
@@ -491,18 +594,24 @@ seq_fwd.launches = 0
 
 def seq_bwd(spec: FlowSpec, tw: TrainWeights, gc, zs_res, hprev_all,
             dz_seq, dscales, dnew_states, *, precision: str | None = None,
-            tile=(0, 0, 0)):
+            tile=(0, 0, 0), plan: str | None = None):
     """Mirror backward: the residuals gc [N, K, B, 3H] (``seq_fwd``'s
     conditioning gates), zs_res [N, K, B, C] and hprev_all [N, K, B, H]
     (each step's previous state), the cotangents dz_seq [N, B, C], dscales
     [N, K, B, Cout/2] and dnew_states [K, B, H] -> (dx [N, B, C], dstates0
     [K, B, H], dgi [N, K, B, 3H], dghn [N, K, B, H], dhout [N, K, B, Cout],
-    dzb [N, K, B, C]). ``tile`` as in ``seq_fwd``."""
+    dzb [N, K, B, C]). ``tile`` as in ``seq_fwd``; ``plan``: "walk" or
+    "split", None for the launcher's (``seq_bwd_plan_name``; on CPU tensors
+    the plan's plain version, ``seq_bwd_ref`` or ``seq_bwd_split_ref``).
+    Counts its calls in ``seq_bwd.launches`` and by plan in
+    ``seq_bwd.plans``."""
     launch, mode = _dispatch(spec, precision, dz_seq.device)
+    plan_arg = _bwd_plan_arg(plan)
     spec = kernel_spec(spec)
+    split = (plan or seq_bwd_plan_name(spec)) == "split"
     if not launch:
-        return seq_bwd_ref(spec, tw, gc, zs_res, hprev_all, dz_seq,
-                           dscales, dnew_states, mode)
+        return (seq_bwd_split_ref if split else seq_bwd_ref)(
+            spec, tw, gc, zs_res, hprev_all, dz_seq, dscales, dnew_states, mode)
     n, b, c = dz_seq.shape
     k, _, z1, _, h, cout = _spec_ints(spec)
     dev = dz_seq.device
@@ -525,21 +634,31 @@ def seq_bwd(spec: FlowSpec, tw: TrainWeights, gc, zs_res, hprev_all,
     dghn = dz_seq.new_empty((n, k, b, h))
     dhout = dz_seq.new_empty((n, k, b, cout))
     dzb = dz_seq.new_empty((n, k, b, c))
+    # the split plan's scratch: gh of every frame and step, a frame's dgh,
+    # dh * u and state cotangents
+    scratch = ()
+    if split:
+        scratch = (gc.new_empty(gc.shape), gc.new_empty((k, b, 3 * h)),
+                   dnew_states.new_empty((k, b, h)), dnew_states.new_empty((k, b, h)))
     stream = torch.cuda.current_stream(dev).cuda_stream
+    launched = ctypes.c_int(0)
     err = _bwd_fn()(dz_seq.data_ptr(), dscales.data_ptr(), zs_res.data_ptr(),
                     hprev_all.data_ptr(), dnew_states.data_ptr(),
                     gc.data_ptr(), dx.data_ptr(), dstates0.data_ptr(),
                     dgi.data_ptr(), dghn.data_ptr(), dhout.data_ptr(),
                     dzb.data_ptr(), *(t.data_ptr() for t in tw),
                     *(t.data_ptr() for t in transposed),
+                    *(t.data_ptr() for t in scratch) if split else [None] * 4,
                     b, n, *_spec_ints(spec), float(spec.scale_eps), *tile,
-                    mode, stream)
+                    plan_arg, mode, stream, ctypes.addressof(launched))
     _raise_on(err, "seq_bwd")
     seq_bwd.launches += 1
+    seq_bwd.plans[SEQ_BWD_PLANS[launched.value - 1]] += 1
     return dx, dstates0, dgi, dghn, dhout, dzb
 
 
 seq_bwd.launches = 0
+seq_bwd.plans = dict.fromkeys(SEQ_BWD_PLANS, 0)
 
 
 # ---------------------------------------------------------------------------

@@ -1,22 +1,30 @@
 """Probe of the sampling kernels' launch plan on one NVIDIA GPU.
 
     python -m lets_face_it_tpu_torch.probe_sampling_kernels [--quick]
-        [--precision highest|high|medium]
+        [--precision highest|high|medium] [--hidden_channels H]
+        [--expression_dim E] [--n_steps K]
     python -m lets_face_it_tpu_torch.probe_sampling_kernels --gates
 
 For ``hparams/final_model.yaml`` (and ``no_face.yaml`` for P1 = 0) on
-seeded random weights, from the sources in this checkout:
+seeded random weights, or a wider spec of the search grid with
+``--hidden_channels`` / ``--expression_dim`` / ``--n_steps`` (e.g. H = 512,
+E = 48: C = 54 on 56 lanes, where the chain runs its streaming variant),
+from the sources in this checkout:
 
 1. builds the sampling kernels and prints the registers and spills
    ``nvcc -Xptxas -v`` reports for each;
 2. holds ``sample_gates``, ``sample_chain``, ``frame_rev_fused`` and
    ``sequence_rev_fused`` against their plain versions with the launchers'
    own plans, at B = 1, 5, 33 and 128 (partial tiles and clusters; one frame
-   atol 2e-4 / rtol 1e-4, sequences of 8 frames the same);
-3. unless ``--quick``: a device-time trace of one chain launch; for
-   cluster sizes 4, 8 and 16, rows per tile 1, 2, 4 and 8 and tiles per
-   cluster (the plan's, 1, 2, 4), prints the chain's plan (blocks, shared
-   bytes, clusters the device holds at once by
+   atol 2e-4 / rtol 1e-4, sequences of 8 frames the same or 3 times the
+   plain version's own float32 - float64 distance, whichever is larger,
+   which it prints beside the kernels' at "highest");
+3. unless ``--quick``: a device-time trace of one chain launch (where the
+   plan holds the weights resident); for cluster sizes 4, 8 and 16, rows
+   per tile 1, 2, 4 and 8, tiles per cluster (the plan's, 1, 2, 4) and, for
+   the streaming variant at B = 1, ring slots (as many as fit, 2, 3, 4, 6,
+   8), prints the chain's plan (placement, blocks, shared bytes, slots,
+   clusters the device holds at once by
    ``cudaOccupancyMaxActiveClusters``), holds it against the plain version
    and times it by CUDA-graph replay at B = 1 and B = 128; then times
    ``sample_gates`` over rows per block and tile widths at B = 1, 64, 128
@@ -66,12 +74,16 @@ from lets_face_it_tpu_torch.utils.timing import cuda_time_ms, graphed
 REPO = Path(__file__).resolve().parent.parent
 SEED = 20240
 ATOL, RTOL = 2e-4, 1e-4
+# sequences: ATOL, or this times the plain version's own float32 - float64
+# distance where the flow spreads rounding further (chip_smoke.py step 18's)
+SEQ_RATIO = 3.0
 # at a reduced precision: steps of its grid, of the output's largest |value|
 MODE_GRID, MODE_STEPS = {"high": 2.0 ** -10, "medium": 2.0 ** -7}, 4.0
 CHECK_BATCHES = (1, 5, 33, 128)
 CLUSTERS = (4, 8, 16)
 ROWS_PER_TILE = (1, 2, 4, 8)
 TILES_PER_CLUSTER = (0, 1, 2, 4)   # 0: the plan's
+RING_SLOTS = (0, 2, 3, 4, 6, 8)    # 0: as many as fit
 GATE_BATCHES = (1, 64, 128, 512)
 GATE_ROWS = (0, 1, 2, 4, 8, 16)    # 0: the launcher's
 GATE_GROUPS = (0, 8, 32)           # 0: the launcher's
@@ -84,13 +96,13 @@ def _time_ms(fn, reps=20):
     return cuda_time_ms(graphed(fn, warmup=1), reps, warmup=1)
 
 
-def _max_err(name, got, ref):
+def _max_err(name, got, ref, atol=ATOL):
     worst = 0.0
     prec = fk.ambient_matmul_precision()
     for i, (a, r) in enumerate(zip(got, ref)):
         if r is None:
             continue
-        atol, rtol = ATOL, RTOL
+        rtol = RTOL
         if prec != "highest":
             atol = MODE_STEPS * MODE_GRID[prec] * max(r.abs().max().item(), 1.0)
             rtol = 0.0
@@ -102,18 +114,42 @@ def _max_err(name, got, ref):
     return worst
 
 
+def widened(hp, hidden_channels=None, expression_dim=None, n_steps=None):
+    """``hp`` at a wider spec of the search grid (hparam_tuning_configs/
+    large_hparam_search.py's names), the face dims following the expression
+    dim as the search keeps them."""
+    if hidden_channels:
+        hp.Glow["hidden_channels"] = hidden_channels
+    if n_steps:
+        hp.Glow["K"] = n_steps
+    if expression_dim:
+        hp.Data["expression_dim"] = expression_dim
+        c = expression_dim + hp.Data["jaw_dim"] + hp.Data["neck_dim"]
+        hp.Conditioning["p1_face"]["dim"] = hp.Conditioning["p2_face"]["dim"] = c
+    return hp
+
+
+def _dist(a, b) -> float:
+    return (a.double() - b.double()).abs().max().item()
+
+
 class _Case:
     """One config's weights and a frame's inputs at batch b."""
 
-    def __init__(self, name, dev, tmp):
-        hp = load_hparams(REPO / "hparams" / f"{name}.yaml", dataset_root=tmp)
-        self.spec = spec = FlowSpec.build(hp)
+    def __init__(self, name, dev, tmp, wide=None):
+        hp = widened(load_hparams(REPO / "hparams" / f"{name}.yaml", dataset_root=tmp),
+                     **(wide or {}))
+        # the single kernels' wrappers take the kernels' lanes: a model of
+        # their width (C = 54 runs on 56)
+        self.spec = spec = fk.kernel_spec(FlowSpec.build(hp))
         model = seeded_random_model(spec, SEED).to(dev)
         self.p1 = p1 = spec.cond.p1_face.out_dim
         # float32, and rounded once for the ambient precision as the owners
         # of sampling weights hold them
         self.w32 = fk.prepare_sampling_weights(spec, model.flow)
         self.w = fk.round_sampling_weights(spec, self.w32, fk.precision_mode())
+        self.w64 = self.w32._replace(**{n: t.double() for n, t in
+                                        self.w32._asdict().items() if n != "mode"})
         self.w_p1_t = model.flow["cond_proj"]["w"][:, :, :p1].transpose(1, 2) \
             .contiguous().detach()
         self.tw = tk.prepare_train_weights(spec, model.flow)
@@ -136,14 +172,19 @@ def main(argv=None) -> int:
     parser.add_argument("--precision", default="highest", choices=tuple(fk.MODES))
     parser.add_argument("--gates", action="store_true",
                         help="only the gates' plans, at every precision")
+    parser.add_argument("--hidden_channels", type=int, default=None)
+    parser.add_argument("--expression_dim", type=int, default=None)
+    parser.add_argument("--n_steps", type=int, default=None, help="flow steps K")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("this probe needs a CUDA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.gates:
         return _probe_gates()
+    wide = {"hidden_channels": args.hidden_channels,
+            "expression_dim": args.expression_dim, "n_steps": args.n_steps}
     with matmul_precision(args.precision):
-        return _probe(args.quick)
+        return _probe(args.quick, wide)
 
 
 def _library_gates(spec, w, w_p1_t, fixed, hist, states):
@@ -203,7 +244,7 @@ def _probe_gates() -> int:
     return 0
 
 
-def _probe(quick: bool) -> int:
+def _probe(quick: bool, wide: dict) -> int:
     mode = fk.precision_mode(None)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -221,7 +262,11 @@ def _probe(quick: bool) -> int:
 
     dev = torch.device("cuda")
     with tempfile.TemporaryDirectory() as tmp, torch.no_grad():
-        cases = {n: _Case(n, dev, tmp) for n in ("final_model", "no_face")}
+        cases = {n: _Case(n, dev, tmp, wide) for n in ("final_model", "no_face")}
+        s0 = cases["final_model"].spec
+        print(json.dumps({"spec": {"C": s0.channels, "K": s0.n_steps,
+                                   "H": s0.hidden_channels, "cond": s0.cond.cond_dim},
+                          "chain_placement": fk.chain_placement(s0)}), flush=True)
         failed = []
 
         def attempt(label, fn):
@@ -240,6 +285,24 @@ def _probe(quick: bool) -> int:
                 fx = cs_.randn(8, spec.n_steps, b, spec.cond.cond_dim)
                 gates = fk.sample_gates_ref(spec, w, cs_.w_p1_t, fixed, hist, st, mode)
                 _, gc, gh = gates
+                # the plain versions in float32 and float64 (at "highest"):
+                # how far the flow spreads float32 rounding by itself
+                seq_ref = fk.sequence_rev_fused_ref(spec, w, cs_.w_p1_t, zs, fx, hist,
+                                                    st, mode)
+                drift = {"seq_rev_plain": 0.0}
+                if mode == 0:
+                    w64, d = cs_.w64, lambda t: t.double()
+                    seq64 = fk.sequence_rev_fused_ref(spec, w64, d(cs_.w_p1_t), d(zs),
+                                                      d(fx), d(hist), d(st))
+                    chain64 = fk.sample_chain_ref(spec, w64, d(z), d(gc), d(gh), d(st),
+                                                  d(hist))[0]
+                    got = fk.sample_chain(spec, w, z, gc, gh, st, hist)[0]
+                    ref = fk.sample_chain_ref(spec, w, z, gc, gh, st, hist)[0]
+                    drift = {"seq_rev_plain": _dist(seq_ref, seq64),
+                             "seq_rev_kernel": _dist(fk.sequence_rev_fused(
+                                 spec, w, cs_.w_p1_t, zs, fx, hist, st), seq64),
+                             "chain_plain": _dist(ref, chain64),
+                             "chain_kernel": _dist(got, chain64)}
                 errs = {
                     "sample_gates": attempt(f"{name} sample_gates B={b}", lambda: _max_err(
                         "", fk.sample_gates(spec, w, cs_.w_p1_t, fixed, hist, st), gates)),
@@ -251,12 +314,11 @@ def _probe(quick: bool) -> int:
                         fk.frame_rev_fused_ref(spec, w, z, fixed, st, mode))),
                     "seq_rev": attempt(f"{name} seq_rev B={b} N=8", lambda: _max_err(
                         "", [fk.sequence_rev_fused(spec, w, cs_.w_p1_t, zs, fx, hist, st)],
-                        [fk.sequence_rev_fused_ref(spec, w, cs_.w_p1_t, zs, fx, hist,
-                                                   st, mode)]))}
+                        [seq_ref], max(ATOL, SEQ_RATIO * drift["seq_rev_plain"])))}
                 torch.cuda.synchronize()
                 print(json.dumps({"check": name, "batch": b,
                                   "chain_plan": attempt("plan", lambda: fk.chain_plan(spec, b)),
-                                  "max_abs_err": errs}), flush=True)
+                                  "max_abs_err": errs, "from_float64": drift}), flush=True)
         if failed:
             raise SystemExit("failed: " + "; ".join(failed))
         if quick:
@@ -265,12 +327,14 @@ def _probe(quick: bool) -> int:
         case = cases["final_model"]
         spec, w = case.spec, case.w
         n_seq = 76
+        resident = fk.chain_resident(spec)
         for b in (1, 128):
             # where a chain launch's time goes: each block's device times of
-            # the first tile, in us after the earliest block start
+            # the first tile, in us after the earliest block start (the
+            # traced kernel is the resident variant's)
             z, fixed, hist, st = case.frame(b)
             _, gc, gh = fk.sample_gates(spec, w, case.w_p1_t, fixed, hist, st)
-            for tile in ((0, 0, 0), (0, 16, 0)):
+            for tile in ((0, 0, 0), (0, 16, 0)) if resident else ():
                 plan = fk.chain_plan(spec, b, tile)
                 trace = torch.zeros(plan["blocks"], fk.CHAIN_TRACE_SLOTS,
                                     dtype=torch.int64, device=dev)
@@ -295,7 +359,7 @@ def _probe(quick: bool) -> int:
             zs = case.randn(n_seq, b, spec.channels)
             fx = case.randn(n_seq, spec.n_steps, b, spec.cond.cond_dim)
             print(json.dumps({
-                "batch": b, "frame_rev_ms": _time_ms(
+                "batch": b, "chain_plan": fk.chain_plan(spec, b), "frame_rev_ms": _time_ms(
                     lambda: fk.frame_rev_fused(spec, w, z, fixed, st)),
                 "seq_rev_ms": _time_ms(lambda: fk.sequence_rev_fused(
                     spec, w, case.w_p1_t, zs, fx, hist, st), reps=3),
@@ -305,25 +369,30 @@ def _probe(quick: bool) -> int:
             z, fixed, hist, st = case.frame(b)
             _, gc, gh = fk.sample_gates(spec, w, case.w_p1_t, fixed, hist, st)
             ref = fk.sample_chain_ref(spec, w, z, gc, gh, st, hist, mode)
-            for cs_n in CLUSTERS:
-                for bt in ROWS_PER_TILE if b > 1 else (1,):
-                    for m in TILES_PER_CLUSTER if b > 1 else (1,):
-                        tile = (bt, cs_n, m)
-                        row = {"batch": b, "tile": tile}
-                        try:
-                            row["plan"] = fk.chain_plan(spec, b, tile)
-                        except RuntimeError as e:   # no plan: the block does not fit
-                            row["plan"] = str(e)
-                            print(json.dumps(row), flush=True)
-                            continue
-
-                        def run(tile=tile):
-                            return fk.sample_chain(spec, w, z, gc, gh, st, hist,
-                                                   tile=tile)
-
-                        row["err"] = _max_err(f"sample_chain {tile}", run(), ref)
-                        row["ms"] = _time_ms(run)
+            # the plan's placement; at B = 1 a resident spec forced to the
+            # streaming variant too
+            for place in (None, False) if resident and b == 1 else (None,):
+                streamed = place is False or not resident
+                tiles = [(bt, cs_n, m, sl) for cs_n in CLUSTERS
+                         for bt in (ROWS_PER_TILE if b > 1 else (1,))
+                         for m in (TILES_PER_CLUSTER if b > 1 else (1,))
+                         for sl in (RING_SLOTS if b == 1 and streamed else (0,))]
+                for tile in tiles:
+                    row = {"batch": b, "tile": tile, "resident": place}
+                    try:
+                        row["plan"] = fk.chain_plan(spec, b, tile, resident=place)
+                    except RuntimeError as e:   # no plan: the block does not fit
+                        row["plan"] = str(e)
                         print(json.dumps(row), flush=True)
+                        continue
+
+                    def run(tile=tile, place=place):
+                        return fk.sample_chain(spec, w, z, gc, gh, st, hist,
+                                               tile=tile, resident=place)
+
+                    row["err"] = _max_err(f"sample_chain {tile}", run(), ref)
+                    row["ms"] = _time_ms(run)
+                    print(json.dumps(row), flush=True)
 
         for b in GATE_BATCHES:
             z, fixed, hist, st = case.frame(b)

@@ -1,19 +1,27 @@
 """Probe of the training kernels' launch plan on one NVIDIA GPU.
 
     python -m lets_face_it_tpu_torch.probe_train_kernels [--precision highest|high|medium]
+        [--hidden_channels H] [--expression_dim E] [--n_steps K] [--batch B]
+        [--quick]
     python -m lets_face_it_tpu_torch.probe_train_kernels --gates
 
 For ``hparams/final_model.yaml`` on seeded random weights at B=256, N=56
-(the training path's shape), from the sources in this checkout:
+(the training path's shape), or a wider spec of the search grid with
+``--hidden_channels`` / ``--expression_dim`` / ``--n_steps`` at ``--batch``
+rows (e.g. H = 512, E = 48, B = 64: chip_smoke.py step 18's), from the
+sources in this checkout:
 
 1. builds the kernels and prints the registers and spills ``nvcc -Xptxas -v``
    reports for ``cond_gates``, ``seq_fwd`` and ``seq_bwd``;
 2. holds ``cond_gates``, ``seq_fwd`` and ``seq_bwd`` against their plain
    versions at B=256 and at B=5 (a partial cluster) with the launcher's own
-   plan (forward atol/rtol 1e-5, backward atol 2e-5 / rtol 1e-4);
-3. for every cluster size in (1, 2, 4, 8) and rows per block in (2, 4, 8),
-   and for ring slots in (2, 3, 4, 6) at 2 rows per block and clusters of 1
-   and 2, prints the plan (blocks, slots, slot and shared-memory bytes, and
+   plan (forward atol/rtol 1e-5, backward atol 2e-5 / rtol 1e-4), and
+   ``seq_bwd`` on each of its plans ("walk" and "split",
+   ``train_kernels.seq_bwd_plan_name``) at the same limits, timed by
+   CUDA-graph replay at B=256 (``--quick`` stops here);
+3. for every cluster size in (1, 2, 4, 8) and rows per block in (1, 2, 4,
+   8), and for ring slots in (2, 3, 4, 6) at the default plan's rows per
+   block and clusters of 1 and 2, prints the plan (blocks, slots, slot and shared-memory bytes, and
    the clusters the device holds at once, by
    ``cudaOccupancyMaxActiveClusters``), holds both serial kernels against
    the plain versions again and times them by CUDA-graph replay; then times
@@ -52,6 +60,7 @@ from lets_face_it_tpu_torch.model.spec import FlowSpec
 from lets_face_it_tpu_torch.ops import cuda_build
 from lets_face_it_tpu_torch.ops import flow_kernels as fk
 from lets_face_it_tpu_torch.ops import train_kernels as tk
+from lets_face_it_tpu_torch.probe_sampling_kernels import widened
 from lets_face_it_tpu_torch.sample.weights import seeded_random_model
 from lets_face_it_tpu_torch.utils.precision import matmul_precision
 from lets_face_it_tpu_torch.utils.timing import cuda_time_ms, graphed
@@ -59,8 +68,8 @@ from lets_face_it_tpu_torch.utils.timing import cuda_time_ms, graphed
 REPO = Path(__file__).resolve().parent.parent
 SEED = 20240
 CLUSTERS = (1, 2, 4, 8)
-ROWS_PER_BLOCK = (2, 4, 8)
-SLOTS = (2, 3, 4, 6)   # ring slots tried at 2 rows per block
+ROWS_PER_BLOCK = (1, 2, 4, 8)
+SLOTS = (2, 3, 4, 6)   # ring slots tried at the default plan's rows per block
 FWD_TOL, BWD_TOL = (1e-5, 1e-5), (2e-5, 1e-4)
 # at a reduced precision: steps of its grid, of the output's largest |value|
 MODE_GRID, MODE_STEPS = {"high": 2.0 ** -10, "medium": 2.0 ** -7}, 4.0
@@ -92,6 +101,13 @@ def main(argv=None) -> int:
     parser.add_argument("--precision", default="highest", choices=tuple(fk.MODES))
     parser.add_argument("--gates", action="store_true",
                         help="only cond_gates' plans, at every precision")
+    parser.add_argument("--hidden_channels", type=int, default=None)
+    parser.add_argument("--expression_dim", type=int, default=None)
+    parser.add_argument("--n_steps", type=int, default=None, help="flow steps K")
+    parser.add_argument("--batch", type=int, default=None,
+                        help="rows (default: the config's batch size)")
+    parser.add_argument("--quick", action="store_true",
+                        help="the checks and both backward plans only")
     args = parser.parse_args(argv)
     prec = args.precision
     mode = fk.MODES[prec]
@@ -115,10 +131,19 @@ def main(argv=None) -> int:
 
     dev = torch.device("cuda")
     with tempfile.TemporaryDirectory() as tmp:
-        hp = load_hparams(REPO / "hparams" / "final_model.yaml", dataset_root=tmp)
+        hp = widened(load_hparams(REPO / "hparams" / "final_model.yaml",
+                                  dataset_root=tmp),
+                     args.hidden_channels, args.expression_dim, args.n_steps)
     spec = FlowSpec.build(hp)
     n = hp.Train["seq_len"] - spec.cond.longest_history
     k, c, h = spec.n_steps, spec.channels, spec.hidden_channels
+    big = args.batch or hp.batch_size
+    spec = fk.kernel_spec(spec)   # the wrappers below take the kernels' lanes
+    c = spec.channels
+    print(json.dumps({"spec": {"C": hp.Data["expression_dim"] + hp.Data["jaw_dim"]
+                               + hp.Data["neck_dim"], "lanes": c, "K": k, "H": h,
+                               "cond": spec.cond.cond_dim},
+                      "seq_bwd_plan": tk.seq_bwd_plan_name(spec)}))
     model = seeded_random_model(spec, SEED).to(dev)
     g = torch.Generator(device=dev).manual_seed(SEED)
 
@@ -131,7 +156,7 @@ def main(argv=None) -> int:
     with torch.no_grad():
         tw = tk.prepare_train_weights(spec, model.flow)
         cases = {}
-        for b, frames in ((5, 5), (hp.batch_size, n)):
+        for b, frames in ((5, 5), (big, n)):
             xs, cs, st0 = inputs(b, frames)
             ref = tk.seq_fwd_ref(spec, tw, xs, cs, st0, mode)
             hprev = torch.cat([st0[None], ref[3][:-1]])
@@ -148,19 +173,33 @@ def main(argv=None) -> int:
             e_b = _max_err(f"seq_bwd B={b}",
                            tk.seq_bwd(spec, tw, gc, ref[2], hprev, *cot, precision=prec),
                            bwd_ref, BWD_TOL, prec)
+            by_plan = {}
+            for plan in tk.SEQ_BWD_PLANS:
+                def bwd(plan=plan):
+                    return tk.seq_bwd(spec, tw, gc, ref[2], hprev, *cot,
+                                      precision=prec, plan=plan)
+                by_plan[plan] = {"err": _max_err(f"seq_bwd {plan} B={b}", bwd(),
+                                                 bwd_ref, BWD_TOL, prec),
+                                 "plan": tk.serial_plan("seq_bwd", spec, b, plan=plan)}
+                if b == big:
+                    by_plan[plan]["ms"] = _time_ms(bwd)
             torch.cuda.synchronize()
             print(json.dumps({"check": "default plan", "batch": b, "frames": frames,
                               "fwd_plan": tk.serial_plan("seq_fwd", spec, b),
                               "bwd_plan": tk.serial_plan("seq_bwd", spec, b),
                               "max_abs_err": {"cond_gates": e_gc, "seq_fwd": e_f,
-                                              "seq_bwd": e_b}}))
+                                              "seq_bwd": e_b},
+                              "seq_bwd_plans": by_plan}), flush=True)
             cases[b] = (xs, cs, st0, ref, hprev, cot, bwd_ref)
+        if args.quick:
+            return 0
 
-        b = hp.batch_size
+        b = big
         xs, cs, st0, ref, hprev, cot, bwd_ref = cases[b]
         gc = ref[4]
+        bt0 = tk.serial_plan("seq_bwd", spec, b)["rows_per_block"]
         grid = [(bt, cs_n, 0) for cs_n in CLUSTERS for bt in ROWS_PER_BLOCK]
-        grid += [(2, cs_n, slots) for cs_n in CLUSTERS[:2] for slots in SLOTS]
+        grid += [(bt0, cs_n, slots) for cs_n in CLUSTERS[:2] for slots in SLOTS]
         for tile in grid:
             row = {"batch": b, "frames": n, "tile": tile}
             for which in ("seq_fwd", "seq_bwd"):
