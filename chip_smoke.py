@@ -119,7 +119,8 @@ sources in this checkout:
 18. the kernels at two specs of the JAX kernels' envelope that the
     final_model checks do not reach: C = 54 (each half of the coupling
     split padded from 27 to 28 lanes) and C = 54 at H = 512 (the chain's
-    streaming variant in a cluster of 16; seq_bwd's split plan): each
+    streaming variant in a cluster of 16; the training pair's hidden
+    split): each
     spec's path (2 steps, a validation, 3 pushes) with its launches, then
     every kernel against its plain twin at the final_model limits, timed
     beside the library call and its bound (``cond_gates`` at every mode, as
@@ -128,9 +129,19 @@ sources in this checkout:
     to its streaming variant, for its time beside the resident one's; then
     final widths at H = 256 (the chain resident in a cluster of 16): a step,
     a validation and 3 pushes, ``frame_rev`` B=1 and 64, ``seq_rev`` B=1
-    and ``seq_bwd`` B=64 (the walk plan timed beside it), the same way; one
-    ``{"widened": ...}`` line and a record per kernel and spec in the
-    kernels' line.
+    the same way, and ``seq_fwd`` and ``seq_bwd`` B=64 on their hidden
+    split (each against its plain twin as at H = 1024 below, the backward
+    at the training limits alone; the walk plans timed beside them); at
+    C = 54, H = 512 both plans of both serial training kernels ("walk" and
+    "hsplit") checked and timed, with the launcher's printed; then final
+    widths at H = 1024,
+    where both serial training kernels run their hidden split: the path
+    (2 steps at B=64, a validation, 3 pushes; "hsplit" required of both),
+    and ``seq_fwd`` and ``seq_bwd`` at B=64 and, at K = 32, B=16 (N=28), each
+    against its plain twin at the training limits or 3 times the twin's own
+    float32 - float64 distance, whichever is larger, timed beside the eager
+    loop and the bound; one ``{"widened": ...}`` line and a record per
+    kernel and spec in the kernels' line.
 19. the hyperparameter search (``train/tuning.py``): ``Study.optimize`` on
     final_model over ``hparam_tuning_configs/large_hparam_search.py``, 3
     trials of 10 steps from a pinned seed, each in a spawned subprocess on
@@ -434,9 +445,14 @@ def fail(msg: str) -> None:
 
 
 def check_close(name, got, ref, atol=ATOL, rtol=RTOL):
+    """``got`` against ``ref`` in float64, elementwise |got - ref| <= atol +
+    rtol * |ref|, on the card where either lies there (the training
+    residuals run to 10^8 entries); returns the largest |got - ref|."""
     import torch
 
-    got, ref = got.double().cpu(), ref.double().cpu()
+    got, ref = torch.as_tensor(got), torch.as_tensor(ref)
+    dev = got.device if got.is_cuda else ref.device
+    got, ref = got.to(dev, torch.float64), ref.to(dev, torch.float64)
     if got.shape != ref.shape:
         fail(f"{name}: shape {tuple(got.shape)} vs {tuple(ref.shape)}")
     if not torch.isfinite(got).all():
@@ -2316,8 +2332,21 @@ WIDE_SPECS = (("C=54", {"expression_dim": 48}),
               ("C=54, H=512", {"expression_dim": 48, "hidden_channels": 512}))
 WIDE_BATCH = 64
 # Step 18's final widths at H = 256 (C = 56, K = 16): the chain's weights
-# resident in a cluster of 16, seq_bwd's split plan; its kernel rows only.
+# resident in a cluster of 16, the training pair's hidden split.
 WIDE_H256 = ("C=56, H=256", {"hidden_channels": 256})
+# Step 18's final widths at H = 1024 (C = 56, K = 16), where both serial
+# training kernels take their hidden split (no other plan holds a row): its
+# path and its training kernels' rows at WIDE_BATCH; then the widest block,
+# K = 32, at WIDE_K32_BATCH rows (kernel rows only). At C = 54, H = 512 both
+# plans of both serial kernels are timed (WIDE_BOTH_PLANS).
+WIDE_H1024 = ("C=56, H=1024", {"hidden_channels": 1024})
+# (the K = 32 rows run half the training path's frames and time one
+# replay: their plain twins and the eager loop's 1,800 steps a call are
+# most of the step's time)
+WIDE_K32, WIDE_K32_BATCH, WIDE_K32_FRAMES = 32, 16, 28
+WIDE_BOTH_PLANS = "C=54, H=512"
+FWD_OUTPUTS = ("z", "scales", "zs_res", "states_res", "gc")
+BWD_OUTPUTS = ("dx", "dstates0", "dgi", "dghn", "dhout", "dzb")
 # The whole generated sequence of a widened spec against its plain twin:
 # SEQ_LOOSE_ATOL, or WIDE_SEQ_RATIO times the plain twin's own float32 -
 # float64 drift where the random flow amplifies rounding more than
@@ -2357,8 +2386,55 @@ def _wide_hp(tmp, overrides: dict):
         hp.Conditioning["p1_face"]["dim"] = hp.Conditioning["p2_face"]["dim"] = c
     if "hidden_channels" in overrides:
         hp.Glow["hidden_channels"] = overrides["hidden_channels"]
+    if "n_steps" in overrides:
+        hp.Glow["K"] = overrides["n_steps"]
     hp.batch_size = WIDE_BATCH
     return hp
+
+
+def twin_check(name, names, got, ref, ref64, atol, rtol) -> tuple:
+    """Each output of a kernel against its plain twin at ``atol`` /
+    ``rtol``, or at WIDE_SEQ_RATIO times the twin's own float32 - float64
+    distance where that is larger (a wide random flow amplifies rounding)
+    -> (largest |diff|, largest own distance)."""
+    worst = own_max = 0.0
+    for nm, a, r, r64 in zip(names, got, ref, ref64):
+        own = (r.double() - r64).abs().max().item()
+        worst = max(worst, check_close(f"{name} {nm}", a, r,
+                                       max(atol, WIDE_SEQ_RATIO * own), rtol))
+        own_max = max(own_max, own)
+    print(f"check {name}: max|d| {worst:.3e}, the plain twin's own float32 - "
+          f"float64 distance {own_max:.3e}  ok")
+    return worst, own_max
+
+
+def serial_plans_ms(label, spec, tw, fwd_in, bwd_in, ref, ref64, bwd_ref,
+                    bwd_ref64, b) -> dict:
+    """``seq_fwd`` and ``seq_bwd`` on each of their plans, each against its
+    plain twin (``twin_check``) and timed by CUDA-graph replay and through
+    the wrapper."""
+    from lets_face_it_tpu_torch.ops import train_kernels as tk
+
+    out = {"launcher": {"seq_fwd": tk.seq_fwd_plan_name(spec),
+                        "seq_bwd": tk.seq_bwd_plan_name(spec)}}
+    cases = [("seq_fwd", p, lambda p=p: tk.seq_fwd(spec, tw, *fwd_in, plan=p),
+              FWD_OUTPUTS, ref, ref64, TRAIN_VAL_ATOL, TRAIN_VAL_RTOL)
+             for p in tk.SEQ_FWD_PLANS]
+    cases += [("seq_bwd", p, lambda p=p: tk.seq_bwd(spec, tw, *bwd_in, plan=p),
+               BWD_OUTPUTS, bwd_ref, bwd_ref64, TRAIN_BWD_ATOL, TRAIN_BWD_RTOL)
+              for p in tk.SEQ_BWD_PLANS]
+    for which, plan, call, names, r, r64, atol, rtol in cases:
+        err, own = twin_check(f"{label} {which} {plan}", names, call(), r, r64,
+                              atol, rtol)
+        out.setdefault(which, {})[plan] = {
+            "max_abs_err": err, "own_f64_distance": own,
+            "ms": time_ms(graphed(call), 3), "wrapper_ms": time_ms(call, 3),
+            "plan": tk.serial_plan(which, spec, b, plan=plan)}
+    print(f"{label} both plans at B={b} (the launcher's: seq_fwd "
+          f"{out['launcher']['seq_fwd']}, seq_bwd {out['launcher']['seq_bwd']}): "
+          + ", ".join(f"{w} {p} {v['ms']:.4f} ms" for w in ("seq_fwd", "seq_bwd")
+                      for p, v in out[w].items()))
+    return out
 
 
 def widened_step(tmp, dev, card, records) -> dict:
@@ -2384,6 +2460,7 @@ def widened_step(tmp, dev, card, records) -> dict:
         return scale * torch.randn(shape, generator=g, device=dev)
 
     for label, overrides in WIDE_SPECS:
+        t_spec = time.perf_counter()
         hp = _wide_hp(tmp, overrides)
         spec = FlowSpec.build(hp)
         ks = fk.kernel_spec(spec)
@@ -2421,6 +2498,7 @@ def widened_step(tmp, dev, card, records) -> dict:
         launches = read_launches()
         require_launches(f"{label} path", launches, kernel_wrappers())
         require_plan(f"{label} path", read_plans(), "seq_bwd", tk.seq_bwd_plan_name(spec))
+        require_plan(f"{label} path", read_plans(), "seq_fwd", tk.seq_fwd_plan_name(spec))
         if not (math.isfinite(float(mets["loss"])) and math.isfinite(val["val_loss"])):
             fail(f"{label} path: loss {float(mets['loss'])}, val {val['val_loss']}")
         print(f"{label} path: 2 steps B={WIDE_BATCH}, a validation (val NLL "
@@ -2582,12 +2660,11 @@ def widened_step(tmp, dev, card, records) -> dict:
                                            (0, cp // 2 - c // 2)),
                    randn(k_steps, b, h))
             got = tk.seq_bwd(ks, tw, gc_t, zs_res, hprev, *cot)
-            ref, bwd_plain = timed(lambda: tk.seq_bwd_ref(ks, tw, gc_t, zs_res, hprev,
-                                                          *cot))
+            bwd_ref, bwd_plain = timed(lambda: tk.seq_bwd_ref(ks, tw, gc_t, zs_res,
+                                                              hprev, *cot))
             bwd_err = max(check_close(f"{label} seq_bwd {nm}", a_, r_,
                                       TRAIN_BWD_ATOL, TRAIN_BWD_RTOL)
-                          for nm, a_, r_ in zip(("dx", "dstates0", "dgi", "dghn", "dhout",
-                                                 "dzb"), got, ref))
+                          for nm, a_, r_ in zip(BWD_OUTPUTS, got, bwd_ref))
             gates_call = lambda: tk.cond_gates(ks, tw, cs)  # noqa: E731
             fwd_call = lambda: tk.seq_fwd(ks, tw, xs_t, cs, st_t)  # noqa: E731
             bwd_call = lambda: tk.seq_bwd(ks, tw, gc_t, zs_res, hprev, *cot)  # noqa: E731
@@ -2614,6 +2691,16 @@ def widened_step(tmp, dev, card, records) -> dict:
             bwd_ms, bwd_wrap = time_ms(graphed(bwd_call), 3), time_ms(bwd_call, 3)
             bwd_plan = tk.serial_plan("seq_bwd", ks, b)
             print(f"{label} seq_bwd plan at B={b}: {json.dumps(bwd_plan)}")
+            both = None
+            if label == WIDE_BOTH_PLANS:
+                tw64 = tk.TrainWeights(*(t.double() for t in tw))
+                fwd_in = (xs_t, cs, st_t)
+                bwd_in = (gc_t, zs_res, hprev, *cot)
+                both = serial_plans_ms(
+                    label, ks, tw, fwd_in, bwd_in, ref, tk.seq_fwd_ref(
+                        ks, tw64, *(t.double() for t in fwd_in)),
+                    bwd_ref, tk.seq_bwd_ref(ks, tw64, *(t.double() for t in bwd_in)), b)
+                del tw64
         # the library backward: the eager loop's autograd backward
         cot_l = (unpad(cot[0]), cot[1][..., :c // 2], cot[2])
         lib_bwd = library_backward_ms(spec, model.flow, (xs_l, cs, st_t), cot_l,
@@ -2623,11 +2710,14 @@ def widened_step(tmp, dev, card, records) -> dict:
             wrapper_ms=bwd_wrap,
             plain_ms=bwd_plain, library_ms=lib_bwd,
             **dict(zip(("bound_ms", "bound_by"), train_bwd_bound_ms(ks, tw, n_tr, b))))
+        rows["seq_fwd"]["plan"] = tk.serial_plan("seq_fwd", ks, b)
+        if both:
+            rows["seq_fwd"]["plans"] = both["seq_fwd"]
+            rows["seq_bwd"]["plans"] = both["seq_bwd"]
         for name, row in rows.items():
-            src, rep_ = KERNEL_SOURCES[name]
             records.append(dict(name=name, widened=label, route="cuda",
-                                source=f"lets_face_it_tpu_torch/{src}",
-                                replaces=f"lets_face_it_tpu/ops/{rep_}",
+                                source=row_source(name, row),
+                                replaces=f"lets_face_it_tpu/ops/{KERNEL_SOURCES[name][1]}",
                                 launches=launches[name], **row))
             extra = (f", streaming variant {row['streaming_ms']:.4f} ms"
                      if "streaming_ms" in row else "")
@@ -2638,43 +2728,39 @@ def widened_step(tmp, dev, card, records) -> dict:
                   f"({row['bound_by']})  ok")
         out[label] = {"launches": launches, "val_loss": val["val_loss"],
                       "chain_resident": resident, "chain_placement": list(placement),
-                      "kernel_channels": ks.channels}
+                      "kernel_channels": ks.channels,
+                      "spec_s": time.perf_counter() - t_spec}
+        print(f"step 18, {label}: {out[label]['spec_s']:.1f} s")
         del model, w, tw
         torch.cuda.empty_cache()
+    t_spec = time.perf_counter()
     out[WIDE_H256[0]] = wide_h256_rows(tmp, dev, records)
+    print(f"step 18, {WIDE_H256[0]}: {time.perf_counter() - t_spec:.1f} s")
+    t_spec = time.perf_counter()
+    out[WIDE_H1024[0]] = wide_h1024_rows(tmp, dev, records)
+    print(f"step 18, {WIDE_H1024[0]}: {time.perf_counter() - t_spec:.1f} s")
     out["step_s"] = time.perf_counter() - t18
     return out
 
 
-def wide_h256_rows(tmp, dev, records) -> dict:
-    """Step 18 at final widths and H = 256 (``WIDE_H256``): one training
-    step, a validation and 3 pushes at B=1 (the launches), then the chain's
-    wide plan (the weights resident in a cluster of 16) through
-    ``frame_rev`` B=1 and 64 and ``seq_rev`` B=1 over a validation's
-    frames, and ``seq_bwd``'s split plan at B=WIDE_BATCH: each against its
-    plain twin at step 18's limits, timed beside its library call and
-    bound."""
+def wide_path(tmp, dev, label, overrides, n_steps: int) -> tuple:
+    """A widened spec's path on seeded random weights: ``run_actnorm_init``,
+    ``n_steps`` training steps at B=WIDE_BATCH, a validation and 3 pushes at
+    B=1, with every path kernel required among the launches, each serial
+    training kernel on its launcher's plan, and a finite loss -> (hp, spec,
+    model, the last step's metrics, the validation's, launches, plans)."""
     import numpy as np
     import torch
 
     from lets_face_it_tpu_torch.model.spec import FlowSpec
-    from lets_face_it_tpu_torch.ops import flow_kernels as fk
     from lets_face_it_tpu_torch.ops import train_kernels as tk
     from lets_face_it_tpu_torch.sample.streaming import StreamingGenerator
     from lets_face_it_tpu_torch.sample.weights import seeded_random_model
     from lets_face_it_tpu_torch.train import loop as train_loop
     from lets_face_it_tpu_torch.train import state as train_state
 
-    label, overrides = WIDE_H256
     hp = _wide_hp(tmp, overrides)
     spec = FlowSpec.build(hp)
-    ks = fk.kernel_spec(spec)
-    place, cluster = fk.chain_placement(spec)
-    g = torch.Generator(device=dev).manual_seed(SEED)
-
-    def randn(*shape, scale=1.0):
-        return scale * torch.randn(shape, generator=g, device=dev)
-
     corpus = train_loop.synthetic_corpus(hp, SEED, n_train_chunks=4, n_val_chunks=1)
     train_ds, val_ds = train_loop.load_datasets(hp, corpus)
     model = seeded_random_model(spec, SEED).to(dev)
@@ -2684,8 +2770,9 @@ def wide_h256_rows(tmp, dev, records) -> dict:
              for kk in ("p2_face", "p1_speech", "p2_speech") if kk in jb}
     reset_launches()
     train_state.run_actnorm_init(spec, state, jb)
-    mets = train_state.train_step(spec, hp, state, jb)
-    val = train_loop.run_validation(spec, hp, model, val_ds, dev, 1, SEED)
+    for _ in range(n_steps):
+        mets = train_state.train_step(spec, hp, state, jb)
+    val = train_loop.run_validation(spec, hp, model, val_ds, dev, n_steps, SEED)
     s = StreamingGenerator(spec, model, batch_size=1, seed=SEED, device=dev)
     for _ in range(3):
         s.push(**frame)
@@ -2693,14 +2780,40 @@ def wide_h256_rows(tmp, dev, records) -> dict:
     launches, plans = read_launches(), read_plans()
     require_launches(f"{label} path", launches, ("frame_rev", "seq_rev", "cond_gates",
                                                  "seq_fwd", "seq_bwd"))
-    require_plan(f"{label} path", plans, "seq_bwd", "split")
+    require_plan(f"{label} path", plans, "seq_bwd", tk.seq_bwd_plan_name(spec))
+    require_plan(f"{label} path", plans, "seq_fwd", tk.seq_fwd_plan_name(spec))
     if not (math.isfinite(float(mets["loss"])) and math.isfinite(val["val_loss"])):
         fail(f"{label} path: loss {float(mets['loss'])}, val {val['val_loss']}")
+    return hp, spec, model, mets, val, launches, plans
+
+
+def wide_h256_rows(tmp, dev, records) -> dict:
+    """Step 18 at final widths and H = 256 (``WIDE_H256``): one training
+    step, a validation and 3 pushes at B=1 (the launches), then the chain's
+    wide plan (the weights resident in a cluster of 16) through
+    ``frame_rev`` B=1 and 64 and ``seq_rev`` B=1 over a validation's
+    frames, and ``seq_fwd`` and ``seq_bwd`` on their launchers' plans at
+    B=WIDE_BATCH (``serial_kernel_rows``): each against its plain twin at
+    step 18's limits, timed beside its library call and bound."""
+    import torch
+
+    from lets_face_it_tpu_torch.ops import flow_kernels as fk
+    from lets_face_it_tpu_torch.ops import train_kernels as tk
+
+    label, overrides = WIDE_H256
+    hp, spec, model, mets, val, launches, plans = wide_path(tmp, dev, label, overrides, 1)
+    ks = fk.kernel_spec(spec)
+    place, cluster = fk.chain_placement(spec)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=g, device=dev)
+
     print(f"step 18, {label}: K={spec.n_steps} H={spec.hidden_channels}; the chain "
-          f"{place} in a cluster of {cluster}, seq_bwd {tk.seq_bwd_plan_name(spec)}; "
+          f"{place} in a cluster of {cluster}, seq_fwd {tk.seq_fwd_plan_name(spec)}, "
+          f"seq_bwd {tk.seq_bwd_plan_name(spec)}; "
           f"path: a step B={WIDE_BATCH}, a validation (val NLL {val['val_loss']:.3f}), "
           f"3 pushes; launches {launches}")
-    del s, state
 
     k_steps, c, h = spec.n_steps, spec.channels, spec.hidden_channels
     cond, p1 = spec.cond.cond_dim, spec.cond.p1_face.out_dim
@@ -2753,36 +2866,13 @@ def wide_h256_rows(tmp, dev, records) -> dict:
                 ks, w, gru, *ref_args[2:])), 3, warmup=1),
             **dict(zip(("bound_ms", "bound_by"), seq_bound_ms(ks, w, n_seq, 1)))))
 
-        b = WIDE_BATCH
-        tw = tk.TrainWeights(*(t.detach() for t in tk.prepare_train_weights(
-            spec, model.flow)))
-        xs_t = randn(n_tr, b, c)
-        cs, st_t = randn(n_tr, k_steps, b, cond), randn(k_steps, b, h, scale=0.3)
-        _, _, zs_res, st_res, gc_t = tk.seq_fwd(ks, tw, xs_t, cs, st_t)
-        hprev = torch.cat([st_t[None], st_res[:-1]])
-        cot = (randn(n_tr, b, c), randn(n_tr, k_steps, b, c // 2), randn(k_steps, b, h))
-        got = tk.seq_bwd(ks, tw, gc_t, zs_res, hprev, *cot)
-        ref, bwd_plain = timed(lambda: tk.seq_bwd_ref(ks, tw, gc_t, zs_res, hprev, *cot))
-        bwd_err = max(check_close(f"{label} seq_bwd {nm}", a_, r_,
-                                  TRAIN_BWD_ATOL, TRAIN_BWD_RTOL)
-                      for nm, a_, r_ in zip(("dx", "dstates0", "dgi", "dghn", "dhout",
-                                             "dzb"), got, ref))
-        bwd_call = lambda: tk.seq_bwd(ks, tw, gc_t, zs_res, hprev, *cot)  # noqa: E731
-        bwd_ms, bwd_wrap = time_ms(graphed(bwd_call), 3), time_ms(bwd_call, 3)
-        walk_ms = time_ms(graphed(lambda: tk.seq_bwd(ks, tw, gc_t, zs_res, hprev, *cot,
-                                                     plan="walk")), 3)
-    lib_bwd = library_backward_ms(spec, model.flow, (xs_t, cs, st_t), cot, "highest", 3,
-                                  EAGER_RECAPTURE_WARMUP)
-    rows["seq_bwd"] = ("seq_bwd", dict(
-        batch=b, frames=n_tr, max_abs_err=bwd_err, plan=tk.serial_plan("seq_bwd", ks, b),
-        ms=bwd_ms, wrapper_ms=bwd_wrap, walk_plan_ms=walk_ms, plain_ms=bwd_plain,
-        library_ms=lib_bwd,
-        **dict(zip(("bound_ms", "bound_by"), train_bwd_bound_ms(ks, tw, n_tr, b)))))
+    serial = serial_kernel_rows(label, spec, model, n_tr, WIDE_BATCH, randn, 3,
+                                bwd_twin=False, walk_ms=True)
+    rows.update((name, (name, row)) for name, row in serial.items())
     for key, (name, row) in rows.items():
-        src, rep_ = KERNEL_SOURCES[name]
         records.append(dict(name=name, widened=label, route="cuda",
-                            source=f"lets_face_it_tpu_torch/{src}",
-                            replaces=f"lets_face_it_tpu/ops/{rep_}",
+                            source=row_source(name, row),
+                            replaces=f"lets_face_it_tpu/ops/{KERNEL_SOURCES[name][1]}",
                             launches=launches[name], **row))
         extra = (f", the walk plan {row['walk_plan_ms']:.4f} ms"
                  if "walk_plan_ms" in row else "")
@@ -2790,11 +2880,165 @@ def wide_h256_rows(tmp, dev, records) -> dict:
               f"(graph replay; {row['wrapper_ms']:.4f} through the wrapper){extra}, plain "
               f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, bound "
               f"{row['bound_ms']:.4f} ms ({row['bound_by']})  ok")
-    del model, w, tw
+    del model, w
     torch.cuda.empty_cache()
     return {"launches": launches, "plans": plans, "val_loss": val["val_loss"],
             "chain_placement": [place, cluster]}
 
+
+def serial_kernel_rows(label, spec, model, n_tr: int, b: int, randn, reps: int, *,
+                       bwd_twin: bool = True, walk_ms: bool = False) -> dict:
+    """``seq_fwd`` and ``seq_bwd`` on the launchers' plans at B=b, N=n_tr:
+    the forward against its plain twin (``twin_check``: the training limits
+    or WIDE_SEQ_RATIO times the twin's own float32 - float64 distance), the
+    backward on the plain forward's residuals against its plain twin the
+    same way at the backward's limits (``bwd_twin`` False: at those limits
+    alone), each timed (``reps`` replays) beside the eager loop's forward
+    and autograd backward and the bound; ``walk_ms``: each kernel's walk
+    plan timed too."""
+    import torch
+
+    from lets_face_it_tpu_torch.ops import flow_kernels as fk
+    from lets_face_it_tpu_torch.ops import train_kernels as tk
+
+    ks = fk.kernel_spec(spec)
+    k_steps, c, h, cond = ks.n_steps, ks.channels, ks.hidden_channels, ks.cond.cond_dim
+    rows = {}
+    with torch.no_grad():
+        tw = tk.TrainWeights(*(t.detach() for t in tk.prepare_train_weights(
+            spec, model.flow)))
+        tw64 = tk.TrainWeights(*(t.double() for t in tw))
+        fwd_in = (randn(n_tr, b, c), randn(n_tr, k_steps, b, cond),
+                  randn(k_steps, b, h, scale=0.3))
+        got = tk.seq_fwd(ks, tw, *fwd_in)
+        ref, fwd_plain = timed(lambda: tk.seq_fwd_ref(ks, tw, *fwd_in))
+        fwd_err, fwd_own = twin_check(
+            f"{label} K={k_steps} seq_fwd", FWD_OUTPUTS, got, ref,
+            tk.seq_fwd_ref(ks, tw64, *(t.double() for t in fwd_in)),
+            TRAIN_VAL_ATOL, TRAIN_VAL_RTOL)
+        _, _, zs_res, st_res, gc_t = ref
+        hprev = torch.cat([fwd_in[2][None], st_res[:-1]])
+        bwd_in = (gc_t, zs_res, hprev, randn(n_tr, b, c), randn(n_tr, k_steps, b, c // 2),
+                  randn(k_steps, b, h))
+        del got, ref
+        got = tk.seq_bwd(ks, tw, *bwd_in)
+        bwd_ref, bwd_plain = timed(lambda: tk.seq_bwd_ref(ks, tw, *bwd_in))
+        if bwd_twin:
+            bwd_err, bwd_own = twin_check(
+                f"{label} K={k_steps} seq_bwd", BWD_OUTPUTS, got, bwd_ref,
+                tk.seq_bwd_ref(ks, tw64, *(t.double() for t in bwd_in)),
+                TRAIN_BWD_ATOL, TRAIN_BWD_RTOL)
+        else:
+            bwd_err = max(check_close(f"{label} seq_bwd {nm}", a_, r_,
+                                      TRAIN_BWD_ATOL, TRAIN_BWD_RTOL)
+                          for nm, a_, r_ in zip(BWD_OUTPUTS, got, bwd_ref))
+            bwd_own = None
+        del got, bwd_ref, tw64
+        calls = {"seq_fwd": lambda plan=None: tk.seq_fwd(ks, tw, *fwd_in, plan=plan),
+                 "seq_bwd": lambda plan=None: tk.seq_bwd(ks, tw, *bwd_in, plan=plan)}
+        for name, err, own, plain, bound in (
+                ("seq_fwd", fwd_err, fwd_own, fwd_plain,
+                 train_fwd_bound_ms(ks, tw, n_tr, b)),
+                ("seq_bwd", bwd_err, bwd_own, bwd_plain,
+                 train_bwd_bound_ms(ks, tw, n_tr, b))):
+            call = calls[name]
+            rows[name] = dict(
+                batch=b, frames=n_tr, n_steps=k_steps, max_abs_err=err,
+                own_f64_distance=own, plan=tk.serial_plan(name, ks, b),
+                ms=time_ms(graphed(call, 1), reps, warmup=1),
+                wrapper_ms=time_ms(call, reps, warmup=1),
+                plain_ms=plain, **dict(zip(("bound_ms", "bound_by"), bound)))
+            if walk_ms:
+                rows[name]["walk_plan_ms"] = time_ms(
+                    graphed(lambda: call("walk"), 1), reps, warmup=1)
+        rows["seq_fwd"]["library_ms"] = time_ms(graphed(lambda: eager_flow_sequence(
+            spec, model.flow, *fwd_in), EAGER_RECAPTURE_WARMUP), reps, warmup=1)
+    rows["seq_bwd"]["library_ms"] = library_backward_ms(
+        spec, model.flow, fwd_in, bwd_in[3:], "highest", reps, EAGER_RECAPTURE_WARMUP)
+    return rows
+
+
+def row_source(name: str, row: dict) -> str:
+    """The source a kernel row ran: the hidden split's where the row's
+    launch plan is it (``HSPLIT_SOURCES``), else the kernel's own
+    (``KERNEL_SOURCES``)."""
+    plan = row.get("plan")
+    hsplit = isinstance(plan, dict) and plan.get("plan") == "hsplit"
+    return ("lets_face_it_tpu_torch/"
+            + (HSPLIT_SOURCES[name] if hsplit else KERNEL_SOURCES[name][0]))
+
+
+def wide_h1024_rows(tmp, dev, records) -> dict:
+    """Step 18 at final widths and H = 1024 (``WIDE_H1024``), where both
+    serial training kernels take the hidden split: the path (``wide_path``,
+    2 training steps) on it, then ``seq_fwd`` and ``seq_bwd`` at
+    B=WIDE_BATCH and at K = WIDE_K32, B=WIDE_K32_BATCH, N=WIDE_K32_FRAMES
+    (``serial_kernel_rows``)."""
+    import torch
+
+    from lets_face_it_tpu_torch.model.spec import FlowSpec
+    from lets_face_it_tpu_torch.ops import flow_kernels as fk
+    from lets_face_it_tpu_torch.ops import train_kernels as tk
+    from lets_face_it_tpu_torch.sample.weights import seeded_random_model
+
+    t0 = time.perf_counter()
+    label, overrides = WIDE_H1024
+    hp, spec, model, mets, val, launches, plans = wide_path(tmp, dev, label, overrides, 2)
+    if tk.seq_fwd_plan_name(spec) != "hsplit" or tk.seq_bwd_plan_name(spec) != "hsplit":
+        fail(f"{label}: the serial training kernels' plans are not the hidden split")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=g, device=dev)
+
+    place, cluster = fk.chain_placement(spec)
+    print(f"step 18, {label}: K={spec.n_steps} H={spec.hidden_channels}; seq_fwd "
+          f"{tk.seq_fwd_plan_name(spec)}, seq_bwd {tk.seq_bwd_plan_name(spec)}, the "
+          f"chain {place} in a cluster of {cluster}; path: 2 steps B={WIDE_BATCH} "
+          f"(loss {float(mets['loss']):.3f}), a validation (val NLL "
+          f"{val['val_loss']:.3f}), 3 pushes ({time.perf_counter() - t0:.1f} s); "
+          f"launches {launches}, plans {plans}")
+    n_tr = hp.Train["seq_len"] - spec.cond.longest_history
+    t0 = time.perf_counter()
+    rows = [(serial_kernel_rows(label, spec, model, n_tr, WIDE_BATCH, randn, 3),
+             launches)]
+    del model
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    hp32 = _wide_hp(tmp, {**overrides, "n_steps": WIDE_K32})
+    spec32 = FlowSpec.build(hp32)
+    model32 = seeded_random_model(spec32, SEED).to(dev)
+    # no path runs at K = 32: its rows count the launches of their own calls
+    reset_launches()
+    rows.append((serial_kernel_rows(label, spec32, model32, WIDE_K32_FRAMES,
+                                    WIDE_K32_BATCH, randn, 1), read_launches()))
+    del model32
+    torch.cuda.empty_cache()
+    print(f"step 18, {label}: kernel rows K={spec.n_steps} {t1 - t0:.1f} s, "
+          f"K={WIDE_K32} {time.perf_counter() - t1:.1f} s")
+    for part, counts in rows:
+        for name, row in part.items():
+            records.append(dict(name=name, widened=label, route="cuda",
+                                source=row_source(name, row),
+                                replaces=f"lets_face_it_tpu/ops/{KERNEL_SOURCES[name][1]}",
+                                launches=counts[name],
+                                launches_of="the path" if counts is launches
+                                else "these kernel rows (no path at this spec)",
+                                **row))
+            print(f"{label} K={row['n_steps']} {name} B={row['batch']} on "
+                  f"{row['plan']['plan']} (rows {row['plan']['rows_per_block']}, "
+                  f"cluster {row['plan']['cluster']}): max|d| {row['max_abs_err']:.3e}; "
+                  f"kernel {row['ms']:.4f} ms (graph replay; {row['wrapper_ms']:.4f} "
+                  f"through the wrapper), plain {row['plain_ms']:.4f} ms, library "
+                  f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                  f"({row['bound_by']})  ok")
+    return {"launches": launches, "plans": plans, "loss": float(mets["loss"]),
+            "val_loss": val["val_loss"], "chain_placement": [place, cluster]}
+
+
+# The hidden split's sources (step 18's rows on that plan, ``row_source``).
+HSPLIT_SOURCES = {"seq_fwd": "csrc/seq_fwd_hsplit.cu",
+                  "seq_bwd": "csrc/seq_bwd_hsplit.cu"}
 
 # The kernels' sources and the TPU kernels they replace.
 KERNEL_SOURCES = {

@@ -43,13 +43,23 @@ struct FlowWeights {
   float scale_eps;
 };
 
+// The training backward's transposed weights (laid out by the wrapper,
+// ops/train_kernels.py::seq_bwd).
+struct BwdWeights {
+  const float* w_t;       // [K, C, C]     W^T
+  const float* w_hh;      // [K, 3H, H]    w_hh_t^T
+  const float* w_ih_z1;   // [K, 3H, Z1]   w_ih_t[:, :Z1]^T
+  const float* out_w;     // [K, COUT, H]  out_w_t^T
+};
+
 __host__ __device__ inline int round4(int n) { return (n + 3) / 4 * 4; }
 
-// The current device's SM count and opt-in shared memory per block (bytes),
-// read once per device.
+// The current device's SM count, opt-in shared memory per block and L2
+// cache (bytes), read once per device.
 struct FlowDevice {
   int sms;
   int max_smem;
+  int l2_bytes;
 };
 
 inline cudaError_t flow_device(FlowDevice* out) {
@@ -66,6 +76,8 @@ inline cudaError_t flow_device(FlowDevice* out) {
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&d.max_smem,
                                  cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&d.l2_bytes, cudaDevAttrL2CacheSize, dev);
   if (err != cudaSuccess) return err;
   if (dev < FLOW_MAX_DEVICES) cache[dev] = d;
   *out = d;

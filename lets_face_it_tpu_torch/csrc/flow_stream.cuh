@@ -39,6 +39,14 @@
 // inputs such as gc or the backward's residuals) are fetched one step ahead
 // by the consumers themselves with cp.async (prefetch_units) into a double
 // buffer, so no global-memory latency sits on the chain either.
+//
+// The hidden-split plan (seq_fwd_hsplit.cu, seq_bwd_hsplit.cu) shares a
+// tile's rows over the CS blocks of a cluster, each block owning H / CS of
+// the hidden units: each block streams only its own weight columns, so its
+// ring is filled from global memory for itself alone (produce_local), and
+// the blocks meet once or twice a step through the cluster exchange below
+// (Exchange: every block's partial sums pushed into every peer's shared
+// memory by st.async, completing the peer's mbarrier).
 
 #pragma once
 
@@ -57,6 +65,8 @@ constexpr int STREAM_CONSUMER_WARPS = STREAM_CONSUMERS / 32;
 constexpr int STREAM_MAX_SLOTS = 16;
 constexpr int STREAM_MAX_SLOT_FLOATS = 12 * 1024;       // 48 KB a slot
 constexpr int STREAM_MAX_CLUSTER = 8;                   // portable limit
+// The hidden-split plan's clusters go up to the non-portable 16.
+constexpr int HSPLIT_MAX_CLUSTER = 16;
 // Floats at the start of the dynamic shared memory that hold the barriers
 // (3 per slot, 8 bytes each), padded to 128 bytes.
 constexpr int STREAM_BAR_FLOATS = 96;
@@ -312,6 +322,36 @@ __device__ inline void produce(Ring& ring, const float* Wt, int IN, int NC,
   }
 }
 
+// `bytes` from global `src` to this block's shared offset `dst`,
+// completing `bytes` on the barrier at offset `bar`.
+__device__ __forceinline__ void bulk_copy_local(uint32_t dst, const void* src,
+                                                uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Producer (one thread) of a ring that no other block shares (the
+// hidden-split plan: every block streams its own columns): the rows of
+// Wt [IN, NC] into this block's slots. A slot is refilled once this block's
+// consumers have released it (init_ring with cs = 1; the "empty" barriers
+// are not used).
+__device__ inline void produce_local(Ring& ring, const float* Wt, int IN, int NC,
+                                     int rpc) {
+  for (int c0 = 0; c0 < IN; c0 += rpc) {
+    const int rows = min(rpc, IN - c0);
+    const uint32_t off = 8 * ring.slot;
+    if (ring.reused) mbar_wait(ring.consumed + off, ring.phase ^ 1u);
+    const uint32_t bytes = (uint32_t)rows * NC * 4u;
+    mbar_arrive_expect_tx(ring.full + off, bytes);
+    bulk_copy_local(smem_u32(ring.slots + (size_t)ring.slot * ring.slot_floats),
+                    Wt + (size_t)c0 * NC, bytes, ring.full + off);
+    advance(ring);
+  }
+}
+
 // Consumers (all STREAM_CONSUMERS threads, ctid = threadIdx.x):
 //   out[r, c] = bias[c] + addend[r * ldd + c] + sum_i X[r, i] * Wt[i, c]
 // for the BT rows, Wt streamed through the ring by the matching produce()
@@ -408,6 +448,134 @@ __device__ void stream_matvec(Ring& ring, int IN, int NC, int rpc, int slices,
 }
 
 // ---------------------------------------------------------------------------
+// The cluster exchange of the hidden-split plan
+// ---------------------------------------------------------------------------
+
+// The address `addr` (this block's shared window) in the shared memory of
+// the cluster's block `rank`.
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(remote)
+               : "r"(addr), "r"(rank));
+  return remote;
+}
+
+// 16 bytes at cluster address `addr` (another block's shared memory).
+__device__ __forceinline__ float4 ld_cluster_v4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// 16 bytes into another block's shared memory, completing 16 bytes on its
+// barrier `bar` (both cluster addresses; release at cluster scope).
+__device__ __forceinline__ void xchg_st_v4(uint32_t addr, float4 v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32"
+      " [%0], {%1, %2, %3, %4}, [%5];" ::"r"(addr),
+      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
+      : "memory");
+}
+
+// Spin until the phase of parity `parity` has completed, acquiring at
+// cluster scope what the peers' st.async released.
+__device__ __forceinline__ void mbar_wait_acquire_cluster(uint32_t bar,
+                                                         uint32_t parity) {
+  uint32_t done, spins = 0;
+  uint64_t t0 = 0;
+  for (;;) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if ((++spins & 1023) == 0) t0 = stream_watchdog(t0);
+  }
+}
+
+// One exchange of a cluster of cs blocks: at each use every block sends
+// `n` floats (a multiple of 4) to every peer, which keeps them in slot
+// `rank` of its receive buffer [cs, n]; the block's own n floats stay where
+// they are (the caller reads them there). Uses alternate between two
+// buffers and barriers, each armed for the (cs - 1) * n * 4 bytes of the
+// peers: a block sends use u + 2 only after it has received every peer's
+// use u + 1, which each peer sends only after it has read use u and armed
+// that use's barrier again, so neither buffer nor barrier is overwritten
+// early. 4 floats of barriers, then the two buffers.
+__host__ __device__ inline int xchg_floats(int cs, int n) {
+  return 4 + 2 * round4(cs * n);
+}
+
+struct Exchange {
+  uint32_t bar;   // this block's two barriers, 8 bytes apart
+  float* buf;     // [2, round4(cs * n)]
+  int n, cs, stride;
+};
+
+// Carves an exchange from `at` (16-byte aligned); returns the first float
+// after it.
+__device__ inline float* carve_xchg(float* at, int cs, int n, Exchange* x) {
+  x->bar = smem_u32(at);
+  x->buf = at + 4;
+  x->n = n;
+  x->cs = cs;
+  x->stride = round4(cs * n);
+  return at + xchg_floats(cs, n);
+}
+
+// One thread, before the cluster's first synchronisation: the barriers,
+// armed for uses 0 and 1.
+__device__ inline void init_xchg(const Exchange& x) {
+  for (int i = 0; i < 2; ++i) {
+    mbar_init(x.bar + 8 * i, 1);
+    mbar_arrive_expect_tx(x.bar + 8 * i, (uint32_t)((x.cs - 1) * x.n * 4));
+  }
+}
+
+// The consumers: this block's n floats at `src` (shared, complete) into
+// slot `rank` of every peer's buffer of use `use`.
+__device__ inline void xchg_send(const Exchange& x, int use, const float* src,
+                                 uint32_t rank) {
+  const int q = x.n / 4, b = use & 1;
+  const uint32_t dst0 = smem_u32(x.buf + b * x.stride + rank * x.n);
+  const uint32_t bar = x.bar + 8 * b;
+  // the block's other writes that peers read after this exchange (its
+  // units' states) are ordered before the stores' release
+  if ((int)threadIdx.x < (x.cs - 1) * q) asm volatile("fence.acq_rel.cluster;" ::: "memory");
+  for (int idx = threadIdx.x; idx < (x.cs - 1) * q; idx += STREAM_CONSUMERS) {
+    const int j = idx / q, u = idx - j * q;
+    const uint32_t p = (uint32_t)j < rank ? (uint32_t)j : (uint32_t)j + 1;
+    const float4 v = reinterpret_cast<const float4*>(src)[u];
+    xchg_st_v4(cluster_map(dst0 + 16 * u, p), v, cluster_map(bar, p));
+  }
+}
+
+// The consumers: wait for every peer's floats of use `use`; thread 0 then
+// arms the barrier for use + 2. Returns the buffer [cs, n].
+__device__ inline const float* xchg_wait(const Exchange& x, int use) {
+  const int b = use & 1;
+  const uint32_t bar = x.bar + 8 * b;
+  mbar_wait_acquire_cluster(bar, (uint32_t)(use >> 1) & 1u);
+  if (threadIdx.x == 0)
+    mbar_arrive_expect_tx(bar, (uint32_t)((x.cs - 1) * x.n * 4));
+  return x.buf + b * x.stride;
+}
+
+// Slot p of an exchange's buffer, or the block's own floats for its rank.
+__device__ __forceinline__ const float* xchg_part(const Exchange& x,
+                                                  const float* got, int p,
+                                                  uint32_t rank, const float* own) {
+  return (uint32_t)p == rank ? own : got + p * x.n;
+}
+
+// ---------------------------------------------------------------------------
 // Host side: the launch plan
 // ---------------------------------------------------------------------------
 
@@ -442,14 +610,19 @@ struct StreamProduct {
 // needs, at most a quarter of what is left; the slots share the rest, up to
 // 48 KB each. Returns false if the block does not fit or a chunk piece
 // would be empty.
+// With `multicast` false (the hidden-split plan) the blocks of a cluster
+// share no chunk: cs may reach HSPLIT_MAX_CLUSTER and a chunk is not cut in
+// pieces. Every product's width is at most 4 * STREAM_CONSUMERS (one
+// column group a consumer thread: stream_matvec writes no other column).
 template <typename OtherFloats>
 inline bool plan_stream(int B, int bt_req, int cs_req, int slots_req,
                         const FlowDevice& d, const StreamProduct* prods,
                         int n_prods, OtherFloats other_floats,
-                        StreamPlan* plan) {
+                        StreamPlan* plan, bool multicast = true) {
   int widest = 0;
   for (int i = 0; i < n_prods; ++i)
     widest = prods[i].NC > widest ? prods[i].NC : widest;
+  if (widest > 4 * STREAM_CONSUMERS) return false;
   int bt = bt_req;
   if (bt == 0) {
     bt = 1;
@@ -457,8 +630,8 @@ inline bool plan_stream(int B, int bt_req, int cs_req, int slots_req,
   }
   const int cs = cs_req ? cs_req : STREAM_DEFAULT_CLUSTER;
   const int nslots = slots_req ? slots_req : STREAM_DEFAULT_SLOTS;
-  if (cs < 1 || cs > STREAM_MAX_CLUSTER || bt < 1 || bt > FLOW_MAX_BT
-      || nslots < 2 || nslots > STREAM_MAX_SLOTS)
+  if (cs < 1 || cs > (multicast ? STREAM_MAX_CLUSTER : HSPLIT_MAX_CLUSTER) || bt < 1
+      || bt > FLOW_MAX_BT || nslots < 2 || nslots > STREAM_MAX_SLOTS)
     return false;
   if (n_prods > STREAM_MAX_PRODUCTS) return false;
   int need_partial = 0;   // every product at its widest split
@@ -475,7 +648,8 @@ inline bool plan_stream(int B, int bt_req, int cs_req, int slots_req,
   if (slot > STREAM_MAX_SLOT_FLOATS) slot = STREAM_MAX_SLOT_FLOATS;
   if (slot < 4 * widest) return false;
   for (int i = 0; i < n_prods; ++i) {
-    if (stream_min_piece_units(slot, prods[i].IN, prods[i].NC) < cs) return false;
+    if (multicast && stream_min_piece_units(slot, prods[i].IN, prods[i].NC) < cs)
+      return false;
     plan->table.rpc[i] = stream_chunk_rows(slot, prods[i].NC);
     plan->table.slices[i] = stream_slices(prods[i].IN, prods[i].NC,
                                           plan->table.rpc[i], bt, partial);
@@ -492,14 +666,31 @@ inline bool plan_stream(int B, int bt_req, int cs_req, int slots_req,
   return true;
 }
 
+// The kernel's shared-memory cap raised to the device's limit and clusters
+// above the portable 8 allowed (the hidden split's), once per device
+// (`done`: the flags of this kernel instantiation).
+template <typename Kernel>
+inline cudaError_t allow_stream(Kernel kernel, const FlowDevice& d, bool* done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < FLOW_MAX_DEVICES && done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             d.max_smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err == cudaSuccess && dev < FLOW_MAX_DEVICES) done[dev] = true;
+  return err;
+}
+
 // Launches `kernel` as clusters of plan.cs blocks of STREAM_THREADS threads
-// on `stream`; the kernel's shared-memory cap is raised once per device.
+// on `stream` (allow_stream first).
 template <typename Kernel, typename... Args>
 inline cudaError_t launch_stream(Kernel kernel, const StreamPlan& plan,
                                  const FlowDevice& d, bool* smem_allowed,
                                  cudaStream_t stream, Args... args) {
-  // smem_allowed: the flags of this kernel instantiation (allow_max_smem)
-  cudaError_t err = allow_max_smem(kernel, d, smem_allowed);
+  cudaError_t err = allow_stream(kernel, d, smem_allowed);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(plan.blocks);
@@ -523,7 +714,7 @@ inline cudaError_t launch_stream(Kernel kernel, const StreamPlan& plan,
 template <typename Kernel>
 inline int stream_max_clusters(Kernel kernel, const StreamPlan& plan,
                                const FlowDevice& d, bool* smem_allowed) {
-  if (allow_max_smem(kernel, d, smem_allowed) != cudaSuccess) return -1;
+  if (allow_stream(kernel, d, smem_allowed) != cudaSuccess) return -1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(plan.blocks);
   cfg.blockDim = dim3(STREAM_THREADS);

@@ -38,73 +38,28 @@
 // streamed tile product. This file allocates nothing and launches on the
 // caller's stream.
 //
-// The split plan (SPLIT; the launcher's from H = SPLIT_FROM_H on; the two
-// H x 3H products are 91 % of the 6.9 MB a step streams at H = 512):
-// the two products that read w_hh leave the serial walk, which streams
-// only w_mix, w_ih[:, :Z1] and out_w, both ways (0.6 MB a step at H = 512).
-// Neither is on the dz chain inside a frame:
-//   * the recomputed gh[t, k] = hprev[t, k] @ w_hh_t[k] + b_hh[k] reads only
-//     the forward's residual hprev: one tile product for every (t, k) before
-//     the walk (gates_mma.cuh, as cond_gates.cu computes gc), read by the
-//     walk as it reads gc;
-//   * dgh[t, k] @ w_hh[k] feeds dstate[k] of frame t - 1, not of frame t:
-//     the walk runs one frame a launch, writes dgh and the rest of the state
-//     cotangent (dh * u) of every step, and one tile product a frame over
-//     every SM, dstate[k] = dh * u + dgh @ w_hh[k] for all k, hands the next
-//     frame its dstate.
-// So a call is 1 + 2N launches; each frame's walk starts its ring anew.
+// From H = 256 the wrapper takes the hidden split (seq_bwd_hsplit.cu, a
+// library of its own; ops/train_kernels.py::seq_bwd_plan_name chooses).
 
 #include "flow_stream.cuh"
-#include "gates_mma.cuh"
 
-// The split plan from this H on, the walk below it. On an H100
-// (probe_train_kernels.py and chip_smoke.py step 18, PERF.md) the split plan
-// read 22.55 ms against the
-// walk's 106.17 at H = 512, B = 64, N = 56, and 12.29 against 23.73 at
-// H = 256; at final_model's H = 128 it is faster too (10.76 against 11.88 ms
-// at B = 256, 8.58 against 10.27 at B = 64), but it moves the bits of the
-// gradients, and two Adam steps turn that into other weights, on which
-// chip_smoke.py step 18's check of the (unchanged) forward kernel read
-// 1.335e-05 against its 1e-5: H = 128 keeps the walk's bits until that
-// check's weights stop depending on the backward's rounding.
-constexpr int SPLIT_FROM_H = 256;
-// The plans' codes (the launcher's `plan`, 0 for its choice;
-// ops/train_kernels.py::_BWD_PLAN_CODES mirrors them).
-constexpr int BWD_PLAN_AUTO = 0, BWD_PLAN_WALK = 1, BWD_PLAN_SPLIT = 2;
-
-struct BwdWeights {
-  const float* w_t;       // [K, C, C]     W^T
-  const float* w_hh;      // [K, 3H, H]    w_hh_t^T
-  const float* w_ih_z1;   // [K, 3H, Z1]   w_ih_t[:, :Z1]^T
-  const float* out_w;     // [K, COUT, H]  out_w_t^T
-};
-
-// Floats of one step's prefetched inputs: an_bias[k], an_scale[k], b_hh[k]
-// (the walk's), out_b[k], and the tile's rows of gc[t, k], zs[t, k],
-// hprev[t, k], dscales[t, k], (last step of a frame, the first walked)
-// dz_seq[t] and (split) gh[t, k], which has b_hh in it.
-__host__ __device__ inline int bwd_step_floats(int bt, const FlowWeights& w,
-                                               bool split) {
-  return 2 * w.C + (split ? 0 : 3 * w.H) + w.COUT
-         + bt * (3 * w.H + w.C + w.H + w.COUT / 2 + w.C + (split ? 3 * w.H : 0));
+// Floats of one step's prefetched inputs: an_bias[k], an_scale[k], b_hh[k],
+// out_b[k], and the tile's rows of gc[t, k], zs[t, k], hprev[t, k],
+// dscales[t, k] and (last step of a frame, the first walked) dz_seq[t].
+__host__ __device__ inline int bwd_step_floats(int bt, const FlowWeights& w) {
+  return 2 * w.C + 3 * w.H + w.COUT
+         + bt * (3 * w.H + w.C + w.H + w.COUT / 2 + w.C);
 }
 
 // The block's other buffers: the K state cotangents, the step's vectors and
-// the gates (gh only in the walk: split, it is read from the prefetch), two
-// steps of prefetched inputs. At two rows a block the split plan's block is
-// the walk's size, at one row smaller.
-__host__ __device__ inline int bwd_other_floats(int bt, const FlowWeights& w,
-                                                bool split) {
+// gates, two steps of prefetched inputs.
+__host__ __device__ inline int bwd_other_floats(int bt, const FlowWeights& w) {
   const int G = 3 * w.H;
   return round4(w.K * bt * w.H) + 2 * round4(bt * w.H) + 4 * round4(bt * w.C)
-         + 2 * round4(bt * w.COUT) + (split ? 3 : 4) * round4(bt * G)
-         + 2 * bwd_step_floats(bt, w, split);
+         + 2 * round4(bt * w.COUT) + 4 * round4(bt * G) + 2 * bwd_step_floats(bt, w);
 }
 
-// SPLIT: the split plan's walk of one frame (N = 1, the pointers at the
-// frame): gh read from gh_g, and the state cotangents it leaves in
-// dstates0 are dh * u, dgh written to dgh_g for the frame's product.
-template <int BT, int MODE, bool SPLIT>
+template <int BT, int MODE>
 __global__ void __launch_bounds__(STREAM_THREADS, 1)
 seq_bwd_kernel(FlowWeights w, BwdWeights wb, int B, int N, int nslots,
                int slot_floats, StreamTable tab, int cs,
@@ -114,14 +69,12 @@ seq_bwd_kernel(FlowWeights w, BwdWeights wb, int B, int N, int nslots,
                const float* __restrict__ hprev_g,     // [N, K, B, H]
                const float* __restrict__ dnew_states, // [K, B, H]
                const float* __restrict__ gc,          // [N, K, B, 3H]
-               const float* __restrict__ gh_g,        // [N, K, B, 3H] (SPLIT)
                float* __restrict__ dx,                // [N, B, C]
                float* __restrict__ dstates0,          // [K, B, H]
                float* __restrict__ dgi_g,             // [N, K, B, 3H]
                float* __restrict__ dghn_g,            // [N, K, B, H]
                float* __restrict__ dhout_g,           // [N, K, B, COUT]
-               float* __restrict__ dzb_g,             // [N, K, B, C]
-               float* __restrict__ dgh_g) {           // [K, B, 3H] (SPLIT)
+               float* __restrict__ dzb_g) {           // [N, K, B, C]
   extern __shared__ __align__(128) float smem[];
   const int tid = threadIdx.x;
   const int K = w.K, C = w.C, Z1 = w.Z1, H = w.H;
@@ -129,11 +82,11 @@ seq_bwd_kernel(FlowWeights w, BwdWeights wb, int B, int N, int nslots,
   const int G = 3 * H, IN = Z1 + w.COND;
   const int row0 = blockIdx.x * BT;
   const int rows = max(0, min(BT, B - row0));   // 0 in padding blocks
-  const int SF = bwd_step_floats(BT, w, SPLIT);
+  const int SF = bwd_step_floats(BT, w);
   // offsets in a step's prefetch buffer
-  const int o_am = C, o_bh = 2 * C, o_ob = 2 * C + (SPLIT ? 0 : G), o_gc = o_ob + COUT,
+  const int o_am = C, o_bh = 2 * C, o_ob = 2 * C + G, o_gc = o_ob + COUT,
             o_zs = o_gc + BT * G, o_hp = o_zs + BT * C, o_ds = o_hp + BT * H,
-            o_dz = o_ds + BT * half, o_gh = o_dz + BT * C;
+            o_dz = o_ds + BT * half;
 
   Ring ring;
   float* dstates = carve_ring(smem, nslots, slot_floats, &ring);   // [K, BT, H]
@@ -146,8 +99,8 @@ seq_bwd_kernel(FlowWeights w, BwdWeights wb, int B, int N, int nslots,
   float* hout = dzb + round4(BT * C);                      // [BT, COUT]
   float* dhout = hout + round4(BT * COUT);                 // [BT, COUT]
   float* gi = dhout + round4(BT * COUT);                   // [BT, 3H]
-  float* gh = gi + round4(BT * G);                         // [BT, 3H] (the walk's)
-  float* dgi = gh + (SPLIT ? 0 : round4(BT * G));          // [BT, 3H]
+  float* gh = gi + round4(BT * G);                         // [BT, 3H]
+  float* dgi = gh + round4(BT * G);                        // [BT, 3H]
   float* dgh = dgi + round4(BT * G);                       // [BT, 3H]
   float* pre = dgh + round4(BT * G);                       // [2, SF]
   float* partial = pre + 2 * SF;
@@ -167,16 +120,14 @@ seq_bwd_kernel(FlowWeights w, BwdWeights wb, int B, int N, int nslots,
       const uint32_t rank = cluster_rank();
       for (int t = N - 1; t >= 0; --t)
         for (int k = K - 1; k >= 0; --k) {
-          if (!SPLIT)
-            produce(ring, w.w_hh_t + (size_t)k * H * G, H, G, tab.rpc[0], rank, cs);
+          produce(ring, w.w_hh_t + (size_t)k * H * G, H, G, tab.rpc[0], rank, cs);
           produce(ring, w.w_mix + (size_t)k * C * C, C, C, tab.rpc[1], rank, cs);
           produce(ring, w.w_ih_t + (size_t)k * IN * G, Z1, G, tab.rpc[2], rank, cs);
           produce(ring, w.out_w_t + (size_t)k * H * COUT, H, COUT, tab.rpc[3],
                   rank, cs);
           produce(ring, wb.out_w + (size_t)k * COUT * H, COUT, H, tab.rpc[4],
                   rank, cs);
-          if (!SPLIT)
-            produce(ring, wb.w_hh + (size_t)k * G * H, G, H, tab.rpc[5], rank, cs);
+          produce(ring, wb.w_hh + (size_t)k * G * H, G, H, tab.rpc[5], rank, cs);
           produce(ring, wb.w_ih_z1 + (size_t)k * G * Z1, G, Z1, tab.rpc[6], rank,
                   cs);
           produce(ring, wb.w_t + (size_t)k * C * C, C, C, tab.rpc[7], rank, cs);
@@ -192,7 +143,7 @@ seq_bwd_kernel(FlowWeights w, BwdWeights wb, int B, int N, int nslots,
       const float* spare = w.an_bias;
       prefetch_units(buf, w.an_bias + k * C, C / 4, C / 4, spare);
       prefetch_units(buf + o_am, w.an_mul + k * C, C / 4, C / 4, spare);
-      if (!SPLIT) prefetch_units(buf + o_bh, w.b_hh + k * G, G / 4, G / 4, spare);
+      prefetch_units(buf + o_bh, w.b_hh + k * G, G / 4, G / 4, spare);
       prefetch_units(buf + o_ob, w.out_b + k * COUT, COUT / 4, COUT / 4, spare);
       prefetch_units(buf + o_gc, gc + rt * G, BT * G / 4, rows * G / 4, spare);
       prefetch_units(buf + o_zs, zs + rt * C, BT * C / 4, rows * C / 4, spare);
@@ -203,8 +154,6 @@ seq_bwd_kernel(FlowWeights w, BwdWeights wb, int B, int N, int nslots,
       if (k == K - 1)
         prefetch_units(buf + o_dz, dz_seq + ((size_t)t * B + row0) * C,
                        BT * C / 4, rows * C / 4, spare);
-      if (SPLIT)
-        prefetch_units(buf + o_gh, gh_g + rt * G, BT * G / 4, rows * G / 4, spare);
       cp_async_commit();
     };
     int cur = 0;
@@ -215,7 +164,6 @@ seq_bwd_kernel(FlowWeights w, BwdWeights wb, int B, int N, int nslots,
         float* dst = dstates + (size_t)k * BT * H;
         const float* P = pre + cur * SF;
         const float* hprev = P + o_hp;
-        const float* ghs = SPLIT ? P + o_gh : gh;   // [BT, 3H]
         cp_async_wait_all();
         consumer_sync();   // this step's inputs; dz of the previous step
         if (k > 0)
@@ -229,12 +177,9 @@ seq_bwd_kernel(FlowWeights w, BwdWeights wb, int B, int N, int nslots,
           if (k == K - 1) dz[idx] = P[o_dz + idx];
           ztmp[idx] = (P[o_zs + idx] + P[c]) * P[o_am + c];
         }
-        if (SPLIT)
-          consumer_sync();   // ztmp complete (the gh product's end syncs the walk's)
-        else
-          stream_matvec<BT, MODE>(ring, H, G, tab.rpc[0], tab.slices[0],
-                                  tab.inv_groups[0], hprev, H,
-                                  P + o_bh, nullptr, 0, 0, gh, G, partial);
+        stream_matvec<BT, MODE>(ring, H, G, tab.rpc[0], tab.slices[0],
+                                tab.inv_groups[0], hprev, H,
+                                P + o_bh, nullptr, 0, 0, gh, G, partial);
         stream_matvec<BT, MODE>(ring, C, C, tab.rpc[1], tab.slices[1],
                           tab.inv_groups[1], ztmp, C,
                           nullptr, nullptr, 0, 0, z, C, partial);
@@ -244,7 +189,7 @@ seq_bwd_kernel(FlowWeights w, BwdWeights wb, int B, int N, int nslots,
         for (int idx = tid; idx < BT * H; idx += STREAM_CONSUMERS) {
           const int r = idx / H, j = idx - r * H;
           const float* gir = gi + r * G;
-          const float* ghr = ghs + r * G;
+          const float* ghr = gh + r * G;
           const float rg = sigmoidf_(gir[j] + ghr[j]);
           const float ug = sigmoidf_(gir[H + j] + ghr[H + j]);
           const float ng = tanhf(gir[2 * H + j] + rg * ghr[2 * H + j]);
@@ -285,7 +230,7 @@ seq_bwd_kernel(FlowWeights w, BwdWeights wb, int B, int N, int nslots,
         for (int idx = tid; idx < BT * H; idx += STREAM_CONSUMERS) {
           const int r = idx / H, j = idx - r * H;
           const float* gir = gi + r * G;
-          const float* ghr = ghs + r * G;
+          const float* ghr = gh + r * G;
           const float rg = sigmoidf_(gir[j] + ghr[j]);
           const float ug = sigmoidf_(gir[H + j] + ghr[H + j]);
           const float ng = tanhf(gir[2 * H + j] + rg * ghr[2 * H + j]);
@@ -313,16 +258,10 @@ seq_bwd_kernel(FlowWeights w, BwdWeights wb, int B, int N, int nslots,
           }
         }
         consumer_sync();
-        if (SPLIT) {
-          // dgh for the frame's product; dstate[k] keeps dh * u
-          for (int idx = tid; idx < rows * G; idx += STREAM_CONSUMERS)
-            dgh_g[((size_t)k * B + row0) * G + idx] = dgh[idx];
-        } else {
-          // dstate[k] = dh * u + dgh @ w_hh[k]   (out aliases addend elementwise)
-          stream_matvec<BT, MODE>(ring, G, H, tab.rpc[5], tab.slices[5],
-                                  tab.inv_groups[5], dgh, G, nullptr,
-                                  dst, H, BT, dst, H, partial);
-        }
+        // dstate[k] = dh * u + dgh @ w_hh[k]   (out aliases addend elementwise)
+        stream_matvec<BT, MODE>(ring, G, H, tab.rpc[5], tab.slices[5],
+                                tab.inv_groups[5], dgh, G, nullptr,
+                                dst, H, BT, dst, H, partial);
         // dzb[:, :Z1] = dz[:, :Z1] + dgi @ w_ih[k][:, :Z1]
         stream_matvec<BT, MODE>(ring, G, Z1, tab.rpc[6], tab.slices[6],
                           tab.inv_groups[6], dgi, G, nullptr,
@@ -367,11 +306,11 @@ static int bwd_products(const FlowWeights& w, StreamProduct* p) {
 }
 
 static bool bwd_plan(const FlowWeights& w, int B, int bt, int cs, int slots,
-                     bool split, const FlowDevice& d, StreamPlan* plan) {
+                     const FlowDevice& d, StreamPlan* plan) {
   StreamProduct prods[8];
   const int n = bwd_products(w, prods);
   return plan_stream(B, bt, cs, slots, d, prods, n,
-                     [&](int b) { return bwd_other_floats(b, w, split); }, plan);
+                     [&](int b) { return bwd_other_floats(b, w); }, plan);
 }
 
 static bool bwd_valid(const FlowWeights& w, int B, int N) {
@@ -379,86 +318,9 @@ static bool bwd_valid(const FlowWeights& w, int B, int N) {
          && w.COUT == 2 * (w.C - w.Z1) && (w.COUT / 2) % 4 == 0;
 }
 
-// The launcher's plan for `plan` (BWD_PLAN_*): the split plan from
-// SPLIT_FROM_H on (ops/train_kernels.py::seq_bwd_plan_name mirrors it).
-static bool bwd_split(const FlowWeights& w, int plan) {
-  return plan == BWD_PLAN_SPLIT || (plan == BWD_PLAN_AUTO && w.H >= SPLIT_FROM_H);
-}
-
-// The split plan's tile products (gates_mma.cuh, the weights rounded for
-// `mode` by the caller).
-template <int BM, int BN, int WM, int WN, int STAGES>
-static cudaError_t bwd_mma(const MmaLaunch& L, int K, int mode, const FlowDevice& d,
-                           cudaStream_t st) {
-  switch (mode) {
-    case FLOW_F32:
-      return mma_enqueue_tile<FLOW_F32, BM, BN, WM, WN, STAGES, false>(L, K, d, st);
-    case FLOW_TF32:
-      return mma_enqueue_tile<FLOW_TF32, BM, BN, WM, WN, STAGES, false>(L, K, d, st);
-    case FLOW_BF16:
-      return mma_enqueue_tile<FLOW_BF16, BM, BN, WM, WN, STAGES, false>(L, K, d, st);
-    default: return (cudaError_t)FLOW_ERR_ARGS;
-  }
-}
-
-// gh[t, k] = hprev[t, k] @ w_hh_t[k] + b_hh[k] for every frame and step:
-// [N * B, H] @ [H, 3H] per step, in cond_gates.cu's 128 x 128 tiles.
-static cudaError_t bwd_gh(const FlowWeights& w, const float* hprev, float* gh,
-                          int B, int N, int mode, const FlowDevice& d,
-                          cudaStream_t st) {
-  const int K = w.K, H = w.H, G = 3 * H;
-  MmaLaunch L = {};
-  L.n = 1;
-  L.M = N * B;
-  L.inner = B;
-  MmaProduct& p = L.p[0];
-  p.X = hprev;
-  p.x_k = (long long)B * H;
-  p.x_outer = (long long)K * B * H;
-  p.ldx = H;
-  p.W = w.w_hh_t;
-  p.w_k = (long long)H * G;
-  p.IN = H;
-  p.NC = G;
-  p.bias = w.b_hh;
-  p.out = gh;
-  p.out_k = (long long)B * G;
-  p.out_outer = (long long)K * B * G;
-  return bwd_mma<128, 128, 32, 64, 3>(L, K, mode, d, st);
-}
-
-// One frame's state cotangents: dstate[k] = dhu[k] + dgh[k] @ w_hh[k],
-// [B, 3H] @ [3H, H] for every k, in 64 x 64 tiles (128 blocks at B = 64,
-// H = 512, K = 16).
-static cudaError_t bwd_dstate(const FlowWeights& w, const BwdWeights& wb,
-                              const float* dgh, const float* dhu, float* dstate,
-                              int B, int mode, const FlowDevice& d, cudaStream_t st) {
-  const int K = w.K, H = w.H, G = 3 * H;
-  MmaLaunch L = {};
-  L.n = 1;
-  L.M = B;
-  L.inner = B;
-  MmaProduct& p = L.p[0];
-  p.X = dgh;
-  p.x_k = (long long)B * G;
-  p.ldx = G;
-  p.W = wb.w_hh;
-  p.w_k = (long long)G * H;
-  p.IN = G;
-  p.NC = H;
-  p.addend = dhu;
-  p.add_k = (long long)B * H;
-  p.out = dstate;
-  p.out_k = (long long)B * H;
-  return bwd_mma<64, 64, 32, 32, 3>(L, K, mode, d, st);
-}
-
 // bt, cs, slots: rows per block, blocks per cluster and ring slots, 0 for
 // the plan's defaults (a default cluster is halved until one wave holds the
-// grid); plan: BWD_PLAN_WALK, BWD_PLAN_SPLIT, or BWD_PLAN_AUTO for the
-// launcher's (bwd_split), written to *plan_out. The split plan's scratch
-// (null for the walk): gh_all [N, K, B, 3H], dgh [K, B, 3H], dhu and dstate
-// [K, B, H].
+// grid).
 extern "C" int seq_bwd_launch(
     const float* dz_seq, const float* dscales, const float* zs,
     const float* hprev, const float* dnew_states, const float* gc,
@@ -468,107 +330,65 @@ extern "C" int seq_bwd_launch(
     const float* w_ih_t, const float* w_hh_t, const float* b_ih,
     const float* b_hh, const float* out_w_t, const float* out_b,
     const float* w_t, const float* w_hh, const float* w_ih_z1,
-    const float* out_w, float* gh_all, float* dgh, float* dhu, float* dstate,
+    const float* out_w,
     int B, int N, int K, int C, int Z1, int COND, int H, int COUT,
-    float scale_eps, int bt, int cs, int slots, int plan_req, int mode,
-    void* stream, int* plan_out) {
+    float scale_eps, int bt, int cs, int slots, int mode, void* stream) {
   FlowWeights w{w_ih_t, w_hh_t, b_ih, b_hh, out_w_t, out_b, w_mix, an_bias,
                 an_scale, K, C, Z1, COND, H, COUT, scale_eps};
   BwdWeights wb{w_t, w_hh, w_ih_z1, out_w};
-  const bool split = bwd_split(w, plan_req);
-  if (!bwd_valid(w, B, N) || !precision_valid(mode) || plan_req < BWD_PLAN_AUTO
-      || plan_req > BWD_PLAN_SPLIT || (split && !(gh_all && dgh && dhu && dstate)))
-    return (int)cudaErrorInvalidValue;
+  if (!bwd_valid(w, B, N) || !precision_valid(mode)) return (int)cudaErrorInvalidValue;
   FlowDevice d;
   cudaError_t err = flow_device(&d);
   if (err != cudaSuccess) return (int)err;
   StreamPlan plan;
-  if (!bwd_plan(w, B, bt, cs, slots, split, d, &plan)) return (int)cudaErrorInvalidValue;
+  if (!bwd_plan(w, B, bt, cs, slots, d, &plan)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   auto replan = [&](int c, StreamPlan* p) {
-    return bwd_plan(w, B, plan.bt, c, slots, split, d, p);
+    return bwd_plan(w, B, plan.bt, c, slots, d, p);
   };
   FLOW_DISPATCH_BT(plan.bt, FLOW_DISPATCH_MODE(mode, {
-    if (!split) {
-      static bool allowed[FLOW_MAX_DEVICES] = {};
-      const auto kernel = seq_bwd_kernel<BT, MODE, false>;
-      if (cs == 0) {
-        err = fit_one_wave(kernel, d, allowed, &plan, replan);
-        if (err != cudaSuccess) return (int)err;
-      }
-      err = launch_stream(kernel, plan, d, allowed, st, w, wb, B, N, plan.nslots,
-                          plan.slot_floats, plan.table, plan.cs, dz_seq, dscales,
-                          zs, hprev, dnew_states, gc, (const float*)nullptr, dx,
-                          dstates0, dgi, dghn, dhout, dzb, (float*)nullptr);
-    } else {
-      static bool allowed[FLOW_MAX_DEVICES] = {};
-      const auto kernel = seq_bwd_kernel<BT, MODE, true>;
-      if (cs == 0) {
-        err = fit_one_wave(kernel, d, allowed, &plan, replan);
-        if (err != cudaSuccess) return (int)err;
-      }
-      err = bwd_gh(w, hprev, gh_all, B, N, mode, d, st);
-      const size_t bc = (size_t)B * C, kb = (size_t)K * B;
-      for (int t = N - 1; t >= 0 && err == cudaSuccess; --t) {
-        err = launch_stream(kernel, plan, d, allowed, st, w, wb, B, 1, plan.nslots,
-                            plan.slot_floats, plan.table, plan.cs, dz_seq + t * bc,
-                            dscales + t * kb * (COUT / 2), zs + t * kb * C,
-                            hprev + t * kb * H,
-                            t == N - 1 ? dnew_states : (const float*)dstate,
-                            gc + t * kb * 3 * H, (const float*)gh_all + t * kb * 3 * H,
-                            dx + t * bc, dhu, dgi + t * kb * 3 * H, dghn + t * kb * H,
-                            dhout + t * kb * COUT, dzb + t * kb * C, dgh);
-        if (err == cudaSuccess)
-          err = bwd_dstate(w, wb, dgh, dhu, t == 0 ? dstates0 : dstate, B, mode, d, st);
-      }
+    static bool allowed[FLOW_MAX_DEVICES] = {};
+    const auto kernel = seq_bwd_kernel<BT, MODE>;
+    if (cs == 0) {
+      err = fit_one_wave(kernel, d, allowed, &plan, replan);
+      if (err != cudaSuccess) return (int)err;
     }
+    err = launch_stream(kernel, plan, d, allowed, st, w, wb, B, N, plan.nslots,
+                        plan.slot_floats, plan.table, plan.cs, dz_seq, dscales,
+                        zs, hprev, dnew_states, gc, dx, dstates0, dgi, dghn, dhout,
+                        dzb);
   }));
-  if (err == cudaSuccess) *plan_out = split ? BWD_PLAN_SPLIT : BWD_PLAN_WALK;
   return (int)err;
 }
 
-// As seq_fwd_plan, for this kernel's `plan` (as seq_bwd_launch takes it);
-// out[8] is the plan.
+// As seq_fwd_plan, for this kernel.
 extern "C" int seq_bwd_plan(int B, int K, int C, int Z1, int COND, int H,
-                            int COUT, int bt, int cs, int slots, int plan_req,
-                            int* out) {
+                            int COUT, int bt, int cs, int slots, int* out) {
   FlowWeights w{};
   w.K = K; w.C = C; w.Z1 = Z1; w.COND = COND; w.H = H; w.COUT = COUT;
-  if (!bwd_valid(w, B, 1) || plan_req < BWD_PLAN_AUTO || plan_req > BWD_PLAN_SPLIT)
-    return (int)cudaErrorInvalidValue;
-  const bool split = bwd_split(w, plan_req);
+  if (!bwd_valid(w, B, 1)) return (int)cudaErrorInvalidValue;
   FlowDevice d;
   cudaError_t err = flow_device(&d);
   if (err != cudaSuccess) return (int)err;
   StreamPlan plan;
-  if (!bwd_plan(w, B, bt, cs, slots, split, d, &plan)) return (int)cudaErrorInvalidValue;
+  if (!bwd_plan(w, B, bt, cs, slots, d, &plan)) return (int)cudaErrorInvalidValue;
   auto replan = [&](int c, StreamPlan* p) {
-    return bwd_plan(w, B, plan.bt, c, slots, split, d, p);
+    return bwd_plan(w, B, plan.bt, c, slots, d, p);
   };
   int clusters = -1;
   FLOW_DISPATCH_BT(plan.bt, {
     constexpr int MODE = FLOW_F32;   // the plan is the same at every mode
-    static bool allowed[2][FLOW_MAX_DEVICES] = {};
-    if (split) {
-      const auto kernel = seq_bwd_kernel<BT, MODE, true>;
-      if (cs == 0) {
-        err = fit_one_wave(kernel, d, allowed[1], &plan, replan);
-        if (err != cudaSuccess) return (int)err;
-      }
-      clusters = stream_max_clusters(kernel, plan, d, allowed[1]);
-    } else {
-      const auto kernel = seq_bwd_kernel<BT, MODE, false>;
-      if (cs == 0) {
-        err = fit_one_wave(kernel, d, allowed[0], &plan, replan);
-        if (err != cudaSuccess) return (int)err;
-      }
-      clusters = stream_max_clusters(kernel, plan, d, allowed[0]);
+    static bool allowed[FLOW_MAX_DEVICES] = {};
+    const auto kernel = seq_bwd_kernel<BT, MODE>;
+    if (cs == 0) {
+      err = fit_one_wave(kernel, d, allowed, &plan, replan);
+      if (err != cudaSuccess) return (int)err;
     }
+    clusters = stream_max_clusters(kernel, plan, d, allowed);
   });
   out[0] = plan.bt; out[1] = plan.cs; out[2] = plan.blocks;
   out[3] = plan.nslots; out[4] = plan.slot_floats * 4;
   out[5] = plan.partial_floats * 4; out[6] = plan.smem_bytes;
   out[7] = clusters;
-  out[8] = split ? BWD_PLAN_SPLIT : BWD_PLAN_WALK;
   return 0;
 }

@@ -24,7 +24,7 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("frame_rev", "seq_rev", "sample_gates", "sample_chain", "cond_gates",
-           "seq_fwd", "seq_bwd")
+           "seq_fwd", "seq_bwd", "seq_fwd_hsplit", "seq_bwd_hsplit")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

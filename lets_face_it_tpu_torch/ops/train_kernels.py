@@ -15,16 +15,23 @@ wired as one ``torch.autograd.Function``.
   ``cond_gates`` and then the serial chain, which adds ``gc`` to the Z1 rows
   of the product; it also returns the residuals the backward needs (each
   step's input z, each step's new state, and ``gc``). CUDA source
-  ``csrc/seq_fwd.cu``; replaces ``_fwd_kernel``.
+  ``csrc/seq_fwd.cu``; replaces ``_fwd_kernel``. Two plans
+  (``seq_fwd_plan_name``): "walk", one block a tile of rows, and from
+  ``HSPLIT_FROM_H`` on (or where a block cannot hold a row's H-wide state
+  and 3H-wide weight rows) "hsplit" (``csrc/seq_fwd_hsplit.cu``): a cluster
+  of blocks a tile, each owning a slice of the hidden units
+  (``seq_fwd_hsplit_ref``: its plain version).
 * ``seq_bwd``: the mirror backward. It walks the frames in reverse,
   recomputes each step from the residuals, threads the serial cotangent
   chains (dz within a frame, the K state cotangents across frames) and
   writes each (frame, step)'s local cotangents. CUDA source
   ``csrc/seq_bwd.cu``; replaces ``_bwd_kernel``. Two plans
   (``seq_bwd_plan_name``): "walk", every product of a step inside one
-  launch's walk over all frames, and, at wide H, "split", the two products
-  that read w_hh taken off the walk as tile products over the whole card
-  (``bwd_gh_ref``, ``bwd_dstate_ref``: their plain versions).
+  launch's walk over all frames, and from ``HSPLIT_FROM_H`` on "hsplit"
+  (``csrc/seq_bwd_hsplit.cu``): the two products that read w_hh taken off
+  the walk as tile products over the whole card (``bwd_gh_ref``,
+  ``bwd_dstate_ref``: their plain versions), and each frame's walk shared
+  over a cluster by hidden units (``seq_bwd_hsplit_ref``).
 
 The two serial kernels stream each step's weights through a ring of
 shared-memory slots shared across a thread-block cluster
@@ -148,56 +155,144 @@ def logdet_const(spec: FlowSpec, flow_params):
 # Envelope
 # ---------------------------------------------------------------------------
 
-# flow_stream.cuh: the barrier area and the slots of the weight ring (floats)
-_STREAM_BAR_FLOATS, _STREAM_SLOTS = 96, 3
+# flow_stream.cuh: the barrier area and the slots of the weight ring
+# (floats), the consumer threads (a product is at most 4 columns a thread
+# wide), and the hidden split's clusters (hsplit.cuh)
+_STREAM_BAR_FLOATS, _STREAM_SLOTS, _STREAM_CONSUMERS = 96, 3, 384
+HSPLIT_CLUSTERS = (2, 4, 8, 16)
+
+# The serial kernels' plans (each a library of its own: the wrappers
+# choose), and the H from which both take the hidden split where the walk
+# still holds a row. On an H100 (80GB HBM3, 700 W; probe_train_kernels.py
+# --quick, B=64, N=56, K = 16, three runs each; PERF.md) the forward's
+# serial chain read 7.77-7.79 ms on the hidden split against the walk's
+# 11.10-11.18 at H = 256 and 11.97-12.14 against 27.48-27.65 at H = 384; the
+# backward 11.95-12.09 against 12.44-12.54 on the split plan it replaced
+# (the hidden split's schedule, each walk in one block), 14.90 against
+# 16.39-16.44 at H = 384, and 17.7 against 22.4 at C = 54, H = 512. Below
+# 256 the walks keep final_model's bits (ROADMAP.md).
+SEQ_FWD_PLANS = SEQ_BWD_PLANS = ("walk", "hsplit")
+HSPLIT_FROM_H = 256
 
 
-def train_smem_bytes(spec: FlowSpec) -> int:
-    """Least shared memory of a one-row seq_bwd.cu block (the larger of the
-    two serial kernels) of the plan its launcher takes
-    (``seq_bwd_plan_name``): the ring's barriers and three slots of four
-    rows of the widest product, the K state cotangents, the backward's
-    buffers (the split plan's without gh and b_hh), two steps of prefetched
-    inputs (with the split plan's gh rows) and one slice of partial sums (csrc/seq_bwd.cu::bwd_other_floats,
-    csrc/flow_stream.cuh::plan_stream), in the kernel spec's lanes."""
-    spec = kernel_spec(spec)
-    c, h, cout = spec.channels, spec.hidden_channels, spec.coupling_out_dim
-    g = 3 * h
-    widest = max(g, c, cout, h, spec.z1_dim)
-    split = seq_bwd_plan_name(spec) == "split"
-    step = (2 * c + (0 if split else g) + cout
-            + (g + c + h + cout // 2 + c + (g if split else 0)))
-    other = (_round4(spec.n_steps * h) + 2 * _round4(h) + 4 * _round4(c)
-             + 2 * _round4(cout) + (3 if split else 4) * _round4(g) + 2 * step)
-    ring = _STREAM_BAR_FLOATS + _STREAM_SLOTS * 4 * widest
-    return 4 * (ring + other + _round4(widest))
+def _xchg_floats(cs: int, n: int) -> int:
+    """csrc/flow_stream.cuh::xchg_floats."""
+    return 4 + 2 * _round4(cs * n)
 
 
-# csrc/seq_bwd.cu: the backward's plans, by the launcher's codes, and the H
-# from which it takes the split one (SPLIT_FROM_H).
-SEQ_BWD_PLANS = ("walk", "split")
-_BWD_PLAN_CODES = {"walk": 1, "split": 2}
-SEQ_BWD_SPLIT_FROM_H = 256
+def _least_block(other: int, widest: int) -> int:
+    """Bytes of a one-row block whose other buffers take ``other`` floats:
+    the ring's barriers and three slots of four rows of the widest product,
+    and one slice of partial sums (csrc/flow_stream.cuh::plan_stream)."""
+    return 4 * (_STREAM_BAR_FLOATS + _STREAM_SLOTS * 4 * widest + other
+                + _round4(widest))
+
+
+def hsplit_cluster(spec: FlowSpec) -> int | None:
+    """The largest cluster of ``HSPLIT_CLUSTERS`` the hidden split takes at
+    the spec's H (csrc/hsplit.cuh::hsplit_cluster_ok: H / cs a multiple of
+    4, 3H / cs at most 4 columns a consumer thread), whose blocks are the
+    least; None if there is none."""
+    h = kernel_spec(spec).hidden_channels
+    ok = [cs for cs in HSPLIT_CLUSTERS
+          if h % (4 * cs) == 0 and 3 * (h // cs) <= 4 * _STREAM_CONSUMERS]
+    return max(ok) if ok else None
+
+
+def serial_smem_bytes(which: str, spec: FlowSpec, plan: str,
+                      cs: int | None = None) -> int | None:
+    """Least shared memory of a one-row block of the serial kernel
+    ``which`` ("seq_fwd" or "seq_bwd") on ``plan`` (the hidden split at a
+    cluster of ``cs``, None for ``hsplit_cluster``), in the kernel spec's
+    lanes; None where the plan does not take the spec's widths (a product
+    wider than 4 columns a consumer thread, no cluster for the split).
+    Mirrors csrc/seq_fwd.cu::fwd_other_floats, csrc/seq_bwd.cu::
+    bwd_other_floats and csrc/seq_{fwd,bwd}_hsplit.cu's, with
+    csrc/flow_stream.cuh::plan_stream."""
+    ks = kernel_spec(spec)
+    k, c, h = ks.n_steps, ks.channels, ks.hidden_channels
+    cout, z1 = ks.coupling_out_dim, ks.z1_dim
+    g, half = 3 * h, cout // 2
+    if plan == "hsplit":
+        cs = cs or hsplit_cluster(ks)
+        if cs is None:
+            return None
+        hs = h // cs
+        gs = 3 * hs
+        if which == "seq_fwd":
+            step = 2 * c + gs + cout + gs + c
+            other = (_xchg_floats(cs, cout) + _round4((k + 1) * hs) + _round4(h)
+                     + 2 * _round4(c) + 2 * _round4(gs) + _round4(cout) + 2 * step)
+            return _least_block(other, max(gs, c, cout))
+        step = 2 * c + cout + (6 * hs + c + hs + half + c)
+        other = (_xchg_floats(cs, cout) + _xchg_floats(cs, z1) + _round4(k * hs)
+                 + 2 * _round4(hs) + 4 * _round4(c) + 2 * _round4(cout)
+                 + 2 * _round4(gs) + _round4(z1) + 2 * step)
+        return _least_block(other, max(gs, c, cout, hs, z1))
+    if g > 4 * _STREAM_CONSUMERS:
+        return None
+    if which == "seq_fwd":
+        step = 2 * c + g + cout + g + c
+        other = (_round4(k * h) + 2 * _round4(c) + 2 * _round4(g) + _round4(cout)
+                 + 2 * step)
+        return _least_block(other, max(g, c, cout))
+    step = 2 * c + g + cout + (g + c + h + half + c)
+    other = (_round4(k * h) + 2 * _round4(h) + 4 * _round4(c)
+             + 2 * _round4(cout) + 4 * _round4(g) + 2 * step)
+    return _least_block(other, max(g, c, cout, h, z1))
+
+
+def _fits(which: str, spec: FlowSpec, plan: str) -> bool:
+    need = serial_smem_bytes(which, spec, plan)
+    return need is not None and need <= MAX_SMEM_BYTES
+
+
+def _plan_name(which: str, spec: FlowSpec) -> str:
+    """The plan of serial kernel ``which``: the walk below ``HSPLIT_FROM_H``
+    where its one-row block fits and its products are at most 4 columns a
+    consumer thread wide (3H <= 1536), and where the hidden split has no
+    cluster for H; else "hsplit"."""
+    ks = kernel_spec(spec)
+    if ((ks.hidden_channels < HSPLIT_FROM_H and _fits(which, ks, "walk"))
+            or hsplit_cluster(ks) is None):
+        return "walk"
+    return "hsplit"
+
+
+def seq_fwd_plan_name(spec: FlowSpec) -> str:
+    """The plan ``seq_fwd`` takes (``_plan_name``)."""
+    return _plan_name("seq_fwd", spec)
 
 
 def seq_bwd_plan_name(spec: FlowSpec) -> str:
-    """The plan ``seq_bwd``'s launcher takes (csrc/seq_bwd.cu::bwd_split):
-    "split" from H = ``SEQ_BWD_SPLIT_FROM_H`` on (the two products that read
-    w_hh taken off the serial walk: gh for every frame and step before it,
-    each frame's state cotangents of the frame before after it, as tile
-    products over the whole card), "walk" below (every product of a step
-    inside the walk). Both take every spec of ``train_supported``."""
-    return ("split" if kernel_spec(spec).hidden_channels >= SEQ_BWD_SPLIT_FROM_H
-            else "walk")
+    """The plan ``seq_bwd`` takes (``_plan_name``)."""
+    return _plan_name("seq_bwd", spec)
+
+
+def train_smem_bytes(spec: FlowSpec, plan: str | None = None) -> int:
+    """Least shared memory of a one-row block of the larger of the two
+    serial kernels (``serial_smem_bytes``), both on ``plan``; None: each on
+    the plan its launcher takes (``seq_fwd_plan_name``,
+    ``seq_bwd_plan_name``). A plan that does not take the widths counts as
+    above any block."""
+    ks = kernel_spec(spec)
+    if plan is None:
+        plans = (seq_fwd_plan_name(ks), seq_bwd_plan_name(ks))
+    else:
+        plans = (plan, plan)
+    needs = [serial_smem_bytes(which, ks, p)
+             for which, p in zip(("seq_fwd", "seq_bwd"), plans)]
+    return max(MAX_SMEM_BYTES + 1 if n is None else n for n in needs)
 
 
 def train_supported(spec: FlowSpec) -> bool:
     """The training kernels' envelope: GRU + affine + invconv flows whose
     product widths (C, Z1, H, 3H, cond, Cout) in the kernel spec's lanes
-    are multiples of 4 (16-byte weight loads) and whose one-row backward
-    tile fits one block's shared memory. Decided from the spec alone; the
-    batch is arbitrary. It holds wherever ``flow_kernels.jax_envelope``
-    does at the widths of ``hparam_tuning_configs/large_hparam_search.py``."""
+    are multiples of 4 (16-byte weight loads) and for which each serial
+    kernel has a plan whose one-row block fits one block's shared memory.
+    Decided from the spec alone; the batch is arbitrary. It holds wherever
+    ``flow_kernels.jax_envelope`` does at H up to the hidden split's
+    ceiling (above 2,048 at K <= 32, ROADMAP.md)."""
     ks = kernel_spec(spec)
     widths = (ks.channels, ks.z1_dim, ks.hidden_channels,
               3 * ks.hidden_channels, ks.cond.cond_dim, ks.coupling_out_dim)
@@ -227,16 +322,16 @@ def cond_gates_ref(spec: FlowSpec, tw: TrainWeights, cond_seq, mode: int = 0):
 
 
 def _recompute_step(spec: FlowSpec, tw: TrainWeights, k: int, z, gc_k, h_prev,
-                    mode: int = 0, gh_k=None):
+                    mode: int = 0):
     """One forward step on prepared weights (rounded for ``mode``), the
-    conditioning gates gc_k (and, where given, the hidden gates gh_k) given
-    -> (zb, gi, gh, r, u, n, h_new, hout, sig, scale)."""
+    conditioning gates gc_k given -> (zb, gi, gh, r, u, n, h_new, hout,
+    sig, scale)."""
     rnd = _rounded(mode)
     hd, z1d, half = spec.hidden_channels, spec.z1_dim, spec.coupling_out_dim // 2
     za = (z + tw.an_bias[k]) * tw.an_scale[k]
     zb = rnd(za) @ tw.w[k]
     gi = rnd(zb[:, :z1d]) @ tw.w_ih_t[k, :z1d] + gc_k
-    gh = rnd(h_prev) @ tw.w_hh_t[k] + tw.b_hh[k] if gh_k is None else gh_k
+    gh = rnd(h_prev) @ tw.w_hh_t[k] + tw.b_hh[k]
     r = torch.sigmoid(gi[:, :hd] + gh[:, :hd])
     u = torch.sigmoid(gi[:, hd:2 * hd] + gh[:, hd:2 * hd])
     n = torch.tanh(gi[:, 2 * hd:] + r * gh[:, 2 * hd:])
@@ -276,7 +371,7 @@ def seq_fwd_ref(spec: FlowSpec, tw: TrainWeights, xs, cond_seq, states0,
 
 
 def _bwd_step(spec: FlowSpec, tw: TrainWeights, k: int, z, gc_k, h_prev, dz,
-              dscale_k, dstate_k, mode: int, gh_k=None):
+              dscale_k, dstate_k, mode: int):
     """One step of the backward walk on prepared weights: the step
     recomputed (``_recompute_step``), then its cotangents -> (dz of the
     step's input, dgi, dgh, dghn, dhout, dzb, dh * u); the state cotangent
@@ -284,7 +379,7 @@ def _bwd_step(spec: FlowSpec, tw: TrainWeights, k: int, z, gc_k, h_prev, dz,
     rnd = _rounded(mode)
     hd, z1d, half = spec.hidden_channels, spec.z1_dim, spec.coupling_out_dim // 2
     zb, gi, gh, r, u, n, _, hout, sig, scale = _recompute_step(
-        spec, tw, k, z, gc_k, h_prev, mode, gh_k)
+        spec, tw, k, z, gc_k, h_prev, mode)
     dz2p = dz[:, z1d:]
     dscale = dz2p * (zb[:, z1d:] + hout[:, :half]) + dscale_k
     dsraw = torch.where(sig > spec.scale_eps, dscale, 0.0) * sig * (1.0 - sig)
@@ -336,30 +431,122 @@ def seq_bwd_ref(spec: FlowSpec, tw: TrainWeights, gc, zs_res, hprev_all,
 
 
 def bwd_gh_ref(tw: TrainWeights, hprev_all, mode: int = 0):
-    """Plain version of the split plan's first product (csrc/seq_bwd.cu::
-    bwd_gh): the hidden gates of every frame and step, hprev_all [N, K, B,
-    H] -> gh [N, K, B, 3H] = hprev @ w_hh_t[k] + b_hh[k], on weights rounded
-    for ``mode``."""
+    """Plain version of the hidden split's first product
+    (csrc/bwd_split.cuh::bwd_gh): the hidden gates of every frame and step,
+    hprev_all [N, K, B, H] -> gh [N, K, B, 3H] = hprev @ w_hh_t[k] +
+    b_hh[k], on weights rounded for ``mode``."""
     gh = torch.einsum("nkbh,khg->nkbg", round_operand(hprev_all, mode), tw.w_hh_t)
     return gh + tw.b_hh[None, :, None, :]
 
 
 def bwd_dstate_ref(tw: TrainWeights, dgh, dhu, mode: int = 0):
-    """Plain version of the split plan's per-frame product (csrc/seq_bwd.cu::
-    bwd_dstate): the state cotangents of the frame before, dgh [K, B, 3H],
-    dhu [K, B, H] -> dhu + dgh @ w_hh_t[k]^T, [K, B, H], on weights rounded
-    for ``mode``."""
+    """Plain version of the hidden split's per-frame product
+    (csrc/bwd_split.cuh::bwd_dstate): the state cotangents of the frame
+    before, dgh [K, B, 3H], dhu [K, B, H] -> dhu + dgh @ w_hh_t[k]^T,
+    [K, B, H], on weights rounded for ``mode``."""
     return dhu + torch.einsum("kbg,khg->kbh", round_operand(dgh, mode), tw.w_hh_t)
 
 
-def seq_bwd_split_ref(spec: FlowSpec, tw: TrainWeights, gc, zs_res, hprev_all,
-                      dz_seq, dscales, dnew_states, mode: int = 0):
-    """Plain version of ``seq_bwd``'s split plan, the same function as
-    ``seq_bwd_ref``: the hidden gates of every (t, k) first
-    (``bwd_gh_ref``), then the walk over each frame's steps without the two
-    products that read w_hh, and after each frame its state cotangents for
-    the frame before (``bwd_dstate_ref``)."""
+# The hidden split's cluster of the plain versions when the caller names
+# none (a plain version gives the same function at any cluster; only the
+# order of the sums over the cluster moves).
+HSPLIT_REF_CLUSTER = 4
+
+
+def hsplit_slices(h: int, cs: int):
+    """Rank r's hidden units U_r (a slice of H) and gate columns G_r (an
+    index into 3H: its units' r, z and n columns) of the hidden split of
+    H = ``h`` over a cluster of ``cs`` (csrc/hsplit.cuh)."""
+    hs = h // cs
+    units = [slice(r * hs, (r + 1) * hs) for r in range(cs)]
+    cols = [torch.cat([torch.arange(g * h + r * hs, g * h + (r + 1) * hs)
+                       for g in range(3)]) for r in range(cs)]
+    return units, cols
+
+
+def _rank_sum(parts):
+    """Partial sums of the cluster's blocks added in rank order, as every
+    block of the hidden split adds them."""
+    total = parts[0]
+    for part in parts[1:]:
+        total = total + part
+    return total
+
+
+def _gru_slice(gi, gh, h_prev, hs: int):
+    """The GRU of a block's units from its gate columns [*, 3hs] (gate
+    order r, z, n) -> (r, u, n, h_new)."""
+    r = torch.sigmoid(gi[:, :hs] + gh[:, :hs])
+    u = torch.sigmoid(gi[:, hs:2 * hs] + gh[:, hs:2 * hs])
+    n = torch.tanh(gi[:, 2 * hs:] + r * gh[:, 2 * hs:])
+    return r, u, n, (1.0 - u) * n + u * h_prev
+
+
+def _hsplit_head(spec: FlowSpec, tw: TrainWeights, k: int, h_parts):
+    """The coupling head of the hidden split: each block's partial
+    h[:, U_r] @ out_w_t[k][U_r], summed over the cluster in rank order, then
+    out_b -> (hout, sig, scale)."""
+    half = spec.coupling_out_dim // 2
+    hout = tw.out_b[k] + _rank_sum(h_parts)
+    sig = torch.sigmoid(hout[:, half:] + 2.0)
+    return hout, sig, torch.clamp(sig, min=spec.scale_eps)
+
+
+def seq_fwd_hsplit_ref(spec: FlowSpec, tw: TrainWeights, xs, cond_seq, states0,
+                       mode: int = 0, cs: int = HSPLIT_REF_CLUSTER):
+    """Plain version of ``seq_fwd``'s hidden split over a cluster of
+    ``cs`` (csrc/seq_fwd_hsplit.cu), the same function as ``seq_fwd_ref``:
+    each rank's gate columns of gh and gi and the GRU of its units from the
+    whole previous state, its partial of the coupling head, the partials
+    summed in rank order; at matmul precision ``mode``."""
+    n_frames, b, c = xs.shape
+    k_steps, z1d, h = spec.n_steps, spec.z1_dim, spec.hidden_channels
+    half, hs = spec.coupling_out_dim // 2, h // cs
     tw = round_train_weights(tw, mode)
+    rnd = _rounded(mode)
+    units, cols = hsplit_slices(h, cs)
+    gc = cond_gates_ref(spec, tw, cond_seq, mode)
+    z_seq = torch.empty_like(xs)
+    scales = xs.new_empty((n_frames, k_steps, b, half))
+    zs_res = xs.new_empty((n_frames, k_steps, b, c))
+    states_res = xs.new_empty((n_frames,) + tuple(states0.shape))
+    states = states0.clone()
+    for t in range(n_frames):
+        z = xs[t]
+        for k in range(k_steps):
+            zs_res[t, k] = z
+            zb = rnd((z + tw.an_bias[k]) * tw.an_scale[k]) @ tw.w[k]
+            h_prev, h_new, parts = rnd(states[k]), torch.empty_like(states[k]), []
+            for u, g in zip(units, cols):
+                gh = h_prev @ tw.w_hh_t[k][:, g] + tw.b_hh[k][g]
+                gi = rnd(zb[:, :z1d]) @ tw.w_ih_t[k, :z1d][:, g] + gc[t, k][:, g]
+                h_new[:, u] = _gru_slice(gi, gh, states[k][:, u], hs)[3]
+                parts.append(rnd(h_new[:, u]) @ tw.out_w_t[k][u])
+            hout, _, scale = _hsplit_head(spec, tw, k, parts)
+            states[k] = h_new
+            states_res[t, k] = h_new
+            scales[t, k] = scale
+            z = torch.cat([zb[:, :z1d], (zb[:, z1d:] + hout[:, :half]) * scale],
+                          dim=-1)
+        z_seq[t] = z
+    return z_seq, scales, zs_res, states_res, gc
+
+
+def seq_bwd_hsplit_ref(spec: FlowSpec, tw: TrainWeights, gc, zs_res, hprev_all,
+                       dz_seq, dscales, dnew_states, mode: int = 0,
+                       cs: int = HSPLIT_REF_CLUSTER):
+    """Plain version of ``seq_bwd``'s hidden split over a cluster of ``cs``
+    (csrc/seq_bwd_hsplit.cu), the same function as ``seq_bwd_ref``: the
+    hidden gates of every frame and step first (``bwd_gh_ref``), each
+    frame's state cotangents for the frame before after it
+    (``bwd_dstate_ref``), each step's walk by rank: the coupling head's
+    partials and the partials of dgi @ w_ih[:, :Z1] summed in rank order,
+    the rest of each rank's units and gate columns its own."""
+    k_steps, z1d, h = spec.n_steps, spec.z1_dim, spec.hidden_channels
+    half, hs = spec.coupling_out_dim // 2, h // cs
+    tw = round_train_weights(tw, mode)
+    rnd = _rounded(mode)
+    units, cols = hsplit_slices(h, cs)
     dx, dgi_all, dghn_all, dhout_all, dzb_all = _bwd_outputs(spec, dz_seq)
     gh_all = bwd_gh_ref(tw, hprev_all, mode)
     dstates = dnew_states.clone()
@@ -367,15 +554,65 @@ def seq_bwd_split_ref(spec: FlowSpec, tw: TrainWeights, gc, zs_res, hprev_all,
     dhu_t = torch.empty_like(dstates)
     for t in reversed(range(dz_seq.shape[0])):
         dz = dz_seq[t]
-        for k in reversed(range(spec.n_steps)):
-            dz, dgi, dgh_t[k], dghn, dhout, dzb, dhu_t[k] = _bwd_step(
-                spec, tw, k, zs_res[t, k], gc[t, k], hprev_all[t, k], dz,
-                dscales[t, k], dstates[k], mode, gh_all[t, k])
+        for k in reversed(range(k_steps)):
+            h_prev, gh_tk = hprev_all[t, k], gh_all[t, k]
+            zb = rnd((zs_res[t, k] + tw.an_bias[k]) * tw.an_scale[k]) @ tw.w[k]
+            gates, parts = [], []
+            for u, g in zip(units, cols):
+                gi = rnd(zb[:, :z1d]) @ tw.w_ih_t[k, :z1d][:, g] + gc[t, k][:, g]
+                r_, u_, n_, h_new = _gru_slice(gi, gh_tk[:, g], h_prev[:, u], hs)
+                gates.append((r_, u_, n_))
+                parts.append(rnd(h_new) @ tw.out_w_t[k][u])
+            hout, sig, scale = _hsplit_head(spec, tw, k, parts)
+            dz2p = dz[:, z1d:]
+            dscale = dz2p * (zb[:, z1d:] + hout[:, :half]) + dscales[t, k]
+            dsraw = torch.where(sig > spec.scale_eps, dscale, 0.0) * sig * (1.0 - sig)
+            dhout = torch.cat([dz2p * scale, dsraw], dim=-1)
+            dgi, dghn = torch.empty_like(gh_tk), torch.empty_like(h_prev)
+            z_parts = []
+            for (r_, u_, n_), u, g in zip(gates, units, cols):
+                dh = rnd(dhout) @ tw.out_w_t[k][u].T + dstates[k][:, u]
+                dgn = dh * (1.0 - u_) * (1.0 - n_ * n_)
+                dgr = dgn * gh_tk[:, g][:, 2 * hs:] * r_ * (1.0 - r_)
+                dgu = dh * (h_prev[:, u] - n_) * u_ * (1.0 - u_)
+                dgi[:, g] = torch.cat([dgr, dgu, dgn], dim=-1)
+                dgh_t[k][:, g] = torch.cat([dgr, dgu, dgn * r_], dim=-1)
+                dghn[:, u] = dgn * r_
+                dhu_t[k][:, u] = dh * u_
+                z_parts.append(rnd(dgi[:, g]) @ tw.w_ih_t[k, :z1d][:, g].T)
+            dzb = torch.cat([dz[:, :z1d] + _rank_sum(z_parts), dz2p * scale], dim=-1)
+            dz = (rnd(dzb) @ tw.w[k].T) * tw.an_scale[k]
             dgi_all[t, k], dghn_all[t, k] = dgi, dghn
             dhout_all[t, k], dzb_all[t, k] = dhout, dzb
         dx[t] = dz
         dstates = bwd_dstate_ref(tw, dgh_t, dhu_t, mode)
     return dx, dstates, dgi_all, dghn_all, dhout_all, dzb_all
+
+
+# The per-block layouts each hidden-split kernel reads.
+HSPLIT_PARTS = {"seq_fwd": ("w_hh", "w_ih"), "seq_bwd": ("w_ih", "out_w", "w_ih_z1")}
+
+
+def hsplit_weights(spec: FlowSpec, tw: TrainWeights, cs: int,
+                   parts=("w_hh", "w_ih", "out_w", "w_ih_z1")) -> dict:
+    """The hidden split's per-block weight layouts (csrc/hsplit.cuh::
+    HsplitWeights) named in ``parts``, rank r's contiguous: w_hh [K, cs, H,
+    3hs] (w_hh_t's G_r columns), w_ih [K, cs, Z1, 3hs] (w_ih_t[:, :Z1]'s),
+    out_w [K, cs, Cout, hs] (out_w_t's U_r rows, transposed) and w_ih_z1
+    [K, cs, 3hs, Z1] (w_ih's G_r columns, transposed), from weights already
+    rounded for the launch's mode."""
+    k, h, z1 = spec.n_steps, spec.hidden_channels, spec.z1_dim
+    hs = h // cs
+
+    def by_rank(t):   # [K, IN, 3H] -> [K, cs, IN, 3hs]
+        return t.unflatten(-1, (3, cs, hs)).permute(0, 3, 1, 2, 4).reshape(
+            k, cs, t.shape[1], 3 * hs)
+
+    make = {"w_hh": lambda: by_rank(tw.w_hh_t),
+            "w_ih": lambda: by_rank(tw.w_ih_t[:, :z1]),
+            "out_w": lambda: tw.out_w_t.unflatten(1, (cs, hs)).transpose(2, 3),
+            "w_ih_z1": lambda: by_rank(tw.w_ih_t[:, :z1]).transpose(2, 3)}
+    return {name: make[name]().contiguous() for name in parts}
 
 
 # ---------------------------------------------------------------------------
@@ -438,7 +675,23 @@ def _fwd_fn():
 @functools.cache
 def _bwd_fn():
     fn = cuda_build.load("seq_bwd").seq_bwd_launch
-    fn.argtypes = [_P] * 29 + [_I] * 8 + [ctypes.c_float] + [_I] * 5 + [_P] * 2
+    fn.argtypes = [_P] * 25 + [_I] * 8 + [ctypes.c_float] + [_I] * 4 + [_P]
+    fn.restype = _I
+    return fn
+
+
+@functools.cache
+def _fwd_hs_fn():
+    fn = cuda_build.load("seq_fwd_hsplit").seq_fwd_hsplit_launch
+    fn.argtypes = [_P] * 15 + [_I] * 8 + [ctypes.c_float] + [_I] * 5 + [_P]
+    fn.restype = _I
+    return fn
+
+
+@functools.cache
+def _bwd_hs_fn():
+    fn = cuda_build.load("seq_bwd_hsplit").seq_bwd_hsplit_launch
+    fn.argtypes = [_P] * 28 + [_I] * 8 + [ctypes.c_float] + [_I] * 5 + [_P]
     fn.restype = _I
     return fn
 
@@ -452,31 +705,42 @@ def serial_plan(which: str, spec: FlowSpec, b: int, tile=(0, 0, 0),
     """The launch plan of ``seq_fwd``'s or ``seq_bwd``'s serial kernel
     (``which``) for B=b rows on the current CUDA device, with the cluster
     occupancy the device allows (``cudaOccupancyMaxActiveClusters``);
-    ``tile`` as in ``seq_fwd``; for ``seq_bwd`` also ``plan`` as
-    ``seq_bwd`` takes it, and its "plan" key the one planned."""
+    ``tile`` as in ``seq_fwd``; ``plan`` as the kernel's wrapper takes it
+    (None: its launcher's, ``seq_fwd_plan_name`` / ``seq_bwd_plan_name``),
+    and its "plan" key the one planned (for "hsplit" the walk's launch:
+    "cluster" the blocks sharing a tile's rows)."""
     bwd = which == "seq_bwd"
-    fn = getattr(cuda_build.load(which), f"{which}_plan")
-    fn.argtypes = [_I] * (11 if bwd else 10) + [_P]
+    ks = kernel_spec(spec)
+    name = plan or (seq_bwd_plan_name if bwd else seq_fwd_plan_name)(ks)
+    out = (ctypes.c_int * len(PLAN_KEYS))()
+    lib = f"{which}_hsplit" if name == "hsplit" else which
+    fn = getattr(cuda_build.load(lib), f"{lib}_plan")
+    fn.argtypes = [_I] * 10 + [_P]
     fn.restype = _I
-    keys = PLAN_KEYS + (("plan",) if bwd else ())
-    out = (ctypes.c_int * len(keys))()
-    extra = (_bwd_plan_arg(plan),) if bwd else ()
-    _raise_on(fn(b, *_spec_ints(kernel_spec(spec)), *tile, *extra,
-                 ctypes.addressof(out)), f"{which} plan")
-    got = dict(zip(keys, out))
-    if bwd:
-        got["plan"] = SEQ_BWD_PLANS[got["plan"] - 1]
+    _raise_on(fn(b, *_spec_ints(ks), *tile, ctypes.addressof(out)), f"{which} plan")
+    got = dict(zip(PLAN_KEYS, out))
+    got["plan"] = name
     return got
 
 
-def _bwd_plan_arg(plan: str | None) -> int:
-    """csrc/seq_bwd.cu's ``plan`` for a wrapper's request (0: the
-    launcher's)."""
-    if plan is None:
-        return 0
-    if plan in _BWD_PLAN_CODES:
-        return _BWD_PLAN_CODES[plan]
-    raise ValueError(f"seq_bwd: no plan {plan!r}; plans {', '.join(SEQ_BWD_PLANS)}")
+def _plan_arg(which: str, plan: str | None, plans) -> str | None:
+    if plan is None or plan in plans:
+        return plan
+    raise ValueError(f"{which}: no plan {plan!r}; plans {', '.join(plans)}")
+
+
+_HSPLIT_CLUSTER: dict = {}
+
+
+def _hsplit_cluster(which: str, spec: FlowSpec, b: int, tile) -> int:
+    """The cluster of the hidden split's plan for a launch of B=b rows and
+    ``tile`` on the current device (the wrapper lays the weights out by it
+    before the launch), asked of the launcher once per shape; the launch
+    passes the same request, and its planner's memo answers both."""
+    key = (which, _spec_ints(spec), b, tuple(tile), torch.cuda.current_device())
+    if key not in _HSPLIT_CLUSTER:
+        _HSPLIT_CLUSTER[key] = serial_plan(which, spec, b, tile, "hsplit")["cluster"]
+    return _HSPLIT_CLUSTER[key]
 
 
 def _check_weights(spec: FlowSpec, tw: TrainWeights, device):
@@ -541,31 +805,43 @@ cond_gates.plans = dict.fromkeys(COND_GATES_PLANS, 0)
 
 
 def seq_fwd(spec: FlowSpec, tw: TrainWeights, xs, cond_seq, states0, *,
-            precision: str | None = None, tile=(0, 0, 0)):
+            precision: str | None = None, tile=(0, 0, 0), plan: str | None = None):
     """Teacher-forced forward: xs [N, B, C], cond_seq [N, K, B, cond]
     (pre-activation projections), states0 [K, B, H] -> (z_seq [N, B, C],
     scales [N, K, B, Cout/2], zs_res [N, K, B, C], states_res [N, K, B, H],
-    gc [N, K, B, 3H]): ``cond_gates``, then ``seq_fwd_serial``."""
+    gc [N, K, B, 3H]): ``cond_gates``, then ``seq_fwd_serial``. ``plan``:
+    "walk" or "hsplit", None for the launcher's (``seq_fwd_plan_name``; on
+    CPU tensors the plan's plain version, ``seq_fwd_ref`` or
+    ``seq_fwd_hsplit_ref`` at the cluster of ``tile`` or
+    ``HSPLIT_REF_CLUSTER``)."""
     launch, mode = _dispatch(spec, precision, xs.device)
+    plan = _plan_arg("seq_fwd", plan, SEQ_FWD_PLANS)
     spec = kernel_spec(spec)
     if not launch:
+        if (plan or seq_fwd_plan_name(spec)) == "hsplit":
+            return seq_fwd_hsplit_ref(spec, tw, xs, cond_seq, states0, mode,
+                                      tile[1] or HSPLIT_REF_CLUSTER)
         return seq_fwd_ref(spec, tw, xs, cond_seq, states0, mode)
     tw = round_train_weights(tw, mode)
     gc = cond_gates(spec, tw, cond_seq, precision=precision)
     return (*seq_fwd_serial(spec, tw, xs, gc, states0, precision=precision,
-                            tile=tile), gc)
+                            tile=tile, plan=plan), gc)
 
 
 def seq_fwd_serial(spec: FlowSpec, tw: TrainWeights, xs, gc, states0, *,
-                   precision: str | None = None, tile=(0, 0, 0)):
+                   precision: str | None = None, tile=(0, 0, 0),
+                   plan: str | None = None):
     """The serial chain of ``seq_fwd`` on CUDA tensors, the conditioning
     gates gc [N, K, B, 3H] given -> (z_seq, scales, zs_res, states_res).
     ``tile`` = (rows per block, blocks per cluster, ring slots), 0 for the
-    launcher's plan."""
+    launcher's plan; ``plan`` as in ``seq_fwd``. Counts its launches in
+    ``seq_fwd.launches`` and by plan in ``seq_fwd.plans``."""
     launch, mode = _dispatch(spec, precision, xs.device)
+    plan = _plan_arg("seq_fwd", plan, SEQ_FWD_PLANS)
     spec = kernel_spec(spec)
     if not launch:
         raise ValueError("seq_fwd_serial runs on CUDA tensors only")
+    plan = plan or seq_fwd_plan_name(spec)
     n, b, c = xs.shape
     k, _, _, _, h, cout = _spec_ints(spec)
     dev = xs.device
@@ -579,17 +855,28 @@ def seq_fwd_serial(spec: FlowSpec, tw: TrainWeights, xs, gc, states0, *,
     zs_res = xs.new_empty((n, k, b, c))
     states_res = xs.new_empty((n, k, b, h))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _fwd_fn()(xs.data_ptr(), gc.data_ptr(), states0.data_ptr(),
-                    z_seq.data_ptr(), scales.data_ptr(), zs_res.data_ptr(),
-                    states_res.data_ptr(), *(t.data_ptr() for t in tw),
-                    b, n, *_spec_ints(spec), float(spec.scale_eps), *tile,
-                    mode, stream)
+    outs = (xs.data_ptr(), gc.data_ptr(), states0.data_ptr(), z_seq.data_ptr(),
+            scales.data_ptr(), zs_res.data_ptr(), states_res.data_ptr())
+    if plan == "hsplit":
+        cs = _hsplit_cluster("seq_fwd", spec, b, tile)
+        hw = hsplit_weights(spec, tw, cs, HSPLIT_PARTS["seq_fwd"])
+        err = _fwd_hs_fn()(*outs, *(t.data_ptr() for t in (
+                               tw.w, tw.an_bias, tw.an_scale, tw.b_hh, tw.out_w_t,
+                               tw.out_b, hw["w_hh"], hw["w_ih"])),
+                           b, n, *_spec_ints(spec), float(spec.scale_eps), *tile,
+                           cs, mode, stream)
+    else:
+        err = _fwd_fn()(*outs, *(t.data_ptr() for t in tw),
+                        b, n, *_spec_ints(spec), float(spec.scale_eps), *tile,
+                        mode, stream)
     _raise_on(err, "seq_fwd")
     seq_fwd.launches += 1
+    seq_fwd.plans[plan] += 1
     return z_seq, scales, zs_res, states_res
 
 
 seq_fwd.launches = 0
+seq_fwd.plans = dict.fromkeys(SEQ_FWD_PLANS, 0)
 
 
 def seq_bwd(spec: FlowSpec, tw: TrainWeights, gc, zs_res, hprev_all,
@@ -601,59 +888,69 @@ def seq_bwd(spec: FlowSpec, tw: TrainWeights, gc, zs_res, hprev_all,
     [N, K, B, Cout/2] and dnew_states [K, B, H] -> (dx [N, B, C], dstates0
     [K, B, H], dgi [N, K, B, 3H], dghn [N, K, B, H], dhout [N, K, B, Cout],
     dzb [N, K, B, C]). ``tile`` as in ``seq_fwd``; ``plan``: "walk" or
-    "split", None for the launcher's (``seq_bwd_plan_name``; on CPU tensors
-    the plan's plain version, ``seq_bwd_ref`` or ``seq_bwd_split_ref``).
-    Counts its calls in ``seq_bwd.launches`` and by plan in
-    ``seq_bwd.plans``."""
+    "hsplit", None for the launcher's (``seq_bwd_plan_name``; on CPU
+    tensors the plan's plain version, ``seq_bwd_ref`` or
+    ``seq_bwd_hsplit_ref`` at the cluster of ``tile`` or
+    ``HSPLIT_REF_CLUSTER``). Counts its calls in
+    ``seq_bwd.launches`` and by plan in ``seq_bwd.plans``."""
     launch, mode = _dispatch(spec, precision, dz_seq.device)
-    plan_arg = _bwd_plan_arg(plan)
+    plan = _plan_arg("seq_bwd", plan, SEQ_BWD_PLANS)
     spec = kernel_spec(spec)
-    split = (plan or seq_bwd_plan_name(spec)) == "split"
+    name = plan or seq_bwd_plan_name(spec)
     if not launch:
-        return (seq_bwd_split_ref if split else seq_bwd_ref)(
-            spec, tw, gc, zs_res, hprev_all, dz_seq, dscales, dnew_states, mode)
+        args = (spec, tw, gc, zs_res, hprev_all, dz_seq, dscales, dnew_states, mode)
+        if name == "hsplit":
+            return seq_bwd_hsplit_ref(*args, tile[1] or HSPLIT_REF_CLUSTER)
+        return seq_bwd_ref(*args)
     n, b, c = dz_seq.shape
     k, _, z1, _, h, cout = _spec_ints(spec)
     dev = dz_seq.device
-    for name, t, shape in (("dz_seq", dz_seq, (n, b, c)),
-                           ("dscales", dscales, (n, k, b, cout // 2)),
-                           ("zs_res", zs_res, (n, k, b, c)),
-                           ("hprev_all", hprev_all, (n, k, b, h)),
-                           ("dnew_states", dnew_states, (k, b, h)),
-                           ("gc", gc, (n, k, b, 3 * h))):
-        _check(name, t, shape, dev)
+    for arg, t, shape in (("dz_seq", dz_seq, (n, b, c)),
+                          ("dscales", dscales, (n, k, b, cout // 2)),
+                          ("zs_res", zs_res, (n, k, b, c)),
+                          ("hprev_all", hprev_all, (n, k, b, h)),
+                          ("dnew_states", dnew_states, (k, b, h)),
+                          ("gc", gc, (n, k, b, 3 * h))):
+        _check(arg, t, shape, dev)
     _check_weights(spec, tw, dev)
     tw = round_train_weights(tw, mode)
-    # the backward products read the transposed weights row by row
-    transposed = (tw.w.transpose(1, 2), tw.w_hh_t.transpose(1, 2),
-                  tw.w_ih_t[:, :z1].transpose(1, 2), tw.out_w_t.transpose(1, 2))
-    transposed = [t.contiguous() for t in transposed]
+    # the backward products read the transposed weights row by row (the
+    # hidden split W's and w_hh's; its others are laid out by block)
+    transposed = (tw.w, tw.w_hh_t) + ((tw.w_ih_t[:, :z1], tw.out_w_t)
+                                       if name == "walk" else ())
+    transposed = [t.transpose(1, 2).contiguous() for t in transposed]
     dx = torch.empty_like(dz_seq)
     dstates0 = torch.empty_like(dnew_states)
     dgi = dz_seq.new_empty((n, k, b, 3 * h))
     dghn = dz_seq.new_empty((n, k, b, h))
     dhout = dz_seq.new_empty((n, k, b, cout))
     dzb = dz_seq.new_empty((n, k, b, c))
-    # the split plan's scratch: gh of every frame and step, a frame's dgh,
-    # dh * u and state cotangents
-    scratch = ()
-    if split:
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    io = (dz_seq.data_ptr(), dscales.data_ptr(), zs_res.data_ptr(),
+          hprev_all.data_ptr(), dnew_states.data_ptr(), gc.data_ptr(),
+          dx.data_ptr(), dstates0.data_ptr(), dgi.data_ptr(), dghn.data_ptr(),
+          dhout.data_ptr(), dzb.data_ptr())
+    if name == "hsplit":
+        cs = _hsplit_cluster("seq_bwd", spec, b, tile)
+        hw = hsplit_weights(spec, tw, cs, HSPLIT_PARTS["seq_bwd"])
+        # its scratch: gh of every frame and step, a frame's dgh, dh * u and
+        # state cotangents
         scratch = (gc.new_empty(gc.shape), gc.new_empty((k, b, 3 * h)),
                    dnew_states.new_empty((k, b, h)), dnew_states.new_empty((k, b, h)))
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    launched = ctypes.c_int(0)
-    err = _bwd_fn()(dz_seq.data_ptr(), dscales.data_ptr(), zs_res.data_ptr(),
-                    hprev_all.data_ptr(), dnew_states.data_ptr(),
-                    gc.data_ptr(), dx.data_ptr(), dstates0.data_ptr(),
-                    dgi.data_ptr(), dghn.data_ptr(), dhout.data_ptr(),
-                    dzb.data_ptr(), *(t.data_ptr() for t in tw),
-                    *(t.data_ptr() for t in transposed),
-                    *(t.data_ptr() for t in scratch) if split else [None] * 4,
-                    b, n, *_spec_ints(spec), float(spec.scale_eps), *tile,
-                    plan_arg, mode, stream, ctypes.addressof(launched))
+        err = _bwd_hs_fn()(*io, *(t.data_ptr() for t in (
+                               tw.w, tw.an_bias, tw.an_scale, tw.w_hh_t, tw.b_hh,
+                               tw.out_w_t, tw.out_b, *transposed, hw["w_ih"],
+                               hw["out_w"], hw["w_ih_z1"], *scratch)),
+                           b, n, *_spec_ints(spec), float(spec.scale_eps), *tile,
+                           cs, mode, stream)
+    else:
+        err = _bwd_fn()(*io, *(t.data_ptr() for t in tw),
+                        *(t.data_ptr() for t in transposed),
+                        b, n, *_spec_ints(spec), float(spec.scale_eps), *tile,
+                        mode, stream)
     _raise_on(err, "seq_bwd")
     seq_bwd.launches += 1
-    seq_bwd.plans[SEQ_BWD_PLANS[launched.value - 1]] += 1
+    seq_bwd.plans[name] += 1
     return dx, dstates0, dgi, dghn, dhout, dzb
 
 

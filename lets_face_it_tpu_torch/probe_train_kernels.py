@@ -2,7 +2,7 @@
 
     python -m lets_face_it_tpu_torch.probe_train_kernels [--precision highest|high|medium]
         [--hidden_channels H] [--expression_dim E] [--n_steps K] [--batch B]
-        [--quick]
+        [--quick] [--plan walk|hsplit]
     python -m lets_face_it_tpu_torch.probe_train_kernels --gates
 
 For ``hparams/final_model.yaml`` on seeded random weights at B=256, N=56
@@ -12,18 +12,24 @@ rows (e.g. H = 512, E = 48, B = 64: chip_smoke.py step 18's), from the
 sources in this checkout:
 
 1. builds the kernels and prints the registers and spills ``nvcc -Xptxas -v``
-   reports for ``cond_gates``, ``seq_fwd`` and ``seq_bwd``;
+   reports for ``cond_gates``, ``seq_fwd`` and ``seq_bwd`` (each plan's
+   library);
 2. holds ``cond_gates``, ``seq_fwd`` and ``seq_bwd`` against their plain
    versions at B=256 and at B=5 (a partial cluster) with the launcher's own
    plan (forward atol/rtol 1e-5, backward atol 2e-5 / rtol 1e-4), and
-   ``seq_bwd`` on each of its plans ("walk" and "split",
-   ``train_kernels.seq_bwd_plan_name``) at the same limits, timed by
-   CUDA-graph replay at B=256 (``--quick`` stops here);
-3. for every cluster size in (1, 2, 4, 8) and rows per block in (1, 2, 4,
-   8), and for ring slots in (2, 3, 4, 6) at the default plan's rows per
-   block and clusters of 1 and 2, prints the plan (blocks, slots, slot and shared-memory bytes, and
-   the clusters the device holds at once, by
-   ``cudaOccupancyMaxActiveClusters``), holds both serial kernels against
+   ``seq_fwd`` and ``seq_bwd`` on each of their plans ("walk", "hsplit";
+   ``train_kernels.seq_fwd_plan_name``, ``seq_bwd_plan_name``) at the
+   same limits, each timed by CUDA-graph replay at B=256 (the forward's
+   serial chain alone); a plan that does not take the spec says why
+   (``--quick`` stops here);
+3. ``--plan walk`` (the default): for every cluster size in (1, 2, 4, 8)
+   and rows per block in (1, 2, 4, 8), and for ring slots in (2, 3, 4, 6)
+   at the default plan's rows per block and clusters of 1 and 2;
+   ``--plan hsplit``: for every cluster of the hidden split
+   (``train_kernels.HSPLIT_CLUSTERS``) and rows per block, and for ring
+   slots at its default rows and cluster: prints the plan (blocks, slots,
+   slot and shared-memory bytes, and the clusters the device holds at once,
+   by ``cudaOccupancyMaxActiveClusters``), holds both serial kernels against
    the plain versions again and times them by CUDA-graph replay; then times
    ``cond_gates`` beside one cuBLAS call for the same product.
 
@@ -107,7 +113,9 @@ def main(argv=None) -> int:
     parser.add_argument("--batch", type=int, default=None,
                         help="rows (default: the config's batch size)")
     parser.add_argument("--quick", action="store_true",
-                        help="the checks and both backward plans only")
+                        help="the checks and every plan of both kernels only")
+    parser.add_argument("--plan", default="walk", choices=tk.SEQ_FWD_PLANS,
+                        help="the plan whose tiles the grid tries")
     args = parser.parse_args(argv)
     prec = args.precision
     mode = fk.MODES[prec]
@@ -122,7 +130,8 @@ def main(argv=None) -> int:
     print(json.dumps({"card": card.strip(), "torch": torch.__version__,
                       "precision": prec}))
 
-    paths = cuda_build.build(("cond_gates", "seq_fwd", "seq_bwd"))
+    paths = cuda_build.build(("cond_gates", "seq_fwd", "seq_bwd", "seq_fwd_hsplit",
+                              "seq_bwd_hsplit"))
     for name, path in paths.items():
         log = path.with_suffix(".log")
         for line in log.read_text().splitlines() if log.exists() else ():
@@ -143,6 +152,7 @@ def main(argv=None) -> int:
     print(json.dumps({"spec": {"C": hp.Data["expression_dim"] + hp.Data["jaw_dim"]
                                + hp.Data["neck_dim"], "lanes": c, "K": k, "H": h,
                                "cond": spec.cond.cond_dim},
+                      "seq_fwd_plan": tk.seq_fwd_plan_name(spec),
                       "seq_bwd_plan": tk.seq_bwd_plan_name(spec)}))
     model = seeded_random_model(spec, SEED).to(dev)
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -173,22 +183,27 @@ def main(argv=None) -> int:
             e_b = _max_err(f"seq_bwd B={b}",
                            tk.seq_bwd(spec, tw, gc, ref[2], hprev, *cot, precision=prec),
                            bwd_ref, BWD_TOL, prec)
-            by_plan = {}
+            fwd_by_plan, by_plan = {}, {}
+            for plan in tk.SEQ_FWD_PLANS:
+                def fwd(plan=plan):
+                    return tk.seq_fwd_serial(spec, tw, xs, gc, st0, precision=prec,
+                                             plan=plan)
+                fwd_by_plan[plan] = _plan_row(f"seq_fwd {plan} B={b}", "seq_fwd", spec,
+                                              b, plan, fwd, ref[:4], FWD_TOL, prec,
+                                              b == big)
             for plan in tk.SEQ_BWD_PLANS:
                 def bwd(plan=plan):
                     return tk.seq_bwd(spec, tw, gc, ref[2], hprev, *cot,
                                       precision=prec, plan=plan)
-                by_plan[plan] = {"err": _max_err(f"seq_bwd {plan} B={b}", bwd(),
-                                                 bwd_ref, BWD_TOL, prec),
-                                 "plan": tk.serial_plan("seq_bwd", spec, b, plan=plan)}
-                if b == big:
-                    by_plan[plan]["ms"] = _time_ms(bwd)
+                by_plan[plan] = _plan_row(f"seq_bwd {plan} B={b}", "seq_bwd", spec, b,
+                                          plan, bwd, bwd_ref, BWD_TOL, prec, b == big)
             torch.cuda.synchronize()
             print(json.dumps({"check": "default plan", "batch": b, "frames": frames,
                               "fwd_plan": tk.serial_plan("seq_fwd", spec, b),
                               "bwd_plan": tk.serial_plan("seq_bwd", spec, b),
                               "max_abs_err": {"cond_gates": e_gc, "seq_fwd": e_f,
                                               "seq_bwd": e_b},
+                              "seq_fwd_plans": fwd_by_plan,
                               "seq_bwd_plans": by_plan}), flush=True)
             cases[b] = (xs, cs, st0, ref, hprev, cot, bwd_ref)
         if args.quick:
@@ -197,14 +212,22 @@ def main(argv=None) -> int:
         b = big
         xs, cs, st0, ref, hprev, cot, bwd_ref = cases[b]
         gc = ref[4]
-        bt0 = tk.serial_plan("seq_bwd", spec, b)["rows_per_block"]
-        grid = [(bt, cs_n, 0) for cs_n in CLUSTERS for bt in ROWS_PER_BLOCK]
-        grid += [(bt0, cs_n, slots) for cs_n in CLUSTERS[:2] for slots in SLOTS]
+        hsplit = args.plan == "hsplit"
+        fwd_plan = "hsplit" if hsplit else "walk"
+        bwd_plan = "hsplit" if hsplit else None
+        if hsplit:
+            d = tk.serial_plan("seq_bwd", spec, b, plan="hsplit")
+            grid = [(bt, cs_n, 0) for cs_n in tk.HSPLIT_CLUSTERS for bt in ROWS_PER_BLOCK]
+            grid += [(d["rows_per_block"], d["cluster"], slots) for slots in SLOTS]
+        else:
+            bt0 = tk.serial_plan("seq_bwd", spec, b)["rows_per_block"]
+            grid = [(bt, cs_n, 0) for cs_n in CLUSTERS for bt in ROWS_PER_BLOCK]
+            grid += [(bt0, cs_n, slots) for cs_n in CLUSTERS[:2] for slots in SLOTS]
         for tile in grid:
-            row = {"batch": b, "frames": n, "tile": tile}
-            for which in ("seq_fwd", "seq_bwd"):
+            row = {"batch": b, "frames": n, "tile": tile, "plan": args.plan}
+            for which, plan in (("seq_fwd", fwd_plan), ("seq_bwd", bwd_plan)):
                 try:
-                    row[f"{which}_plan"] = tk.serial_plan(which, spec, b, tile)
+                    row[f"{which}_plan"] = tk.serial_plan(which, spec, b, tile, plan)
                 except RuntimeError as e:   # no plan: the block does not fit
                     row[f"{which}_plan"] = str(e)
             if not all(isinstance(row[f"{w}_plan"], dict)
@@ -214,11 +237,11 @@ def main(argv=None) -> int:
 
             def fwd():
                 return tk.seq_fwd_serial(spec, tw, xs, gc, st0, tile=tile,
-                                         precision=prec)
+                                         precision=prec, plan=fwd_plan)
 
             def bwd():
                 return tk.seq_bwd(spec, tw, gc, ref[2], hprev, *cot, tile=tile,
-                                  precision=prec)
+                                  precision=prec, plan=bwd_plan)
 
             row["fwd_err"] = _max_err(f"seq_fwd {tile}", fwd(), ref[:4], FWD_TOL, prec)
             row["bwd_err"] = _max_err(f"seq_bwd {tile}", bwd(), bwd_ref, BWD_TOL, prec)
@@ -236,6 +259,20 @@ def main(argv=None) -> int:
             "cond_gates_ms": _time_ms(lambda: tk.cond_gates(spec, tw, cs, precision=prec)),
             "cublas_baddbmm_ms": lib_ms, "precision": prec, "batch": b, "frames": n}))
     return 0
+
+
+def _plan_row(name, which, spec, b, plan, call, ref, tol, prec, timed) -> dict:
+    """One plan of a serial kernel: its launch plan, its largest difference
+    from the plain version and (``timed``) its ms by CUDA-graph replay, or
+    why it does not take the spec."""
+    try:
+        row = {"plan": tk.serial_plan(which, spec, b, plan=plan)}
+    except RuntimeError as e:
+        return {"refused": str(e)}
+    row["err"] = _max_err(name, call(), ref, tol, prec)
+    if timed:
+        row["ms"] = _time_ms(call)
+    return row
 
 
 def _rms(a, b) -> float:

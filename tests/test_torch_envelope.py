@@ -30,6 +30,7 @@ from lets_face_it_tpu.ops import pallas_flow, pallas_train
 from lets_face_it_tpu_torch.model import seqglow as pseqglow
 from lets_face_it_tpu_torch.ops import flow_kernels as fk
 from lets_face_it_tpu_torch.ops import train_kernels as tk
+from lets_face_it_tpu_torch.sample.weights import seeded_random_model
 
 from conftest import random_batch, tiny_hparams
 from test_torch_port_common import assert_close, jax_params, port_model, specs
@@ -79,15 +80,19 @@ def test_port_envelopes_cover_the_jax_envelope_over_the_search_grid(k, tmp_path)
 
 
 def test_training_kernels_fit_the_whole_search_grid(tmp_path):
-    """The serial training kernels' one-row backward tile peaks at H = 512,
-    K = 32 (200,800 B of the 232,448 a block may have: the split plan's,
-    which prefetches gh's rows in place of the walk's gh buffer and b_hh;
-    the walk's would be 206,944); a change to their layout that pushed a
-    spec of the grid out would fail here."""
+    """The serial training kernels' one-row tile on their launchers' plans
+    peaks at H = 128, K = 32 (54,880 B of the 232,448 a block may have: the
+    walk's; from H = 256 both kernels take the hidden split, whose blocks
+    hold a slice of the hidden units: 26,992 at H = 512, K = 32, where the
+    walks' would be 206,944); a change to their layout that pushed a spec of
+    the grid out would fail here."""
     base = jax_load_hparams(HPARAMS / "final_model.yaml", dataset_root=tmp_path)
     peak = max(tk.train_smem_bytes(specs(_grid_hp(base, k, h, cond, 50))[1])
                for k, h, cond in itertools.product(KS, (128, 256, 512), CONDS[1:]))
-    assert peak == 200_800 <= fk.MAX_SMEM_BYTES
+    assert peak == 54_880 <= fk.MAX_SMEM_BYTES
+    spec = specs(_grid_hp(base, 32, 512, 512, 50))[1]
+    assert tk.train_smem_bytes(spec, "hsplit") == 26_992
+    assert tk.train_smem_bytes(spec, "walk") == 206_944
 
 
 @pytest.mark.parametrize("c, padded", [(50, 56), (52, 56), (54, 56), (56, 56),
@@ -356,16 +361,47 @@ def test_sequence_invert_on_padded_lanes_matches_the_plain_route():
     assert_close(loss_k, loss_p.numpy())
 
 
-def test_a_jax_envelope_spec_the_kernels_cannot_take_raises(tmp_path):
-    """At H = 1024 the serial training kernels' tile (344 KB) overflows a
-    block: the spec, inside the JAX kernels' envelope, is refused rather
-    than trained on the plain path; its sampling runs the chain's streaming
-    variant."""
+def test_a_jax_envelope_spec_at_h1024_trains_on_the_kernels(tmp_path):
+    """At H = 1024 (final_model's widths otherwise) the serial training
+    kernels run their hidden split, whose one-row blocks fit; its sampling
+    runs the chain's streaming variant."""
     hp = jax_load_hparams(HPARAMS / "final_model.yaml", dataset_root=tmp_path)
     hp.Glow["hidden_channels"] = 1024
     _, pspec = specs(hp)
-    assert not tk.train_supported(pspec) and fk.jax_envelope(pspec)
-    with pytest.raises(ValueError, match="JAX kernels' envelope"):
-        pseqglow.training_path(pspec)
+    assert tk.train_supported(pspec) and fk.jax_envelope(pspec)
+    assert pseqglow.training_path(pspec) == "kernels"
+    assert tk.seq_fwd_plan_name(pspec) == tk.seq_bwd_plan_name(pspec) == "hsplit"
+    assert tk.train_smem_bytes(pspec) <= fk.MAX_SMEM_BYTES
     assert pseqglow.sampling_path(pspec) == "sequence"
     assert not fk.chain_resident(pspec)
+
+
+def test_a_jax_envelope_spec_the_kernels_cannot_take_raises(tmp_path, monkeypatch):
+    """The first H of the JAX kernels' envelope (multiples of 128) that a
+    path of the port refuses is H = 1152, for sampling: the chain has no
+    plan (``chain_placement`` None). The spec trains on the kernels, and
+    its generation raises rather than run the plain path (``flow.frame_rev``
+    is never called)."""
+    hp = jax_load_hparams(HPARAMS / "final_model.yaml", dataset_root=tmp_path)
+    refused = None
+    for h in range(128, 1153, 128):
+        hp.Glow["hidden_channels"] = h
+        _, pspec = specs(hp)
+        assert fk.jax_envelope(pspec) and tk.train_supported(pspec), h
+        if not fk.fused_supported(pspec):
+            refused = h
+            break
+    assert refused == 1152 and fk.chain_placement(pspec) is None
+    assert pseqglow.training_path(pspec) == "kernels"
+    with pytest.raises(ValueError, match="JAX kernels' envelope"):
+        pseqglow.sampling_path(pspec)
+
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain sampling path ran")
+
+    monkeypatch.setattr(pseqglow.flow, "frame_rev", plain)
+    model = seeded_random_model(pspec, 0)
+    data = {k: torch.as_tensor(v) for k, v in _data(
+        hp, pspec, 1, hp.Conditioning["p2_face"]["history"] + 2, seed=9).items()}
+    with pytest.raises(ValueError, match="JAX kernels' envelope"):
+        pseqglow.sequence_sample(pspec, model, data, data["p1_face"].shape[1])

@@ -1,16 +1,17 @@
 """The wide-width plans of the sampling chain and of ``seq_bwd``
 (``lets_face_it_tpu_torch/ops/flow_kernels.py``, ``ops/train_kernels.py``).
 
-* ``seq_bwd``'s split plan: its plain version (``seq_bwd_split_ref``: the
-  hidden gates of every frame and step first, ``bwd_gh_ref``, then the walk
-  without the two products that read w_hh, and each frame's state
-  cotangents of the frame before after it, ``bwd_dstate_ref``) against the
-  walk's plain version (``seq_bwd_ref``) and against the JAX package's
-  backward kernel (``pallas_train._seq_bwd_call``, Pallas in interpret mode
-  on the CPU, the way the JAX package's tests run it), on the same weights
-  and residuals, at a small spec and at H = 512 with N = 3, K = 2, B = 2.
-  Tolerances: against JAX the backward's, atol 2e-5 / rtol 1e-4 (the JAX
-  kernel tests'); split against walk atol 1e-6 / rtol 1e-5 (the same
+* ``seq_bwd``'s hidden split: its plain version (``seq_bwd_hsplit_ref``:
+  the hidden gates of every frame and step first, ``bwd_gh_ref``, then the
+  walk by slices of the hidden units without the two products that read
+  w_hh, and each frame's state cotangents of the frame before after it,
+  ``bwd_dstate_ref``) against the walk's plain version (``seq_bwd_ref``)
+  and against the JAX package's backward kernel
+  (``pallas_train._seq_bwd_call``, Pallas in interpret mode on the CPU, the
+  way the JAX package's tests run it), on the same weights and residuals,
+  at a small spec and at H = 512 with N = 3, K = 2, B = 2. Tolerances:
+  against JAX the backward's, atol 2e-5 / rtol 1e-4 (the JAX kernel
+  tests'); hidden split against walk atol 1e-6 / rtol 1e-5 (the same
   products in another grouping, float32).
 * the plan mirrors, decided from the spec alone as the launchers decide:
   the chain's placement (``chain_placement``) and least shared memory
@@ -85,14 +86,16 @@ def test_split_backward_equals_the_walk_and_the_jax_kernel(width):
     hp = _wide_hp() if width == "small" else _wide_hp(h=512, k=2)
     n, b = (2, 2) if width == "small" else (3, 2)
     spec, pspec, jtw, tw, cond, gc, zs_res, hprev, cot = _backward_case(hp, n, b)
-    # the launcher's plan at H = 512; the walk's below SEQ_BWD_SPLIT_FROM_H
-    assert tk.seq_bwd_plan_name(pspec) == ("split" if width == "h512" else "walk")
+    # the launcher's plan: the walk below HSPLIT_FROM_H, the hidden split
+    # from it (forced here at the small spec)
+    assert tk.seq_bwd_plan_name(pspec) == ("hsplit" if width == "h512" else "walk")
     cot_t = tuple(map(torch.as_tensor, cot))
     with torch.no_grad():
         walk = tk.seq_bwd_ref(pspec, tw, gc, zs_res, hprev, *cot_t)
-        split = tk.seq_bwd_split_ref(pspec, tw, gc, zs_res, hprev, *cot_t)
+        split = tk.seq_bwd_hsplit_ref(pspec, tw, gc, zs_res, hprev, *cot_t, cs=2)
         # the wrapper on CPU tensors runs the plan's plain version
-        wrapped = tk.seq_bwd(pspec, tw, gc, zs_res, hprev, *cot_t, plan="split")
+        wrapped = tk.seq_bwd(pspec, tw, gc, zs_res, hprev, *cot_t, plan="hsplit",
+                             tile=(0, 2, 0))
     want = pallas_train._seq_bwd_call(
         spec, 2, True, jax.lax.Precision.HIGHEST, jtw, jnp.asarray(cond),
         jnp.asarray(zs_res.numpy()), jnp.asarray(hprev.numpy()),
@@ -128,13 +131,17 @@ def test_split_pieces_are_the_walks_products():
 
 
 # (H, K) -> the chain's placement and cluster, its least one-row block
-# (bytes), seq_bwd's plan and one-row block (bytes), at final widths (C = 56)
+# (bytes), seq_bwd's plan and the serial kernels' larger one-row block on
+# their launchers' plans (bytes), at final widths (C = 56)
 PLANS = {
     (128, 16): (("resident", 8), 178_528, "walk", 46_688),
-    (256, 16): (("resident", 16), 165_824, "split", 86_112),
-    (512, 16): (("stream", 16), 194_624, "split", 168_032),
-    (512, 32): (("stream_out", 16), 107_488, "split", 200_800),
+    (256, 16): (("resident", 16), 165_824, "hsplit", 20_432),
+    (512, 16): (("stream", 16), 194_624, "hsplit", 24_944),
+    (512, 32): (("stream_out", 16), 107_488, "hsplit", 26_992),
 }
+# seq_bwd's walk's one-row block where the hidden split is the launcher's
+# (bytes): the walk still takes these widths when asked for
+WALK_BYTES = {(256, 16): 89_184, (512, 16): 174_176, (512, 32): 206_944}
 
 
 @pytest.mark.parametrize("h, k", list(PLANS))
@@ -152,14 +159,21 @@ def test_plan_mirrors_place_the_wide_widths(h, k, tmp_path):
     assert chain_bytes <= fk.MAX_SMEM_BYTES and fk.fused_supported(spec)
     assert tk.seq_bwd_plan_name(spec) == bwd_plan
     assert tk.train_smem_bytes(spec) == bwd_bytes <= fk.MAX_SMEM_BYTES
+    if (h, k) in WALK_BYTES:
+        assert (tk.serial_smem_bytes("seq_bwd", spec, "walk") == WALK_BYTES[(h, k)]
+                <= fk.MAX_SMEM_BYTES)
     assert tk.train_supported(spec)
 
 
 def test_plan_requests_are_checked():
     with pytest.raises(ValueError, match="no plan 'ring'"):
-        tk._bwd_plan_arg("ring")
-    assert tk._bwd_plan_arg(None) == 0
-    assert [tk._bwd_plan_arg(p) for p in tk.SEQ_BWD_PLANS] == [1, 2]
+        tk._plan_arg("seq_bwd", "ring", tk.SEQ_BWD_PLANS)
+    assert tk._plan_arg("seq_bwd", None, tk.SEQ_BWD_PLANS) is None
+    assert [tk._plan_arg("seq_bwd", p, tk.SEQ_BWD_PLANS)
+            for p in tk.SEQ_BWD_PLANS] == ["walk", "hsplit"]
+    # the split plan is gone: the hidden split took its widths
+    with pytest.raises(ValueError, match="no plan 'split'"):
+        tk._plan_arg("seq_bwd", "split", tk.SEQ_BWD_PLANS)
     assert fk._chain_tile((1, 16, 1)) == (1, 16, 1, 0)
     assert fk._chain_tile((1, 16, 1, 3)) == (1, 16, 1, 3)
     with pytest.raises(ValueError, match="tile"):
