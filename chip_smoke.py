@@ -119,8 +119,8 @@ sources in this checkout:
 18. the kernels at two specs of the JAX kernels' envelope that the
     final_model checks do not reach: C = 54 (each half of the coupling
     split padded from 27 to 28 lanes) and C = 54 at H = 512 (the chain's
-    streaming variant in a cluster of 16; the training pair's hidden
-    split): each
+    hidden split in a cluster of 8, its streaming variant timed beside it;
+    the training pair's hidden split): each
     spec's path (2 steps, a validation, 3 pushes) with its launches, then
     every kernel against its plain twin at the final_model limits, timed
     beside the library call and its bound (``cond_gates`` at every mode, as
@@ -140,8 +140,16 @@ sources in this checkout:
     and ``seq_fwd`` and ``seq_bwd`` at B=64 and, at K = 32, B=16 (N=28), each
     against its plain twin at the training limits or 3 times the twin's own
     float32 - float64 distance, whichever is larger, timed beside the eager
-    loop and the bound; one ``{"widened": ...}`` line and a record per
-    kernel and spec in the kernels' line.
+    loop and the bound; then final widths on the sampling chain's hidden
+    split (H = 1,152 and 2,048, K = 16): each path (2 steps at B=64, a
+    validation whose inversion launches ``frame_rev``, 3 pushes; the chain's
+    "hsplit" plan required), ``frame_rev`` B=1 and 64 and ``seq_rev`` B=1
+    over 76 frames against their plain twins (one frame at the final_model
+    limits; a sequence's first frames there too, all of it at
+    max(SEQ_LOOSE_ATOL, 3 x the twin's own float32 - float64 distance)),
+    the chain alone at B=1; and the ceiling, H = 8,192 at K = 4: the same
+    kernel rows on the hidden split, without a path; one ``{"widened":
+    ...}`` line and a record per kernel and spec in the kernels' line.
 19. the hyperparameter search (``train/tuning.py``): ``Study.optimize`` on
     final_model over ``hparam_tuning_configs/large_hparam_search.py``, 3
     trials of 10 steps from a pinned seed, each in a spawned subprocess on
@@ -421,8 +429,10 @@ def read_launches() -> dict:
 
 
 def read_plans() -> dict:
-    """The gate kernels' launches by plan since the last reset_launches:
-    cond_gates' "tc" and "simt", sample_gates' "vector" and "tile"."""
+    """The kernels' launches by plan since the last reset_launches:
+    cond_gates' "tc" and "simt", sample_gates' "vector" and "tile",
+    sample_chain's "whole_steps" and "hsplit", the serial training kernels'
+    "walk" and "hsplit"."""
     return {name: dict(fn.plans) for name, fn in kernel_wrappers().items()
             if hasattr(fn, "plans")}
 
@@ -2324,7 +2334,7 @@ def precision_step(tmp, dev, card, records) -> dict:
 # Step 18: final_model at the widths of the JAX kernels' envelope that the
 # kernels take on padded lanes (C = 54: expression 48, each half of the
 # coupling split 27 -> 28) and whose chain weights overflow a cluster's
-# shared memory (H = 512, K = 16: the chain's streaming variant).
+# shared memory (H = 512, K = 16: the chain's hidden split).
 # Each spec's path (2 steps at B=WIDE_BATCH, a validation, 3 pushes) with
 # its launches, then every kernel against its plain twin at the limits of
 # the final_model checks above.
@@ -2344,6 +2354,14 @@ WIDE_H1024 = ("C=56, H=1024", {"hidden_channels": 1024})
 # replay: their plain twins and the eager loop's 1,800 steps a call are
 # most of the step's time)
 WIDE_K32, WIDE_K32_BATCH, WIDE_K32_FRAMES = 32, 16, 28
+# Step 18's final widths on the sampling chain's hidden split (C = 56,
+# K = 16: no cluster holds or streams a step's weights through one block from
+# H = 1,152 on), each with its path, and the ceiling's block: the sampling
+# kernels alone at the widest H the kernels take, at K = 4.
+WIDE_HSPLIT = (("C=56, H=1152", {"hidden_channels": 1152}),
+               ("C=56, H=2048", {"hidden_channels": 2048}))
+WIDE_CEILING = ("C=56, H=8192, K=4", {"hidden_channels": 8192, "n_steps": 4})
+WIDE_HSPLIT_FRAMES = 76
 WIDE_BOTH_PLANS = "C=54, H=512"
 FWD_OUTPUTS = ("z", "scales", "zs_res", "states_res", "gc")
 BWD_OUTPUTS = ("dx", "dstates0", "dgi", "dghn", "dhout", "dzb")
@@ -2359,8 +2377,8 @@ WIDE_SEQ_RATIO = 3.0
 # plain path, cheap at K x N = 52) and two inside it that need the widened
 # kernels: C = 34 at K = 32, H = 128 (padded lanes, the chain's weights
 # resident in a cluster of 16, the sequence kernel) and C = 54 at H = 512,
-# K = 4 with an mlp own face (padded lanes, the chain's streaming variant,
-# the per-frame kernel).
+# K = 4 with an mlp own face (padded lanes, the chain's hidden split, the
+# per-frame kernel).
 # (Seed 1's three took 149 s, one plain trial at K x N = 1,024 83 s of it.)
 # TUNE_STEPS steps each (25 on 40 chunks until the script's time limit
 # needed the time; the sampler's first 8 proposals are uniform, so the
@@ -2473,8 +2491,7 @@ def widened_step(tmp, dev, card, records) -> dict:
               f"lanes, K={spec.n_steps} H={spec.hidden_channels} "
               f"cond={spec.cond.cond_dim}; chain weights "
               f"{fk.chain_step_bytes(spec) * spec.n_steps / 1e6:.2f} MB, "
-              f"{'resident in' if resident else 'partly streamed through'} "
-              f"a cluster of {placement[1]}'s shared memory ({placement[0]}); seq_bwd's "
+              f"placed {placement[0]} in a cluster of {placement[1]}; seq_bwd's "
               f"{tk.seq_bwd_plan_name(spec)} plan")
 
         # the spec's path: 2 steps, a validation, 3 pushes
@@ -2581,8 +2598,10 @@ def widened_step(tmp, dev, card, records) -> dict:
                     ks, w, w_p1_k, projs, hist, st)), 20),
                 **dict(zip(("bound_ms", "bound_by"), gates_bound_ms(ks, 1, ks.cond.p1_face.out_dim))))
             _, gc, gh = ref
+            # the launcher's plan (resident=None), and the streaming variant
+            # beside it (resident=False)
             chain = {}
-            for place in ((True, False) if resident else (False,)):
+            for place in (None, False):
                 call = lambda: fk.sample_chain(  # noqa: E731
                     ks, w, z_k, gc, gh, st, hist, resident=place)
                 got = call()
@@ -2594,13 +2613,12 @@ def widened_step(tmp, dev, card, records) -> dict:
             print(f"{label} chain plan at B=1: {json.dumps(plan)}")
             chain_plain = time_ms(lambda: fk.sample_chain_ref(ks, w, z_k, gc, gh, st, hist), 5)
             rows["sample_chain"] = dict(
-                batch=1, resident=resident, max_abs_err=chain[resident][0],
-                ms=chain[resident][1], wrapper_ms=chain[resident][2],
+                batch=1, resident=resident, max_abs_err=chain[None][0],
+                ms=chain[None][1], wrapper_ms=chain[None][2],
                 plain_ms=chain_plain, library_ms=time_ms(graphed(
                     lambda: fk.sample_chain_ref(ks, w, z_k, gc, gh, st, hist)), 20),
-                plan=plan,
-                **({"streaming_ms": chain[False][1],
-                    "streaming_max_abs_err": chain[False][0]} if resident else {}),
+                plan=plan, streaming_ms=chain[False][1],
+                streaming_max_abs_err=chain[False][0],
                 **dict(zip(("bound_ms", "bound_by"),
                            chain_bound_ms(ks, w, 1, ks.cond.p1_face.out_dim))))
 
@@ -2739,20 +2757,33 @@ def widened_step(tmp, dev, card, records) -> dict:
     t_spec = time.perf_counter()
     out[WIDE_H1024[0]] = wide_h1024_rows(tmp, dev, records)
     print(f"step 18, {WIDE_H1024[0]}: {time.perf_counter() - t_spec:.1f} s")
+    for label, overrides in WIDE_HSPLIT:
+        t_spec = time.perf_counter()
+        out[label] = wide_hsplit_rows(tmp, dev, label, overrides, records)
+        print(f"step 18, {label}: {time.perf_counter() - t_spec:.1f} s")
+    t_spec = time.perf_counter()
+    out[WIDE_CEILING[0]] = wide_ceiling_rows(tmp, dev, records)
+    print(f"step 18, {WIDE_CEILING[0]}: {time.perf_counter() - t_spec:.1f} s")
     out["step_s"] = time.perf_counter() - t18
     return out
 
 
-def wide_path(tmp, dev, label, overrides, n_steps: int) -> tuple:
+def wide_path(tmp, dev, label, overrides, n_steps: int, invert: bool = False,
+              scaled_head: bool = False) -> tuple:
     """A widened spec's path on seeded random weights: ``run_actnorm_init``,
     ``n_steps`` training steps at B=WIDE_BATCH, a validation and 3 pushes at
     B=1, with every path kernel required among the launches, each serial
     training kernel on its launcher's plan, and a finite loss -> (hp, spec,
-    model, the last step's metrics, the validation's, launches, plans)."""
+    model, the last step's metrics, the validation's, launches, plans).
+    ``invert``: the validation checks the invertibility too
+    (``sequence_invert``), which must launch ``frame_rev``; ``scaled_head``:
+    the weights' coupling heads perturbed for the width
+    (``seeded_random_model(width_scaled_head=True)``)."""
     import numpy as np
     import torch
 
     from lets_face_it_tpu_torch.model.spec import FlowSpec
+    from lets_face_it_tpu_torch.ops import flow_kernels as fk
     from lets_face_it_tpu_torch.ops import train_kernels as tk
     from lets_face_it_tpu_torch.sample.streaming import StreamingGenerator
     from lets_face_it_tpu_torch.sample.weights import seeded_random_model
@@ -2760,10 +2791,11 @@ def wide_path(tmp, dev, label, overrides, n_steps: int) -> tuple:
     from lets_face_it_tpu_torch.train import state as train_state
 
     hp = _wide_hp(tmp, overrides)
+    hp.Validation["check_invertion"] = hp.Validation.get("check_invertion") or invert
     spec = FlowSpec.build(hp)
     corpus = train_loop.synthetic_corpus(hp, SEED, n_train_chunks=4, n_val_chunks=1)
     train_ds, val_ds = train_loop.load_datasets(hp, corpus)
-    model = seeded_random_model(spec, SEED).to(dev)
+    model = seeded_random_model(spec, SEED, width_scaled_head=scaled_head).to(dev)
     state = train_state.TrainState.create(model, hp, 3, SEED)
     jb = train_loop.to_device(train_ds.get_batch(np.arange(WIDE_BATCH)), dev)
     frame = {kk: jb[kk][:1, 0].cpu().numpy()
@@ -2772,7 +2804,13 @@ def wide_path(tmp, dev, label, overrides, n_steps: int) -> tuple:
     train_state.run_actnorm_init(spec, state, jb)
     for _ in range(n_steps):
         mets = train_state.train_step(spec, hp, state, jb)
+    before = fk.frame_rev_fused.launches
     val = train_loop.run_validation(spec, hp, model, val_ds, dev, n_steps, SEED)
+    if invert and not (fk.frame_rev_fused.launches > before and math.isfinite(
+            val["reconstruction/error_percentage"])):
+        fail(f"{label} path: the validation's inversion launched frame_rev "
+             f"{fk.frame_rev_fused.launches - before} times, error "
+             f"{val.get('reconstruction/error_percentage')}")
     s = StreamingGenerator(spec, model, batch_size=1, seed=SEED, device=dev)
     for _ in range(3):
         s.push(**frame)
@@ -2963,7 +3001,7 @@ def row_source(name: str, row: dict) -> str:
     launch plan is it (``HSPLIT_SOURCES``), else the kernel's own
     (``KERNEL_SOURCES``)."""
     plan = row.get("plan")
-    hsplit = isinstance(plan, dict) and plan.get("plan") == "hsplit"
+    hsplit = isinstance(plan, dict) and "hsplit" in (plan.get("plan"), plan.get("place"))
     return ("lets_face_it_tpu_torch/"
             + (HSPLIT_SOURCES[name] if hsplit else KERNEL_SOURCES[name][0]))
 
@@ -3036,9 +3074,190 @@ def wide_h1024_rows(tmp, dev, records) -> dict:
             "val_loss": val["val_loss"], "chain_placement": [place, cluster]}
 
 
+def hsplit_sampling_rows(label, spec, model, randn, frame_reps: int) -> dict:
+    """The sampling kernels at a spec whose chain's plan is the hidden
+    split, on ``model``'s weights, each through its wrapper against its
+    plain twin, timed by graph replay and through the wrapper beside the
+    library call and the bound, the launcher's plan required to be the
+    hidden split: ``frame_rev`` B=1 and WIDE_BATCH (``frame_reps`` replays;
+    the one-frame limits), ``seq_rev`` B=1 over WIDE_HSPLIT_FRAMES frames
+    (its first SEQ_TIGHT frames at the one-frame limits, all of them at
+    max(SEQ_LOOSE_ATOL, WIDE_SEQ_RATIO x the twin's own float32 - float64
+    distance)) and the chain alone at B=1 -> {key: (kernel, row)}."""
+    import torch
+
+    from lets_face_it_tpu_torch.ops import flow_kernels as fk
+
+    ks = fk.kernel_spec(spec)
+    k_steps, c, h = spec.n_steps, spec.channels, spec.hidden_channels
+    cond, p1, n_seq = spec.cond.cond_dim, spec.cond.p1_face.out_dim, WIDE_HSPLIT_FRAMES
+    w = fk.prepare_sampling_weights(spec, model.flow)
+    w_p1_t = model.flow["cond_proj"]["w"][:, :, :p1].transpose(1, 2).contiguous()
+    gru = {"w_ih": w.w_ih_t.transpose(1, 2).contiguous(),
+           "w_hh": w.w_hh_t.transpose(1, 2).contiguous(), "b_ih": w.b_ih, "b_hh": w.b_hh}
+
+    def hsplit_plan(what, b):
+        plan = fk.chain_plan(spec, b)
+        if plan["place"] != "hsplit":
+            fail(f"{label} {what}: the chain's plan is {plan}")
+        return plan
+
+    rows = {}
+    for b in (1, WIDE_BATCH):
+        z, projs = randn(b, c), randn(k_steps, b, cond)
+        st = randn(k_steps, b, h, scale=0.5)
+        plan = hsplit_plan(f"frame_rev B={b}", b)
+        x, st_new = fk.frame_rev_fused(spec, w, z, projs, st)
+        (x_r, st_r), plain = timed(lambda: fk.frame_rev_fused_ref(ks, w, z, projs, st))
+        err = max(check_close(f"{label} frame_rev B={b} x", x, x_r),
+                  check_close(f"{label} frame_rev B={b} states", st_new, st_r))
+        del x, st_new, x_r, st_r
+        call = lambda: fk.frame_rev_fused(spec, w, z, projs, st)  # noqa: E731
+        rows[f"frame_rev B={b}"] = ("frame_rev", dict(
+            batch=b, max_abs_err=err, chain_plan=plan,
+            ms=time_ms(graphed(call), frame_reps), wrapper_ms=time_ms(call, frame_reps),
+            plain_ms=plain,
+            library_ms=time_ms(graphed(lambda: library_frame_rev(
+                ks, w, gru, z, projs, st)), frame_reps),
+            **dict(zip(("bound_ms", "bound_by"), frame_bound_ms(ks, w, b)))))
+
+    zs, fixed = randn(n_seq, 1, c), randn(n_seq, k_steps, 1, cond)
+    hist0, st0 = randn(1, p1), torch.zeros(k_steps, 1, h, device=zs.device)
+    xs = fk.sequence_rev_fused(spec, w, w_p1_t, zs, fixed, hist0, st0)
+    ref_args = (ks, w, w_p1_t, zs, fixed, hist0, st0)
+    xs_r, seq_plain = timed(lambda: fk.sequence_rev_fused_ref(*ref_args))
+    xs_64 = fk.sequence_rev_fused_ref(ks, weights64(w), *(t.double() for t in ref_args[2:]))
+    check_close(f"{label} seq_rev first {SEQ_TIGHT} frames", xs[:SEQ_TIGHT],
+                xs_r[:SEQ_TIGHT])
+    own = (xs_r.double() - xs_64).abs().max().item()
+    print(f"{label} seq_rev all {n_seq} frames: kernel vs plain "
+          f"{json.dumps(drift(xs, xs_r))}; plain float32 vs float64 "
+          f"{json.dumps(drift(xs_r, xs_64))}")
+    err = check_close(f"{label} seq_rev all frames", xs, xs_r,
+                      atol=max(SEQ_LOOSE_ATOL, WIDE_SEQ_RATIO * own), rtol=0.0)
+    del xs_64
+    call = lambda: fk.sequence_rev_fused(  # noqa: E731
+        spec, w, w_p1_t, zs, fixed, hist0, st0)
+    rows["seq_rev"] = ("seq_rev", dict(
+        batch=1, frames=n_seq, max_abs_err=err, own_f64_distance=own,
+        chain_plan=hsplit_plan("seq_rev", 1),
+        ms=time_ms(graphed(call), 3, warmup=1), wrapper_ms=time_ms(call, 3, warmup=1),
+        plain_ms=seq_plain,
+        library_ms=time_ms(graphed(lambda: library_seq_rev(
+            ks, w, gru, *ref_args[2:])), 3, warmup=1),
+        **dict(zip(("bound_ms", "bound_by"), seq_bound_ms(ks, w, n_seq, 1)))))
+
+    # the chain alone at B=1, its gates given
+    z, st = randn(1, c), randn(k_steps, 1, h, scale=0.5)
+    hist = randn(1, p1)
+    _, gc, gh = fk.sample_gates_ref(ks, w, w_p1_t, randn(k_steps, 1, cond), hist, st)
+    chain = lambda: fk.sample_chain(ks, w, z, gc, gh, st, hist)  # noqa: E731
+    ref_c, chain_plain = timed(lambda: fk.sample_chain_ref(ks, w, z, gc, gh, st, hist))
+    err = max(check_close(f"{label} sample_chain {nm}", a_, r_)
+              for nm, a_, r_ in zip(("x", "states", "hist"), chain(), ref_c))
+    plan = hsplit_plan("sample_chain", 1)
+    rows["sample_chain"] = ("sample_chain", dict(
+        batch=1, max_abs_err=err, plan=plan,
+        ms=time_ms(graphed(chain), 20), wrapper_ms=time_ms(chain, 20),
+        plain_ms=chain_plain,
+        library_ms=time_ms(graphed(lambda: fk.sample_chain_ref(
+            ks, w, z, gc, gh, st, hist)), 20),
+        **dict(zip(("bound_ms", "bound_by"), chain_bound_ms(ks, w, 1, p1)))))
+    print(f"{label} chain plan at B=1: {json.dumps(plan)}")
+    return rows
+
+
+def record_rows(label, rows, counts, records, launches_of=None) -> None:
+    """Each (name, row) of ``rows`` into the kernels' records, with its
+    launches from ``counts``, and printed."""
+    for key, (name, row) in rows.items():
+        records.append(dict(name=name, widened=label, route="cuda",
+                            source=row_source(name, row),
+                            replaces=f"lets_face_it_tpu/ops/{KERNEL_SOURCES[name][1]}",
+                            launches=counts[name],
+                            **({"launches_of": launches_of} if launches_of else {}),
+                            **row))
+        print(f"{label} {key}: max|d| {row['max_abs_err']:.3e}; kernel {row['ms']:.4f} ms "
+              f"(graph replay; {row['wrapper_ms']:.4f} through the wrapper), plain "
+              f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']})  ok")
+
+
+def wide_hsplit_rows(tmp, dev, label, overrides, records) -> dict:
+    """Step 18 at final widths on the sampling chain's hidden split
+    (``WIDE_HSPLIT``): the path (``wide_path``, 2 training steps, a
+    validation whose inversion launches ``frame_rev``, 3 pushes; the chain's
+    "hsplit" plan required), then the sampling kernels against their plain
+    twins (``hsplit_sampling_rows``)."""
+    import torch
+
+    from lets_face_it_tpu_torch.ops import flow_kernels as fk
+
+    t0 = time.perf_counter()
+    hp, spec, model, mets, val, launches, plans = wide_path(
+        tmp, dev, label, overrides, 2, invert=True, scaled_head=True)
+    require_plan(f"{label} path", plans, "sample_chain", "hsplit")
+    place, cluster = fk.chain_placement(spec)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=g, device=dev)
+
+    print(f"step 18, {label}: K={spec.n_steps} H={spec.hidden_channels}; the chain "
+          f"{place} in a cluster of {cluster}; path: 2 steps B={WIDE_BATCH} (loss "
+          f"{float(mets['loss']):.3f}), a validation (val NLL {val['val_loss']:.3f}, "
+          f"inversion error {val['reconstruction/error_percentage']:.3f} %), 3 pushes "
+          f"({time.perf_counter() - t0:.1f} s); launches {launches}, plans {plans}")
+    with torch.no_grad():
+        rows = hsplit_sampling_rows(label, spec, model, randn, 10)
+    record_rows(label, rows, launches, records)
+    del model
+    torch.cuda.empty_cache()
+    return {"launches": launches, "plans": plans, "loss": float(mets["loss"]),
+            "val_loss": val["val_loss"],
+            "inversion_error_percentage": val["reconstruction/error_percentage"],
+            "chain_placement": [place, cluster]}
+
+
+def wide_ceiling_rows(tmp, dev, records) -> dict:
+    """Step 18 at the widest H the kernels take (``WIDE_CEILING``, K = 4):
+    the sampling kernels on the chain's hidden split against their plain
+    twins (``hsplit_sampling_rows``). No path runs at this spec: its rows
+    count the launches of their own calls."""
+    import torch
+
+    from lets_face_it_tpu_torch.model.spec import FlowSpec
+    from lets_face_it_tpu_torch.ops import flow_kernels as fk
+    from lets_face_it_tpu_torch.sample.weights import seeded_random_model
+
+    label, overrides = WIDE_CEILING
+    t0 = time.perf_counter()
+    spec = FlowSpec.build(_wide_hp(tmp, overrides))
+    model = seeded_random_model(spec, SEED, width_scaled_head=True).to(dev)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=g, device=dev)
+
+    print(f"step 18, {label}: the chain {fk.chain_placement(spec)}; weights "
+          f"{time.perf_counter() - t0:.1f} s")
+    reset_launches()
+    with torch.no_grad():
+        rows = hsplit_sampling_rows(label, spec, model, randn, 5)
+    launches, plans = read_launches(), read_plans()
+    require_plan(label, plans, "sample_chain", "hsplit")
+    record_rows(label, rows, launches, records,
+                "these kernel rows (no path at this spec)")
+    del model
+    torch.cuda.empty_cache()
+    return {"launches": launches, "plans": plans,
+            "chain_placement": list(fk.chain_placement(spec))}
+
+
 # The hidden split's sources (step 18's rows on that plan, ``row_source``).
 HSPLIT_SOURCES = {"seq_fwd": "csrc/seq_fwd_hsplit.cu",
-                  "seq_bwd": "csrc/seq_bwd_hsplit.cu"}
+                  "seq_bwd": "csrc/seq_bwd_hsplit.cu",
+                  "sample_chain": "csrc/sample_chain_hsplit.cuh"}
 
 # The kernels' sources and the TPU kernels they replace.
 KERNEL_SOURCES = {

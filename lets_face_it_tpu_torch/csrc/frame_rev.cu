@@ -11,9 +11,10 @@
 //      products at few rows, tensor-core tiles from 16 or 64 rows on);
 //   2. sample_chain.cuh: the serial chain of the K steps on a thread-block
 //      cluster whose shared memory holds the chain's weights (1.36 MB; where
-//      they do not fit, a cluster of 16 holds part of them and streams the
-//      rest through a ring of slots), launched to overlap the end of the
-//      gates.
+//      they do not fit, the hidden split of sample_chain_hsplit.cuh, each
+//      block of a cluster streaming its units' share of every step, or
+//      where no cluster splits H a cluster of 16 holding part of them and
+//      streaming the rest), launched to overlap the end of the gates.
 //
 // What bounds it on an H100: the weights are read once per frame (about
 // 16.6 MB for final_model, 5 us at 3.35 TB/s); the arithmetic is about
@@ -25,9 +26,9 @@
 // (flow_step.cuh::FlowPrecision). The wrapper
 // (ops/flow_kernels.py::frame_rev_fused) allocates the outputs
 // and the gates' scratch; this file allocates nothing. It adds the gates
-// and chain launches it makes to launches[0] and launches[1], and the gates
-// launches of the many-row plan to launches[2] too, which the wrapper adds
-// to their counters. The chain's plan holds a bounded number of rows
+// and chain launches it makes to launches[0] and launches[1], the gates
+// launches of the many-row plan to launches[2] and the chain's on the hidden
+// split to launches[3] too, which the wrapper adds to their counters. The chain's plan holds a bounded number of rows
 // (frame_rev_max_rows); the wrapper cuts a larger batch into launches of at
 // most that many, as the JAX package's frame_rev_fused_chunked cuts its
 // batch into 512-row kernel calls.
@@ -39,11 +40,12 @@ extern "C" int frame_rev_launch(
     const float* z, const float* cond_projs, const float* states,
     float* x_out, float* states_out,
     const float* w_ih_t, const float* w_hh_t, const float* b_ih,
-    const float* b_hh, const float* chain_w, float* gc, float* gh,
-    int B, int K, int C, int Z1, int COND, int H, int COUT, float scale_eps,
-    int mode, void* stream, int* launches) {
+    const float* b_hh, const float* chain_w, const float* chain_hs, float* gc,
+    float* gh, int B, int K, int C, int Z1, int COND, int H, int COUT, int hs_cs,
+    float scale_eps, int mode, void* stream, int* launches) {
   ChainArgs a{chain_w, K, C, Z1, H, COUT, scale_eps, B, 0, z, gc, gh, states,
-              states_out, x_out, nullptr, nullptr, 0, 0, 0, nullptr, mode};
+              states_out, x_out, nullptr, nullptr, 0, 0, 0, nullptr, mode,
+              0, 0, 0, chain_hs, chain_hs ? hs_cs : 0};
   if (!chain_valid(a) || COND % 4 != 0) return FLOW_ERR_ARGS;
   FlowDevice d;
   cudaError_t err = flow_device(&d);
@@ -61,17 +63,20 @@ extern "C" int frame_rev_launch(
 }
 
 // The most rows one frame_rev_launch plans for on the current device with
-// these widths: the largest B for which the chain's plan (sample_chain.cuh::
-// chain_plan) fits, found by doubling and then bisecting (the plan's shared
-// memory grows with B). *rows = 0 where not even one row fits.
-extern "C" int frame_rev_max_rows(int K, int C, int Z1, int H, int COUT,
+// these widths and the hidden split's weights laid out for a cluster of
+// hs_cs (0: none): the largest B for which the chain's plan
+// (sample_chain.cuh::chain_plan) fits, found by doubling and then bisecting
+// (the plan's shared memory grows with B), up to 2^24 - 1 (the hidden
+// split's plan takes any B: its clusters run in waves). *rows = 0 where not
+// even one row fits.
+extern "C" int frame_rev_max_rows(int K, int C, int Z1, int H, int COUT, int hs_cs,
                                   int* rows) {
   FlowDevice d;
   cudaError_t err = flow_device(&d);
   if (err != cudaSuccess) return (int)err;
   const auto plans = [&](int b) {
     ChainPlan plan;
-    return chain_plan(b, K, C, Z1, H, COUT, 0, 0, 0, 0, CHAIN_WEIGHTS_AUTO, d,
+    return chain_plan(b, K, C, Z1, H, COUT, 0, 0, 0, 0, CHAIN_WEIGHTS_AUTO, hs_cs, d,
                       [&](const ChainPlan& p) { return chain_resident_bt(p, d); },
                       &plan);
   };

@@ -51,7 +51,8 @@
 // at H = 256, 300 KB at H = 512), the plan first takes a cluster of 16
 // (non-portable on an H100; at H = 256, K = 16 each block then holds its one
 // step resident). Where a block cannot hold its steps even so (H = 512, or
-// K = 32 from H = 256), the kernel runs its streaming variant (STREAM):
+// K = 32 from H = 256), the plan is the hidden split (below) wherever a
+// cluster splits H, else the kernel runs its streaming variant (STREAM):
 // every block keeps resident the part of its steps' weights that fits
 // (out_w_t[k], out_b[k], W^-1[k] and the actnorm: 128 KB a step at H = 512;
 // where even out_w_t does not fit, as at H = 1024 or at H = 512, K = 32, only
@@ -67,15 +68,27 @@
 // from H = 513 on) a thread over all Z1 rows, four rows a 16-byte read,
 // and out_w's as the resident lanes do. The ring's depth bounds the bytes
 // in flight a block: at H = 512, K = 16, three slots of one 24-KB row group
-// each, 72 of a step's 172 KB ahead of the step. The plan takes the resident
-// variant whenever a cluster of 8, else of 16, holds the weights
-// (chain_plan); a spec that no plan fits is refused. Its defaults, from
-// probe_sampling_kernels.py --hidden_channels 512 --expression_dim 48 on an
-// H100 (PERF.md): a cluster of 16 and as many slots as fit; at B = 1 the
-// chain read 0.126 ms (2 slots 0.130; out_w_t streamed too in a cluster of
-// 8, 2 slots, 0.116, the least: a cluster holds 15 such at once, 7 of 16),
-// and at B = 128 a cluster of 16 read 0.246-0.315 ms against 0.291-0.390
-// in clusters of 8.
+// each, 72 of a step's 172 KB ahead of the step. The streaming variant gives
+// a thread at most two GRU units, so it stops at H = 1,024. The hidden split
+// (sample_chain_hsplit.cuh) has no such bound: a cluster of blocks shares
+// each step, each block owning a slice of the hidden units and streaming
+// only its share of the weights. The plan takes the resident variant
+// whenever a cluster of 8, else of 16, holds the weights, else the hidden
+// split where the caller laid its weights out for one (ChainArgs::hs_cs;
+// ops/flow_kernels.py::chain_placement does so wherever a cluster splits H),
+// else the streaming variant (chain_plan); a spec that no plan fits is
+// refused. The hidden split read faster than the streaming variant at every
+// width where both ran, three probes each (probe_sampling_kernels.py --plan
+// hsplit --quick on an H100, C = 56; PERF.md): at B = 1 the chain 0.075 /
+// 0.078 ms against 0.125 / 0.197 at K = 16, H = 512 / 1,024, 0.144 against
+// 0.210 at K = 32, H = 256; at B = 64 1.4-2.0x. The streaming variant stays
+// for a spec that no cluster splits (Z1 not a multiple of 4) and when asked
+// for. Its defaults, from probe_sampling_kernels.py --hidden_channels 512
+// --expression_dim 48 on an H100 (PERF.md): a cluster of 16 and as many
+// slots as fit; at B = 1 the chain read 0.126 ms (2 slots 0.130; out_w_t
+// streamed too in a cluster of 8, 2 slots, 0.116, the least: a cluster
+// holds 15 such at once, 7 of 16), and at B = 128 a cluster of 16 read
+// 0.246-0.315 ms against 0.291-0.390 in clusters of 8.
 //
 // Included by the launchers (frame_rev.cu, seq_rev.cu, sample_chain.cu).
 // Only a library that defines SAMPLE_CHAIN_PROBE before the include
@@ -154,6 +167,11 @@ struct ChainArgs {
   // the streaming variant's plan: out_w_t streamed too, ring slots, floats
   // a slot
   int stream_out, nslots, slot_floats;
+  // the hidden split's weights ([K, hs_cs, chain_hs_rank_floats], null where
+  // the caller has laid none out) and the cluster they are laid out for (0:
+  // none); sample_chain_hsplit.cuh
+  const float* hs_weights;
+  int hs_cs;
 };
 
 constexpr int CHAIN_TRACE_SLOTS = 32;
@@ -679,15 +697,22 @@ sample_chain_kernel(ChainArgs a) {
   cluster_sync();   // no block leaves while a peer may still write to it
 }
 
+}  // namespace
+
+#include "sample_chain_hsplit.cuh"
+
+namespace {
+
 // ---------------------------------------------------------------------------
 // Host side: the launch plan
 // ---------------------------------------------------------------------------
 
 // Where a plan keeps the steps' weights (ChainPlan::place): all of them
 // resident, or the streaming variant with w_ih_t streamed, or with w_ih_t
-// and out_w_t streamed.
+// and out_w_t streamed, or the hidden split (sample_chain_hsplit.cuh: each
+// block of a cluster streams its units' share of every step).
 enum ChainPlace { CHAIN_PLACE_RESIDENT = 0, CHAIN_PLACE_STREAM = 1,
-                  CHAIN_PLACE_STREAM_OUT = 2 };
+                  CHAIN_PLACE_STREAM_OUT = 2, CHAIN_PLACE_HSPLIT = 3 };
 
 struct ChainPlan {
   int bt;           // rows per tile
@@ -698,8 +723,9 @@ struct ChainPlan {
   int smem_bytes;
   bool resident;    // place == CHAIN_PLACE_RESIDENT
   int place;        // ChainPlace
-  int nslots;       // the streaming variant's ring: slots
+  int nslots;       // the streaming variant's (or the hidden split's) ring: slots
   int slot_floats;  // and floats a slot
+  StreamTable table;   // the hidden split's products (flow_stream.cuh)
 };
 
 // The shared memory (bytes) of a block of `place` holding its steps for
@@ -740,45 +766,100 @@ inline bool chain_block(int K, int C, int Z1, int H, int COUT, int bt, int cs,
 }
 
 // Where the weights go, as a launcher's caller asks: the plan's choice,
-// all resident in shared memory, or the streaming variant.
+// all resident in shared memory, the streaming variant, or the hidden split.
 enum ChainWeights { CHAIN_WEIGHTS_AUTO = 0, CHAIN_WEIGHTS_SHARED = 1,
-                    CHAIN_WEIGHTS_STREAMED = 2 };
+                    CHAIN_WEIGHTS_STREAMED = 2, CHAIN_WEIGHTS_HSPLIT = 3 };
+
+// The hidden split's cost of a wave of clusters at 1, 2, 4 and 8 rows a
+// tile, relative to one row: the chain's time a wave on an H100 (80GB HBM3,
+// 700 W; probe_sampling_kernels.py --plan hsplit, H = 1,152, K = 16, B=64 in
+// clusters of 16: 0.081, 0.092, 0.104, 0.169 ms; PERF.md).
+constexpr float CHAIN_HS_WAVE_COST[4] = {1.0f, 1.12f, 1.3f, 2.2f};
+
+// The hidden split's plan for B rows in a cluster of cs
+// (sample_chain_hsplit.cuh): bt rows a tile as asked, else of 1, 2, 4 and 8
+// those whose block fits, the one of the least CHAIN_HS_WAVE_COST times the
+// waves its clusters take (the clusters the device holds at once are a
+// wave); one tile a cluster; the ring's slots as asked (0:
+// STREAM_DEFAULT_SLOTS). False if no block fits or the device holds no
+// cluster of it.
+template <typename Resident>
+inline bool chain_hs_plan(int B, int C, int Z1, int H, int COUT, int bt_req,
+                          int cs, int slots_req, const FlowDevice& d,
+                          Resident resident, ChainPlan* plan) {
+  bool found = false;
+  float best = 0.0f;
+  for (int bt = bt_req ? bt_req : 1; bt <= (bt_req ? bt_req : FLOW_MAX_BT); bt *= 2) {
+    const int i = bt >= 8 ? 3 : bt >= 4 ? 2 : bt >= 2 ? 1 : 0;
+    StreamPlan sp;
+    if (!chain_hs_block(B, C, Z1, H, COUT, bt, cs, slots_req, d, &sp)) break;
+    ChainPlan p = {};
+    p.bt = bt;
+    p.cs = cs;
+    p.m = 1;
+    p.clusters = sp.blocks / cs;
+    p.step_floats = chain_hs_rank_floats(C, Z1, H / cs, COUT);
+    p.smem_bytes = sp.smem_bytes;
+    p.resident = false;
+    p.place = CHAIN_PLACE_HSPLIT;
+    p.nslots = sp.nslots;
+    p.slot_floats = sp.slot_floats;
+    p.table = sp.table;
+    const int n = resident(p);
+    if (n <= 0) break;
+    const float cost = (float)((p.clusters + n - 1) / n) * CHAIN_HS_WAVE_COST[i];
+    if (!found || cost < best) {
+      *plan = p;
+      best = cost;
+      found = true;
+    }
+  }
+  return found;
+}
 
 // Plans a launch for B rows: bt, cs, m and the streaming variant's ring
-// slots as asked, 0 for the defaults; the
-// weights where `place` (ChainWeights) asks, by default resident in a
-// cluster of CHAIN_DEFAULT_CLUSTER (or K if that is less) where a block of
-// one row of the plan holds its steps' weights, else resident in a cluster
-// of CHAIN_WIDE_CLUSTER (or K), else the streaming variant in such a
-// cluster, with w_ih_t streamed, else with out_w_t streamed too (a cs asked
-// for replaces both clusters). A default tile is one row (a tile's steps
-// take about as long for one row as for a few, and a cluster pipelines its
-// tiles), doubled (to 8 rows resident, 4 streaming) while the rows would
-// need more than CHAIN_MAX_TILES tiles in each of the clusters the device
-// holds at once (`resident(plan)`); the default m is the least that lets
-// every cluster be resident at once. Returns false if no block fits, a value
-// is out of range, or the device holds no cluster of the plan: there is no
-// other plan to fall back on.
+// slots as asked, 0 for the defaults; the weights where `place`
+// (ChainWeights) asks, by default resident in a cluster of
+// CHAIN_DEFAULT_CLUSTER (or K if that is less) where a block of one row of
+// the plan holds its steps' weights, else resident in a cluster of
+// CHAIN_WIDE_CLUSTER (or K), else the hidden split in the cluster hs_cs the
+// caller laid its weights out for (chain_hs_plan; 0: none, and a cs asked
+// for must be it), else the streaming variant in a cluster of
+// CHAIN_WIDE_CLUSTER (or K), with w_ih_t streamed, else with out_w_t
+// streamed too (a cs asked for replaces both clusters). A default tile is
+// one row (a tile's steps take about as long for one row as for a few, and
+// a cluster pipelines its tiles), doubled (to 8 rows resident, 4
+// streaming; the hidden split scores its own, chain_hs_plan) while the
+// rows would need more than CHAIN_MAX_TILES tiles in each of the clusters
+// the device holds at once (`resident(plan)`); the default m is the least
+// that lets every cluster be resident at once. The placement is decided at one row, so every B of a
+// spec runs the same one. Returns false if no block fits, a value is out of
+// range, or the device holds no cluster of the plan: there is no other plan
+// to fall back on.
 template <typename Resident>
 inline bool chain_plan(int B, int K, int C, int Z1, int H, int COUT,
                        int bt_req, int cs_req, int m_req, int slots_req, int place,
-                       const FlowDevice& d, Resident resident, ChainPlan* plan) {
+                       int hs_cs, const FlowDevice& d, Resident resident,
+                       ChainPlan* plan) {
   if (cs_req < 0 || cs_req > CHAIN_MAX_CLUSTER || bt_req < 0 || bt_req > FLOW_MAX_BT
       || m_req < 0 || m_req > CHAIN_MAX_TILES || slots_req < 0
-      || slots_req > CHAIN_MAX_SLOTS
-      || place < CHAIN_WEIGHTS_AUTO || place > CHAIN_WEIGHTS_STREAMED)
+      || slots_req > CHAIN_MAX_SLOTS || hs_cs < 0
+      || place < CHAIN_WEIGHTS_AUTO || place > CHAIN_WEIGHTS_HSPLIT)
     return false;
   int narrow = cs_req ? cs_req : CHAIN_DEFAULT_CLUSTER;
   int wide = cs_req ? cs_req : CHAIN_WIDE_CLUSTER;
   if (narrow > K) narrow = K;
   if (wide > K) wide = K;
-  struct Candidate { int cs, place; } cands[4];
+  struct Candidate { int cs, place; } cands[5];
   int n_cands = 0;
-  if (place != CHAIN_WEIGHTS_STREAMED) {
+  if (place == CHAIN_WEIGHTS_AUTO || place == CHAIN_WEIGHTS_SHARED) {
     cands[n_cands++] = {narrow, CHAIN_PLACE_RESIDENT};
     if (wide != narrow) cands[n_cands++] = {wide, CHAIN_PLACE_RESIDENT};
   }
-  if (place != CHAIN_WEIGHTS_SHARED) {
+  if ((place == CHAIN_WEIGHTS_AUTO || place == CHAIN_WEIGHTS_HSPLIT) && hs_cs > 0
+      && (cs_req == 0 || cs_req == hs_cs))
+    cands[n_cands++] = {hs_cs, CHAIN_PLACE_HSPLIT};
+  if (place == CHAIN_WEIGHTS_AUTO || place == CHAIN_WEIGHTS_STREAMED) {
     cands[n_cands++] = {wide, CHAIN_PLACE_STREAM};
     cands[n_cands++] = {wide, CHAIN_PLACE_STREAM_OUT};
   }
@@ -787,16 +868,23 @@ inline bool chain_plan(int B, int K, int C, int Z1, int H, int COUT,
   bool found = false;
   for (int i = 0; i < n_cands && !found; ++i) {
     const int cs = cands[i].cs;
-    if (cs < 1 || (K + cs - 1) / cs > CHAIN_MAX_HELD) continue;
-    if (chain_block(K, C, Z1, H, COUT, bt, cs, m0, cands[i].place, slots_req,
-                    d.max_smem, &plan->smem_bytes, &plan->nslots,
-                    &plan->slot_floats)) {
+    if (cands[i].place == CHAIN_PLACE_HSPLIT) {
+      StreamPlan sp;
+      found = m0 == 1 && chain_hs_block(1, C, Z1, H, COUT, bt, cs, slots_req, d, &sp);
+    } else if (cs >= 1 && (K + cs - 1) / cs <= CHAIN_MAX_HELD) {
+      found = chain_block(K, C, Z1, H, COUT, bt, cs, m0, cands[i].place, slots_req,
+                          d.max_smem, &plan->smem_bytes, &plan->nslots,
+                          &plan->slot_floats);
+    }
+    if (found) {
       plan->cs = cs;
       plan->place = cands[i].place;
-      found = true;
     }
   }
   if (!found) return false;
+  if (plan->place == CHAIN_PLACE_HSPLIT)
+    return chain_hs_plan(B, C, Z1, H, COUT, bt_req, plan->cs, slots_req, d, resident,
+                         plan);
   plan->resident = plan->place == CHAIN_PLACE_RESIDENT;
   plan->bt = bt;
   plan->step_floats = chain_step_floats(C, Z1, H, COUT);
@@ -847,7 +935,7 @@ inline cudaLaunchConfig_t chain_config(const ChainPlan& p, cudaStream_t stream,
                                        bool after_gates = false) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(p.clusters * p.cs);
-  cfg.blockDim = dim3(CHAIN_THREADS);
+  cfg.blockDim = dim3(p.place == CHAIN_PLACE_HSPLIT ? STREAM_THREADS : CHAIN_THREADS);
   cfg.dynamicSmemBytes = p.smem_bytes;
   cfg.stream = stream;
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -862,12 +950,11 @@ inline cudaLaunchConfig_t chain_config(const ChainPlan& p, cudaStream_t stream,
 }
 
 // Clusters of the plan the device holds at once (cudaOccupancyMaxActiveClusters),
-// -1 on an error.
-template <int BT, bool STREAM>
-inline int chain_resident(const ChainPlan& p, const FlowDevice& d) {
-  static bool allowed[FLOW_MAX_DEVICES] = {};
-  // the shape of a launch is the same at every mode
-  const auto kernel = sample_chain_kernel<BT, false, FLOW_F32, STREAM>;
+// -1 on an error; `kernel` the plan's (its launch shape is the same at every
+// mode).
+template <typename Kernel>
+inline int chain_clusters(Kernel kernel, bool* allowed, const ChainPlan& p,
+                          const FlowDevice& d) {
   if (chain_allow(kernel, d, allowed) != cudaSuccess) return -1;
   cudaLaunchAttribute attr[2];
   cudaLaunchConfig_t cfg = chain_config(p, nullptr, attr);
@@ -878,16 +965,21 @@ inline int chain_resident(const ChainPlan& p, const FlowDevice& d) {
 
 template <int BT>
 inline int chain_resident_place(const ChainPlan& p, const FlowDevice& d) {
-  if (p.resident) return chain_resident<BT, false>(p, d);
+  static bool allowed[3][FLOW_MAX_DEVICES] = {};
+  if (p.place == CHAIN_PLACE_HSPLIT)
+    return chain_clusters(sample_chain_hsplit_kernel<BT, FLOW_F32>, allowed[2], p, d);
+  if (p.resident)
+    return chain_clusters(sample_chain_kernel<BT, false, FLOW_F32, false>, allowed[0], p, d);
   if constexpr (BT > 4) return -1;   // the streaming variant takes at most 4 rows
-  else return chain_resident<BT, true>(p, d);
+  else return chain_clusters(sample_chain_kernel<BT, false, FLOW_F32, true>, allowed[1], p, d);
 }
 
-// The same, remembered per device and plan shape (the query costs a few
-// microseconds of host time, and a push plans every frame).
+// The same, remembered per device and plan shape, the plans the device
+// cannot hold too (the query costs a few microseconds of host time, a push
+// plans every frame, and a plan search probes several shapes).
 inline int chain_resident_bt(const ChainPlan& p, const FlowDevice& d) {
   struct Entry { int dev, bt, cs, smem, place, n; };
-  static Entry cache[32] = {};
+  static Entry cache[64] = {};
   static int filled = 0;
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return -1;
@@ -905,15 +997,15 @@ inline int chain_resident_bt(const ChainPlan& p, const FlowDevice& d) {
     case 8: n = chain_resident_place<8>(p, d); break;
     default: return -1;
   }
-  if (n > 0 && filled < 32)
-    cache[filled++] = {dev, p.bt, p.cs, p.smem_bytes, p.place, n};
+  if (filled < 64) cache[filled++] = {dev, p.bt, p.cs, p.smem_bytes, p.place, n};
   return n;
 }
 
 inline bool chain_plan_for(int B, const ChainArgs& a, int bt, int cs, int m,
                            int slots, int place, const FlowDevice& d,
                            ChainPlan* plan) {
-  return chain_plan(B, a.K, a.C, a.Z1, a.H, a.COUT, bt, cs, m, slots, place, d,
+  return chain_plan(B, a.K, a.C, a.Z1, a.H, a.COUT, bt, cs, m, slots, place,
+                    a.hs_weights ? a.hs_cs : 0, d,
                     [&](const ChainPlan& p) { return chain_resident_bt(p, d); },
                     plan);
 }
@@ -923,7 +1015,7 @@ inline bool chain_valid(const ChainArgs& a) {
          && a.COUT == 2 * (a.C - a.Z1) && a.Z1 >= 1
          && round_up(a.Z1, CHAIN_PARTS_GRU) <= a.C
          && (a.P1 == 0 || (a.P1 >= a.C && a.P1 % 4 == 0))
-         && precision_valid(a.mode);
+         && precision_valid(a.mode) && a.hs_cs >= 0;
 }
 
 template <int BT, bool TRACE, int MODE, bool STREAM>
@@ -938,27 +1030,33 @@ inline cudaError_t chain_launch_bt(const cudaLaunchConfig_t& cfg, const ChainArg
 
 template <int BT, bool TRACE, int MODE>
 inline cudaError_t chain_launch_place(const cudaLaunchConfig_t& cfg,
-                                      const ChainArgs& a, const FlowDevice& d,
-                                      bool resident) {
-  if (resident) return chain_launch_bt<BT, TRACE, MODE, false>(cfg, a, d);
-  // the traced kernel is the resident one's; the streaming one takes at
-  // most 4 rows a tile
-  if constexpr (TRACE || BT > 4) return (cudaError_t)FLOW_ERR_PLAN;
-  else return chain_launch_bt<BT, false, MODE, true>(cfg, a, d);
+                                      const ChainArgs& a, const ChainPlan& p,
+                                      const FlowDevice& d) {
+  // the traced kernel is the resident one's
+  if constexpr (TRACE) {
+    if (!p.resident) return (cudaError_t)FLOW_ERR_PLAN;
+    return chain_launch_bt<BT, true, MODE, false>(cfg, a, d);
+  } else {
+    if (p.place == CHAIN_PLACE_HSPLIT) return chain_hs_launch<BT, MODE>(cfg, a, p.table, d);
+    if (p.resident) return chain_launch_bt<BT, false, MODE, false>(cfg, a, d);
+    // the streaming variant takes at most 4 rows a tile
+    if constexpr (BT > 4) return (cudaError_t)FLOW_ERR_PLAN;
+    else return chain_launch_bt<BT, false, MODE, true>(cfg, a, d);
+  }
 }
 
 template <int BT, bool TRACE>
 inline cudaError_t chain_launch_mode(const cudaLaunchConfig_t& cfg,
-                                     const ChainArgs& a, const FlowDevice& d,
-                                     bool resident) {
+                                     const ChainArgs& a, const ChainPlan& p,
+                                     const FlowDevice& d) {
   if constexpr (TRACE) {
     if (a.mode != FLOW_F32) return (cudaError_t)FLOW_ERR_ARGS;
-    return chain_launch_place<BT, true, FLOW_F32>(cfg, a, d, resident);
+    return chain_launch_place<BT, true, FLOW_F32>(cfg, a, p, d);
   } else {
     switch (a.mode) {
-      case FLOW_F32: return chain_launch_place<BT, false, FLOW_F32>(cfg, a, d, resident);
-      case FLOW_TF32: return chain_launch_place<BT, false, FLOW_TF32>(cfg, a, d, resident);
-      case FLOW_BF16: return chain_launch_place<BT, false, FLOW_BF16>(cfg, a, d, resident);
+      case FLOW_F32: return chain_launch_place<BT, false, FLOW_F32>(cfg, a, p, d);
+      case FLOW_TF32: return chain_launch_place<BT, false, FLOW_TF32>(cfg, a, p, d);
+      case FLOW_BF16: return chain_launch_place<BT, false, FLOW_BF16>(cfg, a, p, d);
       default: return (cudaError_t)FLOW_ERR_ARGS;
     }
   }
@@ -968,17 +1066,18 @@ template <bool TRACE>
 inline cudaError_t chain_launch(const cudaLaunchConfig_t& cfg, const ChainArgs& a,
                                 const ChainPlan& p, const FlowDevice& d) {
   switch (p.bt) {
-    case 1: return chain_launch_mode<1, TRACE>(cfg, a, d, p.resident);
-    case 2: return chain_launch_mode<2, TRACE>(cfg, a, d, p.resident);
-    case 4: return chain_launch_mode<4, TRACE>(cfg, a, d, p.resident);
-    case 8: return chain_launch_mode<8, TRACE>(cfg, a, d, p.resident);
+    case 1: return chain_launch_mode<1, TRACE>(cfg, a, p, d);
+    case 2: return chain_launch_mode<2, TRACE>(cfg, a, p, d);
+    case 4: return chain_launch_mode<4, TRACE>(cfg, a, p, d);
+    case 8: return chain_launch_mode<8, TRACE>(cfg, a, p, d);
     default: return (cudaError_t)FLOW_ERR_PLAN;
   }
 }
 
-// One launch of the chain for one frame on `stream`, added to *launches;
-// `a` carries the frame's pointers, the plan its shape; `after_gates` as in
-// chain_config. A trace is taken only by the probe's library.
+// One launch of the chain for one frame on `stream`, added to launches[0]
+// and, on the hidden split, to launches[2]; `a` carries the frame's
+// pointers, the plan its shape; `after_gates` as in chain_config. A trace is
+// taken only by the probe's library.
 inline cudaError_t chain_enqueue(ChainArgs a, const ChainPlan& p,
                                  const FlowDevice& d, cudaStream_t stream,
                                  int* launches, bool after_gates = false) {
@@ -988,6 +1087,10 @@ inline cudaError_t chain_enqueue(ChainArgs a, const ChainPlan& p,
   a.stream_out = p.place == CHAIN_PLACE_STREAM_OUT;
   a.nslots = p.nslots;
   a.slot_floats = p.slot_floats;
+  if (p.place == CHAIN_PLACE_HSPLIT) {
+    if (!a.hs_weights || a.hs_cs != p.cs) return (cudaError_t)FLOW_ERR_PLAN;
+    a.weights = a.hs_weights;
+  }
   cudaLaunchAttribute attr[2];
   const cudaLaunchConfig_t cfg = chain_config(p, stream, attr, after_gates);
 #ifdef SAMPLE_CHAIN_PROBE
@@ -998,7 +1101,8 @@ inline cudaError_t chain_enqueue(ChainArgs a, const ChainPlan& p,
   cudaError_t err = chain_launch<false>(cfg, a, p, d);
 #endif
   if (err != cudaSuccess) return err;
-  ++*launches;
+  ++launches[0];
+  if (p.place == CHAIN_PLACE_HSPLIT) ++launches[2];
   return cudaGetLastError();
 }
 

@@ -23,8 +23,13 @@
 //   2. sample_gates.cuh: gc[k] = leaky_relu(proj[k]) @ w_ih_t[k][Z1:] + b_ih[k];
 //   3. sample_chain.cuh: the K serial steps on a thread-block cluster that
 //      holds the chain's weights in shared memory (or, where they do not
-//      fit, part of them, streaming the rest); it writes x_t, the new
-//      states (in place) and the next history into the other of two buffers.
+//      fit, the hidden split, sample_chain_hsplit.cuh, or part of them,
+//      streaming the rest); it writes x_t, the new states (in
+//      place: each block reads and writes only its own rows and, on the
+//      hidden split, its own units) and the next history into the other of
+//      two buffers. The next frame's gates read those states and that
+//      history; launch 1 is an ordinary launch, so it starts only after
+//      launch 3 has finished.
 // Launches 1-2 read 24.9 of the frame's 26.3 MB of weights (final_model)
 // with the whole card; the chain reads only its resident 1.36 MB, and its
 // launch overlaps the end of launch 2. With P1 = 0, launches 1 and 2 are
@@ -35,9 +40,9 @@
 // (ops/flow_kernels.py::sequence_rev_fused) allocates the
 // output and every scratch buffer (proj, gc, gh, the two histories, the
 // running states); this file allocates nothing. It adds the gates and chain
-// launches it makes to launches[0] and launches[1], and the gates launches
-// of the many-row plan to launches[2] too, which the wrapper adds to their
-// counters.
+// launches it makes to launches[0] and launches[1], the gates launches of
+// the many-row plan to launches[2] and the chain's on the hidden split to
+// launches[3] too, which the wrapper adds to their counters.
 
 #include "sample_chain.cuh"
 #include "sample_gates.cuh"
@@ -46,13 +51,14 @@ extern "C" int seq_rev_launch(
     const float* zs, const float* fixed_projs, const float* hist0,
     const float* w_p1_t, const float* states0, float* xs,
     const float* w_ih_t, const float* w_hh_t, const float* b_ih,
-    const float* b_hh, const float* chain_w,
+    const float* b_hh, const float* chain_w, const float* chain_hs,
     float* proj, float* gc, float* gh, float* hist_a, float* hist_b,
     float* states,
     int B, int N, int P1, int K, int C, int Z1, int COND, int H, int COUT,
-    float scale_eps, int mode, void* stream, int* launches) {
+    int hs_cs, float scale_eps, int mode, void* stream, int* launches) {
   ChainArgs a{chain_w, K, C, Z1, H, COUT, scale_eps, B, P1, nullptr, gc, gh,
-              states, states, nullptr, nullptr, nullptr, 0, 0, 0, nullptr, mode};
+              states, states, nullptr, nullptr, nullptr, 0, 0, 0, nullptr, mode,
+              0, 0, 0, chain_hs, chain_hs ? hs_cs : 0};
   if (!chain_valid(a) || COND % 4 != 0 || N < 1) return FLOW_ERR_ARGS;
   FlowDevice d;
   cudaError_t err = flow_device(&d);

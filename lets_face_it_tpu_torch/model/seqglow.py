@@ -28,7 +28,9 @@ Inversion (``sequence_invert``): the stored latents are decoded frame by
 frame with the conditioning teacher-forced from the ground truth. On the card,
 inside the per-frame kernel's envelope, each frame is one ``frame_rev_fused``
 call; the kernel returns no logdet, which is recovered afterwards from the
-GRU states it wrote (each step's scale depends on its new state alone).
+GRU states it wrote (each step's scale depends on its new state alone). As
+for sampling, a spec of the JAX kernels' envelope that the kernel could not
+take raises on the card (``inversion_route``) rather than run the plain path.
 """
 
 from __future__ import annotations
@@ -264,9 +266,15 @@ def sequence_sample(spec: FlowSpec, params, data, seq_len: int, *,
 
 def inversion_route(spec: FlowSpec, device) -> str:
     """'kernel' (``frame_rev_fused`` per frame) for CUDA tensors inside the
-    per-frame kernel's envelope, else 'plain' (``flow.frame_rev``)."""
-    if torch.device(device).type == "cuda" and flow_kernels.fused_supported(spec):
+    per-frame kernel's envelope, else 'plain' (``flow.frame_rev``): on the
+    CPU, or on the card for a spec outside the JAX kernels' envelope. On
+    the card a spec of that envelope that the kernels do not take raises,
+    as ``sampling_path`` does, rather than run the plain path there."""
+    if torch.device(device).type != "cuda":
+        return "plain"
+    if flow_kernels.fused_supported(spec):
         return "kernel"
+    _refuse_plain(spec, "inversion")
     return "plain"
 
 

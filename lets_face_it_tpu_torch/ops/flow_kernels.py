@@ -21,19 +21,25 @@ Both run each frame as two kinds of hand-written kernel:
   "highest");
 * ``sample_chain`` (``csrc/sample_chain.cuh``): the K reversed steps given
   those gates, on a thread-block cluster whose shared memory holds the
-  chain's weights (where they do not fit, a cluster of 16 holds part of
-  them and streams the rest through a ring of slots: ``chain_placement``).
+  chain's weights (where they do not fit, from H = 384 at final_model's
+  widths, the hidden split of ``csrc/sample_chain_hsplit.cuh``: a cluster
+  of blocks shares each step, each block owning a slice of the hidden
+  units; where no cluster splits H, a cluster of 16 holds part of the
+  weights and streams the rest through a ring of slots:
+  ``chain_placement``).
 
 Each is also callable alone (``csrc/sample_gates.cu``, ``csrc/sample_chain.cu``)
 for tests, timing and the probe.
 
 A wrapper runs its plain version (``*_ref``) only when it is given CPU
-tensors; given CUDA tensors it launches its kernels or raises. Each wrapper
+tensors (the hidden split's, ``sample_chain_hsplit_ref``, where the chain's
+plan is the hidden split); given CUDA tensors it launches its kernels or
+raises. Each wrapper
 counts its calls into a launcher in its ``launches`` attribute; the
 launchers report the gates and chain kernels they launch (an ``int *`` out
 parameter, counted where each launch is enqueued), which the wrappers add to
-``sample_gates.launches`` and ``sample_chain.launches``, and the gates
-launches by plan to ``sample_gates.plans``.
+``sample_gates.launches`` and ``sample_chain.launches``, and the launches by
+plan to ``sample_gates.plans`` and ``sample_chain.plans``.
 
 The kernels compute in float32 with fused multiply-adds, the gates' tile
 plan on the tensor cores (float32 as a 3xTF32 split). Each wrapper takes
@@ -258,6 +264,7 @@ class SamplingWeights(NamedTuple):
     an_bias: torch.Tensor   # [K, C]
     an_neg_logs_exp: torch.Tensor  # [K, C] = exp(-logs)
     chain: torch.Tensor     # [K, chain_step_floats]  see chain_weights
+    hsplit: torch.Tensor    # [K, cs, rank floats] or [K, 0, 0]  see chain_hsplit_weights
     mode: int = 0           # precision the products' operands are rounded at
 
 
@@ -297,7 +304,15 @@ def prepare_sampling_weights(spec: FlowSpec, flow_params) -> SamplingWeights:
         an_neg_logs_exp=torch.exp(-flow_params["actnorm"]["logs"]),
     )
     w = {name: c(pad_weight(spec, name, t)) for name, t in w.items()}
-    return SamplingWeights(**w, chain=chain_weights(kernel_spec(spec), **w))
+    return SamplingWeights(**w, **_chain_layouts(kernel_spec(spec), w))
+
+
+def _chain_layouts(spec: FlowSpec, w: dict) -> dict:
+    """The chain's layouts of the weights ``w``: the resident plans' and,
+    where the chain's plan is the hidden split, the hidden split's in its
+    cluster (``chain_hsplit_layout``; else an empty one)."""
+    return dict(chain=chain_weights(spec, **w),
+                hsplit=chain_hsplit_weights(spec, chain_hsplit_layout(spec), **w))
 
 
 _SAMPLING_PRODUCT_WEIGHTS = ("w_ih_t", "w_hh_t", "out_w_t", "w_inv")
@@ -319,9 +334,9 @@ def round_sampling_weights(spec: FlowSpec, w: SamplingWeights,
     for name in _SAMPLING_PRODUCT_WEIGHTS:
         fields[name] = round_operand(fields[name], mode).contiguous()
     fields.pop("chain")
+    fields.pop("hsplit")
     fields["mode"] = mode
-    return SamplingWeights(**fields,
-                           chain=chain_weights(kernel_spec(spec), **fields))
+    return SamplingWeights(**fields, **_chain_layouts(kernel_spec(spec), fields))
 
 
 # Slices of the chain's three products: each of a product's lanes takes the
@@ -347,14 +362,36 @@ def chain_weights(spec: FlowSpec, *, w_ih_t, out_w_t, out_b, w_inv, an_bias,
     memory, one contiguous row a step: w_ih_t[k][:Z1], out_w_t[k] and W^-1[k]
     interleaved by their slices (``_interleave``), then out_b[k], the
     actnorm bias and exp(-logs), each piece padded to 16 bytes."""
-    def pad4(t):
-        return torch.nn.functional.pad(t, (0, (-t.shape[-1]) % 4))
-
     s_gru, s_out, s_mix = _CHAIN_SLICES
     pieces = (_interleave(w_ih_t[:, :spec.z1_dim], s_gru),
-              _interleave(out_w_t, s_out), pad4(out_b),
-              _interleave(w_inv, s_mix), pad4(an_bias), pad4(an_neg_logs_exp))
+              _interleave(out_w_t, s_out), _pad4(out_b),
+              _interleave(w_inv, s_mix), _pad4(an_bias), _pad4(an_neg_logs_exp))
     return torch.cat(pieces, dim=1).contiguous()
+
+
+def _pad4(t):
+    """t's last axis padded with zeros to a multiple of 4 (16 bytes)."""
+    return torch.nn.functional.pad(t, (0, (-t.shape[-1]) % 4))
+
+
+def chain_hsplit_weights(spec: FlowSpec, cs: int, *, w_ih_t, out_w_t, out_b,
+                         w_inv, an_bias, an_neg_logs_exp, **_):
+    """Each step's chain weights as the hidden split of a cluster of ``cs``
+    reads them (csrc/sample_chain_hsplit.cuh::chain_hs_rank_floats), one
+    contiguous slab a step and rank r: w_ih_t[k][:Z1]'s gate columns G_r
+    [Z1, 3hs], out_w_t[k]'s rows U_r [hs, Cout], W^-1[k] [C, C], out_b[k]
+    (padded to 16 bytes), the actnorm bias and exp(-logs) -> [K, cs, rank
+    floats]; [K, 0, 0] for cs = 0 (no hidden split)."""
+    k, h, z1 = spec.n_steps, spec.hidden_channels, spec.z1_dim
+    if not cs:
+        return w_ih_t.new_zeros((k, 0, 0))
+    hs = h // cs
+    # [K, Z1, 3H] -> [K, cs, Z1 * 3hs]: rank r's r, z and n columns (views
+    # and one copy on the weights' device, so a CUDA graph may capture it)
+    w_ih = w_ih_t[:, :z1].unflatten(2, (3, cs, hs)).permute(0, 3, 1, 2, 4)
+    shared = torch.cat([w_inv.flatten(1), _pad4(out_b), an_bias, an_neg_logs_exp], dim=1)
+    return torch.cat([w_ih.reshape(k, cs, -1), out_w_t.reshape(k, cs, -1),
+                      shared[:, None].expand(-1, cs, -1)], dim=2).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -369,7 +406,14 @@ def chain_weights(spec: FlowSpec, *, w_ih_t, out_w_t, out_b, w_inv, an_bias,
 _CHAIN_BAR_FLOATS, _CHAIN_CLUSTER, _CHAIN_WIDE_CLUSTER, _CHAIN_MAX_HELD = 96, 8, 16, 16
 _CHAIN_RING_BAR_FLOATS, _CHAIN_THREADS = 32, 512
 # csrc/sample_chain.cuh::ChainPlace, by code
-CHAIN_PLACES = ("resident", "stream", "stream_out")
+CHAIN_PLACES = ("resident", "stream", "stream_out", "hsplit")
+# csrc/flow_stream.cuh: the barrier area and the default slots of the weight
+# ring (floats), the consumer threads (a product is at most 4 columns a
+# thread wide), the most slices of a product and floats of a slot; the
+# hidden splits' clusters (csrc/hsplit.cuh)
+_STREAM_BAR_FLOATS, _STREAM_SLOTS, _STREAM_CONSUMERS = 96, 3, 384
+_STREAM_MAX_SLICES, _STREAM_MAX_SLOT_FLOATS = 8, 12 * 1024
+HSPLIT_CLUSTERS = (2, 4, 8, 16)
 # csrc/sample_gates.cuh: 8 warps' partial sums of a 32-column tile.
 _GATES_RED_FLOATS = 8 * 32
 
@@ -380,6 +424,126 @@ def _round4(n: int) -> int:
 
 def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
+
+
+def _xchg_floats(cs: int, n: int) -> int:
+    """csrc/flow_stream.cuh::xchg_floats."""
+    return 4 + 2 * _round4(cs * n)
+
+
+def _least_block(other: int, widest: int) -> int:
+    """Bytes of a one-row block whose other buffers take ``other`` floats:
+    the ring's barriers and three slots of four rows of the widest product,
+    and one slice of partial sums (csrc/flow_stream.cuh::plan_stream)."""
+    return 4 * (_STREAM_BAR_FLOATS + _STREAM_SLOTS * 4 * widest + other
+                + _round4(widest))
+
+
+def hsplit_cluster(spec: FlowSpec) -> int | None:
+    """The largest cluster of ``HSPLIT_CLUSTERS`` a hidden split takes at
+    the spec's H (csrc/hsplit.cuh::hsplit_cluster_ok: H / cs a multiple of
+    4, 3H / cs at most 4 columns a consumer thread), whose blocks are the
+    least; None if there is none. The training pair's and the sampling
+    chain's hidden splits take the same clusters."""
+    h = kernel_spec(spec).hidden_channels
+    ok = [cs for cs in HSPLIT_CLUSTERS if hsplit_cluster_ok(h, cs)]
+    return max(ok) if ok else None
+
+
+def hsplit_cluster_ok(h: int, cs: int) -> bool:
+    """Whether a hidden split of H = ``h`` takes a cluster of ``cs``
+    (csrc/hsplit.cuh::hsplit_cluster_ok): H / cs a multiple of 4, 3H / cs
+    at most 4 columns a consumer thread."""
+    return (2 <= cs <= HSPLIT_CLUSTERS[-1] and h % (4 * cs) == 0
+            and 3 * (h // cs) <= 4 * _STREAM_CONSUMERS)
+
+
+def hsplit_slices(h: int, cs: int):
+    """Rank r's hidden units U_r (a slice of H) and gate columns G_r (an
+    index into 3H: its units' r, z and n columns) of the hidden split of
+    H = ``h`` over a cluster of ``cs`` (csrc/hsplit.cuh)."""
+    hs = h // cs
+    units = [slice(r * hs, (r + 1) * hs) for r in range(cs)]
+    cols = [torch.cat([torch.arange(g * h + r * hs, g * h + (r + 1) * hs)
+                       for g in range(3)]) for r in range(cs)]
+    return units, cols
+
+
+def _rank_sum(parts):
+    """Partial sums of the cluster's blocks added in rank order, as every
+    block of a hidden split adds them."""
+    total = parts[0]
+    for part in parts[1:]:
+        total = total + part
+    return total
+
+
+def _gru_slice(gi, gh, h_prev, hs: int):
+    """The GRU of a block's units from its gate columns [*, 3hs] (gate
+    order r, z, n) -> (r, u, n, h_new)."""
+    r = torch.sigmoid(gi[:, :hs] + gh[:, :hs])
+    u = torch.sigmoid(gi[:, hs:2 * hs] + gh[:, hs:2 * hs])
+    n = torch.tanh(gi[:, 2 * hs:] + r * gh[:, 2 * hs:])
+    return r, u, n, (1.0 - u) * n + u * h_prev
+
+
+def _stream_slices(n_in: int, nc: int, rpc: int, bt: int, partial: int) -> int:
+    """csrc/flow_stream.cuh::stream_slices."""
+    slices = min(_STREAM_CONSUMERS // (nc // 4), _STREAM_MAX_SLICES, min(rpc, n_in) // 4)
+    if slices * bt * nc > partial:
+        slices = partial // (bt * nc)
+    return max(slices, 1)
+
+
+# The chain's hidden split: the clusters it prefers, in order, below and
+# from CHAIN_HSPLIT_WIDE_FROM_H (its weights are laid out for one). On an
+# H100 (80GB HBM3, 700 W; probe_sampling_kernels.py --plan hsplit, C = 56,
+# K = 16, the fastest tile of each; PERF.md) the chain alone read at B=1 /
+# B=64 0.0778 / 0.195 ms in a cluster of 8 against 0.0813 / 0.294 in one of
+# 16 at H = 1,024, 0.0822 / 0.207 against 0.0822 / 0.310 at H = 1,152,
+# 0.0937 / 0.319 against 0.0841 / 0.367 at H = 2,048, 0.134 / 0.542 against
+# 0.108 / 0.508 at H = 4,096: from H = 2,048 a cluster of 16 serves B=1 (a
+# push) fastest. (Clusters of 2 and 4 read 0.142 and 0.156 ms at B=64, H =
+# 1,024, but 0.121 and 0.093 at B=1.)
+CHAIN_HSPLIT_CLUSTERS = (8, 16)
+CHAIN_HSPLIT_WIDE_FROM_H = 2048
+
+
+def chain_hsplit_cluster(spec: FlowSpec) -> int | None:
+    """The cluster of the chain's hidden split at the spec's H: the first
+    of ``CHAIN_HSPLIT_CLUSTERS`` (16 alone from ``CHAIN_HSPLIT_WIDE_FROM_H``)
+    that splits H (csrc/hsplit.cuh::hsplit_cluster_ok), else
+    ``hsplit_cluster``'s; None where none does."""
+    h = kernel_spec(spec).hidden_channels
+    prefer = CHAIN_HSPLIT_CLUSTERS if h < CHAIN_HSPLIT_WIDE_FROM_H else (16,)
+    return next((cs for cs in prefer if hsplit_cluster_ok(h, cs)),
+                hsplit_cluster(spec))
+
+
+def _hsplit_chain_block_bytes(spec: FlowSpec, cs: int) -> int | None:
+    """Least shared memory of a one-row block of the chain's hidden split
+    in a cluster of ``cs`` (csrc/sample_chain_hsplit.cuh::chain_hs_block
+    with flow_stream.cuh::plan_stream at three slots), None where the
+    cluster does not split H, Z1 is not a multiple of 4 or the block's ring
+    cannot hold four rows of its widest product."""
+    c, z1, h, cout = (spec.channels, spec.z1_dim, spec.hidden_channels,
+                      spec.coupling_out_dim)
+    if not hsplit_cluster_ok(h, cs) or z1 % 4:
+        return None
+    hs = h // cs
+    gs = 3 * hs
+    prods = ((z1, gs), (hs, cout), (c, c))
+    widest = max(nc for _, nc in prods)
+    pre = 2 * gs + hs + _round4(cout) + 2 * c
+    other = (_xchg_floats(cs, cout) + 2 * _round4(c) + _round4(gs) + _round4(hs)
+             + _round4(cout) + 2 * pre)
+    left = MAX_SMEM_BYTES // 4 - _STREAM_BAR_FLOATS - _round4(other)
+    need = max(_stream_slices(n, nc, n, 1, 1 << 30) * nc for n, nc in prods)
+    partial = max(min(need, left // 4) // 4 * 4, _round4(widest))
+    slot = min((left - partial) // _STREAM_SLOTS // 4 * 4, _STREAM_MAX_SLOT_FLOATS)
+    if slot < 4 * widest:
+        return None
+    return _least_block(_round4(other), widest)
 
 
 def chain_step_bytes(spec: FlowSpec) -> int:
@@ -427,30 +591,42 @@ def _chain_block_bytes(spec: FlowSpec, cs: int, place: str) -> int | None:
 def chain_placement(spec: FlowSpec) -> tuple[str, int] | None:
     """(placement, cluster) of the chain's launch plan at one row
     (csrc/sample_chain.cuh::chain_plan): all weights resident in a cluster
-    of min(K, 8) blocks, else of min(K, 16); else the streaming variant in
-    the latter, w_ih_t streamed ("stream"), else out_w_t too
-    ("stream_out"); None where no plan fits (the launcher then refuses the
-    spec)."""
+    of min(K, 8) blocks, else of min(K, 16); else the hidden split
+    ("hsplit") in the cluster ``chain_hsplit_cluster``, which the weights
+    are then laid out for (``chain_hsplit_weights``); else the streaming
+    variant in a cluster of min(K, 16), w_ih_t streamed ("stream"), else
+    out_w_t too ("stream_out"); None where no plan fits (the launcher then
+    refuses the spec). The hidden split read faster than the streaming
+    variant wherever both ran (PERF.md §6), so the streaming variant
+    is left for specs that no cluster splits (Z1 not a multiple of 4)."""
     spec = kernel_spec(spec)
     k = spec.n_steps
     narrow, wide = min(k, _CHAIN_CLUSTER), min(k, _CHAIN_WIDE_CLUSTER)
-    for cs, place in ((narrow, "resident"), (wide, "resident"), (wide, "stream"),
-                      (wide, "stream_out")):
-        need = _chain_block_bytes(spec, cs, place)
-        if need is not None and need <= MAX_SMEM_BYTES:
+    cs_split = chain_hsplit_cluster(spec)
+    for cs, place in ((narrow, "resident"), (wide, "resident"), (cs_split, "hsplit"),
+                      (wide, "stream"), (wide, "stream_out")):
+        if place == "hsplit":
+            need = cs and _hsplit_chain_block_bytes(spec, cs)
+        else:
+            need = _chain_block_bytes(spec, cs, place)
+        if need and need <= MAX_SMEM_BYTES:
             return place, cs
     return None
 
 
-def chain_smem_bytes(spec: FlowSpec, resident: bool = True) -> int:
+def chain_smem_bytes(spec: FlowSpec, resident: bool = True, hsplit: bool = False) -> int:
     """Least shared memory of a one-row sample_chain block: with
-    ``resident``, of the resident variant in the least cluster of
-    min(K, 8) and min(K, 16) that holds the weights (the wide one's where
-    neither does: then above ``MAX_SMEM_BYTES``); else of the streaming
-    variant in a cluster of min(K, 16), with the fewest streamed matrices
-    that fit and a ring of two slots
-    (csrc/sample_chain.cuh::chain_smem_floats, ::chain_block)."""
+    ``hsplit``, of the hidden split in its cluster (``chain_hsplit_cluster``;
+    above ``MAX_SMEM_BYTES`` where none splits H); else with ``resident``, of
+    the resident variant in the least cluster of min(K, 8) and min(K, 16)
+    that holds the weights (the wide one's where neither does: then above
+    ``MAX_SMEM_BYTES``); else of the streaming variant in a cluster of
+    min(K, 16), with the fewest streamed matrices that fit and a ring of two
+    slots (csrc/sample_chain.cuh::chain_smem_floats, ::chain_block)."""
     spec = kernel_spec(spec)
+    if hsplit:
+        cs = chain_hsplit_cluster(spec)
+        return (cs and _hsplit_chain_block_bytes(spec, cs)) or MAX_SMEM_BYTES + 1
     k = spec.n_steps
     narrow, wide = min(k, _CHAIN_CLUSTER), min(k, _CHAIN_WIDE_CLUSTER)
     if resident:
@@ -464,7 +640,8 @@ def chain_smem_bytes(spec: FlowSpec, resident: bool = True) -> int:
 def chain_resident(spec: FlowSpec) -> bool:
     """Whether the chain's plan holds all its weights in shared memory (the
     plan's choice where a cluster of 8 or 16 holds them,
-    csrc/sample_chain.cuh::chain_plan) or runs the streaming variant."""
+    csrc/sample_chain.cuh::chain_plan) or runs the streaming variant or the
+    hidden split."""
     placement = chain_placement(spec)
     return placement is not None and placement[0] == "resident"
 
@@ -511,8 +688,10 @@ def fused_supported(spec: FlowSpec) -> bool:
     """The per-frame kernels' envelope: GRU + affine + invconv flows whose
     product widths in the kernel spec's lanes are multiples of 4 (16-byte
     loads), for which the chain has a plan (``chain_placement``: the
-    weights resident in a cluster of 8 or 16, or partly streamed) and whose
-    gates fit a block. It holds wherever ``jax_envelope`` does."""
+    weights resident in a cluster of 8 or 16, partly streamed, or split by
+    hidden units) and whose gates fit a block. It holds wherever
+    ``jax_envelope`` does up to the hidden split's ceiling (H = 8,192 at
+    final_model's widths, where the training kernels stop too)."""
     ks = kernel_spec(spec)
     widths = (ks.hidden_channels, ks.cond.cond_dim, ks.coupling_out_dim,
               ks.channels)
@@ -644,6 +823,87 @@ def sample_chain_ref(spec: FlowSpec, weights: SamplingWeights, z, gc, gh,
     return x, new_states, new_hist
 
 
+def chain_hsplit_layout(spec: FlowSpec) -> int:
+    """The cluster the prepared weights' hidden split is laid out for: the
+    chain's where its plan is the hidden split (``chain_placement``), else
+    0 (none)."""
+    placement = chain_placement(spec)
+    return placement[1] if placement and placement[0] == "hsplit" else 0
+
+
+def chain_hsplit(spec: FlowSpec) -> bool:
+    """Whether the chain's plan is the hidden split (``chain_placement``)."""
+    return chain_hsplit_layout(spec) > 0
+
+
+def _hsplit_ref_cluster(spec: FlowSpec, weights: SamplingWeights, cs) -> int:
+    """The cluster a plain version of the hidden split sums over: ``cs``,
+    else the one the weights are laid out for, else
+    ``chain_hsplit_cluster``."""
+    return cs or weights.hsplit.shape[1] or chain_hsplit_cluster(spec)
+
+
+def sample_chain_hsplit_ref(spec: FlowSpec, weights: SamplingWeights, z, gc, gh,
+                            states, hist=None, mode: int = 0, cs: int | None = None):
+    """Plain version of the chain's hidden split over a cluster of ``cs``
+    (None: ``_hsplit_ref_cluster``; csrc/sample_chain_hsplit.cuh), the same
+    function as ``sample_chain_ref``: each rank's gate columns of gi and the
+    GRU of its units, its partial of the coupling head h[:, U_r] @
+    out_w_t[k][U_r], the partials summed in rank order and then out_b, the
+    C-wide tail whole; at matmul precision ``mode``."""
+    z1d, half = spec.z1_dim, spec.coupling_out_dim // 2
+    cs = _hsplit_ref_cluster(spec, weights, cs)
+    hs = spec.hidden_channels // cs
+    weights = round_sampling_weights(spec, weights, mode)
+    units, cols = hsplit_slices(spec.hidden_channels, cs)
+    x = z
+    new_states = states.clone()
+    for k in reversed(range(spec.n_steps)):
+        parts = []
+        for u, g in zip(units, cols):
+            g = g.to(z.device)
+            gi = gc[k][:, g] + _mm(x[:, :z1d], weights.w_ih_t[k, :z1d][:, g], mode)
+            new_states[k][:, u] = _gru_slice(gi, gh[k][:, g], states[k][:, u], hs)[3]
+            parts.append(_mm(new_states[k][:, u], weights.out_w_t[k][u], mode))
+        hout = _rank_sum(parts) + weights.out_b[k]
+        scale = torch.clamp(torch.sigmoid(hout[:, half:] + 2.0), min=spec.scale_eps)
+        x = _mm(torch.cat([x[:, :z1d], x[:, z1d:] / scale - hout[:, :half]], dim=-1),
+                weights.w_inv[k], mode)
+        x = x * weights.an_neg_logs_exp[k] - weights.an_bias[k]
+    new_hist = None
+    if hist is not None and hist.shape[-1]:
+        new_hist = torch.cat([hist[:, spec.channels:], x], dim=-1)
+    return x, new_states, new_hist
+
+
+def frame_rev_hsplit_ref(spec: FlowSpec, weights: SamplingWeights, z, cond_projs,
+                         states, mode: int = 0):
+    """Plain version of ``frame_rev_fused`` on the chain's hidden split: the
+    gates (``sample_gates_ref``), then ``sample_chain_hsplit_ref``."""
+    k, b = spec.n_steps, z.shape[0]
+    _, gc, gh = sample_gates_ref(spec, weights, z.new_zeros((k, 0, cond_projs.shape[-1])),
+                                 cond_projs, z.new_zeros((b, 0)), states, mode)
+    x, new_states, _ = sample_chain_hsplit_ref(spec, weights, z, gc, gh, states,
+                                               mode=mode)
+    return x, new_states
+
+
+def sequence_rev_hsplit_ref(spec: FlowSpec, weights: SamplingWeights, w_p1_t, zs,
+                            fixed_projs, hist0, states0, mode: int = 0):
+    """Plain version of ``sequence_rev_fused`` on the chain's hidden split:
+    for each frame the gates (``sample_gates_ref``), then
+    ``sample_chain_hsplit_ref``, which writes the next own-face history."""
+    states, hist, xs = states0, hist0, []
+    for t in range(zs.shape[0]):
+        _, gc, gh = sample_gates_ref(spec, weights, w_p1_t, fixed_projs[t], hist,
+                                     states, mode)
+        x, states, new_hist = sample_chain_hsplit_ref(spec, weights, zs[t], gc, gh,
+                                                      states, hist, mode)
+        hist = hist if new_hist is None else new_hist
+        xs.append(x)
+    return torch.stack(xs)
+
+
 # ---------------------------------------------------------------------------
 # Wrappers
 # ---------------------------------------------------------------------------
@@ -655,7 +915,7 @@ _I = ctypes.c_int
 @functools.cache
 def _frame_fn():
     fn = cuda_build.load("frame_rev").frame_rev_launch
-    fn.argtypes = [_P] * 12 + [_I] * 7 + [ctypes.c_float, _I, _P, _P]
+    fn.argtypes = [_P] * 13 + [_I] * 8 + [ctypes.c_float, _I, _P, _P]
     fn.restype = _I
     return fn
 
@@ -663,7 +923,7 @@ def _frame_fn():
 @functools.cache
 def _frame_rows_fn():
     fn = cuda_build.load("frame_rev").frame_rev_max_rows
-    fn.argtypes = [_I] * 5 + [_P]
+    fn.argtypes = [_I] * 6 + [_P]
     fn.restype = _I
     return fn
 
@@ -672,11 +932,13 @@ def _frame_rows_fn():
 def frame_max_rows(spec: FlowSpec, device_index: int) -> int:
     """The most rows one ``frame_rev`` launch plans for on the CUDA device
     ``device_index`` (``csrc/frame_rev.cu::frame_rev_max_rows``: the
-    chain's plan)."""
+    chain's plan, the hidden split's in the cluster ``chain_hsplit_layout``
+    lays its weights out for)."""
     rows = ctypes.c_int(0)
     k, c, z1, _, h, cout = _spec_ints(spec)
     with torch.cuda.device(device_index):
-        err = _frame_rows_fn()(k, c, z1, h, cout, ctypes.addressof(rows))
+        err = _frame_rows_fn()(k, c, z1, h, cout, chain_hsplit_layout(spec),
+                               ctypes.addressof(rows))
     _raise_on(err, "frame_rev's plan")
     return rows.value
 
@@ -684,7 +946,7 @@ def frame_max_rows(spec: FlowSpec, device_index: int) -> int:
 @functools.cache
 def _seq_fn():
     fn = cuda_build.load("seq_rev").seq_rev_launch
-    fn.argtypes = [_P] * 17 + [_I] * 9 + [ctypes.c_float, _I, _P, _P]
+    fn.argtypes = [_P] * 18 + [_I] * 10 + [ctypes.c_float, _I, _P, _P]
     fn.restype = _I
     return fn
 
@@ -700,7 +962,7 @@ def _gates_fn():
 @functools.cache
 def _chain_fn():
     fn = cuda_build.load("sample_chain").sample_chain_launch
-    fn.argtypes = ([_P] * 9 + [_I] * 7 + [ctypes.c_float] + [_I] * 5 + [_P, _I]
+    fn.argtypes = ([_P] * 10 + [_I] * 8 + [ctypes.c_float] + [_I] * 5 + [_P, _I]
                    + [_P] * 2)
     fn.restype = _I
     return fn
@@ -725,6 +987,9 @@ def _check_weights(spec: FlowSpec, w: SamplingWeights, device):
               "b_ih": (k, 3 * h), "b_hh": (k, 3 * h), "out_w_t": (k, h, cout),
               "out_b": (k, cout), "w_inv": (k, c, c), "an_bias": (k, c),
               "an_neg_logs_exp": (k, c), "chain": (k, chain_step_bytes(spec) // 4)}
+    cs = w.hsplit.shape[1]
+    if cs:
+        shapes["hsplit"] = (k, cs, _hsplit_rank_floats(spec, cs))
     for name, shape in shapes.items():
         _check(name, getattr(w, name), shape, device)
 
@@ -751,23 +1016,38 @@ def _raise_on(err: int, what: str):
                            f"({torch.cuda.get_device_name()})")
 
 
+def _hsplit_rank_floats(spec: FlowSpec, cs: int) -> int:
+    """csrc/sample_chain_hsplit.cuh::chain_hs_rank_floats."""
+    c, z1, h, cout = (spec.channels, spec.z1_dim, spec.hidden_channels,
+                      spec.coupling_out_dim)
+    hs = h // cs
+    return z1 * 3 * hs + hs * cout + c * c + _round4(cout) + 2 * c
+
+
 def _launcher_weight_ptrs(w: SamplingWeights):
-    """The weights the launchers read: the gates' and the chain's."""
+    """The weights the launchers read: the gates', the chain's and the
+    hidden split's (null where it is not laid out)."""
     return tuple(t.data_ptr() for t in (w.w_ih_t, w.w_hh_t, w.b_ih, w.b_hh,
-                                       w.chain))
+                                       w.chain)) + (_hsplit_ptr(w),)
+
+
+def _hsplit_ptr(w: SamplingWeights):
+    return w.hsplit.data_ptr() if w.hsplit.shape[1] else None
 
 
 def _count_launches(call):
-    """Run ``call(launches)`` with a fresh int[3] to which the launcher
-    adds the gates and the chain launches it enqueued, and the gates
-    launches of the tile plan; add them to the counters -> the launcher's
-    return code."""
-    launches = (ctypes.c_int * 3)()
+    """Run ``call(launches)`` with a fresh int[4] to which the launcher
+    adds the gates and the chain launches it enqueued, the gates launches
+    of the tile plan and the chain's on the hidden split; add them to the
+    counters -> the launcher's return code."""
+    launches = (ctypes.c_int * 4)()
     err = call(ctypes.addressof(launches))
     sample_gates.launches += launches[0]
     sample_gates.plans["vector"] += launches[0] - launches[2]
     sample_gates.plans["tile"] += launches[2]
     sample_chain.launches += launches[1]
+    sample_chain.plans["whole_steps"] += launches[1] - launches[3]
+    sample_chain.plans["hsplit"] += launches[3]
     return err
 
 
@@ -789,7 +1069,8 @@ def frame_rev_fused(spec: FlowSpec, weights: SamplingWeights, z, cond_projs,
                                         cond_projs, states, precision=precision)
         return unpad_lanes(spec, x), new_states
     if z.device.type == "cpu":
-        return frame_rev_fused_ref(spec, weights, z, cond_projs, states, mode)
+        ref = frame_rev_hsplit_ref if chain_hsplit(spec) else frame_rev_fused_ref
+        return ref(spec, weights, z, cond_projs, states, mode)
     if z.device.type != "cuda":
         raise ValueError(f"no sampling kernel for device {z.device}")
     b = z.shape[0]
@@ -819,8 +1100,8 @@ def frame_rev_fused(spec: FlowSpec, weights: SamplingWeights, z, cond_projs,
     err = _count_launches(lambda launches: _frame_fn()(
         z.data_ptr(), cond_projs.data_ptr(), states.data_ptr(), x.data_ptr(),
         new_states.data_ptr(), *_launcher_weight_ptrs(weights), gc.data_ptr(),
-        gh.data_ptr(), b, *_spec_ints(spec), float(spec.scale_eps), mode,
-        stream, launches))
+        gh.data_ptr(), b, *_spec_ints(spec), weights.hsplit.shape[1],
+        float(spec.scale_eps), mode, stream, launches))
     _raise_on(err, "frame_rev")
     frame_rev_fused.launches += 1
     return x, new_states
@@ -850,8 +1131,8 @@ def sequence_rev_fused(spec: FlowSpec, weights: SamplingWeights, w_p1_t, zs,
             fixed_projs, pad_history(spec, hist0, 1), states0,
             precision=precision))
     if zs.device.type == "cpu":
-        return sequence_rev_fused_ref(spec, weights, w_p1_t, zs, fixed_projs,
-                                      hist0, states0, mode)
+        ref = sequence_rev_hsplit_ref if chain_hsplit(spec) else sequence_rev_fused_ref
+        return ref(spec, weights, w_p1_t, zs, fixed_projs, hist0, states0, mode)
     if zs.device.type != "cuda":
         raise ValueError(f"no sampling kernel for device {zs.device}")
     n, b, c = zs.shape
@@ -878,8 +1159,8 @@ def sequence_rev_fused(spec: FlowSpec, weights: SamplingWeights, w_p1_t, zs,
         w_p1_t.data_ptr(), states0.data_ptr(), xs.data_ptr(),
         *_launcher_weight_ptrs(weights), proj.data_ptr(), gc.data_ptr(),
         gh.data_ptr(), hist_a.data_ptr(), hist_b.data_ptr(), states.data_ptr(),
-        b, n, p1, *_spec_ints(spec), float(spec.scale_eps), mode, stream,
-        launches))
+        b, n, p1, *_spec_ints(spec), weights.hsplit.shape[1],
+        float(spec.scale_eps), mode, stream, launches))
     _raise_on(err, "seq_rev")
     sequence_rev_fused.launches += 1
     return xs
@@ -956,14 +1237,19 @@ sample_gates.plans = {"vector": 0, "tile": 0}
 
 def sample_chain(spec: FlowSpec, weights: SamplingWeights, z, gc, gh, states,
                  hist=None, *, precision: str | None = None, tile=(0, 0, 0),
-                 resident: bool | None = None, trace=None):
+                 resident: bool | None = None, hsplit: bool = False, trace=None):
     """The K reversed steps of one frame given its gates: z [B, C], gc and
     gh [K, B, 3H], states [K, B, H], hist [B, P1] or None -> (x [B, C],
     new_states [K, B, H], the next history [B, P1] or None). ``tile`` =
-    (rows per tile, blocks per cluster, tiles per cluster[, the streaming
-    variant's ring slots]), 0 for the launcher's plan. ``resident``: all the weights in shared memory (True)
-    or the streaming variant, part of them streamed through a ring of
-    slots (False), None for the plan's choice (``chain_placement``). ``trace``: None, or an int64 CUDA tensor [blocks,
+    (rows per tile, blocks per cluster, tiles per cluster[, the ring's
+    slots]), 0 for the launcher's plan. ``resident``: all the weights in
+    shared memory (True) or the streaming variant, part of them streamed
+    through a ring of slots (False), None for the plan's choice
+    (``chain_placement``); ``hsplit``: the hidden split, in the cluster of
+    ``tile`` (its weights laid out for it here where ``weights`` are not) or
+    the one ``weights`` are laid out for. On CPU tensors the plan's plain
+    version: ``sample_chain_hsplit_ref`` on the hidden split, else
+    ``sample_chain_ref``. ``trace``: None, or an int64 CUDA tensor [blocks,
     CHAIN_TRACE_SLOTS] that receives each block's device times (ns) of the
     first tile: start, cluster synchronised, z in hand, the end of each
     held step, the hand-off sent (``csrc/sample_chain.cuh``; "highest" and
@@ -973,7 +1259,12 @@ def sample_chain(spec: FlowSpec, weights: SamplingWeights, z, gc, gh, states,
     if not fused_supported(spec):
         raise ValueError("spec is outside the per-frame kernel's envelope")
     spec = kernel_spec(spec)
+    tile = _chain_tile(tile)
+    split = hsplit or (resident is None and chain_hsplit(spec))
     if z.device.type == "cpu":
+        if split:
+            return sample_chain_hsplit_ref(spec, weights, z, gc, gh, states, hist,
+                                           mode, tile[1] or None)
         return sample_chain_ref(spec, weights, z, gc, gh, states, hist, mode)
     if z.device.type != "cuda":
         raise ValueError(f"no sampling kernel for device {z.device}")
@@ -989,6 +1280,9 @@ def sample_chain(spec: FlowSpec, weights: SamplingWeights, z, gc, gh, states,
         _check("hist", hist, (b, p1), dev)
     _check_weights(spec, weights, dev)
     weights = round_sampling_weights(spec, weights, mode)
+    if hsplit:
+        weights = _laid_out_for(spec, weights, tile[1] or weights.hsplit.shape[1]
+                                or chain_hsplit_cluster(spec))
     x = torch.empty_like(z)
     new_states = torch.empty_like(states)
     new_hist = torch.empty_like(hist) if p1 else None
@@ -996,16 +1290,20 @@ def sample_chain(spec: FlowSpec, weights: SamplingWeights, z, gc, gh, states,
     err = _count_launches(lambda launches: _chain_fn()(
         z.data_ptr(), gc.data_ptr(), gh.data_ptr(), states.data_ptr(),
         new_states.data_ptr(), x.data_ptr(), hist.data_ptr() if p1 else None,
-        new_hist.data_ptr() if p1 else None, weights.chain.data_ptr(), b, p1,
-        k, c, spec.z1_dim, h, spec.coupling_out_dim, float(spec.scale_eps),
-        *_chain_tile(tile), _place(resident),
-        None if trace is None else trace.data_ptr(),
+        new_hist.data_ptr() if p1 else None, weights.chain.data_ptr(),
+        _hsplit_ptr(weights), b, p1, k, c, spec.z1_dim, h, spec.coupling_out_dim,
+        weights.hsplit.shape[1], float(spec.scale_eps), *tile,
+        _place(resident, hsplit), None if trace is None else trace.data_ptr(),
         mode, stream, launches))
     _raise_on(err, "sample_chain")
     return x, new_states, new_hist
 
 
 sample_chain.launches = 0
+# its launches by plan: each block running whole steps (the weights resident
+# or streamed), or the hidden split
+CHAIN_PLANS = ("whole_steps", "hsplit")
+sample_chain.plans = dict.fromkeys(CHAIN_PLANS, 0)
 
 CHAIN_TRACE_SLOTS = 32   # csrc/sample_chain.cuh
 CHAIN_PLAN_KEYS = ("rows_per_tile", "cluster", "tiles_per_cluster", "clusters",
@@ -1015,7 +1313,7 @@ CHAIN_PLAN_KEYS = ("rows_per_tile", "cluster", "tiles_per_cluster", "clusters",
 
 def _chain_tile(tile) -> tuple:
     """(rows per tile, blocks per cluster, tiles per cluster, ring slots)
-    of a ``tile`` of three or four, the slots 0 (as many as fit) when not
+    of a ``tile`` of three or four, the slots 0 (the plan's) when not
     given."""
     tile = tuple(tile)
     if len(tile) not in (3, 4):
@@ -1024,23 +1322,40 @@ def _chain_tile(tile) -> tuple:
     return tile + (0,) * (4 - len(tile))
 
 
-def _place(resident: bool | None) -> int:
-    """csrc/sample_chain.cuh::ChainWeights of a ``resident`` request."""
+def _place(resident: bool | None, hsplit: bool = False) -> int:
+    """csrc/sample_chain.cuh::ChainWeights of a ``resident`` or ``hsplit``
+    request."""
+    if hsplit:
+        return 3
     return 0 if resident is None else (1 if resident else 2)
 
 
+def _laid_out_for(spec: FlowSpec, w: SamplingWeights, cs: int) -> SamplingWeights:
+    """``w`` with its hidden split laid out for a cluster of ``cs`` (itself
+    where it is)."""
+    if w.hsplit.shape[1] == cs:
+        return w
+    return w._replace(hsplit=chain_hsplit_weights(spec, cs, **w._asdict()))
+
+
 def chain_plan(spec: FlowSpec, b: int, tile=(0, 0, 0),
-               resident: bool | None = None) -> dict:
+               resident: bool | None = None, hsplit: bool = False) -> dict:
     """The launch plan of ``sample_chain`` for B=b rows on the current CUDA
     device, with the clusters the device holds at once
-    (``cudaOccupancyMaxActiveClusters``); ``tile`` and ``resident`` as in
-    ``sample_chain``."""
+    (``cudaOccupancyMaxActiveClusters``); ``tile``, ``resident`` and
+    ``hsplit`` as in ``sample_chain`` (the hidden split in the cluster the
+    prepared weights are laid out for, ``chain_placement``'s)."""
     fn = cuda_build.load("sample_chain").sample_chain_plan
-    fn.argtypes = [_I] * 11 + [_P]
+    fn.argtypes = [_I] * 12 + [_P]
     fn.restype = _I
-    k, c, z1, _, h, cout = _spec_ints(kernel_spec(spec))
+    ks = kernel_spec(spec)
+    tile = _chain_tile(tile)
+    hs_cs = chain_hsplit_layout(ks)
+    if hsplit:
+        hs_cs = tile[1] or hs_cs or chain_hsplit_cluster(ks) or 0
+    k, c, z1, _, h, cout = _spec_ints(ks)
     out = (ctypes.c_int * len(CHAIN_PLAN_KEYS))()
-    _raise_on(fn(b, k, c, z1, h, cout, *_chain_tile(tile), _place(resident),
+    _raise_on(fn(b, k, c, z1, h, cout, hs_cs, *tile, _place(resident, hsplit),
                  ctypes.addressof(out)), "sample_chain plan")
     plan = dict(zip(CHAIN_PLAN_KEYS, out))
     plan["place"] = CHAIN_PLACES[plan["place"]]

@@ -76,11 +76,17 @@ import torch
 from lets_face_it_tpu_torch.core import ops
 from lets_face_it_tpu_torch.model.spec import FlowSpec
 from lets_face_it_tpu_torch.ops import cuda_build
-from lets_face_it_tpu_torch.ops.flow_kernels import (MAX_SMEM_BYTES, _check,
-                                                     _raise_on, _round4,
-                                                     _spec_ints,
+from lets_face_it_tpu_torch.ops.flow_kernels import (HSPLIT_CLUSTERS,
+                                                     MAX_SMEM_BYTES,
+                                                     _STREAM_CONSUMERS, _check,
+                                                     _gru_slice, _least_block,
+                                                     _raise_on, _rank_sum,
+                                                     _round4, _spec_ints,
+                                                     _xchg_floats,
                                                      fold_output_head,
                                                      ambient_matmul_precision,
+                                                     hsplit_cluster,
+                                                     hsplit_slices,
                                                      kernel_spec, pad_lanes,
                                                      pad_weight,
                                                      precision_mode,
@@ -155,12 +161,6 @@ def logdet_const(spec: FlowSpec, flow_params):
 # Envelope
 # ---------------------------------------------------------------------------
 
-# flow_stream.cuh: the barrier area and the slots of the weight ring
-# (floats), the consumer threads (a product is at most 4 columns a thread
-# wide), and the hidden split's clusters (hsplit.cuh)
-_STREAM_BAR_FLOATS, _STREAM_SLOTS, _STREAM_CONSUMERS = 96, 3, 384
-HSPLIT_CLUSTERS = (2, 4, 8, 16)
-
 # The serial kernels' plans (each a library of its own: the wrappers
 # choose), and the H from which both take the hidden split where the walk
 # still holds a row. On an H100 (80GB HBM3, 700 W; probe_train_kernels.py
@@ -173,30 +173,6 @@ HSPLIT_CLUSTERS = (2, 4, 8, 16)
 # 256 the walks keep final_model's bits (ROADMAP.md).
 SEQ_FWD_PLANS = SEQ_BWD_PLANS = ("walk", "hsplit")
 HSPLIT_FROM_H = 256
-
-
-def _xchg_floats(cs: int, n: int) -> int:
-    """csrc/flow_stream.cuh::xchg_floats."""
-    return 4 + 2 * _round4(cs * n)
-
-
-def _least_block(other: int, widest: int) -> int:
-    """Bytes of a one-row block whose other buffers take ``other`` floats:
-    the ring's barriers and three slots of four rows of the widest product,
-    and one slice of partial sums (csrc/flow_stream.cuh::plan_stream)."""
-    return 4 * (_STREAM_BAR_FLOATS + _STREAM_SLOTS * 4 * widest + other
-                + _round4(widest))
-
-
-def hsplit_cluster(spec: FlowSpec) -> int | None:
-    """The largest cluster of ``HSPLIT_CLUSTERS`` the hidden split takes at
-    the spec's H (csrc/hsplit.cuh::hsplit_cluster_ok: H / cs a multiple of
-    4, 3H / cs at most 4 columns a consumer thread), whose blocks are the
-    least; None if there is none."""
-    h = kernel_spec(spec).hidden_channels
-    ok = [cs for cs in HSPLIT_CLUSTERS
-          if h % (4 * cs) == 0 and 3 * (h // cs) <= 4 * _STREAM_CONSUMERS]
-    return max(ok) if ok else None
 
 
 def serial_smem_bytes(which: str, spec: FlowSpec, plan: str,
@@ -292,7 +268,8 @@ def train_supported(spec: FlowSpec) -> bool:
     kernel has a plan whose one-row block fits one block's shared memory.
     Decided from the spec alone; the batch is arbitrary. It holds wherever
     ``flow_kernels.jax_envelope`` does at H up to the hidden split's
-    ceiling (above 2,048 at K <= 32, ROADMAP.md)."""
+    ceiling: 8,192 at final_model's widths and K <= 32, where 3H / 16
+    reaches 4 columns a consumer thread."""
     ks = kernel_spec(spec)
     widths = (ks.channels, ks.z1_dim, ks.hidden_channels,
               3 * ks.hidden_channels, ks.cond.cond_dim, ks.coupling_out_dim)
@@ -451,35 +428,6 @@ def bwd_dstate_ref(tw: TrainWeights, dgh, dhu, mode: int = 0):
 # none (a plain version gives the same function at any cluster; only the
 # order of the sums over the cluster moves).
 HSPLIT_REF_CLUSTER = 4
-
-
-def hsplit_slices(h: int, cs: int):
-    """Rank r's hidden units U_r (a slice of H) and gate columns G_r (an
-    index into 3H: its units' r, z and n columns) of the hidden split of
-    H = ``h`` over a cluster of ``cs`` (csrc/hsplit.cuh)."""
-    hs = h // cs
-    units = [slice(r * hs, (r + 1) * hs) for r in range(cs)]
-    cols = [torch.cat([torch.arange(g * h + r * hs, g * h + (r + 1) * hs)
-                       for g in range(3)]) for r in range(cs)]
-    return units, cols
-
-
-def _rank_sum(parts):
-    """Partial sums of the cluster's blocks added in rank order, as every
-    block of the hidden split adds them."""
-    total = parts[0]
-    for part in parts[1:]:
-        total = total + part
-    return total
-
-
-def _gru_slice(gi, gh, h_prev, hs: int):
-    """The GRU of a block's units from its gate columns [*, 3hs] (gate
-    order r, z, n) -> (r, u, n, h_new)."""
-    r = torch.sigmoid(gi[:, :hs] + gh[:, :hs])
-    u = torch.sigmoid(gi[:, hs:2 * hs] + gh[:, hs:2 * hs])
-    n = torch.tanh(gi[:, 2 * hs:] + r * gh[:, 2 * hs:])
-    return r, u, n, (1.0 - u) * n + u * h_prev
 
 
 def _hsplit_head(spec: FlowSpec, tw: TrainWeights, k: int, h_parts):

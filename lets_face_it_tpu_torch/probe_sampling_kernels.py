@@ -4,11 +4,14 @@
         [--precision highest|high|medium] [--hidden_channels H]
         [--expression_dim E] [--n_steps K]
     python -m lets_face_it_tpu_torch.probe_sampling_kernels --gates
+    python -m lets_face_it_tpu_torch.probe_sampling_kernels --plan hsplit
+        [--hidden_channels H] [--expression_dim E] [--n_steps K]
 
 For ``hparams/final_model.yaml`` (and ``no_face.yaml`` for P1 = 0) on
 seeded random weights, or a wider spec of the search grid with
 ``--hidden_channels`` / ``--expression_dim`` / ``--n_steps`` (e.g. H = 512,
-E = 48: C = 54 on 56 lanes, where the chain runs its streaming variant),
+E = 48: C = 54 on 56 lanes, where the chain runs its hidden split; the
+sweep of 3. then runs its streaming variant, ``--plan hsplit`` the split),
 from the sources in this checkout:
 
 1. builds the sampling kernels and prints the registers and spills
@@ -40,6 +43,29 @@ three products as cuBLAS ``baddbmm`` at torch's same setting). The
 launcher's threshold (``GATES_TILE_FROM_ROWS``) and default tile are read
 from these rows: the least B from which a tile beats the vector plan at
 every mode, and the tile that is fastest there.
+
+``--plan hsplit`` runs only the chain's hidden split
+(``csrc/sample_chain_hsplit.cuh``; the launcher's plan wherever no cluster
+holds the weights, from H = 384 at the final widths, so pass
+``--hidden_channels``): at B = 1 and 64, the
+launcher's plan of the chain (whatever its placement) and ``frame_rev``
+through the wrapper, held against their plain versions and timed; then the
+hidden split over clusters 2-16 (those that split H), rows per tile (1 at
+B = 1; 1, 2, 4 and 8 at B = 64) and ring slots (3, the launcher's, 2 and
+4), each with its plan, held against the plain version and timed by
+CUDA-graph replay; last ``seq_rev`` at B = 1 over 76 frames on the
+launcher's plan, against its plain version (sequence limits as above) and
+timed. With ``--quick`` the hidden split runs only in its cluster
+(``flow_kernels.chain_hsplit_cluster``) on the launcher's tile and
+``seq_rev`` is skipped: the launcher's plan against the hidden split where
+the plan is another. Its weights' coupling heads are perturbed by 0.05 *
+sqrt(128 / H) (``seeded_random_model(width_scaled_head=True)``: with 0.05
+the random flow spreads float32 rounding past 2e-4 in one frame from
+H = 2,048 at K = 16), and every check of this mode holds the kernel to the
+plain version at max(2e-4, 3 times the plain version's own float32 -
+float64 distance), both distances printed. The launcher's defaults
+(``csrc/sample_chain.cuh::chain_hs_plan``,
+``flow_kernels.chain_hsplit_cluster``) are read from these rows.
 
 ``--precision`` runs everything at that matmul precision (torch's ambient
 setting, which the wrappers follow; the plain versions at the same mode;
@@ -88,6 +114,8 @@ GATE_BATCHES = (1, 64, 128, 512)
 GATE_ROWS = (0, 1, 2, 4, 8, 16)    # 0: the launcher's
 GATE_GROUPS = (0, 8, 32)           # 0: the launcher's
 PLAN_BATCHES = (1, 8, 16, 32, 64, 128, 512)
+HSPLIT_BATCHES = (1, 64)
+HSPLIT_SLOTS = (0, 2, 4)           # 0: the launcher's (3)
 
 
 def _time_ms(fn, reps=20):
@@ -136,13 +164,13 @@ def _dist(a, b) -> float:
 class _Case:
     """One config's weights and a frame's inputs at batch b."""
 
-    def __init__(self, name, dev, tmp, wide=None):
+    def __init__(self, name, dev, tmp, wide=None, scaled_head=False):
         hp = widened(load_hparams(REPO / "hparams" / f"{name}.yaml", dataset_root=tmp),
                      **(wide or {}))
         # the single kernels' wrappers take the kernels' lanes: a model of
         # their width (C = 54 runs on 56)
         self.spec = spec = fk.kernel_spec(FlowSpec.build(hp))
-        model = seeded_random_model(spec, SEED).to(dev)
+        model = seeded_random_model(spec, SEED, width_scaled_head=scaled_head).to(dev)
         self.p1 = p1 = spec.cond.p1_face.out_dim
         # float32, and rounded once for the ambient precision as the owners
         # of sampling weights hold them
@@ -175,6 +203,8 @@ def main(argv=None) -> int:
     parser.add_argument("--hidden_channels", type=int, default=None)
     parser.add_argument("--expression_dim", type=int, default=None)
     parser.add_argument("--n_steps", type=int, default=None, help="flow steps K")
+    parser.add_argument("--plan", choices=("hsplit",), default=None,
+                        help="only the chain's hidden split")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("this probe needs a CUDA GPU")
@@ -184,7 +214,130 @@ def main(argv=None) -> int:
     wide = {"hidden_channels": args.hidden_channels,
             "expression_dim": args.expression_dim, "n_steps": args.n_steps}
     with matmul_precision(args.precision):
+        if args.plan == "hsplit":
+            return _probe_hsplit(wide, args.quick)
         return _probe(args.quick, wide)
+
+
+def _card_line():
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.splitlines()[0]
+    print(json.dumps({"card": card.strip(), "torch": torch.__version__,
+                      "precision": fk.ambient_matmul_precision()}), flush=True)
+
+
+def _ptxas_lines(names):
+    """Builds the libraries ``names``; prints nvcc's register and spill
+    report of each."""
+    paths = cuda_build.build(names)
+    for name, path in paths.items():
+        log = path.with_suffix(".log")
+        for line in log.read_text().splitlines() if log.exists() else ():
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
+                print(json.dumps({"ptxas": name, "line": line.strip()}), flush=True)
+
+
+def _probe_hsplit(wide: dict, quick: bool) -> int:
+    mode = fk.precision_mode(None)
+    _card_line()
+    _ptxas_lines(("sample_gates", "sample_chain", "frame_rev", "seq_rev"))
+    dev = torch.device("cuda")
+    failed = []
+    with tempfile.TemporaryDirectory() as tmp, torch.no_grad():
+        case = _Case("final_model", dev, tmp, wide, scaled_head=True)
+        spec, w = case.spec, case.w
+        h = spec.hidden_channels
+        print(json.dumps({"spec": {"C": spec.channels, "K": spec.n_steps, "H": h,
+                                   "cond": spec.cond.cond_dim},
+                          "chain_placement": fk.chain_placement(spec)}), flush=True)
+        d = lambda t: t.double()  # noqa: E731
+        for b in HSPLIT_BATCHES:
+            z, fixed, hist, st = case.frame(b)
+            _, gc, gh = fk.sample_gates(spec, w, case.w_p1_t, fixed, hist, st)
+            ref = fk.sample_chain_ref(spec, w, z, gc, gh, st, hist, mode)
+            chain = lambda: fk.sample_chain(spec, w, z, gc, gh, st, hist)  # noqa: E731
+            frame = lambda: fk.frame_rev_fused(spec, w, z, fixed, st)  # noqa: E731
+            frame_ref = fk.frame_rev_fused_ref(spec, w, z, fixed, st, mode)
+            row = {"batch": b, "launcher_plan": fk.chain_plan(spec, b)}
+            # the plain versions' own float32 - float64 distance (at
+            # "highest"): a wide random flow spreads rounding by itself
+            own = {"chain": 0.0, "frame_rev": 0.0}
+            if mode == 0:
+                chain64 = fk.sample_chain_ref(spec, case.w64, d(z), d(gc), d(gh), d(st),
+                                              d(hist))
+                frame64 = fk.frame_rev_fused_ref(spec, case.w64, d(z), d(fixed), d(st))
+                own = {"chain": _dist(ref[0], chain64[0]),
+                       "frame_rev": _dist(frame_ref[0], frame64[0])}
+                row["kernel_from_float64"] = {"chain": _dist(chain()[0], chain64[0]),
+                                              "frame_rev": _dist(frame()[0], frame64[0])}
+                row["plain_from_float64"] = own
+            for name, call, r in (("chain", chain, ref), ("frame_rev", frame, frame_ref)):
+                try:
+                    row[f"{name}_err"] = _max_err(name, call(), r,
+                                                  max(ATOL, SEQ_RATIO * own[name]))
+                except SystemExit as e:
+                    failed.append(f"B={b} {name}: {e}")
+                    row[f"{name}_err"] = str(e)
+                row[f"{name}_ms"] = _time_ms(call)
+            print(json.dumps(row), flush=True)
+            clusters = (fk.chain_hsplit_cluster(spec),) if quick else fk.HSPLIT_CLUSTERS
+            for cs_n in clusters:
+                if not fk.hsplit_cluster_ok(h, cs_n):
+                    continue
+                wl = fk._laid_out_for(spec, w, cs_n)
+                for bt in (0,) if quick else ROWS_PER_TILE if b > 1 else (1,):
+                    for sl in (0,) if quick else HSPLIT_SLOTS:
+                        tile = (bt, cs_n, 0, sl)
+                        row = {"batch": b, "hsplit_tile": tile}
+                        try:
+                            row["plan"] = fk.chain_plan(spec, b, tile, hsplit=True)
+                        except RuntimeError as e:   # the block does not fit
+                            row["plan"] = str(e)
+                            print(json.dumps(row), flush=True)
+                            continue
+
+                        def run(tile=tile):
+                            return fk.sample_chain(spec, wl, z, gc, gh, st, hist,
+                                                   tile=tile, hsplit=True)
+
+                        try:
+                            row["err"] = _max_err(f"hsplit {tile}", run(), ref,
+                                                  max(ATOL, SEQ_RATIO * own["chain"]))
+                        except SystemExit as e:
+                            failed.append(f"B={b} {tile}: {e}")
+                            row["err"] = str(e)
+                        row["ms"] = _time_ms(run)
+                        print(json.dumps(row), flush=True)
+                del wl
+        if quick:
+            return _failed(failed)
+        n_seq = 76
+        zs = case.randn(n_seq, 1, spec.channels)
+        fx = case.randn(n_seq, spec.n_steps, 1, spec.cond.cond_dim)
+        _, _, hist, st = case.frame(1)
+        seq = lambda: fk.sequence_rev_fused(spec, w, case.w_p1_t, zs, fx, hist, st)  # noqa: E731
+        seq_ref = fk.sequence_rev_fused_ref(spec, w, case.w_p1_t, zs, fx, hist, st, mode)
+        drift = 0.0
+        if mode == 0:
+            drift = _dist(seq_ref, fk.sequence_rev_fused_ref(
+                spec, case.w64, d(case.w_p1_t), d(zs), d(fx), d(hist), d(st)))
+        try:
+            err = _max_err("seq_rev", [seq()], [seq_ref], max(ATOL, SEQ_RATIO * drift))
+        except SystemExit as e:
+            failed.append(str(e))
+            err = str(e)
+        print(json.dumps({"seq_rev": {"batch": 1, "frames": n_seq, "max_abs_err": err,
+                                      "plain_f64_distance": drift,
+                                      "first_8_frames_err": _dist(seq()[:8], seq_ref[:8]),
+                                      "ms": _time_ms(seq, reps=3)}}), flush=True)
+    return _failed(failed)
+
+
+def _failed(failed) -> int:
+    if failed:
+        raise SystemExit("failed: " + "; ".join(failed))
+    return 0
 
 
 def _library_gates(spec, w, w_p1_t, fixed, hist, states):
@@ -370,8 +523,11 @@ def _probe(quick: bool, wide: dict) -> int:
             _, gc, gh = fk.sample_gates(spec, w, case.w_p1_t, fixed, hist, st)
             ref = fk.sample_chain_ref(spec, w, z, gc, gh, st, hist, mode)
             # the plan's placement; at B = 1 a resident spec forced to the
-            # streaming variant too
-            for place in (None, False) if resident and b == 1 else (None,):
+            # streaming variant too; where the plan is the hidden split
+            # (swept by --plan hsplit), the streaming variant
+            places = ((None, False) if resident and b == 1
+                      else (False,) if fk.chain_hsplit(spec) else (None,))
+            for place in places:
                 streamed = place is False or not resident
                 tiles = [(bt, cs_n, m, sl) for cs_n in CLUSTERS
                          for bt in (ROWS_PER_TILE if b > 1 else (1,))

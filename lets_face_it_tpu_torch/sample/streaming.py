@@ -6,7 +6,9 @@ The caller pushes the latest interlocutor-face/speech frames; the stepper
 keeps the rolling history windows, the own-face history and the K
 coupling-GRU states on the device. Each frame's flow inversion is one launch
 of the per-frame kernel (``ops/flow_kernels.py::frame_rev_fused``) inside its
-envelope, the plain ``flow.frame_rev`` outside it.
+envelope, the plain ``flow.frame_rev`` outside it; on the card, a spec of the
+JAX kernels' envelope that the kernel does not take is refused
+(``seqglow.inversion_route``), never run on the plain path.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import numpy as np
 import torch
 
 from lets_face_it_tpu_torch.model import encoders, flow
-from lets_face_it_tpu_torch.model.seqglow import SeqGlow
+from lets_face_it_tpu_torch.model.seqglow import SeqGlow, inversion_route
 from lets_face_it_tpu_torch.model.spec import FlowSpec
 from lets_face_it_tpu_torch.ops import flow_kernels
 from lets_face_it_tpu_torch.utils.device import resolve_device
@@ -32,6 +34,7 @@ class StreamingGenerator:
 
     def __init__(self, spec: FlowSpec, params: SeqGlow, *, batch_size: int = 1,
                  eps_std: float = 1.0, seed: int = 0, device="cuda"):
+        inversion_route(spec, device)   # refuses what the card cannot run
         self.device = resolve_device(device)
         self.spec = spec
         self.params = params.to(self.device).eval()

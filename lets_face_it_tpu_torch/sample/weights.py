@@ -151,7 +151,8 @@ def state_dict_reference(model: SeqGlow) -> dict[str, torch.Tensor]:
 
 
 @torch.no_grad()
-def seeded_random_model(spec: FlowSpec, seed: int) -> SeqGlow:
+def seeded_random_model(spec: FlowSpec, seed: int, *,
+                        width_scaled_head: bool = False) -> SeqGlow:
     """Full-width random weights for smoke and profiling runs (the repo ships
     no trained ``final_model``): the port's init on the CPU, then
     ``0.05 * N(0, 1)`` added to every trained flow leaf except the invconv's
@@ -159,12 +160,21 @@ def seeded_random_model(spec: FlowSpec, seed: int) -> SeqGlow:
     the GRUs matter. The factors stay as initialised (W orthogonal up to its
     diagonal): perturbed as much, the sixteen 56x56 inverses of final_model
     are poorly conditioned and the autoregressive sequence turns chaotic, so
-    that float32 rounding alone changes whole frames."""
+    that float32 rounding alone changes whole frames.
+
+    ``width_scaled_head``: the coupling heads' weights perturbed by
+    ``0.05 * sqrt(128 / H)`` instead, so that their outputs spread as at
+    final_model's H = 128 at any width. With 0.05 the spread grows as
+    sqrt(H), the coupling divides by scales near their floor, and from
+    H = 2,048 at K = 16 (8,192 at K = 4) one frame of the random flow
+    already spreads float32 rounding past 2e-4 (PERF.md §6)."""
     generator = torch.Generator().manual_seed(seed)
     model = SeqGlow.init(spec, generator)
+    head = (128.0 / spec.hidden_channels) ** 0.5 if width_scaled_head else 1.0
     for name, p in model.flow.named_parameters():
         if p.requires_grad and name not in ("perm.l", "perm.u"):
-            p.add_(0.05 * torch.randn(p.shape, generator=generator))
+            scale = 0.05 * (head if name == "out.w" else 1.0)
+            p.add_(scale * torch.randn(p.shape, generator=generator))
     return model
 
 

@@ -30,7 +30,6 @@ from lets_face_it_tpu.ops import pallas_flow, pallas_train
 from lets_face_it_tpu_torch.model import seqglow as pseqglow
 from lets_face_it_tpu_torch.ops import flow_kernels as fk
 from lets_face_it_tpu_torch.ops import train_kernels as tk
-from lets_face_it_tpu_torch.sample.weights import seeded_random_model
 
 from conftest import random_batch, tiny_hparams
 from test_torch_port_common import assert_close, jax_params, port_model, specs
@@ -364,7 +363,7 @@ def test_sequence_invert_on_padded_lanes_matches_the_plain_route():
 def test_a_jax_envelope_spec_at_h1024_trains_on_the_kernels(tmp_path):
     """At H = 1024 (final_model's widths otherwise) the serial training
     kernels run their hidden split, whose one-row blocks fit; its sampling
-    runs the chain's streaming variant."""
+    runs the chain's hidden split too."""
     hp = jax_load_hparams(HPARAMS / "final_model.yaml", dataset_root=tmp_path)
     hp.Glow["hidden_channels"] = 1024
     _, pspec = specs(hp)
@@ -377,31 +376,31 @@ def test_a_jax_envelope_spec_at_h1024_trains_on_the_kernels(tmp_path):
 
 
 def test_a_jax_envelope_spec_the_kernels_cannot_take_raises(tmp_path, monkeypatch):
-    """The first H of the JAX kernels' envelope (multiples of 128) that a
-    path of the port refuses is H = 1152, for sampling: the chain has no
-    plan (``chain_placement`` None). The spec trains on the kernels, and
-    its generation raises rather than run the plain path (``flow.frame_rev``
-    is never called)."""
+    """The first H of the JAX kernels' envelope (multiples of 128) that the
+    port's kernels refuse is H = 8,320, past the hidden splits' ceiling (3H
+    / 16 above 4 columns a consumer thread), for training and sampling
+    alike (tests/test_torch_sample_hsplit.py: every H below it takes both).
+    Every path a card would run raises rather than run the plain one:
+    training, generation, the inversion's route and the streaming
+    generator, on a "cuda" device; ``flow.frame_rev`` is never called."""
+    from lets_face_it_tpu_torch.sample.streaming import StreamingGenerator
+
     hp = jax_load_hparams(HPARAMS / "final_model.yaml", dataset_root=tmp_path)
-    refused = None
-    for h in range(128, 1153, 128):
-        hp.Glow["hidden_channels"] = h
-        _, pspec = specs(hp)
-        assert fk.jax_envelope(pspec) and tk.train_supported(pspec), h
-        if not fk.fused_supported(pspec):
-            refused = h
-            break
-    assert refused == 1152 and fk.chain_placement(pspec) is None
-    assert pseqglow.training_path(pspec) == "kernels"
-    with pytest.raises(ValueError, match="JAX kernels' envelope"):
-        pseqglow.sampling_path(pspec)
+    hp.Glow["K"], hp.Glow["hidden_channels"] = 4, 8320
+    _, pspec = specs(hp)
+    assert fk.jax_envelope(pspec) and tk.hsplit_cluster(pspec) is None
+    assert not tk.train_supported(pspec) and not fk.fused_supported(pspec)
+    assert fk.chain_placement(pspec) is None
 
     def plain(*args, **kwargs):
         raise AssertionError("the plain sampling path ran")
 
     monkeypatch.setattr(pseqglow.flow, "frame_rev", plain)
-    model = seeded_random_model(pspec, 0)
-    data = {k: torch.as_tensor(v) for k, v in _data(
-        hp, pspec, 1, hp.Conditioning["p2_face"]["history"] + 2, seed=9).items()}
-    with pytest.raises(ValueError, match="JAX kernels' envelope"):
-        pseqglow.sequence_sample(pspec, model, data, data["p1_face"].shape[1])
+    for refused in (lambda: pseqglow.training_path(pspec),
+                    lambda: pseqglow.sampling_path(pspec),
+                    lambda: pseqglow.inversion_route(pspec, "cuda"),
+                    lambda: StreamingGenerator(pspec, None, device="cuda")):
+        with pytest.raises(ValueError, match="JAX kernels' envelope"):
+            refused()
+    # the CPU's plain route stays: the dev box runs the plain versions
+    assert pseqglow.inversion_route(pspec, "cpu") == "plain"

@@ -198,8 +198,8 @@ def test_envelope_refuses_chain_weights_that_overflow_a_cluster(tmp_path):
     """The chain's resident weights depend on C, Z1, H and Cout, not on the
     conditioning width: at H = 1024 one step's (586 KB) already overflows a
     block, so a cluster refuses to hold them; the chain then runs its
-    streaming variant, and the spec (inside the JAX kernels' envelope)
-    still samples on the kernels."""
+    hidden split (its streaming variant still fits when asked for), and the
+    spec (inside the JAX kernels' envelope) still samples on the kernels."""
     hp = load_hparams(HPARAMS / "final_model.yaml",
                       dataset_root=tmp_path)
     hp.Glow["hidden_channels"] = 1024

@@ -136,12 +136,16 @@ def test_split_pieces_are_the_walks_products():
 PLANS = {
     (128, 16): (("resident", 8), 178_528, "walk", 46_688),
     (256, 16): (("resident", 16), 165_824, "hsplit", 20_432),
-    (512, 16): (("stream", 16), 194_624, "hsplit", 24_944),
-    (512, 32): (("stream_out", 16), 107_488, "hsplit", 26_992),
+    (512, 16): (("hsplit", 8), 20_592, "hsplit", 24_944),
+    (512, 32): (("hsplit", 8), 20_592, "hsplit", 26_992),
 }
 # seq_bwd's walk's one-row block where the hidden split is the launcher's
 # (bytes): the walk still takes these widths when asked for
 WALK_BYTES = {(256, 16): 89_184, (512, 16): 174_176, (512, 32): 206_944}
+# the chain's streaming variant's one-row block where its hidden split is
+# the plan (bytes): the streaming variant still takes these widths when
+# asked for
+STREAM_BYTES = {(512, 16): 194_624, (512, 32): 107_488}
 
 
 @pytest.mark.parametrize("h, k", list(PLANS))
@@ -155,7 +159,11 @@ def test_plan_mirrors_place_the_wide_widths(h, k, tmp_path):
     placement, chain_bytes, bwd_plan, bwd_bytes = PLANS[(h, k)]
     assert fk.chain_placement(spec) == placement
     assert fk.chain_resident(spec) == (placement[0] == "resident")
-    assert fk.chain_smem_bytes(spec, resident=placement[0] == "resident") == chain_bytes
+    assert fk.chain_smem_bytes(spec, resident=placement[0] == "resident",
+                               hsplit=placement[0] == "hsplit") == chain_bytes
+    if (h, k) in STREAM_BYTES:
+        assert (fk.chain_smem_bytes(spec, resident=False) == STREAM_BYTES[(h, k)]
+                <= fk.MAX_SMEM_BYTES)
     assert chain_bytes <= fk.MAX_SMEM_BYTES and fk.fused_supported(spec)
     assert tk.seq_bwd_plan_name(spec) == bwd_plan
     assert tk.train_smem_bytes(spec) == bwd_bytes <= fk.MAX_SMEM_BYTES
